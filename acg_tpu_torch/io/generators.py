@@ -1,0 +1,130 @@
+"""Model-problem generators: 2D/3D Poisson and irregular SPD matrices.
+
+A copy of the numpy builders of ``acg_tpu/io/generators.py``: COO
+triplets of the FULL symmetric matrix (callers needing one-triangle
+storage filter ``r <= c``), DIA planes built directly, and the
+symmetric Matrix Market wrapper.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from acg_tpu_torch.io.mtxfile import IDX_DTYPE, MtxFile
+
+
+def poisson2d_coo(n: int, dtype=np.float64):
+    """5-point 2D Poisson stencil on an n x n grid -> full COO (N = n*n)."""
+    idx = np.arange(n * n, dtype=IDX_DTYPE)
+    i, j = idx // n, idx % n
+    rows = [idx]
+    cols = [idx]
+    vals = [np.full(n * n, 4.0, dtype=dtype)]
+    for di, dj in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        ii, jj = i + di, j + dj
+        ok = (ii >= 0) & (ii < n) & (jj >= 0) & (jj < n)
+        rows.append(idx[ok])
+        cols.append((ii * n + jj)[ok])
+        vals.append(np.full(ok.sum(), -1.0, dtype=dtype))
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n * n
+
+
+def poisson3d_coo(n: int, dtype=np.float64):
+    """7-point 3D Poisson stencil on an n^3 grid -> full COO (N = n^3)."""
+    N = n * n * n
+    idx = np.arange(N, dtype=IDX_DTYPE)
+    i, j, k = idx // (n * n), (idx // n) % n, idx % n
+    rows = [idx]
+    cols = [idx]
+    vals = [np.full(N, 6.0, dtype=dtype)]
+    for di, dj, dk in ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+                       (0, 0, -1), (0, 0, 1)):
+        ii, jj, kk = i + di, j + dj, k + dk
+        ok = ((ii >= 0) & (ii < n) & (jj >= 0) & (jj < n)
+              & (kk >= 0) & (kk < n))
+        rows.append(idx[ok])
+        cols.append(((ii * n + jj) * n + kk)[ok])
+        vals.append(np.full(ok.sum(), -1.0, dtype=dtype))
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), N
+
+
+def poisson_dia(n: int, dim: int = 2, dtype=np.float64):
+    """Poisson stencil assembled directly as DIA planes -- no COO/CSR
+    intermediate, no sort: O(ndiags * N) time and memory.
+
+    Returns ``(planes, offsets, N)`` with the package DIA convention
+    ``planes[d][r] = A[r, r + offsets[d]]`` (``ops.spmv.DiaMatrix``).
+    """
+    N = n ** dim
+    diag_val = float(2 * dim)
+    offsets, planes = [], []
+    # axis a (0 = fastest-varying) has stride n^a; the entry A[r, r +- n^a]
+    # exists unless the coordinate (r // n^a) % n sits on that boundary,
+    # which is one slice of the middle axis of the (N/period, n, stride) view
+    for a in range(dim):
+        stride = n ** a
+        lo = np.full(N, -1.0, dtype=dtype)
+        lo.reshape(-1, n, stride)[:, 0, :] = 0.0
+        hi = np.full(N, -1.0, dtype=dtype)
+        hi.reshape(-1, n, stride)[:, -1, :] = 0.0
+        offsets += [-stride, stride]
+        planes += [lo, hi]
+    offsets.append(0)
+    planes.append(np.full(N, diag_val, dtype=dtype))
+    order = np.argsort(offsets)
+    return ([planes[i] for i in order],
+            tuple(int(offsets[i]) for i in order), N)
+
+
+def irregular_spd_coo(n: int, avg_degree: float = 16.0, seed: int = 0,
+                      dtype=np.float64):
+    """Random irregular SPD matrix -> full COO.
+
+    A configuration-model graph whose degrees follow a truncated power
+    law (row lengths vary by orders of magnitude, defeating banded/DIA
+    layouts and exercising the ELL/gather SpMV paths), with negative
+    off-diagonal weights and a strictly diagonally dominant diagonal.
+
+    Every row sums to exactly 1 (diag = 1 + sum|offdiag|), so ``b = ones``
+    is an eigenvector and CG converges on it in one iteration -- use a
+    manufactured solution for convergence behaviour.
+    """
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(2.2, n) + 1.0) * (avg_degree * 0.546),
+                     n // 4).astype(np.int64)
+    stubs = np.repeat(np.arange(n, dtype=IDX_DTYPE), deg)
+    rng.shuffle(stubs)
+    if stubs.size % 2:
+        stubs = stubs[:-1]
+    u, v = stubs[0::2], stubs[1::2]
+    keep = u != v
+    u, v = u[keep], v[keep]
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    edges = np.unique(lo.astype(np.int64) * n + hi)
+    lo, hi = (edges // n).astype(IDX_DTYPE), (edges % n).astype(IDX_DTYPE)
+    w = -(0.1 + rng.random(lo.size)).astype(dtype)
+    diag = np.ones(n, dtype=dtype)
+    np.add.at(diag, lo, -w)
+    np.add.at(diag, hi, -w)
+    idx = np.arange(n, dtype=IDX_DTYPE)
+    rows = np.concatenate([idx, lo, hi])
+    cols = np.concatenate([idx, hi, lo])
+    vals = np.concatenate([diag, w, w])
+    return rows, cols, vals, n
+
+
+def poisson_mtx(n: int, dim: int = 2) -> MtxFile:
+    """Poisson matrix as a symmetric (lower-triangle) MtxFile."""
+    if dim == 2:
+        r, c, v, N = poisson2d_coo(n)
+    elif dim == 3:
+        r, c, v, N = poisson3d_coo(n)
+    else:
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
+    keep = r >= c  # store lower triangle once, symmetry declared in header
+    order = np.lexsort((c[keep], r[keep]))
+    return MtxFile(object="matrix", format="coordinate", field="real",
+                   symmetry="symmetric", nrows=N, ncols=N, nnz=int(keep.sum()),
+                   rowidx=r[keep][order], colidx=c[keep][order],
+                   vals=v[keep][order],
+                   comments=[f"% acg-tpu poisson{dim}d n={n}"])

@@ -1,0 +1,410 @@
+"""The port's hand-written Hopper kernels: wrappers, plain versions and
+launch counters.
+
+Each TPU kernel of ``acg_tpu/ops/pallas_kernels.py`` on the
+single-device path has a CUDA C++ counterpart under ``csrc/`` (built by
+:mod:`acg_tpu_torch.ops._build`) and, beside it here, a plain PyTorch
+version written as the JAX formulation is:
+
+=====================  ==========================  =======================
+wrapper                CUDA source                 replaces (TPU kernel)
+=====================  ==========================  =======================
+:func:`dia_spmv`       ``csrc/dia_spmv.cu``        ``dia_spmv`` (K1) and
+                                                   ``dia_spmv_dot`` (K2)
+:func:`cg_phase_a`     ``csrc/cg_fused.cu``        ``cg_phase_a`` (K3)
+:func:`cg_phase_b`     ``csrc/cg_fused.cu``        ``cg_phase_b`` (K4)
+:func:`pipelined_update` ``csrc/pipelined_update.cu`` ``fused_pipelined_
+                                                   update`` (K5)
+=====================  ==========================  =======================
+
+A wrapper takes the plain version for tensors on the CPU -- and only
+because they lie there; for CUDA tensors it launches its kernel or
+raises.  :data:`launches` counts kernel launches per wrapper (plain
+calls are not counted), so a run can show that its path went through
+the kernels.
+
+The route predicates :func:`dia_spmv_route` / :func:`fused_cg_route`
+are copies of the JAX package's, kept so that the solvers refuse the same
+configurations (the CUDA kernels themselves take any shape).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from acg_tpu_torch.ops import _build
+from acg_tpu_torch.ops.spmv import acc_dtype, dia_mv_acc
+
+# kernel launches per wrapper since the last reset_launches()
+launches = {"dia_spmv": 0, "cg_phase_a": 0, "cg_phase_b": 0,
+            "pipelined_update": 0}
+
+_BLOCK = 256  # csrc/common.cuh kBlock: rows per block, partial-sum count
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_vectors(name, dtypes, *vecs, n=None):
+    """Every vector a contiguous 1-D CUDA tensor of length n on the first
+    vector's device, with a dtype in ``dtypes``."""
+    dev = vecs[0].device
+    n = vecs[0].shape[0] if n is None else n
+    for v in vecs:
+        if v.device != dev or v.dim() != 1 or v.shape[0] != n \
+                or not v.is_contiguous() or v.dtype not in dtypes:
+            raise ValueError(
+                f"{name}: expected contiguous 1-D {n}-vectors of one of "
+                f"{[str(d) for d in dtypes]} on {dev}, got "
+                f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    return dev, n
+
+
+def _check_scalars(name, dtype, dev, *scalars):
+    for s in scalars:
+        if s is None:
+            continue
+        if s.device != dev or s.numel() != 1 or s.dtype != dtype:
+            raise ValueError(f"{name}: expected one-element {dtype} device "
+                             f"scalars on {dev}, got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
+
+
+def _check_planes(name, planes, offsets_t, n, dev, allowed):
+    if planes.device != dev or planes.dim() != 2 \
+            or planes.shape[1] != n or not planes.is_contiguous() \
+            or planes.dtype not in allowed:
+        raise ValueError(f"{name}: planes must be a contiguous (ndiags, {n}) "
+                         f"tensor on {dev} in one of "
+                         f"{[str(d) for d in allowed]}, got {planes.dtype} "
+                         f"{tuple(planes.shape)} on {planes.device}")
+    if offsets_t is None or offsets_t.device != dev \
+            or offsets_t.dtype != torch.int64 \
+            or offsets_t.numel() != planes.shape[0]:
+        raise ValueError(f"{name}: offsets_t must be an int64 tensor of "
+                         f"{planes.shape[0]} offsets on {dev}")
+
+
+def _live_flag(name, live, dev):
+    if live is None:
+        return None
+    if live.device != dev or live.numel() != 1 or live.dtype != torch.bool:
+        raise ValueError(f"{name}: live must be a one-element bool tensor "
+                         f"on {dev}")
+    return live
+
+
+# -- K1/K2: DIA SpMV, optionally with its (x, y) dot --------------------
+
+# (plane dtype, x dtype) pairs the CUDA kernel is instantiated for
+DIA_SPMV_TYPES = {(torch.float64, torch.float64),
+                  (torch.float32, torch.float32),
+                  (torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32)}
+
+
+def dia_spmv_plain(planes, offsets, x, with_dot: bool = False):
+    """``y = A x`` for square DIA planes (``acg_tpu.ops.spmv.dia_mv``'s
+    formulation) and, with the dot, ``(y, x . y)`` where the dot takes
+    the unrounded accumulation as the TPU kernel does."""
+    n = x.shape[0]
+    acc = dia_mv_acc(planes, offsets, n, x)
+    y = acc.to(x.dtype)
+    if with_dot:
+        return y, torch.dot(acc, x.to(acc.dtype))
+    return y
+
+
+def dia_spmv(planes, offsets, x, *, offsets_t=None, with_dot: bool = False):
+    """``y = A x`` for square DIA ``planes`` ((ndiags, n)) with static
+    ``offsets``; with ``with_dot`` also ``x . y`` as a one-element tensor
+    in the accumulation dtype.  ``offsets_t`` holds the offsets as an
+    int64 tensor on x's device (the kernel reads it)."""
+    if x.device.type == "cpu":
+        return dia_spmv_plain(planes, offsets, x, with_dot)
+    dev, n = _check_vectors("dia_spmv", (torch.float64, torch.float32,
+                                         torch.bfloat16), x)
+    _check_planes("dia_spmv", planes, offsets_t, n, dev,
+                  (torch.float64, torch.float32, torch.bfloat16))
+    if (planes.dtype, x.dtype) not in DIA_SPMV_TYPES:
+        raise ValueError(f"dia_spmv: no kernel for {planes.dtype} planes "
+                         f"with {x.dtype} x")
+    codes = _build.DTYPE_CODES
+    y = torch.empty_like(x)
+    part = dot = None
+    if with_dot:
+        adt = acc_dtype(x.dtype)
+        part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=adt, device=dev)
+        dot = torch.empty((), dtype=adt, device=dev)
+    err = _build.lib().acg_dia_spmv(
+        codes[planes.dtype], codes[x.dtype], planes.data_ptr(),
+        offsets_t.data_ptr(), planes.shape[0], n, x.data_ptr(),
+        y.data_ptr(), _ptr(part), _ptr(dot), _stream())
+    _build.check("dia_spmv", err)
+    launches["dia_spmv"] += 1
+    return (y, dot) if with_dot else y
+
+
+# -- K3/K4: the two phases of the fused classic-CG iteration ------------
+
+FUSED_TYPES = {(torch.float32, torch.float32),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)}
+
+
+def cg_phase_a_plain(planes, offsets, r, p_old, gamma, gamma_prev,
+                     live=None):
+    """``p = r + (gamma/gamma_prev) p_old`` (beta = 0 when gamma_prev =
+    inf), ``t = A p`` and ``(p, t)``, in f32 with each vector rounded once
+    to ``r.dtype``; a false ``live`` takes ``p = p_old``."""
+    f32 = torch.float32
+    beta = gamma / gamma_prev
+    p = (r.to(f32) + beta * p_old.to(f32)).to(r.dtype)
+    if live is not None:
+        p = torch.where(live, p, p_old)
+    acc = dia_mv_acc(planes, offsets, r.shape[0], p)
+    return p, acc.to(r.dtype), torch.dot(acc, p.to(f32))
+
+
+def cg_phase_a(planes, offsets, r, p_old, gamma, gamma_prev, *,
+               offsets_t=None, live=None):
+    """Phase A of the fused classic-CG iteration: returns new tensors
+    ``(p, t, pdott)`` -- see :func:`cg_phase_a_plain`.  ``gamma`` and
+    ``gamma_prev`` are one-element f32 device tensors; ``live`` an
+    optional one-element bool tensor."""
+    if r.device.type == "cpu":
+        return cg_phase_a_plain(planes, offsets, r, p_old, gamma, gamma_prev,
+                                live)
+    dev, n = _check_vectors("cg_phase_a", (torch.float32, torch.bfloat16),
+                            r, p_old)
+    if p_old.dtype != r.dtype:
+        raise ValueError("cg_phase_a: r and p_old must share a dtype")
+    _check_planes("cg_phase_a", planes, offsets_t, n, dev,
+                  (torch.float32, torch.bfloat16))
+    if (planes.dtype, r.dtype) not in FUSED_TYPES:
+        raise ValueError(f"cg_phase_a: no kernel for {planes.dtype} planes "
+                         f"with {r.dtype} vectors")
+    _check_scalars("cg_phase_a", torch.float32, dev, gamma, gamma_prev)
+    live = _live_flag("cg_phase_a", live, dev)
+    codes = _build.DTYPE_CODES
+    p = torch.empty_like(r)
+    t = torch.empty_like(r)
+    part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=torch.float32,
+                       device=dev)
+    pdott = torch.empty((), dtype=torch.float32, device=dev)
+    err = _build.lib().acg_cg_phase_a(
+        codes[planes.dtype], codes[r.dtype], planes.data_ptr(),
+        offsets_t.data_ptr(), planes.shape[0], n, r.data_ptr(),
+        p_old.data_ptr(), gamma.data_ptr(), gamma_prev.data_ptr(),
+        _ptr(live), p.data_ptr(), t.data_ptr(), part.data_ptr(),
+        pdott.data_ptr(), _stream())
+    _build.check("cg_phase_a", err)
+    launches["cg_phase_a"] += 1
+    return p, t, pdott
+
+
+def cg_phase_b_plain(x, p, r, t, gamma, pdott, live=None):
+    """``alpha = gamma/(p,t); x + alpha p; r - alpha t`` in f32, each
+    rounded once to the vector dtype, and ``gamma' = (r, r)`` of the
+    rounded r; a false ``live`` leaves x and r as they are.  Returns new
+    tensors ``(x, r, gamma')``."""
+    f32 = torch.float32
+    alpha = gamma / pdott
+    xn = (x.to(f32) + alpha * p.to(f32)).to(x.dtype)
+    rn = (r.to(f32) - alpha * t.to(f32)).to(r.dtype)
+    if live is not None:
+        xn = torch.where(live, xn, x)
+        rn = torch.where(live, rn, r)
+    rf = rn.to(f32)
+    return xn, rn, torch.dot(rf, rf)
+
+
+def cg_phase_b(x, p, r, t, gamma, pdott, *, live=None):
+    """Phase B of the fused classic-CG iteration: updates ``x`` and ``r``
+    IN PLACE (see :func:`cg_phase_b_plain`) and returns ``(x, r,
+    gamma')`` with ``gamma'`` a one-element f32 tensor."""
+    if x.device.type == "cpu":
+        xn, rn, g = cg_phase_b_plain(x, p, r, t, gamma, pdott, live)
+        x.copy_(xn)
+        r.copy_(rn)
+        return x, r, g
+    dev, n = _check_vectors("cg_phase_b", (torch.float32, torch.bfloat16),
+                            x, p, r, t)
+    if len({v.dtype for v in (x, p, r, t)}) != 1:
+        raise ValueError("cg_phase_b: x, p, r, t must share a dtype")
+    _check_scalars("cg_phase_b", torch.float32, dev, gamma, pdott)
+    live = _live_flag("cg_phase_b", live, dev)
+    part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=torch.float32,
+                       device=dev)
+    g = torch.empty((), dtype=torch.float32, device=dev)
+    err = _build.lib().acg_cg_phase_b(
+        _build.DTYPE_CODES[x.dtype], n, x.data_ptr(), p.data_ptr(),
+        r.data_ptr(), t.data_ptr(), gamma.data_ptr(), pdott.data_ptr(),
+        _ptr(live), part.data_ptr(), g.data_ptr(), _stream())
+    _build.check("cg_phase_b", err)
+    launches["cg_phase_b"] += 1
+    return x, r, g
+
+
+# -- K5: the pipelined-CG 6-vector update -------------------------------
+
+def pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta):
+    """The Ghysels-Vanroose update as the JAX pipelined loop body
+    computes it (``solvers/jax_cg.py:963-973``): in the scalars' dtype,
+    each output rounded once to the vector dtype, x/r/w taking the
+    rounded p/t/z.  Returns new tensors ``(x, r, w, p, t, z)``."""
+    sdt = alpha.dtype
+
+    def store(v):
+        return v.to(x.dtype)
+
+    z = store(q.to(sdt) + beta * z.to(sdt))
+    t = store(w.to(sdt) + beta * t.to(sdt))
+    p = store(r.to(sdt) + beta * p.to(sdt))
+    x = store(x.to(sdt) + alpha * p.to(sdt))
+    r = store(r.to(sdt) - alpha * t.to(sdt))
+    w = store(w.to(sdt) - alpha * z.to(sdt))
+    return x, r, w, p, t, z
+
+
+def pipelined_update(x, r, w, p, t, z, q, alpha, beta, *, live=None):
+    """Updates ``x, r, w, p, t, z`` IN PLACE (see
+    :func:`pipelined_update_plain`) and returns them; ``alpha``/``beta``
+    are one-element tensors in the accumulation dtype, ``live`` an
+    optional one-element bool tensor whose False leaves all six
+    untouched."""
+    vecs = (x, r, w, p, t, z)
+    if x.device.type == "cpu":
+        new = pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta)
+        for old, nv in zip(vecs, new):
+            old.copy_(nv if live is None else torch.where(live, nv, old))
+        return vecs
+    dev, n = _check_vectors("pipelined_update",
+                            (torch.float64, torch.float32, torch.bfloat16),
+                            *vecs, q)
+    if len({v.dtype for v in (*vecs, q)}) != 1:
+        raise ValueError("pipelined_update: vectors must share a dtype")
+    _check_scalars("pipelined_update", acc_dtype(x.dtype), dev, alpha, beta)
+    live = _live_flag("pipelined_update", live, dev)
+    err = _build.lib().acg_pipelined_update(
+        _build.DTYPE_CODES[x.dtype], n, *(v.data_ptr() for v in vecs),
+        q.data_ptr(), alpha.data_ptr(), beta.data_ptr(), _ptr(live),
+        _stream())
+    _build.check("pipelined_update", err)
+    launches["pipelined_update"] += 1
+    return vecs
+
+
+# -- route predicates, copied from acg_tpu/ops/pallas_kernels.py ---------
+
+# row-tile length of the TPU SpMV kernel
+TILE = 16384
+
+
+def dia_spmv_route(offsets: tuple, n: int, dtype, ndiags: int | None = None):
+    """The route ``acg_tpu.ops.pallas_kernels.dia_spmv`` takes for this
+    shape: ``("fast", Lpad, Rpad, tile, align)``, ``("clustered", central,
+    far, Lpad, Rpad, tile, align)``, ``("padded",)`` or ``("xla",)``.
+    The CUDA kernel has no routes; this copy decides the refusals the
+    fused tier shares with the JAX package."""
+    ndiags = len(offsets) if ndiags is None else ndiags
+    L = max(0, -min(offsets))
+    R = max(0, max(offsets))
+    itemsize = _itemsize(dtype)
+    budget = 12 * 2 ** 20
+
+    def vmem_bytes(tile, halo):
+        return (tile + 2 * halo + 2 * (ndiags + 1) * tile) * itemsize
+
+    align = {4: 1024, 2: 2048}.get(itemsize)
+    if align is not None:
+        Lpad = L + (-L) % align
+        Rpad = R + (-R) % align
+        band = max(Lpad, Rpad)
+        tile = TILE
+        while tile < band and vmem_bytes(2 * tile, band) <= budget:
+            tile *= 2
+        if (band <= tile and n % tile == 0 and n >= tile
+                and vmem_bytes(tile, band) <= budget):
+            return ("fast", Lpad, Rpad, tile, align)
+        clustered = _cluster_route(offsets, n, itemsize, align, budget,
+                                   ndiags)
+        if clustered is not None:
+            return clustered
+    if L + R >= TILE:
+        return ("xla",)
+    return ("padded",)
+
+
+def _cluster_route(offsets, n, itemsize, align, budget, ndiags):
+    """Multi-window route for clustered diagonals (3D Poisson's far
+    +-n^2 offsets), as ``acg_tpu.ops.pallas_kernels._cluster_route``."""
+    if n % TILE or n < TILE:
+        return None
+    sorted_offs = sorted(offsets)
+    clusters: list[list[int]] = [[sorted_offs[0]]]
+    for o in sorted_offs[1:]:
+        if o - clusters[-1][-1] > TILE // 2:
+            clusters.append([o])
+        else:
+            clusters[-1].append(o)
+    if len(clusters) < 2:
+        return None
+    central = min(clusters, key=lambda c: min(abs(o) for o in c))
+    far = [c for c in clusters if c is not central]
+    if any(len(c) != 1 or c[0] % TILE or abs(c[0]) >= n for c in far):
+        return None
+    L = max(0, -min(central))
+    R = max(0, max(central))
+    Lpad = L + (-L) % align
+    Rpad = R + (-R) % align
+    if max(Lpad, Rpad) > TILE:
+        return None
+
+    def vmem(tile):
+        return (tile + Lpad + Rpad + len(far) * tile
+                + 2 * (ndiags + 1) * tile) * itemsize
+
+    tile = TILE
+    while (n % (2 * tile) == 0 and vmem(2 * tile) <= budget
+           and all(c[0] % (2 * tile) == 0 for c in far)):
+        tile *= 2
+    if vmem(tile) > budget:
+        return None
+    return ("clustered", tuple(central), tuple(c[0] for c in far),
+            Lpad, Rpad, tile, align)
+
+
+def fused_cg_route(offsets: tuple, n: int, dtype) -> tuple | None:
+    """``(Lpad, Rpad, tile, align)`` when the JAX package's two-phase
+    fused CG iteration supports this shape (square DIA, single-window
+    band, n divisible by the tile, 2- or 4-byte vectors), else None --
+    the port's fused tier refuses exactly where the JAX one does."""
+    route = dia_spmv_route(offsets, n, dtype)
+    if route[0] != "fast":
+        return None
+    Lpad, Rpad, tile, align = route[1:]
+    ndiags = len(offsets)
+    itemsize = _itemsize(dtype)
+    budget = 12 * 2 ** 20
+
+    def vmem(t):
+        return (4 * (t + Lpad + Rpad) + 2 * (ndiags + 2) * t) * itemsize
+
+    while n % (2 * tile) == 0 and vmem(2 * tile) <= budget:
+        tile *= 2
+    return Lpad, Rpad, tile, align

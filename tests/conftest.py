@@ -108,6 +108,10 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from the tier-1 run (-m 'not slow'); full "
         "campaigns and long soak scenarios")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels run only on the "
+        "card); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

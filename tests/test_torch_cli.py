@@ -1,0 +1,185 @@
+"""The port's CLI (python -m acg_tpu_torch) against the JAX package's
+(acg_tpu.cli) on the same generated problem, plus the port's isolation
+rules: no JAX and no acg_tpu import, and no silent CPU fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from acg_tpu.cli import main as jax_main
+from acg_tpu_torch.cli import main as torch_main
+from acg_tpu_torch.io.mtxfile import read_mtx
+
+# the suite runs several test processes side by side: keep PyTorch's
+# small CPU ops from claiming every core in each of them
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMMON = ["gen:poisson2d:16", "--manufactured-solution",
+          "--max-iterations", "500", "--residual-rtol", "1e-10",
+          "--warmup", "1"]
+
+
+def _stats_keys(text):
+    """The key of every line of a stats block (the text before ':')."""
+    return {line.split(":")[0].strip() for line in text.splitlines()
+            if ":" in line}
+
+
+def _line(text, key):
+    return next(line for line in text.splitlines()
+                if line.strip().startswith(key + ":"))
+
+
+def test_cli_matches_jax_cli(tmp_path, capsys):
+    jx, tx = tmp_path / "jax.bin", tmp_path / "torch.bin"
+    assert jax_main(COMMON + ["--comm", "none", "-o", str(jx)]) == 0
+    jerr = capsys.readouterr().err
+    assert torch_main(COMMON + ["--device", "cpu", "-o", str(tx)]) == 0
+    terr = capsys.readouterr().err
+    assert _line(terr, "iterations") == _line(jerr, "iterations")
+    assert _line(terr, "total iterations") == _line(jerr, "total iterations")
+    assert _stats_keys(terr) == _stats_keys(jerr)
+    xj = np.asarray(read_mtx(jx, binary=True).vals)
+    xt = np.asarray(read_mtx(tx, binary=True).vals)
+    assert xt.shape == xj.shape == (256,)
+    assert np.linalg.norm(xt - xj) <= 1e-10 * np.linalg.norm(xj)
+    err = float(_line(terr, "error 2-norm").split(":")[1])
+    assert err < 1e-8
+
+
+@pytest.mark.parametrize("form", ["text", "gzip", "binary"])
+def test_cli_reads_matrix_and_vector_files(tmp_path, capsys, form):
+    """A Matrix Market matrix (text, gzipped text, binary) with b and x0
+    files, written by the JAX package's writer: the port's reader takes
+    all three and its solve matches acg_tpu.cli on the same files."""
+    import gzip
+
+    from acg_tpu.io.generators import poisson_mtx
+    from acg_tpu.io.mtxfile import vector_mtx, write_mtx
+
+    binary = form == "binary"
+    A = tmp_path / "A.mtx"
+    write_mtx(A, poisson_mtx(12), binary=binary)
+    if form == "gzip":
+        A = tmp_path / "A.mtx.gz"
+        with gzip.open(A, "wb") as f:
+            write_mtx(f, poisson_mtx(12))
+    rng = np.random.default_rng(4)
+    b, x0 = tmp_path / "b.mtx", tmp_path / "x0.mtx"
+    write_mtx(b, vector_mtx(rng.standard_normal(144)), binary=binary)
+    write_mtx(x0, vector_mtx(rng.standard_normal(144)), binary=binary)
+    files = [str(A), str(b), str(x0)] + (["--binary"] if binary else [])
+    flags = ["--warmup", "0", "--max-iterations", "300"]
+    jx, tx = tmp_path / "jx.bin", tmp_path / "tx.bin"
+    assert jax_main(files + flags + ["--comm", "none", "-o", str(jx)]) == 0
+    jerr = capsys.readouterr().err
+    assert torch_main(files + flags + ["--device", "cpu", "-o",
+                                       str(tx)]) == 0
+    terr = capsys.readouterr().err
+    for key in ("iterations", "initial guess 2-norm",
+                "right-hand side 2-norm"):
+        assert _line(terr, key) == _line(jerr, key)
+    xj = np.asarray(read_mtx(jx, binary=True).vals)
+    xt = np.asarray(read_mtx(tx, binary=True).vals)
+    assert np.linalg.norm(xt - xj) <= 1e-10 * np.linalg.norm(xj)
+
+
+def test_cli_refuses_partition_permuted_inputs(tmp_path):
+    from acg_tpu_torch.io.generators import poisson_mtx
+    from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
+
+    A = tmp_path / "A.mtx"
+    write_mtx(A, poisson_mtx(4))
+    write_mtx(str(A) + ".perm.mtx", vector_mtx(np.arange(1.0, 17.0)),
+              binary=True)
+    with pytest.raises(SystemExit, match="partition-permuted"):
+        torch_main([str(A), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra", [["--solver", "acg-pipelined"],
+                                   ["--dtype", "f32", "--kernels", "fused",
+                                    "--epsilon", "2", "--residual-rtol",
+                                    "1e-6"]])
+def test_cli_tiers_write_readable_solutions(tmp_path, capsys, extra):
+    """-o writes a binary vector that read_mtx(binary=True) reads back;
+    the pipelined and fused tiers run through the CLI."""
+    out = tmp_path / "x.bin"
+    argv = ["gen:poisson2d:128", "--manufactured-solution", "--device",
+            "cpu", "--warmup", "0", "--max-iterations", "2000",
+            "--residual-rtol", "1e-8", "-o", str(out)] + extra
+    assert torch_main(argv) == 0
+    err = capsys.readouterr().err
+    x = np.asarray(read_mtx(out, binary=True).vals)
+    assert x.shape == (128 * 128,) and np.all(np.isfinite(x))
+    assert float(_line(err, "error 2-norm").split(":")[1]) < 1e-4
+
+
+def test_cli_text_output_uses_numfmt(capsys):
+    assert torch_main(["gen:poisson2d:4", "--device", "cpu", "--warmup",
+                       "0", "--numfmt", "%.3e"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("%%MatrixMarket matrix array real general")
+    assert out[1] == "16 1" and len(out) == 18
+    assert all("e" in v and len(v.split("e")[0].split(".")[1]) == 3
+               for v in out[2:])
+
+
+@pytest.mark.parametrize("flag", [["--nparts", "2"], ["--precond", "jacobi"],
+                                  ["--serve"], ["--trace", "/tmp/x"]])
+def test_cli_refuses_flags_of_other_tiers(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_cli_refuses_gen_direct_sizes():
+    with pytest.raises(SystemExit, match="gen-direct tier"):
+        torch_main(["gen:poisson3d:300", "--device", "cpu"])
+
+
+_NO_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["acg_tpu"] = None
+import acg_tpu_torch
+from acg_tpu_torch.cli import main
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
+             "--manufactured-solution", "--solver", "acg-pipelined",
+             "--kernels", "pallas", "--max-iterations", "300"]) == 0
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
+assert not loaded, loaded
+print("NO-JAX-OK")
+"""
+
+
+def _run(code_or_args):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str)
+            else [sys.executable] + code_or_args)
+    return subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_acg_tpu():
+    res = _run(_NO_JAX)
+    assert res.returncode == 0, res.stderr
+    assert "NO-JAX-OK" in res.stdout
+
+
+def test_cli_without_device_flag_refuses_to_solve_on_cpu():
+    """No card and no --device cpu: exit non-zero with the device error,
+    before any solve (no stats block)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = _run(["-m", "acg_tpu_torch", "gen:poisson2d:8", "-q"])
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "total solver time" not in res.stderr
