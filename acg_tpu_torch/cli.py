@@ -1,12 +1,16 @@
-"""The ``python -m acg_tpu_torch`` CLI driver: the single-device main path.
+"""The ``python -m acg_tpu_torch`` command line.
 
-The counterpart of ``acg_tpu/cli.py`` for one device: read or generate
-the matrix, assemble the symmetric CSR, build the right-hand side
-(optionally a manufactured solution), choose the device format, run
-:class:`~acg_tpu_torch.solvers.cg.TorchCGSolver`, print the statistics
-block to stderr and write the solution.  Flag names and defaults follow
-the JAX package's CLI; flags of tiers the port does not have yet
-(``--nparts``, ``--precond``, ``--serve``, ...) are not accepted.
+The counterpart of ``acg_tpu/cli.py``: read or generate the matrix,
+assemble the symmetric CSR, partition its rows, build the right-hand
+side (optionally a manufactured solution), run the solver, print the
+statistics block to stderr and write the solution.  With one part
+(``--comm none``, or ``--nparts`` resolving to 1) the solver is the
+single-device :class:`~acg_tpu_torch.solvers.cg.TorchCGSolver`; with
+``--nparts N > 1`` it is the multi-part
+:class:`~acg_tpu_torch.parallel.dist.DistCGSolver`, every part stacked
+on the one device, with the halo transport of ``--comm``.  Flag names
+and defaults follow the JAX package's CLI; flags of tiers the port does
+not have yet (``--precond``, ``--serve``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU.
@@ -36,7 +40,8 @@ def make_parser() -> argparse.ArgumentParser:
         prog="acg-tpu-torch",
         description="Conjugate gradient solver for symmetric positive "
                     "definite linear systems Ax=b on one CUDA device "
-                    "(PyTorch port of acg-tpu, single-device tier).")
+                    "(PyTorch port of acg-tpu), on one part or several "
+                    "parts stacked on the device.")
     p.add_argument("A", help="matrix in Matrix Market format (.mtx, .mtx.gz, "
                              "binary), or a generator spec "
                              "gen:poisson2d:N | gen:poisson3d:N | "
@@ -50,6 +55,33 @@ def make_parser() -> argparse.ArgumentParser:
                             "acg-pipelined-device"],
                    help="solver variant (default: acg); the -device names "
                         "run the same solvers")
+    p.add_argument("--comm", default="xla",
+                   choices=["none", "xla", "dma", "mpi", "nccl", "nvshmem"],
+                   help="halo transport of the multi-part solver: xla = "
+                        "plain PyTorch (the all_to_all as a transpose), "
+                        "dma = one-sided puts on the hand-written kernel; "
+                        "mpi/nccl alias xla, nvshmem aliases dma; none = "
+                        "one part")
+    p.add_argument("--nparts", type=int, default=0,
+                   help="number of parts, all stacked on the one device "
+                        "(default: the CUDA device count, 1 on the CPU; "
+                        "0 with --comm none means 1)")
+    p.add_argument("--partition", metavar="FILE", default=None,
+                   help="read the row partition vector from FILE")
+    p.add_argument("--partition-method", default="auto",
+                   choices=["auto", "graph", "band"],
+                   help="row partition strategy: graph = edge-cut "
+                        "minimisation (METIS/bisection), band = contiguous "
+                        "nnz-balanced ranges (keeps banded matrices in "
+                        "DIA form); auto picks band for banded matrices "
+                        "(default)")
+    p.add_argument("--partition-binary", "--binary-partition",
+                   action="store_true", dest="partition_binary",
+                   help="partition vector file is in binary Matrix Market "
+                        "format")
+    p.add_argument("--output-comm-matrix", action="store_true",
+                   help="write the part-to-part communication volume "
+                        "matrix to stdout as Matrix Market")
     p.add_argument("--binary", action="store_true",
                    help="matrix/vector files are in binary Matrix Market format")
     p.add_argument("--max-iterations", type=int, default=100, metavar="N",
@@ -272,9 +304,22 @@ def _main(args) -> int:
     _log(args, "assemble symmetric CSR:", t0)
     phases["ingest"] = time.perf_counter() - t_ingest
     n = A.nrows
-    # one part: every row belongs to part 0 (the JAX package's
-    # partition stage with nparts = 1)
-    phases["partition"] = 0.0
+
+    # stage 3: partition rows (cli.py:3348-3382): every part lives on
+    # the one device, so nparts defaults to the device count
+    comm = args.comm
+    nparts = args.nparts
+    if comm == "none":
+        nparts = nparts or 1
+    else:
+        nparts = nparts or (torch.cuda.device_count()
+                            if device.type == "cuda" else 1)
+    t0 = time.perf_counter()
+    part = _partition(args, csr, n, nparts)
+    if args.partition:
+        nparts = max(nparts, int(part.max()) + 1)
+    _log(args, f"partition rows into {nparts} parts:", t0)
+    phases["partition"] = time.perf_counter() - t0
 
     # stage 4: right-hand side and initial guess
     rng = np.random.default_rng(args.seed)
@@ -296,14 +341,34 @@ def _main(args) -> int:
 
     # stages 6-8: device matrix, solver, solve
     t0 = time.perf_counter()
-    dev = device_matrix_from_csr(csr, dtype=dtype, format=args.spmv_format,
-                                 device=device)
-    try:
-        solver = TorchCGSolver(dev, pipelined="pipelined" in args.solver,
-                               kernels=args.kernels, vector_dtype=vec_dtype,
-                               device=device)
-    except ValueError as e:
-        raise SystemExit(f"acg-tpu-torch: {e}")
+    pipelined = "pipelined" in args.solver
+    comm_mtx = None
+    if comm == "none" or nparts == 1:
+        dev = device_matrix_from_csr(csr, dtype=dtype,
+                                     format=args.spmv_format, device=device)
+        try:
+            solver = TorchCGSolver(dev, pipelined=pipelined,
+                                   kernels=args.kernels,
+                                   vector_dtype=vec_dtype, device=device)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
+    else:
+        from acg_tpu_torch.graph import comm_matrix, partition_matrix
+        from acg_tpu_torch.parallel.dist import (DistCGSolver,
+                                                 DistributedProblem,
+                                                 resolve_comm)
+
+        subs = partition_matrix(csr, part, nparts)
+        if args.output_comm_matrix:
+            comm_mtx = comm_matrix(subs, nparts)
+        prob = DistributedProblem.build(csr, part, nparts, dtype=dtype,
+                                        subs=subs, vector_dtype=vec_dtype)
+        try:
+            solver = DistCGSolver(prob, pipelined=pipelined,
+                                  comm=resolve_comm(comm),
+                                  kernels=args.kernels, device=device)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
     solver.stats.timings.update(phases)
     try:
         x = solver.solve(b, x0=x0, criteria=criteria, warmup=args.warmup)
@@ -324,9 +389,54 @@ def _main(args) -> int:
         sys.stderr.write(f"error 2-norm: "
                          f"{np.linalg.norm(np.asarray(x) - xsol):.15g}\n")
 
-    # stage 10: solution output
+    # stage 10: communication matrix and solution output
+    if comm_mtx is not None:
+        _write_comm_matrix(comm_mtx, nparts)
     _emit_solution(args, x)
     return 0
+
+
+def _partition(args, csr, n: int, nparts: int) -> np.ndarray:
+    """The row partition: ``--partition FILE`` (0- or 1-based), else
+    ``partition_rows`` with the ``--partition-method`` (``auto`` = band
+    for matrices that prefer DIA storage, graph otherwise)."""
+    from acg_tpu_torch.errors import AcgError
+    from acg_tpu_torch.io.mtxfile import read_mtx
+    from acg_tpu_torch.ops.spmv import prefers_dia
+    from acg_tpu_torch.partition import partition_rows
+
+    if args.partition:
+        try:
+            pmtx = read_mtx(args.partition, binary=args.partition_binary)
+        except AcgError as e:
+            raise SystemExit(f"acg-tpu-torch: {args.partition}: {e}")
+        part = np.asarray(pmtx.vals, dtype=np.int64).reshape(-1)
+        if part.size != n:
+            raise SystemExit(f"acg-tpu-torch: partition vector has "
+                             f"{part.size} entries, matrix has {n} rows")
+        if part.min() == 1 and part.max() == nparts:
+            part = part - 1  # tolerate 1-based partition vectors
+        return part.astype(np.int32)
+    method = args.partition_method
+    if method == "auto":
+        method = "band" if nparts > 1 and prefers_dia(csr) else "graph"
+    try:
+        return partition_rows(csr, nparts, seed=args.seed, method=method)
+    except AcgError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+
+
+def _write_comm_matrix(M: np.ndarray, nparts: int) -> None:
+    """Part-to-part communication volumes to stdout as Matrix Market
+    (``--output-comm-matrix``, ``cuda/acg-cuda.c:1712-1780``)."""
+    from acg_tpu_torch.io.mtxfile import MtxFile, write_mtx
+
+    nz = np.nonzero(M)
+    write_mtx(sys.stdout.buffer, MtxFile(
+        object="matrix", format="coordinate", field="integer",
+        symmetry="general", nrows=nparts, ncols=nparts,
+        nnz=len(nz[0]), rowidx=nz[0], colidx=nz[1],
+        vals=M[nz]), numfmt="%d")
 
 
 if __name__ == "__main__":

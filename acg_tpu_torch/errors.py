@@ -1,7 +1,7 @@
 """Error codes and exceptions for the PyTorch port.
 
-A copy of ``acg_tpu/errors.py`` restricted to what the single-device
-path raises: one enum spanning every subsystem, its string conversion,
+A copy of ``acg_tpu/errors.py`` restricted to what the ported paths
+raise: one enum spanning every subsystem, its string conversion,
 the solver exceptions, and the floating-point-exception report (NaN /
 Inf observed in computed arrays, the role of the reference's
 ``fetestexcept`` decoding, ``error.c:62-142``).
@@ -31,6 +31,7 @@ class ErrorCode(enum.IntEnum):
     FEXCEPT = 11
     DEVICE = 12
     KERNEL = 13
+    METIS = 15
     NOT_CONVERGED_INDEFINITE_MATRIX = 17
     BREAKDOWN = 18
 
@@ -50,6 +51,7 @@ _ERRSTR = {
     ErrorCode.FEXCEPT: "floating-point exception",
     ErrorCode.DEVICE: "device error",
     ErrorCode.KERNEL: "CUDA kernel error",
+    ErrorCode.METIS: "graph partitioner error",
     ErrorCode.NOT_CONVERGED_INDEFINITE_MATRIX:
         "not converged (indefinite matrix)",
     ErrorCode.BREAKDOWN: "solver breakdown",

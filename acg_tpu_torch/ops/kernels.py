@@ -1,27 +1,32 @@
 """The port's hand-written Hopper kernels: wrappers, plain versions and
 launch counters.
 
-Each TPU kernel of ``acg_tpu/ops/pallas_kernels.py`` on the
-single-device path has a CUDA C++ counterpart under ``csrc/`` (built by
-:mod:`acg_tpu_torch.ops._build`) and, beside it here, a plain PyTorch
-version written as the JAX formulation is:
+Each TPU kernel of ``acg_tpu/ops/pallas_kernels.py`` and
+``acg_tpu/parallel/halo_dma.py`` on the ported paths has a CUDA C++
+counterpart under ``csrc/`` (built by :mod:`acg_tpu_torch.ops._build`)
+and, beside it here, a plain PyTorch version written as the JAX
+formulation is:
 
 =====================  ==========================  =======================
 wrapper                CUDA source                 replaces (TPU kernel)
 =====================  ==========================  =======================
-:func:`dia_spmv`       ``csrc/dia_spmv.cu``        ``dia_spmv`` (K1) and
+:func:`dia_spmv`       ``csrc/dia_spmv.cu``        ``dia_spmv`` (K1, also
+                                                   batched over parts) and
                                                    ``dia_spmv_dot`` (K2)
 :func:`cg_phase_a`     ``csrc/cg_fused.cu``        ``cg_phase_a`` (K3)
 :func:`cg_phase_b`     ``csrc/cg_fused.cu``        ``cg_phase_b`` (K4)
 :func:`pipelined_update` ``csrc/pipelined_update.cu`` ``fused_pipelined_
                                                    update`` (K5)
+:func:`halo_put`       ``csrc/halo_put.cu``        ``_exchange_kernel``
+                                                   (K6, halo_dma.py)
 =====================  ==========================  =======================
 
 A wrapper takes the plain version for tensors on the CPU -- and only
 because they lie there; for CUDA tensors it launches its kernel or
 raises.  :data:`launches` counts kernel launches per wrapper (plain
-calls are not counted), so a run can show that its path went through
-the kernels.
+calls are not counted; K1 counts its stacked (P, n) form apart, as
+``dia_spmv_batched``), so a run can show that its path went through the
+kernels.
 
 The route predicates :func:`dia_spmv_route` / :func:`fused_cg_route`
 are copies of the JAX package's, kept so that the solvers refuse the same
@@ -36,8 +41,8 @@ from acg_tpu_torch.ops import _build
 from acg_tpu_torch.ops.spmv import acc_dtype, dia_mv_acc
 
 # kernel launches per wrapper since the last reset_launches()
-launches = {"dia_spmv": 0, "cg_phase_a": 0, "cg_phase_b": 0,
-            "pipelined_update": 0}
+launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
+            "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0}
 
 _BLOCK = 256  # csrc/common.cuh kBlock: rows per block, partial-sum count
 
@@ -120,8 +125,9 @@ DIA_SPMV_TYPES = {(torch.float64, torch.float64),
 def dia_spmv_plain(planes, offsets, x, with_dot: bool = False):
     """``y = A x`` for square DIA planes (``acg_tpu.ops.spmv.dia_mv``'s
     formulation) and, with the dot, ``(y, x . y)`` where the dot takes
-    the unrounded accumulation as the TPU kernel does."""
-    n = x.shape[0]
+    the unrounded accumulation as the TPU kernel does.  A stacked x (P,
+    n) with planes (ndiags, P, n) is the per-part ``dia_mv``."""
+    n = x.shape[-1]
     acc = dia_mv_acc(planes, offsets, n, x)
     y = acc.to(x.dtype)
     if with_dot:
@@ -133,13 +139,35 @@ def dia_spmv(planes, offsets, x, *, offsets_t=None, with_dot: bool = False):
     """``y = A x`` for square DIA ``planes`` ((ndiags, n)) with static
     ``offsets``; with ``with_dot`` also ``x . y`` as a one-element tensor
     in the accumulation dtype.  ``offsets_t`` holds the offsets as an
-    int64 tensor on x's device (the kernel reads it)."""
+    int64 tensor on x's device (the kernel reads it).
+
+    Batched over parts: x of shape (P, n) with planes (ndiags, P, n)
+    multiplies every part by its own planes with its own edges [0, n)
+    (one launch, grid.y = P); the dot is single-part only."""
     if x.device.type == "cpu":
         return dia_spmv_plain(planes, offsets, x, with_dot)
-    dev, n = _check_vectors("dia_spmv", (torch.float64, torch.float32,
-                                         torch.bfloat16), x)
-    _check_planes("dia_spmv", planes, offsets_t, n, dev,
-                  (torch.float64, torch.float32, torch.bfloat16))
+    kinds = (torch.float64, torch.float32, torch.bfloat16)
+    stacked = x.dim() == 2
+    if with_dot and stacked:
+        raise ValueError("dia_spmv: the dot epilogue is single-part; got "
+                         f"a stacked x {tuple(x.shape)}")
+    if stacked:
+        dev, nparts, n = x.device, x.shape[0], x.shape[1]
+        if not x.is_contiguous() or x.dtype not in kinds:
+            raise ValueError(f"dia_spmv: expected a contiguous (P, n) x in "
+                             f"one of {[str(d) for d in kinds]}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if (planes.dim() != 3 or tuple(planes.shape[1:]) != (nparts, n)
+                or not planes.is_contiguous()):
+            raise ValueError(f"dia_spmv: stacked planes must be a "
+                             f"contiguous (ndiags, {nparts}, {n}) tensor, "
+                             f"got {tuple(planes.shape)}")
+        _check_planes("dia_spmv", planes.view(planes.shape[0], -1),
+                      offsets_t, nparts * n, dev, kinds)
+    else:
+        dev, n = _check_vectors("dia_spmv", kinds, x)
+        nparts = 1
+        _check_planes("dia_spmv", planes, offsets_t, n, dev, kinds)
     if (planes.dtype, x.dtype) not in DIA_SPMV_TYPES:
         raise ValueError(f"dia_spmv: no kernel for {planes.dtype} planes "
                          f"with {x.dtype} x")
@@ -152,10 +180,10 @@ def dia_spmv(planes, offsets, x, *, offsets_t=None, with_dot: bool = False):
         dot = torch.empty((), dtype=adt, device=dev)
     err = _build.lib().acg_dia_spmv(
         codes[planes.dtype], codes[x.dtype], planes.data_ptr(),
-        offsets_t.data_ptr(), planes.shape[0], n, x.data_ptr(),
+        offsets_t.data_ptr(), planes.shape[0], nparts, n, x.data_ptr(),
         y.data_ptr(), _ptr(part), _ptr(dot), _stream())
     _build.check("dia_spmv", err)
-    launches["dia_spmv"] += 1
+    launches["dia_spmv_batched" if stacked else "dia_spmv"] += 1
     return (y, dot) if with_dot else y
 
 
@@ -307,6 +335,52 @@ def pipelined_update(x, r, w, p, t, z, q, alpha, beta, *, live=None):
     _build.check("pipelined_update", err)
     launches["pipelined_update"] += 1
     return vecs
+
+
+# -- K6: the one-sided halo exchange, stacked on one card ----------------
+
+def halo_put_plain(send, send_counts, recv, gate_by_counts: bool = True):
+    """``recv[p, q] = send[q, p]`` for every pair ``q != p`` -- with
+    ``gate_by_counts`` only where ``send_counts[q, p] > 0`` -- IN PLACE;
+    other rows of ``recv`` keep their values.  Returns ``recv``."""
+    P = send.shape[0]
+    mask = ~torch.eye(P, dtype=torch.bool, device=send.device)
+    if gate_by_counts:
+        mask = mask & (send_counts.T > 0)
+    recv.copy_(torch.where(mask[..., None], send.transpose(0, 1), recv))
+    return recv
+
+
+def halo_put(send, send_counts, recv, *, gate_by_counts: bool = True):
+    """The transport of the ``--comm dma`` halo exchange: writes into
+    ``recv`` (P, P, maxcnt) IN PLACE what :func:`halo_put_plain` writes,
+    from the stacked send plane ``send`` (P, P, maxcnt) and the int32
+    ``send_counts`` (P, P) on the same device.  Returns ``recv``."""
+    if send.device.type == "cpu":
+        return halo_put_plain(send, send_counts, recv, gate_by_counts)
+    dev = send.device
+    if (send.dim() != 3 or send.shape[0] != send.shape[1]
+            or not send.is_contiguous() or send.element_size() not in
+            (8, 4, 2)):
+        raise ValueError(f"halo_put: send must be a contiguous (P, P, "
+                         f"maxcnt) plane of 8-, 4- or 2-byte elements, got "
+                         f"{send.dtype} {tuple(send.shape)}")
+    if (recv.device != dev or recv.shape != send.shape
+            or recv.dtype != send.dtype or not recv.is_contiguous()):
+        raise ValueError(f"halo_put: recv must be a contiguous "
+                         f"{tuple(send.shape)} {send.dtype} plane on {dev}")
+    P = send.shape[0]
+    if (send_counts.device != dev or send_counts.dtype != torch.int32
+            or send_counts.shape != (P, P)
+            or not send_counts.is_contiguous()):
+        raise ValueError(f"halo_put: send_counts must be a contiguous "
+                         f"({P}, {P}) int32 tensor on {dev}")
+    err = _build.lib().acg_halo_put(
+        send.element_size(), send.data_ptr(), send_counts.data_ptr(), P,
+        send.shape[2], int(bool(gate_by_counts)), recv.data_ptr(), _stream())
+    _build.check("halo_put", err)
+    launches["halo_put"] += 1
+    return recv
 
 
 # -- route predicates, copied from acg_tpu/ops/pallas_kernels.py ---------

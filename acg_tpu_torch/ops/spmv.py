@@ -203,14 +203,16 @@ def dia_mv_acc(planes, offsets, nrows: int, x: torch.Tensor) -> torch.Tensor:
     order in :func:`acc_dtype`, NOT rounded to ``x.dtype``: the shifted-
     slice multiply-adds of ``acg_tpu.ops.spmv.dia_mv``.  Out-of-range x
     positions read padded zeros; ``x`` may be shorter or longer than
-    ``nrows``."""
+    ``nrows``.  A stacked ``x`` of shape (P, n) with planes (ndiags, P,
+    nrows) multiplies each part on its own: the shifts run along the last
+    axis, so every part has its own edges (``dia_mv`` per shard)."""
     L = max(0, -min(offsets))
-    R = max(0, max(offsets) + nrows - x.shape[0])
+    R = max(0, max(offsets) + nrows - x.shape[-1])
     adt = acc_dtype(x.dtype)
     xp = torch.nn.functional.pad(x, (L, R))
-    y = torch.zeros(nrows, dtype=adt, device=x.device)
+    y = torch.zeros(x.shape[:-1] + (nrows,), dtype=adt, device=x.device)
     for d, off in enumerate(offsets):
-        y = y + (planes[d].to(adt) * xp[L + off:L + off + nrows].to(adt))
+        y = y + (planes[d].to(adt) * xp[..., L + off:L + off + nrows].to(adt))
     return y
 
 
@@ -234,14 +236,48 @@ def dia_from_csr(csr, dtype=torch.float64, device=None) -> DiaMatrix:
         dtype=dtype, device=device)
 
 
-def ell_planes_from_csr(rowptr, colidx, vals, nrows_pad: int):
-    """Host-side CSR -> zero-padded ELL planes (numpy)."""
+def dia_planes_fixed(csr, offsets, nrows_pad: int) -> np.ndarray:
+    """Host-side CSR -> (ndiags, nrows_pad) float64 DIA planes for a
+    *given* offset set (mesh-uniform stacking: every part stores the
+    union of all parts' offsets, missing diagonals as zero planes)."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    coo = csr.tocoo()
+    diag = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    dmap = np.searchsorted(offsets, diag)
+    if diag.size and ((dmap >= offsets.size)
+                      | (offsets[dmap % offsets.size] != diag)).any():
+        raise ValueError("matrix has diagonals outside the given offset set")
+    data = np.zeros((offsets.size, nrows_pad), dtype=np.float64)
+    data[dmap, coo.row] = coo.data
+    return data
+
+
+def prefers_dia(csr, max_diags: int = MAX_DIAGS,
+                waste_limit: float = DIA_WASTE_LIMIT) -> bool:
+    """True when the matrix is banded enough for gather-free DIA storage
+    (and hence a contiguous band partition) -- the CLI's
+    ``--partition-method auto`` rule."""
+    if not csr.nnz:
+        return False
+    ndiags = count_diagonals(csr)
+    return (ndiags <= max_diags
+            and ndiags * csr.shape[0] / csr.nnz <= waste_limit)
+
+
+def ell_planes_from_csr(rowptr, colidx, vals, nrows_pad: int,
+                        pad_k: int | None = None):
+    """Host-side CSR -> zero-padded ELL planes (numpy), rows padded to
+    ``nrows_pad`` and width to at least ``pad_k`` (mesh-uniform
+    stacking)."""
     rowptr = np.asarray(rowptr)
     colidx = np.asarray(colidx)
     vals = np.asarray(vals)
     nrows = len(rowptr) - 1
     row_nnz = np.diff(rowptr)
-    K = max(int(row_nnz.max()) if row_nnz.size else 0, 1)
+    K = int(row_nnz.max()) if row_nnz.size else 0
+    if pad_k is not None:
+        K = max(K, pad_k)
+    K = max(K, 1)
     data = np.zeros((nrows_pad, K), dtype=np.float64)
     cols = np.zeros((nrows_pad, K), dtype=np.int32)
     rows = np.repeat(np.arange(nrows), row_nnz)

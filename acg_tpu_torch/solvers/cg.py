@@ -19,6 +19,11 @@ tensors with the same semantics:
 * bf16 vector storage computes every scalar in f32 and rounds each
   updated vector once, on store (``jax_cg.py:91-111,307``).
 
+The classic and pipelined programs take the SpMV and the global dot as
+callables, so the stacked multi-part tier (:mod:`acg_tpu_torch.parallel.
+dist`) runs the same loops over its halo-exchanging SpMV and psum'd
+dots, and :class:`ChunkedCGSolver` holds the solve both tiers share.
+
 ``kernels`` picks the SpMV and update implementations: ``"xla"`` is the
 plain PyTorch formulation (what the JAX package leaves to XLA);
 ``"pallas"`` the hand-written CUDA kernels of :mod:`acg_tpu_torch.ops.
@@ -137,29 +142,40 @@ def _spmv_fn(kernels: str):
     return f
 
 
-def _cg_program(A: DeviceMatrix, b, x0, crit: StoppingCriteria,
-                kernels: str) -> CGResult:
-    """Classic CG (``acg_tpu.solvers.jax_cg._cg_program``, plain path)."""
+def _dotk(dot):
+    """``dotk((a1, c1), ...)`` -> the k dots, one after another: the
+    single-device counterpart of the fused psum of the stacked tier."""
+    def dotk(*pairs):
+        return tuple(dot(a, c) for a, c in pairs)
+    return dotk
+
+
+def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria) -> CGResult:
+    """Classic CG (``acg_tpu.solvers.jax_cg._cg_program``, plain path)
+    over the caller's ``spmv(x)`` and global ``dot(a, c)``: one vector on
+    one device, or stacked parts with psum'd dots (``acg_tpu/parallel/
+    dist.py:1585-1694``, unpreconditioned).  The updates are plain
+    PyTorch; the SpMV carries the kernel choice."""
     dtype = b.dtype
-    dot, sdt = _scalar_setup(dtype)
-    spmv_ = _spmv_fn(kernels)
+    sdt = acc_dtype(dtype)
+    dev = b.device
     needs_diff = crit.needs_diff
     unbounded = crit.unbounded
     bnrm2 = torch.sqrt(dot(b, b))
     x0nrm2 = torch.sqrt(dot(x0, x0))
-    r = b - spmv_(A, x0)
+    r = b - spmv(x0)
     gamma = dot(r, r)
     r0nrm2 = torch.sqrt(gamma)
     res_tol, diff_tol = _tolerances(crit, r0nrm2, x0nrm2, sdt)
-    inf = torch.tensor(math.inf, dtype=sdt, device=b.device)
-    zero = torch.zeros((), dtype=sdt, device=b.device)
+    inf = torch.tensor(math.inf, dtype=sdt, device=dev)
+    zero = torch.zeros((), dtype=sdt, device=dev)
     s = _State(x=x0, r=r, p=r, gamma=gamma, dx=inf,
-               k=torch.zeros((), dtype=torch.int64, device=b.device))
+               k=torch.zeros((), dtype=torch.int64, device=dev))
     s.done = (_converged(gamma, inf, res_tol, diff_tol) if not unbounded
               else None)
 
     def step(live):
-        t = spmv_(A, s.p)
+        t = spmv(s.p)
         pdott = dot(s.p, t)
         alpha = s.gamma / pdott
         if live is not None:
@@ -182,54 +198,56 @@ def _cg_program(A: DeviceMatrix, b, x0, crit: StoppingCriteria,
         s.done = s.done | _converged(s.gamma, s.dx, res_tol, diff_tol)
 
     _iterate(step, crit.maxits, unbounded, s)
-    k = (torch.tensor(crit.maxits, device=b.device) if unbounded else s.k)
-    done = torch.tensor(True, device=b.device) if unbounded else s.done
+    k = torch.tensor(crit.maxits, device=dev) if unbounded else s.k
+    done = torch.tensor(True, device=dev) if unbounded else s.done
     return CGResult(x=s.x, niterations=k, rnrm2=torch.sqrt(s.gamma),
                     r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2,
                     dxnrm2=torch.sqrt(s.dx), converged=done,
-                    breakdown=torch.tensor(False, device=b.device))
+                    breakdown=torch.tensor(False, device=dev))
 
 
-def _cg_pipelined_program(A: DeviceMatrix, b, x0, crit: StoppingCriteria,
-                          kernels: str) -> CGResult:
+def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
+                          use_kernel: bool) -> CGResult:
     """Pipelined (Ghysels-Vanroose) CG (``acg_tpu.solvers.jax_cg.
-    _cg_pipelined_program``, plain body ``:925-1012``).  gamma_prev =
+    _cg_pipelined_program``, plain body ``:925-1012``; stacked parts:
+    ``acg_tpu/parallel/dist.py:1833-1956``), both scalars of an iteration
+    from one ``dotk`` (one fused psum on stacked parts).  gamma_prev =
     alpha_prev = inf on entry gives beta = 0 on the first iteration;
     convergence tests the carried gamma = ||r||^2 from before the update
-    (one iteration stale, ``cgcuda.c:1798-1810``).  Under "pallas" the
-    6-vector update is kernel K5, in place."""
+    (one iteration stale, ``cgcuda.c:1798-1810``).  With ``use_kernel``
+    the 6-vector update is kernel K5, in place, on the flat view of the
+    vectors (the whole stack at once)."""
     dtype = b.dtype
-    dot, sdt = _scalar_setup(dtype)
-    spmv_ = _spmv_fn(kernels)
+    sdt = acc_dtype(dtype)
+    dev = b.device
     needs_diff = crit.needs_diff
     unbounded = crit.unbounded
-    use_kernel = kernels != "xla"
     bnrm2 = torch.sqrt(dot(b, b))
     x0nrm2 = torch.sqrt(dot(x0, x0))
-    r = b - spmv_(A, x0)
-    w = spmv_(A, r)
+    r = b - spmv(x0)
+    w = spmv(r)
     r0nrm2 = torch.sqrt(dot(r, r))
     res_tol, diff_tol = _tolerances(crit, r0nrm2, x0nrm2, sdt)
-    inf = torch.tensor(math.inf, dtype=sdt, device=b.device)
+    inf = torch.tensor(math.inf, dtype=sdt, device=dev)
     # separate buffers: K5 updates all six vectors in place
     s = _State(x=x0.clone(), r=r, w=w, p=torch.zeros_like(b),
                t=torch.zeros_like(b), z=torch.zeros_like(b),
                gamma_prev=inf, alpha_prev=inf, dx=inf,
-               k=torch.zeros((), dtype=torch.int64, device=b.device))
+               k=torch.zeros((), dtype=torch.int64, device=dev))
     # an already-converged start (r0 = 0) returns x0 in 0 iterations
     s.done = (_converged(r0nrm2 * r0nrm2, inf, res_tol, diff_tol)
               if not unbounded else None)
 
     def step(live):
-        gamma = dot(s.r, s.r)
-        delta = dot(s.w, s.r)
-        q = spmv_(A, s.w)
+        gamma, delta = dotk((s.r, s.r), (s.w, s.r))
+        q = spmv(s.w)
         beta = gamma / s.gamma_prev             # inf -> 0 on first iteration
         denom = delta - beta * (gamma / s.alpha_prev)
         alpha = gamma / denom
         vecs = (s.x, s.r, s.w, s.p, s.t, s.z)
         if use_kernel:
-            K.pipelined_update(*vecs, q, alpha, beta, live=live)
+            K.pipelined_update(*(v.view(-1) for v in vecs), q.view(-1),
+                               alpha, beta, live=live)
         else:
             new = K.pipelined_update_plain(*vecs, q, alpha, beta)
             if live is not None:
@@ -249,8 +267,8 @@ def _cg_pipelined_program(A: DeviceMatrix, b, x0, crit: StoppingCriteria,
     _iterate(step, crit.maxits, unbounded, s)
     rnrm2 = torch.sqrt(dot(s.r, s.r))
     if unbounded:
-        k = torch.tensor(crit.maxits, device=b.device)
-        done = torch.tensor(True, device=b.device)
+        k = torch.tensor(crit.maxits, device=dev)
+        done = torch.tensor(True, device=dev)
     else:
         k = s.k
         # the in-loop test is one iteration stale: a final fresh residual
@@ -259,7 +277,7 @@ def _cg_pipelined_program(A: DeviceMatrix, b, x0, crit: StoppingCriteria,
     return CGResult(x=s.x, niterations=k, rnrm2=rnrm2, r0nrm2=r0nrm2,
                     bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=torch.sqrt(s.dx),
                     converged=done,
-                    breakdown=torch.tensor(False, device=b.device))
+                    breakdown=torch.tensor(False, device=dev))
 
 
 def _cg_fused_program(A: DiaMatrix, b, x0, crit: StoppingCriteria,
@@ -314,7 +332,74 @@ def _cg_fused_program(A: DiaMatrix, b, x0, crit: StoppingCriteria,
                     breakdown=torch.tensor(False, device=dev))
 
 
-class TorchCGSolver:
+class ChunkedCGSolver:
+    """The timed solve and its statistics, shared by the single-device
+    solver and the stacked multi-part one (``acg_tpu_torch.parallel.
+    dist.DistCGSolver``).  A subclass sets ``device`` and ``stats`` and
+    provides ``_program(crit)`` (a callable of the device ``(b, x0)``
+    returning a :class:`CGResult`), ``device_args(b, x0)``,
+    ``_host_x(x)`` (the host array the caller gets) and
+    ``_account_ops(st, niter)``."""
+
+    def _host_x(self, x: np.ndarray) -> np.ndarray:
+        return x
+
+    def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
+              raise_on_divergence: bool = True, warmup: int = 0,
+              host_result: bool = True):
+        """Solve Ax=b.  Returns x as a numpy array (bf16 solves as f32),
+        or the device tensor with ``host_result=False``.  ``warmup``
+        solves run first, outside the timed region; the timed solve is
+        bracketed by device synchronisations."""
+        crit = criteria or StoppingCriteria()
+        st = self.stats
+        st.criteria = crit
+        program = self._program(crit)
+        t_xfer = time.perf_counter()
+        b, x0 = self.device_args(b, x0)
+        device_sync(self.device)
+        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
+        t_warm = time.perf_counter()
+        for _ in range(max(warmup, 0)):
+            program(b, x0)
+        device_sync(self.device)
+        if warmup > 0:
+            _add_timing(st, "compile", time.perf_counter() - t_warm)
+        t0 = time.perf_counter()
+        res = program(b, x0)
+        device_sync(self.device)
+        t_solve = time.perf_counter() - t0
+        st.tsolve += t_solve
+        _add_timing(st, "solve", t_solve)
+        niter = int(res.niterations)
+        st.nsolves += 1
+        st.niterations = niter
+        st.ntotaliterations += niter
+        st.bnrm2 = float(res.bnrm2)
+        st.x0nrm2 = float(res.x0nrm2)
+        st.r0nrm2 = float(res.r0nrm2)
+        st.rnrm2 = float(res.rnrm2)
+        st.dxnrm2 = float(res.dxnrm2)
+        st.converged = bool(res.converged) or crit.unbounded
+        self._account_ops(st, niter)
+        if host_result:
+            xv = res.x.to(torch.float32) if res.x.dtype == torch.bfloat16 \
+                else res.x
+            x = self._host_x(xv.cpu().numpy())
+            st.fexcept_arrays = [x]
+        else:
+            x = res.x
+            has_nan = bool(torch.isnan(x).any())
+            has_inf = bool(torch.isinf(x).any())
+            st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
+                                             np.inf if has_inf else 0.0])]
+        if not st.converged and raise_on_divergence:
+            raise NotConvergedError(
+                f"{niter} iterations, residual {st.rnrm2:.3e}")
+        return x
+
+
+class TorchCGSolver(ChunkedCGSolver):
     """Single-device CG solver over a device matrix -- the counterpart
     of ``acg_tpu.solvers.jax_cg.JaxCGSolver``: keeps the matrix on the
     device across solves and accumulates statistics.
@@ -391,79 +476,42 @@ class TorchCGSolver:
         return matrix_dtype(self.A)
 
     def _program(self, crit: StoppingCriteria):
-        if self.kernels.startswith("fused"):
+        A, kernels = self.A, self.kernels
+        if kernels.startswith("fused"):
             if crit.needs_diff:
                 raise ValueError("kernels='fused' supports residual "
                                  "criteria only")
-            return _cg_fused_program
-        return _cg_pipelined_program if self.pipelined else _cg_program
+            return lambda b, x0: _cg_fused_program(A, b, x0, crit, kernels)
+        spmv_ = _spmv_fn(kernels)
+
+        def spmv(x):
+            return spmv_(A, x)
+
+        dot, _ = _scalar_setup(self._solve_dtype())
+        if self.pipelined:
+            return lambda b, x0: _cg_pipelined_program(
+                spmv, dot, _dotk(dot), b, x0, crit, kernels != "xla")
+        return lambda b, x0: _cg_program(spmv, dot, b, x0, crit)
 
     def _to_device(self, v, dtype) -> torch.Tensor:
         if not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.ascontiguousarray(v))
         return v.to(device=self.device, dtype=dtype).reshape(-1)
 
-    def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
-              raise_on_divergence: bool = True, warmup: int = 0,
-              host_result: bool = True):
-        """Solve Ax=b.  Returns x as a numpy array (bf16 solves as f32),
-        or the device tensor with ``host_result=False``.  ``warmup``
-        solves run first, outside the timed region; the timed solve is
-        bracketed by device synchronisations."""
-        crit = criteria or StoppingCriteria()
-        st = self.stats
-        st.criteria = crit
+    def device_args(self, b, x0=None):
+        """``(b, x0)`` as vectors in the solve dtype on the solver's
+        device (x0 = 0 when not given)."""
         dtype = self._solve_dtype()
-        program = self._program(crit)
-        t_xfer = time.perf_counter()
         b = self._to_device(b, dtype)
         x0 = (torch.zeros_like(b) if x0 is None
               else self._to_device(x0, dtype))
-        device_sync(self.device)
-        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
-        t_warm = time.perf_counter()
-        for _ in range(max(warmup, 0)):
-            program(self.A, b, x0, crit, self.kernels)
-        device_sync(self.device)
-        if warmup > 0:
-            _add_timing(st, "compile", time.perf_counter() - t_warm)
-        t0 = time.perf_counter()
-        res = program(self.A, b, x0, crit, self.kernels)
-        device_sync(self.device)
-        t_solve = time.perf_counter() - t0
-        st.tsolve += t_solve
-        _add_timing(st, "solve", t_solve)
-        niter = int(res.niterations)
-        st.nsolves += 1
-        st.niterations = niter
-        st.ntotaliterations += niter
-        st.bnrm2 = float(res.bnrm2)
-        st.x0nrm2 = float(res.x0nrm2)
-        st.r0nrm2 = float(res.r0nrm2)
-        st.rnrm2 = float(res.rnrm2)
-        st.dxnrm2 = float(res.dxnrm2)
-        st.converged = bool(res.converged) or crit.unbounded
-        self._account_ops(st, niter, dtype)
-        if host_result:
-            xv = res.x.to(torch.float32) if res.x.dtype == torch.bfloat16 \
-                else res.x
-            x = xv.cpu().numpy()
-            st.fexcept_arrays = [x]
-        else:
-            x = res.x
-            has_nan = bool(torch.isnan(x).any())
-            has_inf = bool(torch.isinf(x).any())
-            st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
-                                             np.inf if has_inf else 0.0])]
-        if not st.converged and raise_on_divergence:
-            raise NotConvergedError(
-                f"{niter} iterations, residual {st.rnrm2:.3e}")
-        return x
+        return b, x0
 
-    def _account_ops(self, st, niter: int, dtype) -> None:
+    def _account_ops(self, st, niter: int) -> None:
         """Analytic flop/byte census of ``niter`` iterations, as
         ``JaxCGSolver._account_ops`` bills the same configuration."""
         n = self.A.nrows
+        dtype = self._solve_dtype()
         per_it = cg_flops_per_iteration(self._spmv_flops / 3.0, n,
                                         self.pipelined)
         st.nflops += per_it * niter + self._spmv_flops + 2.0 * n

@@ -8,20 +8,34 @@ checkout it sits in.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build
    from the sources in acg_tpu_torch/csrc/;
-2. every kernel of the path against its plain PyTorch version on the
-   card, at the main path's shapes: vectors bitwise-equal (the kernels
-   are built with --fmad=false), dots within the stated relative error;
-3. the main path through acg_tpu_torch.cli.main on gen:poisson2d:2048,
-   with the kernels' launch counters reset before and read after each
-   run: (a) classic f64 --kernels auto, (b) pipelined f64, (c) --kernels
+2. every kernel of the paths against its plain PyTorch version on the
+   card, at the paths' shapes: vectors bitwise-equal (the kernels are
+   built with --fmad=false), dots within the stated relative error;
+   K1 batched over the flagship's 4 band parts in every dtype, K5 on
+   their flat stack (with and without the live flag), and K6 gated and
+   dense on that 4-part halo plan, on the irregular matrix's 4-part
+   graph plan and on an 8-part all-pairs plane;
+3. the paths through acg_tpu_torch.cli.main, with the kernels' launch
+   counters reset before and read after each run: on gen:poisson2d:2048
+   (a) classic f64 --kernels auto, (b) pipelined f64, (c) --kernels
    fused f32 against --kernels xla, (d) --dtype mixed against f32 at a
-   fixed 500 iterations (bitwise-equal iterates);
-4. times: solve rates (1000 iterations after a 50-iteration warm-up) and
-   per-kernel medians of 50 CUDA-event-timed launches (after 50 ms of
-   warm-up launches, L2 flushed before each) beside each kernel's bound, its plain version and,
-   for the SpMV, one cuSPARSE call on the same matrix (torch.mv on a CSR
-   tensor, which the port never calls); nvidia-smi's SM clock and power
-   draw beside them.
+   fixed 500 iterations (bitwise-equal iterates), then the multi-part
+   tier, all parts stacked on the card: (e) --nparts 4 --comm dma
+   classic f64, (f) the same with --comm xla (bitwise-equal x), (g)
+   pipelined f64 --nparts 4 --comm dma, and (h) gen:irregular:262144
+   --nparts 4 --partition-method graph (binned-ELL local blocks), run
+   twice for bitwise-equal x;
+4. times: solve rates (1000 iterations after a 50-iteration warm-up),
+   single-device and 4-part with each transport, and per-kernel medians
+   of 50 CUDA-event-timed launches (after 50 ms of warm-up launches, L2
+   flushed before each) beside each kernel's bound, its plain version
+   and, where one PyTorch call computes the same function, that call
+   (cuSPARSE through torch.mv on a CSR tensor for the SpMVs, a
+   transposing copy for K6, also timed on the irregular graph plan; the
+   port never calls them); nvidia-smi's SM clock and power draw beside
+   them; a torch.profiler breakdown of the
+   4-part --comm dma solve by op, with the device's busy share; path
+   (h)'s SpMV split into local block, halo exchange and ghost block.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -53,6 +67,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f64": 34e12, "f32": 67e12, "bf16": 67e12, "mixed": 67e12}
 FLAGSHIP = 2048
 MAIN_SPEC = f"gen:poisson2d:{FLAGSHIP}"
+NPARTS = 4
+IRREGULAR_SPEC = "gen:irregular:262144"
 LOG = []
 
 
@@ -233,6 +249,146 @@ def kernel_checks(torch, K, dev):
     return inputs, errs
 
 
+def flagship_parts(csr):
+    """The flagship matrix band-partitioned into NPARTS stacked parts, as
+    the CLI's --nparts 4 builds it (--partition-method auto picks band)."""
+    from acg_tpu_torch.parallel.dist import DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    t0 = time.perf_counter()
+    part = partition_rows(csr, NPARTS, method="band")
+    prob = DistributedProblem.build(csr, part, NPARTS)
+    say(f"flagship {NPARTS}-part band problem built in "
+        f"{time.perf_counter() - t0:.1f} s: local {prob.local.format} "
+        f"offsets {prob.local.offsets}, nmax_owned {prob.nmax_owned}, halo "
+        f"maxcnt {prob.halo.maxcnt}, ghost rows {prob.ghost.bmax}")
+    return prob
+
+
+def irregular_parts():
+    """The irregular matrix of path (h) on the graph partition the CLI's
+    --partition-method graph builds (its default --seed 42): (csr,
+    problem)."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.parallel.dist import DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    A = synthesize_host_matrix(IRREGULAR_SPEC).to_csr()
+    t0 = time.perf_counter()
+    part = partition_rows(A, NPARTS, seed=42, method="graph")
+    t1 = time.perf_counter()
+    prob = DistributedProblem.build(A, part, NPARTS)
+    say(f"{IRREGULAR_SPEC} {NPARTS}-part graph problem: partition "
+        f"{t1 - t0:.1f} s, build {time.perf_counter() - t1:.1f} s; local "
+        f"{prob.local.format}, nmax_owned {prob.nmax_owned}, halo maxcnt "
+        f"{prob.halo.maxcnt}, ghost rows {prob.ghost.bmax}")
+    return A, prob
+
+
+def dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs):
+    """K1 batched over the parts, K5 on the flat stack and K6 against
+    their plain versions, at the shapes the multi-part paths give them:
+    the flagship's 4 band parts (e)-(g) and the irregular matrix's 4
+    graph parts (h)."""
+    from acg_tpu_torch.parallel.halo import pack
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    dt = {"f64": (torch.float64, torch.float64),
+          "f32": (torch.float32, torch.float32),
+          "mixed": (torch.bfloat16, torch.float32),
+          "bf16": (torch.bfloat16, torch.bfloat16)}
+    P64 = torch.from_numpy(prob.local.arrays[0]).to(dev)
+    offs = prob.local.offsets
+    ot = torch.tensor(offs, dtype=torch.int64, device=dev)
+    x64 = torch.randn((prob.nparts, prob.nmax_owned), generator=g,
+                      dtype=torch.float64, device=dev)
+    for kind, (pdt, xdt) in dt.items():
+        P, x = P64.to(pdt).contiguous(), x64.to(xdt)
+        y = K.dia_spmv(P, offs, x, offsets_t=ot)
+        yr = K.dia_spmv_plain(P, offs, x)
+        torch.cuda.synchronize()
+        say(f"K1 dia_spmv batched {prob.nparts}x{prob.nmax_owned} {kind}: "
+            f"y bitwise={torch.equal(y, yr)}")
+        check(torch.equal(y, yr), f"K1 batched {kind}")
+        errs[("dia_spmv_batched", kind)] = max_abs(y, yr)
+        inputs[("dia_b", kind)] = (P, offs, ot, x)
+    halo = prob.halo.to(dev)
+    scnt = torch.from_numpy(prob.neighbor_counts()[0]).to(dev)
+    c8 = torch.full((8, 8), 4096, dtype=torch.int32, device=dev)
+    for kind in ("f64", "f32", "bf16"):
+        vdt = dt[kind][1]
+        planes = {"4-part plan": (pack(x64.to(vdt), halo.send_idx), scnt),
+                  "8-part all pairs": (torch.randn(
+                      (8, 8, 4096), generator=g, dtype=torch.float64,
+                      device=dev).to(vdt), c8)}
+        for label, (send, cnt) in planes.items():
+            for gate in (True, False):
+                got = K.halo_put(send, cnt, torch.zeros_like(send),
+                                 gate_by_counts=gate)
+                want = K.halo_put_plain(send, cnt, torch.zeros_like(send),
+                                        gate)
+                torch.cuda.synchronize()
+                ok = torch.equal(got, want)
+                say(f"K6 halo_put {label} {tuple(send.shape)} {kind} "
+                    f"{'gated' if gate else 'dense'}: recv bitwise={ok}")
+                check(ok, f"K6 {label} {kind} gate={gate}")
+                if label == "4-part plan":
+                    errs[("halo_put", kind)] = max(
+                        errs.get(("halo_put", kind), 0.0),
+                        max_abs(got, want))
+        inputs[("halo", kind)] = planes["4-part plan"]
+    # K5 on the flat (parts x nmax_owned) view the pipelined path (g)
+    # updates: 4,195,124 rows, a partial last block; a false live flag
+    # must leave all six vectors as they were
+    NP = prob.nparts * prob.nmax_owned
+    for kind in ("f64", "f32", "bf16"):
+        vdt = dt[kind][1]
+        vs = [torch.randn(NP, generator=g, dtype=torch.float64,
+                          device=dev).to(vdt) for _ in range(7)]
+        sdt = K.acc_dtype(vdt)
+        al = torch.tensor(0.37, dtype=sdt, device=dev)
+        be = torch.tensor(0.81, dtype=sdt, device=dev)
+        want = K.pipelined_update_plain(*vs, al, be)
+        for live in (None, True, False):
+            flag = None if live is None else torch.tensor(live, device=dev)
+            got = K.pipelined_update(*[v.clone() for v in vs[:6]], vs[6],
+                                     al, be, live=flag)
+            exp = vs[:6] if live is False else want
+            torch.cuda.synchronize()
+            ok = all(torch.equal(a, b) for a, b in zip(got, exp))
+            say(f"K5 pipelined_update flat {prob.nparts}x{prob.nmax_owned} "
+                f"(N={NP}) {kind} live={live}: 6 outputs bitwise={ok}")
+            check(ok, f"K5 flat stack {kind} live={live}")
+            errs[("pipelined_update", kind)] = max(
+                errs[("pipelined_update", kind)],
+                max(max_abs(a, b) for a, b in zip(got, exp)))
+    # K6 on the irregular graph partition's plane: every pair gated,
+    # maxcnt not a multiple of the block; the receive plane starts from
+    # random values, which ungated rows must keep
+    _, iprob = irr
+    ihalo = iprob.halo.to(dev)
+    icnt = torch.from_numpy(iprob.neighbor_counts()[0]).to(dev)
+    ix = torch.randn((iprob.nparts, iprob.nmax_owned), generator=g,
+                     dtype=torch.float64, device=dev)
+    for kind in ("f64", "f32", "bf16"):
+        vdt = dt[kind][1]
+        send = pack(ix.to(vdt), ihalo.send_idx)
+        recv0 = torch.randn(tuple(send.shape), generator=g,
+                            dtype=torch.float64, device=dev).to(vdt)
+        for gate in (True, False):
+            got = K.halo_put(send, icnt, recv0.clone(), gate_by_counts=gate)
+            want = K.halo_put_plain(send, icnt, recv0.clone(), gate)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            say(f"K6 halo_put {IRREGULAR_SPEC} graph plan "
+                f"{tuple(send.shape)} {kind} "
+                f"{'gated' if gate else 'dense'}: recv bitwise={ok}")
+            check(ok, f"K6 irregular plan {kind} gate={gate}")
+            errs[("halo_put", kind)] = max(errs[("halo_put", kind)],
+                                           max_abs(got, want))
+        inputs[("halo_irr", kind)] = (send, icnt)
+
+
 # -- phase 3: the main path through the CLI ------------------------------
 
 def run_cli(torch, K, argv, tag):
@@ -266,13 +422,9 @@ def read_x(path):
     return np.asarray(read_mtx(path, binary=True).vals, np.float64)
 
 
-def main_path(torch, K, tmp):
-    from acg_tpu_torch.cli import synthesize_host_matrix
-
+def main_path(torch, K, tmp, csr, irr):
     base = [MAIN_SPEC, "--warmup", "0", "-q"]
-    A = synthesize_host_matrix(MAIN_SPEC)
-    csr = A.to_csr()
-    xsol = np.random.default_rng(42).standard_normal(A.nrows)
+    xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
     xsol /= np.linalg.norm(xsol)
     b = csr @ xsol   # the CLI's --manufactured-solution right-hand side
     paths = {}
@@ -286,6 +438,7 @@ def main_path(torch, K, tmp):
         "--manufactured-solution", "--residual-rtol", "1e-8",
         "--max-iterations", "20000", "-o", out], "a-classic-f64")
     its = int(stat(text, "iterations").replace(",", ""))
+    stat_of = {"a": its}
     res = true_rel_residual(read_x(out))
     say(f"path a: {its} iterations, true relative residual {res:.3e} "
         f"(limit 1e-7), solver time {stat(text, 'total solver time')}")
@@ -350,7 +503,108 @@ def main_path(torch, K, tmp):
     check(c["dia_spmv"] == 501 and c2["dia_spmv"] == 501,
           "path d: one K1 launch per iteration plus the setup residual")
     paths["d"] = c
-    return paths, csr
+    its_a = int(stat_of["a"])
+    paths.update(multipart_paths(torch, K, tmp, base, b, csr, its_a, irr))
+    return paths
+
+
+def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
+    """(e)-(h): the multi-part tier, every part stacked on the card."""
+    from acg_tpu_torch.solvers.cg import CHUNK
+
+    paths = {}
+    mp = base + ["--nparts", str(NPARTS), "--manufactured-solution",
+                 "--residual-rtol", "1e-8", "--max-iterations", "20000"]
+
+    def true_rel_residual(A, rhs, x):
+        return float(np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs))
+
+    def launched_per_spmv(c, name, nspmv):
+        # one launch per SpMV; the last chunk's frozen iterations launch
+        # too (the flag is read once per CHUNK iterations)
+        return nspmv <= c[name] <= nspmv + CHUNK
+
+    # (e) classic f64, the one-sided transport on K6
+    out_e = os.path.join(tmp, "e.bin")
+    rc, text, c = run_cli(torch, K, mp + ["--comm", "dma", "-o", out_e],
+                          "e-4part-dma-f64")
+    its = int(stat(text, "iterations").replace(",", ""))
+    res = true_rel_residual(csr, b, read_x(out_e))
+    say(f"path e: {its} iterations (single part: {its_a}), true relative "
+        f"residual {res:.3e} (limit 1e-7), solver time "
+        f"{stat(text, 'total solver time')}, partition "
+        f"{stat(text, 'partition')}, halo exchanges "
+        f"{stat(text, 'MPI_HaloExchange')}")
+    check(rc == 0 and res <= 1e-7, "path e converged to 1e-7")
+    check(abs(its - its_a) <= 2, "path e within 2 iterations of path a")
+    check(launched_per_spmv(c, "halo_put", its + 1)
+          and launched_per_spmv(c, "dia_spmv_batched", its + 1),
+          "path e went through K6 and batched K1 once per SpMV")
+    paths["e"] = c
+
+    # (f) the same solve on the plain transport: the same bits move
+    out_f = os.path.join(tmp, "f.bin")
+    rc, text, c = run_cli(torch, K, mp + ["--comm", "xla", "-o", out_f],
+                          "f-4part-xla-f64")
+    its_f = int(stat(text, "iterations").replace(",", ""))
+    same = np.array_equal(read_x(out_e), read_x(out_f))
+    say(f"path f: {its_f} iterations, x bitwise equal to path e = {same}")
+    check(rc == 0 and its_f == its and same,
+          "path f (xla) == path e (dma) bitwise")
+    check(c["halo_put"] == 0 and c["dia_spmv_batched"] == paths["e"][
+        "dia_spmv_batched"], "path f: batched K1, no K6")
+    paths["f"] = c
+
+    # (g) pipelined f64 on the one-sided transport
+    out = os.path.join(tmp, "g.bin")
+    rc, text, c = run_cli(torch, K, mp + [
+        "--comm", "dma", "--solver", "acg-pipelined", "-o", out],
+        "g-4part-dma-pipelined-f64")
+    its = int(stat(text, "iterations").replace(",", ""))
+    res = true_rel_residual(csr, b, read_x(out))
+    say(f"path g: {its} iterations, true relative residual {res:.3e} "
+        f"(limit 1e-6), solver time {stat(text, 'total solver time')}")
+    check(rc == 0 and res <= 1e-6, "path g converged to 1e-6")
+    check(launched_per_spmv(c, "halo_put", its + 2)
+          and launched_per_spmv(c, "dia_spmv_batched", its + 2)
+          and c["pipelined_update"] >= its,
+          "path g went through K6, batched K1 and K5")
+    paths["g"] = c
+
+    # (h) an irregular matrix on a graph partition: binned-ELL local
+    # blocks (plain PyTorch gathers), K6 for the halo; run twice, and the
+    # two solutions must be the same bits
+    A = irr[0]
+    xsol = np.random.default_rng(42).standard_normal(A.shape[0])
+    xsol /= np.linalg.norm(xsol)
+    bh = A @ xsol
+    argv_h = [IRREGULAR_SPEC, "--warmup", "0", "-q", "--nparts",
+              str(NPARTS), "--partition-method", "graph", "--comm", "dma",
+              "--manufactured-solution", "--residual-rtol", "1e-8",
+              "--max-iterations", "20000"]
+    out = os.path.join(tmp, "h.bin")
+    rc, text, c = run_cli(torch, K, argv_h + ["-o", out],
+                          "h-irregular-graph-f64")
+    its = int(stat(text, "iterations").replace(",", ""))
+    res = true_rel_residual(A, bh, read_x(out))
+    say(f"path h: {IRREGULAR_SPEC} ({A.nnz:,} nonzeros) {its} iterations, "
+        f"true relative residual {res:.3e} (limit 1e-7), partition "
+        f"{stat(text, 'partition')}, solver time "
+        f"{stat(text, 'total solver time')}")
+    check(rc == 0 and res <= 1e-7, "path h converged to 1e-7")
+    check(launched_per_spmv(c, "halo_put", its + 1),
+          "path h went through K6 once per SpMV")
+    out2 = os.path.join(tmp, "h2.bin")
+    rc2, text2, c2 = run_cli(torch, K, argv_h + ["-o", out2],
+                             "h-irregular-graph-f64-again")
+    its2 = int(stat(text2, "iterations").replace(",", ""))
+    same = np.array_equal(read_x(out), read_x(out2))
+    say(f"path h again: {its2} iterations, x bitwise equal to the first "
+        f"run = {same}")
+    check(rc2 == 0 and its2 == its and same,
+          "path h reproducible: the same iterations and bits twice")
+    paths["h"] = c
+    return paths
 
 
 # -- phase 4: times --------------------------------------------------------
@@ -389,23 +643,141 @@ def solve_rates(torch, dev, card):
     return rates
 
 
-def kernel_times(torch, K, inputs, errs, paths, csr, card):
+def dist_rates(torch, dev, card, prob):
+    """Rates of the 4-part stacked classic f64 solve on each transport,
+    with the protocol of solve_rates."""
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    rates = {}
+    b = np.ones(prob.n)
+    for comm in ("dma", "xla"):
+        s = DistCGSolver(prob, comm=comm, device=dev)
+        s.solve(b, criteria=StoppingCriteria(maxits=50))
+        runs = []
+        for _ in range(3):
+            s.stats.tsolve = 0.0
+            s.solve(b, criteria=StoppingCriteria(maxits=1000))
+            runs.append(1000.0 / s.stats.tsolve)
+        rates[comm] = runs
+        say(f"solve rate classic f64 {prob.nparts} parts --comm {comm} "
+            f"(kernels={s.kernels}): "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{np.median(runs):.1f}; 1000 iterations after a 50-iteration "
+            f"warm-up; {card})")
+        del s
+        torch.cuda.empty_cache()
+    return rates
+
+
+def irregular_spmv_times(torch, dev, card, irr):
+    """Where path (h)'s SpMV goes: the binned-ELL local block, the halo
+    exchange (K6) and the ghost block, each timed alone (medians, L2
+    flushed), and the whole distributed SpMV."""
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.parallel.halo_dma import halo_exchange_dma
+
+    _, iprob = irr
+    s = DistCGSolver(iprob, comm="dma", device=dev)
+    spmv = s._spmv()
+    h = s._halo
+    x = torch.randn((iprob.nparts, iprob.nmax_owned), dtype=torch.float64,
+                    device=dev)
+    recv = torch.zeros((h.nparts, h.nparts, h.maxcnt), dtype=x.dtype,
+                       device=dev)
+
+    def exchange():
+        return halo_exchange_dma(x, h.send_idx, h.ghost_src, h.ghost_valid,
+                                 s._scnt, recv)
+
+    xg = exchange()
+    y = iprob.local.mv(s._la, x, True)
+    t = {"local block": median_ms(torch, lambda: iprob.local.mv(
+             s._la, x, True)),
+         "halo exchange": median_ms(torch, exchange),
+         "ghost block": median_ms(torch, lambda: iprob.ghost.add_to(
+             s._ga, y, xg)),
+         "whole SpMV": median_ms(torch, lambda: spmv(x))}
+    g = iprob.ghost
+    say(f"time {IRREGULAR_SPEC} {iprob.nparts}-part SpMV: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; ghost block {g.data.shape} slots for "
+        f"{int(np.count_nonzero(g.data)):,} nonzeros; {card}")
+    del s, spmv, recv
+    torch.cuda.empty_cache()
+
+
+def dist_profile(torch, dev, card, prob, nits: int = 100):
+    """Where the time of the 4-part --comm dma classic f64 solve goes:
+    torch.profiler over ``nits`` iterations (after a 50-iteration
+    warm-up), the ops by device time, and the device's busy share of
+    the profiled wall time.  Reports "not measured" when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    s = DistCGSolver(prob, comm="dma", device=dev)
+    b = np.ones(prob.n)
+    s.solve(b, criteria=StoppingCriteria(maxits=50))
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.solve(b, criteria=StoppingCriteria(maxits=nits))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    except RuntimeError as e:   # a profiler that cannot trace the card
+        say(f"profile {prob.nparts}-part dma classic f64: the profiler "
+            f"failed ({e}); not measured")
+        return
+    # device-side events only (kernels and copies; a CPU op's device
+    # time repeats its kernels'), without the profiler's own buffers
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU or \
+                ev.key.startswith("Activity Buffer"):
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0:
+            rows.append((dt, ev.count, ev.key))
+    busy_us = sum(r[0] for r in rows)
+    if not rows:
+        say(f"profile {prob.nparts}-part dma classic f64: no device time "
+            f"recorded (not measured)")
+        return
+    say(f"profile {prob.nparts}-part dma classic f64, {nits} iterations "
+        f"(setup included): wall under the profiler "
+        f"{wall * 1e6 / nits:.1f} us/iteration, device busy "
+        f"{busy_us / nits:.1f} us/iteration ({busy_us / (wall * 1e6):.1%} "
+        f"of that wall), {sum(r[1] for r in rows) / nits:.1f} device "
+        f"launches/iteration; {card}")
+    for dt, count, key in sorted(rows, reverse=True)[:12]:
+        say(f"  {dt / nits:8.1f} us/iteration  {count / nits:5.1f} "
+            f"launches/iteration  {key[:100]}")
+
+
+def kernel_times(torch, K, inputs, errs, paths, csr, card, prob):
     N = FLAGSHIP ** 2
     out = []
 
     def entry(name, source, replaces, kind, ms, plain_ms, nbytes, nops,
-              library_ms, **extra):
+              library_ms, shape=f"N={N}", **extra):
         bms, by = bound_ms(nbytes, nops, kind)
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "dtype": kind,
              "launches": sum(p[name] for p in paths.values()),
-             "launches_by_path": {k: p[name] for k, p in paths.items()},
+             "launches_by_path": {k: p[name] for k, p in paths.items()
+                                  if p[name]},
              "check": "pass: vectors bitwise-equal to the plain version",
              "max_abs_err": errs[(name, kind)], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
              "library_ms": library_ms}
         e.update(extra)
-        say(f"time {name} {kind} N={N}: kernel {ms:.4f} ms, bound "
+        say(f"time {name} {kind} {shape}: kernel {ms:.4f} ms, bound "
             f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
             f"{''.join(f', {k} {v}' for k, v in extra.items())}; {card}")
@@ -427,8 +799,10 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card):
             P, offsets, x, offsets_t=ot, with_dot=True))
         plain = median_ms(torch, lambda: K.dia_spmv_plain(P, offsets, x))
         lib = None
-        if kind in ("f64", "f32"):
-            dt = torch.float64 if kind == "f64" else torch.float32
+        lib_note = {}
+        if kind != "mixed":   # no one call takes bf16 planes with f32 x
+            dt = {"f64": torch.float64, "f32": torch.float32,
+                  "bf16": torch.bfloat16}[kind]
             with warnings.catch_warnings():
                 # PyTorch flags its sparse CSR layout as beta on creation
                 warnings.simplefilter("ignore", UserWarning)
@@ -437,13 +811,16 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card):
                     torch.from_numpy(csr.indices.astype(np.int64)),
                     torch.from_numpy(csr.data).to(dt), size=csr.shape
                 ).to(x.device)
-            lib = median_ms(torch, lambda: torch.mv(At, x))
+            try:
+                lib = median_ms(torch, lambda: torch.mv(At, x))
+            except RuntimeError as err:   # bf16 CSR: recorded, not timed
+                lib_note = {"library_error": str(err).splitlines()[0][:160]}
             del At
         dbms, _ = bound_ms(nbytes, (2 * D + 2) * N, kind)
         e = entry("dia_spmv", "acg_tpu_torch/csrc/dia_spmv.cu",
                   "acg_tpu/ops/pallas_kernels.py:379", kind, ms, plain,
                   nbytes, 2 * D * N, lib, dot_ms=round(dot_ms, 6),
-                  dot_bound_ms=round(dbms, 6))
+                  dot_bound_ms=round(dbms, 6), **lib_note)
         k1[kind] = e
     out.append(k1["f64"])
     fused = {}
@@ -484,6 +861,78 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card):
                            "acg_tpu/ops/pallas_kernels.py:676", kind, ms,
                            plain, 13 * N * item[kind], 12 * N, None)
     out.append(pipe["f64"])
+    out.extend(dist_kernel_times(torch, K, inputs, prob, entry, item))
+    return out
+
+
+def _block_diag_csr(prob):
+    """The stacked local blocks as one block-diagonal CSR (each block
+    padded to nmax_owned rows), for the batched K1's library yardstick."""
+    import scipy.sparse as sp
+
+    m = prob.nmax_owned
+    blocks = []
+    for s in prob.subs:
+        a = s.A_local
+        blocks.append(sp.csr_matrix(
+            (a.data, a.indices, np.concatenate(
+                [a.indptr, np.full(m - a.shape[0], a.indptr[-1])])),
+            shape=(m, m)))
+    return sp.block_diag(blocks, format="csr")
+
+
+def dist_kernel_times(torch, K, inputs, prob, entry, item):
+    """Batched K1 and K6 at the flagship's 4-part shapes."""
+    out = []
+    NP = prob.nparts * prob.nmax_owned
+    kb = {}
+    for kind in ("f64", "f32", "mixed", "bf16"):
+        P, offsets, ot, x = inputs[("dia_b", kind)]
+        D = P.shape[0]
+        pb = item["bf16"] if kind in ("mixed", "bf16") else item[kind]
+        xb = item["f32"] if kind == "mixed" else pb
+        ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x,
+                                                 offsets_t=ot))
+        plain = median_ms(torch, lambda: K.dia_spmv_plain(P, offsets, x))
+        lib = None
+        if kind == "f64":
+            bd = _block_diag_csr(prob)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                At = torch.sparse_csr_tensor(
+                    torch.from_numpy(bd.indptr.astype(np.int64)),
+                    torch.from_numpy(bd.indices.astype(np.int64)),
+                    torch.from_numpy(bd.data), size=bd.shape).to(x.device)
+            xf = x.reshape(-1)
+            lib = median_ms(torch, lambda: torch.mv(At, xf))
+            del At
+        kb[kind] = entry("dia_spmv_batched", "acg_tpu_torch/csrc/dia_spmv.cu",
+                         "acg_tpu/ops/pallas_kernels.py:379", kind, ms, plain,
+                         D * NP * pb + 2 * NP * xb, 2 * D * NP, lib,
+                         shape=f"{prob.nparts}x{prob.nmax_owned}")
+    out.append(kb["f64"])
+    k6 = {}
+    # the flagship's band plan (the JSON entry) and, logged only, the
+    # irregular matrix's graph plan of path (h)
+    for plan in ("halo", "halo_irr"):
+        for kind in ("f64", "f32", "bf16"):
+            send, scnt = inputs[(plan, kind)]
+            c = scnt.cpu().numpy()
+            gated = int(((c > 0) & ~np.eye(c.shape[0], dtype=bool)).sum())
+            maxcnt = send.shape[2]
+            recv = torch.zeros_like(send)
+            ms = median_ms(torch, lambda: K.halo_put(send, scnt, recv))
+            plain = median_ms(torch, lambda: K.halo_put_plain(send, scnt,
+                                                              recv))
+            lib = median_ms(torch, lambda: send.transpose(0, 1).contiguous())
+            e = entry("halo_put", "acg_tpu_torch/csrc/halo_put.cu",
+                      "acg_tpu/parallel/halo_dma.py:248", kind, ms, plain,
+                      2 * gated * maxcnt * item[kind], 0, lib,
+                      shape=f"{plan} plane {tuple(send.shape)}",
+                      gated_pairs=gated)
+            if plan == "halo":
+                k6[kind] = e
+    out.append(k6["f64"])
     return out
 
 
@@ -516,6 +965,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     inputs, errs = kernel_checks(torch, K, dev)
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    csr = synthesize_host_matrix(MAIN_SPEC).to_csr()
+    prob = flagship_parts(csr)
+    irr = irregular_parts()
+    dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs)
     torch.cuda.synchronize()
     say(f"phase 2 (kernels vs plain) passed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -523,16 +977,19 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_ROOT)
     try:
         t0 = time.perf_counter()
-        paths, csr = main_path(torch, K, tmp)
+        paths = main_path(torch, K, tmp, csr, irr)
         say(f"phase 3 (main path) passed in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     t0 = time.perf_counter()
     solve_rates(torch, dev, card)
+    dist_rates(torch, dev, card, prob)
+    dist_profile(torch, dev, card, prob)
+    irregular_spmv_times(torch, dev, card, irr)
     say(f"clocks after the solve rates (sm, max sm, draw, limit): "
         f"{clocks_line()}")
-    kernels = kernel_times(torch, K, inputs, errs, paths, csr, card)
+    kernels = kernel_times(torch, K, inputs, errs, paths, csr, card, prob)
     say(f"clocks after the kernel times (sm, max sm, draw, limit): "
         f"{clocks_line()}")
     say(f"phase 4 (times) done in {time.perf_counter() - t0:.1f} s")

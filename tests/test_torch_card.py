@@ -105,6 +105,77 @@ def test_solvers_on_card_match_cpu(dev, pipelined, kernels, dtype):
     assert np.linalg.norm(xg - xc) <= tol * np.linalg.norm(xc)
 
 
+def _band_problem(n=128, nparts=4):
+    from acg_tpu_torch.matrix import SymCsrMatrix
+    from acg_tpu_torch.io.generators import poisson_mtx
+    from acg_tpu_torch.parallel.dist import DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    csr = SymCsrMatrix.from_mtx(poisson_mtx(n, dim=2)).to_csr()
+    part = partition_rows(csr, nparts, method="band")
+    return csr, DistributedProblem.build(csr, part, nparts)
+
+
+def test_batched_k1_and_k6_match_plain_on_card(dev):
+    """K1 batched over parts and K6, gated and dense, bitwise against
+    their plain versions in every dtype they take."""
+    _, prob = _band_problem()
+    offs = prob.local.offsets
+    ot = torch.tensor(offs, device=dev)
+    planes = torch.from_numpy(prob.local.arrays[0]).to(dev)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, prob.nmax_owned), generator=g,
+                    dtype=torch.float64).to(dev)
+    for pdt, xdt in sorted(K.DIA_SPMV_TYPES, key=str):
+        P, xx = planes.to(pdt), x.to(xdt)
+        assert torch.equal(K.dia_spmv(P, offs, xx, offsets_t=ot),
+                           K.dia_spmv_plain(P, offs, xx))
+    scnt_np, _ = prob.neighbor_counts()
+    cases = [(torch.from_numpy(scnt_np), prob.halo.maxcnt)]
+    dense = torch.full((8, 8), 5, dtype=torch.int32)
+    cases.append((dense, 5))
+    for scnt, maxcnt in cases:
+        nparts = scnt.shape[0]
+        scnt = scnt.to(dev)
+        for dt in (torch.float64, torch.float32, torch.bfloat16):
+            send = torch.randn((nparts, nparts, maxcnt), generator=g,
+                               dtype=torch.float64).to(dev, dt)
+            for gate in (True, False):
+                want = K.halo_put_plain(send, scnt, torch.zeros_like(send),
+                                        gate)
+                got = K.halo_put(send, scnt, torch.zeros_like(send),
+                                 gate_by_counts=gate)
+                assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="int32"):
+        K.halo_put(send, scnt.long(), torch.zeros_like(send))
+    with pytest.raises(ValueError, match="stacked planes"):
+        K.dia_spmv(planes[:, :2], offs, x, offsets_t=ot)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_dma_solve_on_card_goes_through_k6(dev, pipelined):
+    """A --comm dma solve on the card launches K6 and batched K1 once per
+    SpMV, and takes the CPU solve's iterations to the same x."""
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+
+    csr, prob = _band_problem()
+    b = csr @ np.random.default_rng(2).standard_normal(csr.shape[0])
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-10)
+    out = {}
+    for d in ("cpu", dev):
+        K.reset_launches()
+        s = DistCGSolver(prob, pipelined=pipelined, comm="dma", device=d)
+        out[str(d)] = (s.solve(b, criteria=crit), s.stats.niterations,
+                       dict(K.launches), s.kernels)
+    (xc, kc, _, nc), (xg, kg, lg, ng) = out["cpu"], out[str(dev)]
+    assert (nc, ng) == ("xla", "pallas") and kg == kc
+    assert np.linalg.norm(xg - xc) <= 1e-10 * np.linalg.norm(xc)
+    nspmv = kg + (2 if pipelined else 1)
+    for name in ("halo_put", "dia_spmv_batched"):
+        assert nspmv <= lg[name] < nspmv + 32
+    assert lg["pipelined_update"] >= (kg if pipelined else 0)
+
+
 def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
     from acg_tpu_torch.cli import main
     from acg_tpu_torch.io.mtxfile import read_mtx
@@ -117,3 +188,33 @@ def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
     assert K.launches["dia_spmv"] > 0
     assert float(err.split("error 2-norm:")[-1]) < 1e-7
     assert np.asarray(read_mtx(out, binary=True).vals).shape == (64 * 64,)
+
+
+def test_hub_rows_solve_on_card_is_reproducible(dev):
+    """Binned-ELL local blocks with hub rows wider than the widest bin
+    (512): two --comm dma solves on the card give the same bits, within
+    1e-10 of the CPU solve."""
+    import scipy.sparse as sp
+
+    from acg_tpu_torch.io.generators import irregular_spd_coo
+    from acg_tpu_torch.matrix import SymCsrMatrix
+    from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    r, c, v, n = irregular_spd_coo(3000, avg_degree=6.0, seed=0)
+    csr = SymCsrMatrix.from_coo(n, r, c, v).to_csr()
+    hub = np.repeat([10, 1600], 700)
+    nb = np.concatenate([np.arange(11, 711), np.arange(1601, 2301)])
+    H = sp.csr_matrix((np.full(2 * hub.size, -0.01),
+                       (np.r_[hub, nb], np.r_[nb, hub])), shape=(n, n))
+    csr = (csr + H + sp.diags(np.asarray(abs(H).sum(axis=1)).ravel())
+           ).tocsr()
+    prob = DistributedProblem.build(csr, partition_rows(csr, 4, method="band"),
+                                    4)
+    assert (prob.local.arrays[3] < prob.nmax_owned).any()   # hub tail
+    b = csr @ np.random.default_rng(2).standard_normal(n)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-10)
+    xs = [DistCGSolver(prob, comm="dma", device=d).solve(b, criteria=crit)
+          for d in ("cpu", dev, dev)]
+    assert np.array_equal(xs[1], xs[2])
+    assert np.linalg.norm(xs[1] - xs[0]) <= 1e-10 * np.linalg.norm(xs[0])

@@ -119,6 +119,56 @@ def test_cli_tiers_write_readable_solutions(tmp_path, capsys, extra):
     assert float(_line(err, "error 2-norm").split(":")[1]) < 1e-4
 
 
+DIST = ["gen:poisson2d:20", "--nparts", "4", "--comm", "dma",
+        "--manufactured-solution", "--max-iterations", "500",
+        "--residual-rtol", "1e-10", "--warmup", "0"]
+
+
+def test_cli_multipart_matches_jax_cli(tmp_path, capsys):
+    """--nparts 4 --comm dma through both CLIs: the same iteration count,
+    the same MPI_HaloExchange/MPI_Allreduce rows, solutions within
+    1e-10."""
+    jx, tx = tmp_path / "jax.bin", tmp_path / "torch.bin"
+    assert jax_main(DIST + ["-o", str(jx)]) == 0
+    jerr = capsys.readouterr().err
+    assert torch_main(DIST + ["--device", "cpu", "-o", str(tx)]) == 0
+    terr = capsys.readouterr().err
+    assert _line(terr, "iterations") == _line(jerr, "iterations")
+    for key in ("MPI_HaloExchange", "MPI_Allreduce", "gemv", "dot"):
+        # "<seconds> seconds <n> times <bytes> B ...": the counts and bytes
+        assert (_line(terr, key).split(" seconds ")[1].split(" B ")[0]
+                == _line(jerr, key).split(" seconds ")[1].split(" B ")[0])
+    assert "71 times" in _line(terr, "MPI_HaloExchange")
+    xj = np.asarray(read_mtx(jx, binary=True).vals)
+    xt = np.asarray(read_mtx(tx, binary=True).vals)
+    assert np.linalg.norm(xt - xj) <= 1e-10 * np.linalg.norm(xj)
+
+
+@pytest.mark.parametrize("source", ["graph", "file"])
+def test_cli_output_comm_matrix_matches_jax(tmp_path, capsys, source):
+    """--output-comm-matrix writes the JAX CLI's matrix, for a built-in
+    graph partition and for a 1-based --partition file."""
+    from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
+
+    argv = ["gen:irregular:600", "--nparts", "4", "--output-comm-matrix",
+            "-q", "--warmup", "0", "--max-iterations", "20",
+            "--residual-rtol", "0"]
+    if source == "graph":
+        argv += ["--partition-method", "graph"]
+    else:
+        part = tmp_path / "part.mtx"
+        rng = np.random.default_rng(0)
+        write_mtx(part, vector_mtx(rng.integers(1, 5, 600), field="integer"),
+                  numfmt="%d")
+        argv += ["--partition", str(part)]
+    assert jax_main(argv) == 0
+    jout = capsys.readouterr().out
+    assert torch_main(argv + ["--device", "cpu"]) == 0
+    tout = capsys.readouterr().out
+    assert tout.startswith("%%MatrixMarket matrix coordinate integer")
+    assert tout == jout
+
+
 def test_cli_text_output_uses_numfmt(capsys):
     assert torch_main(["gen:poisson2d:4", "--device", "cpu", "--warmup",
                        "0", "--numfmt", "%.3e"]) == 0
@@ -129,7 +179,8 @@ def test_cli_text_output_uses_numfmt(capsys):
                for v in out[2:])
 
 
-@pytest.mark.parametrize("flag", [["--nparts", "2"], ["--precond", "jacobi"],
+@pytest.mark.parametrize("flag", [["--algorithm", "sstep:2"],
+                                  ["--precond", "jacobi"],
                                   ["--serve"], ["--trace", "/tmp/x"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -148,10 +199,20 @@ import sys
 sys.modules["jax"] = None
 sys.modules["acg_tpu"] = None
 import acg_tpu_torch
+import acg_tpu_torch.graph
+import acg_tpu_torch.parallel.dist
+import acg_tpu_torch.parallel.halo
+import acg_tpu_torch.parallel.halo_dma
+import acg_tpu_torch.parallel.reductions
+import acg_tpu_torch.partition
 from acg_tpu_torch.cli import main
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--manufactured-solution", "--solver", "acg-pipelined",
              "--kernels", "pallas", "--max-iterations", "300"]) == 0
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
+             "--manufactured-solution", "--solver", "acg-pipelined",
+             "--nparts", "3", "--comm", "dma", "--kernels", "pallas",
+             "--max-iterations", "300"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded

@@ -44,7 +44,9 @@ TILE = pk.TILE
 
 
 def _t(a, dtype=torch.float32):
-    return torch.from_numpy(np.asarray(a, dtype=np.float64)).to(dtype)
+    # a copy: in-place wrappers must not write into numpy buffers that a
+    # still-running asynchronous JAX computation may read
+    return torch.from_numpy(np.array(a, dtype=np.float64)).to(dtype)
 
 
 def _np(t):
@@ -321,7 +323,7 @@ def test_kernel_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
         assert _build.build() == lib and lib.exists()
         log = (lib.parent / "build.log").read_text()
         srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-        assert srcs == ["cg_fused.cu", "dia_spmv.cu",
+        assert srcs == ["cg_fused.cu", "dia_spmv.cu", "halo_put.cu",
                         "pipelined_update.cu"]
         assert all(f"-c {_build.CSRC / s}" in log for s in srcs)
         assert "sm_90a" in log and "--fmad=false" in log
