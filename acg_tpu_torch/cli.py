@@ -8,9 +8,14 @@ statistics block to stderr and write the solution.  With one part
 single-device :class:`~acg_tpu_torch.solvers.cg.TorchCGSolver`; with
 ``--nparts N > 1`` it is the multi-part
 :class:`~acg_tpu_torch.parallel.dist.DistCGSolver`, every part stacked
-on the one device, with the halo transport of ``--comm``.  Flag names
-and defaults follow the JAX package's CLI; flags of tiers the port does
-not have yet (``--precond``, ``--serve``, ...) are not accepted.
+on the one device, with the halo transport of ``--comm``.
+``--operator`` solves with a matrix-free stencil (or a registered user
+operator) in place of the assembled matrix, and ``gen:poisson*`` specs
+above ``ACG_TPU_GEN_DIRECT_MIN`` rows (default 2^24) skip the host
+matrix altogether: planes or operator on the device, ``b = ones``
+(the single-device gen-direct tier).  Flag names and defaults follow the
+JAX package's CLI; flags of tiers the port does not have yet
+(``--precond``, ``--serve``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU.
@@ -24,10 +29,6 @@ import time
 
 import numpy as np
 import torch
-
-# rows above which the JAX package's gen: specs assemble DIA planes on
-# the device without a host matrix (acg_tpu/cli.py:_gen_direct_min)
-GEN_DIRECT_MIN = 2 ** 24
 
 DTYPES = {"f64": (torch.float64, torch.float64),
           "f32": (torch.float32, torch.float32),
@@ -110,14 +111,32 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernels", default="auto",
                    choices=["auto", "xla", "pallas", "fused"],
                    help="hot-loop kernel tier: xla = plain PyTorch ops; "
-                        "pallas = the hand-written CUDA DIA SpMV (and the "
-                        "pipelined update kernel); fused = classic CG on "
-                        "the two-phase kernel pair; auto = the hand "
-                        "kernels for DIA matrices on CUDA (every dtype)")
+                        "pallas = the hand-written CUDA DIA SpMV or, with "
+                        "--operator, the stencil SpMV (and the pipelined "
+                        "update kernel); fused = classic CG on the "
+                        "two-phase kernel pair; auto = the hand kernels "
+                        "for DIA matrices (every dtype) and Poisson "
+                        "operators on CUDA")
     p.add_argument("--spmv-format", default="auto",
                    choices=["auto", "dia", "ell", "coo"],
                    help="force the device sparse format; auto picks by "
                         "sparsity structure")
+    p.add_argument("--operator", default="none", metavar="SPEC",
+                   help="matrix-free operator tier: solve with A as an "
+                        "apply instead of stored planes (no matrix reads "
+                        "per iteration; iterates bitwise-equal to the "
+                        "assembled DIA tier).  'stencil' derives the "
+                        "built-in stencil from the gen: matrix spec (+ "
+                        "--aniso); stencil:poisson1d|poisson2d|poisson3d:N "
+                        "and stencil:aniso2d:N:EPS name it explicitly "
+                        "(validated against the matrix being solved); "
+                        "user:NAME runs an operator registered with "
+                        "register_operator (in-process callers).  'none' "
+                        "(default) keeps the assembled path")
+    p.add_argument("--aniso", type=float, default=None, metavar="EPS",
+                   help="with gen:poisson2d:N: generate the anisotropic "
+                        "(stretched-grid) Poisson family instead, "
+                        "y-spacings graded by stretch factor EPS in (0, 1]")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to solve (default: cuda; cpu only when "
                         "asked for)")
@@ -194,18 +213,167 @@ def _parse_gen_spec(spec: str):
             f"gen:poisson2d:N | gen:poisson3d:N | gen:irregular:N[:AVGDEG]")
 
 
-def synthesize_host_matrix(spec_str: str, seed: int = 42):
-    """``gen:`` spec -> host :class:`~acg_tpu_torch.matrix.SymCsrMatrix`."""
-    from acg_tpu_torch.io.generators import (irregular_spd_coo,
+def synthesize_host_matrix(spec_str: str, aniso=None, seed: int = 42):
+    """``gen:`` spec -> host :class:`~acg_tpu_torch.matrix.SymCsrMatrix`
+    (``aniso``: the stretched-grid 2D family)."""
+    from acg_tpu_torch.io.generators import (aniso_poisson2d_coo,
+                                             irregular_spd_coo,
                                              poisson2d_coo, poisson3d_coo)
     from acg_tpu_torch.matrix import SymCsrMatrix
 
     kind, dim, n, N, avg = _parse_gen_spec(spec_str)
-    if kind == "poisson":
+    if kind == "poisson" and aniso is not None:
+        r, c, v, N = aniso_poisson2d_coo(n, aniso)
+    elif kind == "poisson":
         r, c, v, N = (poisson2d_coo if dim == 2 else poisson3d_coo)(n)
     else:
         r, c, v, N = irregular_spd_coo(n, avg_degree=avg, seed=seed)
     return SymCsrMatrix.from_coo(N, r, c, v)
+
+
+def _validate_operator(args) -> None:
+    """Parse ``--operator`` and refuse what an armed operator could never
+    serve, before anything expensive (``acg_tpu/cli.py:2944-3002``)."""
+    from acg_tpu_torch.ops.operator import parse_operator_spec
+
+    try:
+        args._operator_spec = parse_operator_spec(args.operator)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    if args._operator_spec is not None:
+        unsupported = [flag for flag, on in [
+            (f"--dtype {args.dtype} (operators generate plane values "
+             f"in the storage dtype; bf16 has no matrix traffic left "
+             f"to halve)", args.dtype in ("bf16", "mixed")),
+            (f"--spmv-format {args.spmv_format} (forcing an assembled "
+             f"device format contradicts matrix-free)",
+             args.spmv_format != "auto"),
+            ("--epsilon (the stencil computes the UNshifted system; a "
+             "shifted solve needs the assembled path)",
+             bool(args.epsilon)),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --operator {args.operator} does not "
+                f"support: {', '.join(unsupported)}")
+        if (args._operator_spec[0] in ("auto", "poisson", "aniso2d")
+                and not args.A.startswith("gen:")):
+            raise SystemExit(
+                "acg-tpu-torch: --operator stencil* pairs with a gen: "
+                "matrix spec (a file matrix is assembled by definition "
+                "and the stencil could silently compute a different "
+                "system); register a user:NAME operator for file-backed "
+                "systems")
+    if args.aniso is not None:
+        if not 0.0 < args.aniso <= 1.0:
+            raise SystemExit("acg-tpu-torch: --aniso EPS must be in (0, 1]")
+        if not args.A.startswith("gen:poisson2d:"):
+            raise SystemExit(
+                "acg-tpu-torch: --aniso generates the stretched-grid 2D "
+                "Poisson family and needs a gen:poisson2d:N matrix spec")
+
+
+def _build_cli_operator(args, n: int, dtype, device):
+    """The armed ``--operator`` for this solve, validated against the
+    matrix being solved."""
+    from acg_tpu_torch.ops.operator import build_operator
+
+    gen = _parse_gen_spec(args.A) if args.A.startswith("gen:") else None
+    try:
+        return build_operator(args._operator_spec, dtype, gen=gen,
+                              aniso=args.aniso, nrows=n, device=device)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+
+
+def _gen_direct_min() -> int:
+    """Row threshold above which gen:poisson specs skip the host matrix
+    (``ACG_TPU_GEN_DIRECT_MIN``, read as the JAX package reads it, so
+    tests can take the direct path at small sizes)."""
+    import os
+
+    return int(os.environ.get("ACG_TPU_GEN_DIRECT_MIN", 2 ** 24))
+
+
+def _solve_generated_direct(args, dim, n, N, device, dtype,
+                            vec_dtype) -> int:
+    """The single-device gen-direct tier (``acg_tpu/cli.py:1148-1274``):
+    no host matrix -- the Poisson DIA planes built on the device
+    (``poisson_dia_device``), or the armed operator, and ``b = ones`` on
+    the device.  This is what makes ``gen:poisson3d:512`` (134M rows)
+    reachable at all."""
+    from acg_tpu_torch.errors import BreakdownError, NotConvergedError
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.spmv import DiaMatrix
+    from acg_tpu_torch.solvers.cg import TorchCGSolver
+    from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+    unsupported = [flag for flag, on in [
+        ("b/x0 input files", bool(args.b or args.x0)),
+        ("--output-comm-matrix", args.output_comm_matrix),
+        (f"--spmv-format {args.spmv_format}",
+         args.spmv_format not in ("auto", "dia")),
+    ] if on]
+    if unsupported:
+        raise SystemExit(
+            f"acg-tpu-torch: {args.A}: direct on-device assembly "
+            f"(N={N:,} rows) does not support: {', '.join(unsupported)} "
+            f"(these need a host-side matrix; use a file or a smaller "
+            f"gen: spec)")
+    sharded = [flag for flag, on in [
+        (f"--nparts {args.nparts}", args.nparts > 1),
+        ("--manufactured-solution", args.manufactured_solution),
+    ] if on]
+    if sharded:
+        raise SystemExit(
+            f"acg-tpu-torch: {args.A} (N={N:,} rows) with "
+            f"{', '.join(sharded)}: the sharded gen-direct tier "
+            f"(parallel/sharded_dia) is not yet ported; solve on one "
+            f"part with b = ones, or raise ACG_TPU_GEN_DIRECT_MIN above N")
+
+    t0 = time.perf_counter()
+    if args._operator_spec is not None:
+        # matrix-free at gen-direct sizes: nothing is assembled at all
+        A = _build_cli_operator(args, N, dtype, device)
+        _log(args, f"gen-direct: {args.A} (N={N}) as the operator "
+                   f"{A.identity()}, no host matrix:", t0)
+    else:
+        planes, offsets, _ = poisson_dia_device(n, dim, dtype=dtype,
+                                                device=device)
+        if args.epsilon:
+            d = offsets.index(0)
+            planes[d] += torch.tensor(args.epsilon, dtype=dtype,
+                                      device=device)
+        A = DiaMatrix(data=planes, offsets=offsets, nrows=N, ncols_padded=N)
+        _log(args, f"gen-direct: {args.A} (N={N}) DIA planes assembled on "
+                   f"the device, no host matrix:", t0)
+    ingest = time.perf_counter() - t0
+    try:
+        solver = TorchCGSolver(A, pipelined="pipelined" in args.solver,
+                               kernels=args.kernels, vector_dtype=vec_dtype,
+                               device=device)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    solver.stats.timings["ingest"] = ingest
+    b = torch.ones(N, dtype=vec_dtype, device=device)
+    criteria = StoppingCriteria(
+        maxits=args.max_iterations,
+        residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
+        diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
+    t0 = time.perf_counter()
+    try:
+        x = solver.solve(b, criteria=criteria, warmup=args.warmup,
+                         host_result=bool(not args.quiet or args.output))
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    except (NotConvergedError, BreakdownError) as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        solver.stats.fwrite(sys.stderr)
+        return 1
+    _log(args, "solve:", t0)
+    solver.stats.fwrite(sys.stderr)
+    _emit_solution(args, x)
+    return 0
 
 
 def _emit_solution(args, x) -> None:
@@ -238,9 +406,11 @@ def _read_vector(path, binary, n, what):
 def main(argv=None) -> int:
     args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
     args.numfmt = _validate_numfmt(args.numfmt)
+    from acg_tpu_torch.errors import AcgError
+
     try:
         return _main(args)
-    except OSError as e:
+    except (OSError, AcgError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         return 1
 
@@ -256,6 +426,7 @@ def _main(args) -> int:
     from acg_tpu_torch.solvers.stats import StoppingCriteria
 
     # stage 0: the device, before anything expensive
+    _validate_operator(args)
     try:
         device = resolve_device(args.device)
     except AcgError as e:
@@ -268,16 +439,15 @@ def _main(args) -> int:
     t_ingest = time.perf_counter()
     if args.A.startswith("gen:"):
         kind, dim, n, N, _ = _parse_gen_spec(args.A)
-        if kind == "poisson" and N > GEN_DIRECT_MIN:
-            raise SystemExit(
-                f"acg-tpu-torch: {args.A}: N={N:,} rows is above "
-                f"{GEN_DIRECT_MIN:,}, where acg-tpu assembles the DIA "
-                f"planes directly on the device (the gen-direct tier); "
-                f"that tier is not yet ported -- use N <= "
-                f"{GEN_DIRECT_MIN:,}")
+        if (kind == "poisson" and N > _gen_direct_min()
+                and args.aniso is None):
+            # too large for the host matrix: the gen-direct tier (the
+            # aniso family keeps the host route, as in acg_tpu)
+            return _solve_generated_direct(args, dim, n, N, device, dtype,
+                                           vec_dtype)
         t0 = time.perf_counter()
         _log(args, f"synthesizing {args.A} (N={N})")
-        A = synthesize_host_matrix(args.A, seed=args.seed)
+        A = synthesize_host_matrix(args.A, aniso=args.aniso, seed=args.seed)
         _log(args, "synthesize matrix:", t0)
     else:
         import os
@@ -344,8 +514,13 @@ def _main(args) -> int:
     pipelined = "pipelined" in args.solver
     comm_mtx = None
     if comm == "none" or nparts == 1:
-        dev = device_matrix_from_csr(csr, dtype=dtype,
-                                     format=args.spmv_format, device=device)
+        if args._operator_spec is not None:
+            # matrix-free: the operator is the device matrix
+            dev = _build_cli_operator(args, n, dtype, device)
+        else:
+            dev = device_matrix_from_csr(csr, dtype=dtype,
+                                         format=args.spmv_format,
+                                         device=device)
         try:
             solver = TorchCGSolver(dev, pipelined=pipelined,
                                    kernels=args.kernels,
@@ -363,6 +538,11 @@ def _main(args) -> int:
             comm_mtx = comm_matrix(subs, nparts)
         prob = DistributedProblem.build(csr, part, nparts, dtype=dtype,
                                         subs=subs, vector_dtype=vec_dtype)
+        if args._operator_spec is not None:
+            # matrix-free on the stacked parts: generated local planes
+            # behind the same halo plan and ghost block
+            from acg_tpu_torch.parallel.dist import arm_matfree
+            arm_matfree(prob, _build_cli_operator(args, n, dtype, device))
         try:
             solver = DistCGSolver(prob, pipelined=pipelined,
                                   comm=resolve_comm(comm),

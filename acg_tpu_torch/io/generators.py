@@ -1,8 +1,10 @@
-"""Model-problem generators: 2D/3D Poisson and irregular SPD matrices.
+"""Model-problem generators: 2D/3D Poisson, the anisotropic 2D family
+and irregular SPD matrices.
 
 A copy of the numpy builders of ``acg_tpu/io/generators.py``: COO
 triplets of the FULL symmetric matrix (callers needing one-triangle
-storage filter ``r <= c``), DIA planes built directly, and the
+storage filter ``r <= c``), DIA planes built directly (on the host, or
+on the device with no host matrix: :func:`poisson_dia_device`), and the
 symmetric Matrix Market wrapper.
 """
 
@@ -27,6 +29,47 @@ def poisson2d_coo(n: int, dtype=np.float64):
         cols.append((ii * n + jj)[ok])
         vals.append(np.full(ok.sum(), -1.0, dtype=dtype))
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n * n
+
+
+def aniso_poisson2d_coo(n: int, eps: float, dtype=np.float64):
+    """Anisotropic (stretched-grid) 2D Poisson on an n x n tensor grid ->
+    full COO (N = n*n): the Laplacian assembled symmetrically (FV/FEM
+    edge weights) on a grid whose y-spacings shrink geometrically by the
+    stretch factor ``eps = h_min/h_max <= 1``.  x-edge weights span
+    ``[eps, 1]`` and y-edge weights ``[1, 1/eps]``, so the diagonal
+    varies by ~1/eps across the grid.  SPD: a positively weighted graph
+    Laplacian plus Dirichlet boundary terms."""
+    if not 0.0 < eps <= 1.0:
+        raise ValueError(f"aniso stretch factor must be in (0, 1], "
+                         f"got {eps}")
+    j = np.arange(n)
+    # x-edge weight in grid row j, and y-edge weight at horizontal edge e
+    # (e = 0 and n are the Dirichlet boundary edges)
+    wx = (eps ** ((j + 0.5) / n)).astype(dtype)
+    e = np.arange(n + 1)
+    wy = (eps ** (-(e / n))).astype(dtype)
+
+    def idx(jj, ii):
+        return (jj * n + ii).astype(IDX_DTYPE)
+
+    J, I = np.meshgrid(j, j, indexing="ij")
+    rows = [idx(J, I).ravel()]
+    cols = [idx(J, I).ravel()]
+    vals = [(2 * wx[J] + wy[J] + wy[J + 1]).ravel()]
+    for di in (-1, 1):
+        ok = (I + di >= 0) & (I + di < n)
+        rows.append(idx(J, I)[ok])
+        cols.append(idx(J, I + di)[ok])
+        vals.append(-wx[J][ok])
+    ok = J + 1 < n     # the edge between grid rows j and j+1 weighs wy[j+1]
+    rows.append(idx(J, I)[ok])
+    cols.append(idx(J + 1, I)[ok])
+    vals.append(-wy[J + 1][ok])
+    rows.append(idx(J + 1, I)[ok])
+    cols.append(idx(J, I)[ok])
+    vals.append(-wy[J + 1][ok])
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals), n * n)
 
 
 def poisson3d_coo(n: int, dtype=np.float64):
@@ -74,6 +117,35 @@ def poisson_dia(n: int, dim: int = 2, dtype=np.float64):
     order = np.argsort(offsets)
     return ([planes[i] for i in order],
             tuple(int(offsets[i]) for i in order), N)
+
+
+def poisson_dia_device(n: int, dim: int = 2, dtype=None, device=None):
+    """Poisson DIA planes built on the device: no host matrix and no
+    upload.  The same planes as :func:`poisson_dia`, bitwise, as one
+    contiguous (2*dim + 1, N) tensor in ascending offset order: each
+    plane is a device fill plus one strided zero write of its boundary
+    slice.  ``dtype`` defaults to float32 (``acg_tpu.io.generators.
+    poisson_dia_device``), ``device`` to the CUDA card.
+
+    Returns ``(planes, offsets, N)``."""
+    import torch
+
+    from acg_tpu_torch._device import resolve_device
+
+    dtype = torch.float32 if dtype is None else dtype
+    device = resolve_device(device)
+    N = n ** dim
+    offsets = sorted([s for a in range(dim) for s in (-(n ** a), n ** a)]
+                     + [0])
+    planes = torch.empty((len(offsets), N), dtype=dtype, device=device)
+    for d, off in enumerate(offsets):
+        if off == 0:
+            planes[d].fill_(float(2 * dim))
+            continue
+        planes[d].fill_(-1.0)
+        edge = planes[d].view(-1, n, abs(off))
+        edge[:, 0 if off < 0 else n - 1, :] = 0.0
+    return planes, tuple(int(o) for o in offsets), N
 
 
 def irregular_spd_coo(n: int, avg_degree: float = 16.0, seed: int = 0,

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P),
     "acg_halo_put": (_I, _P, _P, _I, _L, _I, _P, _P),
+    "acg_stencil_spmv": (_I, _I, _L, _I, _L, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -19,14 +19,17 @@ wrapper                CUDA source                 replaces (TPU kernel)
                                                    update`` (K5)
 :func:`halo_put`       ``csrc/halo_put.cu``        ``_exchange_kernel``
                                                    (K6, halo_dma.py)
+:func:`stencil_spmv`   ``csrc/stencil_spmv.cu``    ``_stencil_poisson_
+                                                   call`` (K7, also
+                                                   stacked over parts)
 =====================  ==========================  =======================
 
 A wrapper takes the plain version for tensors on the CPU -- and only
 because they lie there; for CUDA tensors it launches its kernel or
 raises.  :data:`launches` counts kernel launches per wrapper (plain
-calls are not counted; K1 counts its stacked (P, n) form apart, as
-``dia_spmv_batched``), so a run can show that its path went through the
-kernels.
+calls are not counted; K1 and K7 count their stacked (P, n) forms apart,
+as ``dia_spmv_batched`` and ``stencil_spmv_batched``), so a run can show
+that its path went through the kernels.
 
 The route predicates :func:`dia_spmv_route` / :func:`fused_cg_route`
 are copies of the JAX package's, kept so that the solvers refuse the same
@@ -38,11 +41,12 @@ from __future__ import annotations
 import torch
 
 from acg_tpu_torch.ops import _build
-from acg_tpu_torch.ops.spmv import acc_dtype, dia_mv_acc
+from acg_tpu_torch.ops.spmv import acc_dtype, dia_mv, dia_mv_acc
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
-            "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0}
+            "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
+            "stencil_spmv": 0, "stencil_spmv_batched": 0}
 
 _BLOCK = 256  # csrc/common.cuh kBlock: rows per block, partial-sum count
 
@@ -381,6 +385,74 @@ def halo_put(send, send_counts, recv, *, gate_by_counts: bool = True):
     _build.check("halo_put", err)
     launches["halo_put"] += 1
     return recv
+
+
+# -- K7: the matrix-free Poisson stencil SpMV ----------------------------
+
+# vector dtypes K7 is instantiated for (operators run f32 and f64)
+STENCIL_TYPES = (torch.float64, torch.float32)
+
+
+def stencil_spmv_plain(op, x, row0=None, nowned=None):
+    """``y = A x`` for a constant-coefficient Poisson
+    :class:`~acg_tpu_torch.ops.operator.StencilOperator` as the JAX
+    package computes it: the shifted-view apply (``op.matfree_apply``)
+    for a whole-grid x; for a stacked x (P, nrows) with per-part ``row0``
+    and ``nowned`` (P,) tensors, the generated local planes through
+    ``dia_mv`` (``StackedLocalBlock.shard_mv``'s matfree form)."""
+    if row0 is None:
+        return op.matfree_apply(x)
+    nrows = x.shape[-1]
+    planes = op.planes(row0=row0, nrows=nrows, nowned=nowned)
+    return dia_mv(planes, op.offsets, nrows, x)
+
+
+def stencil_spmv(op, x, *, row0=None, nowned=None):
+    """``y = A x`` for a constant-coefficient Poisson operator with the
+    coefficients made in the kernel (no plane exists): x of the whole
+    grid ((N,), N = n^dim), or stacked over parts ((P, nrows)) with the
+    per-part first global row ``row0`` and owned count ``nowned`` as
+    (P,) int64 tensors on x's device -- see :func:`stencil_spmv_plain`.
+    f32 and f64 only."""
+    if x.device.type == "cpu":
+        return stencil_spmv_plain(op, x, row0, nowned)
+    if getattr(op, "kind", None) != "poisson":
+        raise ValueError(f"stencil_spmv: the kernel computes the constant-"
+                         f"coefficient Poisson stencil, got "
+                         f"{getattr(op, 'kind', type(op).__name__)!r}")
+    n, dim = op.grid
+    stacked = row0 is not None
+    if stacked:
+        dev = x.device
+        if (x.dim() != 2 or not x.is_contiguous()
+                or x.dtype not in STENCIL_TYPES):
+            raise ValueError(f"stencil_spmv: expected a contiguous (P, "
+                             f"nrows) x in one of "
+                             f"{[str(d) for d in STENCIL_TYPES]}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        nparts, nrows = x.shape
+        for name, t in (("row0", row0), ("nowned", nowned)):
+            if (t is None or t.device != dev or t.dtype != torch.int64
+                    or t.shape != (nparts,) or not t.is_contiguous()):
+                raise ValueError(f"stencil_spmv: {name} must be a "
+                                 f"contiguous ({nparts},) int64 tensor on "
+                                 f"{dev}")
+    else:
+        if nowned is not None:
+            raise ValueError("stencil_spmv: nowned needs row0")
+        _, nrows = _check_vectors("stencil_spmv", STENCIL_TYPES, x,
+                                  n=op.nrows)
+        nparts = 1
+    if x.dtype != op.dtype:
+        raise ValueError(f"stencil_spmv: {x.dtype} x for a {op.dtype} "
+                         f"operator")
+    y = torch.empty_like(x)
+    err = _build.lib().acg_stencil_spmv(
+        _build.DTYPE_CODES[x.dtype], dim, n, nparts, nrows, _ptr(row0),
+        _ptr(nowned), x.data_ptr(), y.data_ptr(), _stream())
+    _build.check("stencil_spmv", err)
+    launches["stencil_spmv_batched" if stacked else "stencil_spmv"] += 1
+    return y
 
 
 # -- route predicates, copied from acg_tpu/ops/pallas_kernels.py ---------

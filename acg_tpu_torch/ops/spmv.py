@@ -9,9 +9,16 @@ with the same rule as the JAX package:
   gathers.  On CUDA the solvers route it through the hand-written kernel
   :func:`acg_tpu_torch.ops.kernels.dia_spmv`.
 * :class:`EllMatrix` -- row-padded (n, K) value/column planes.
-* :class:`CooMatrix` -- row-sorted COO with an index-add reduction.
+* :class:`CooMatrix` -- row-sorted COO.
 * :class:`BinnedEllMatrix` -- rows binned by length into near-tight ELL
   blocks, plus a COO tail for hub rows.
+
+Every row of y is written once: the COO entries and the binned-ELL hub
+tail are laid out at construction as padded rows (:func:`padded_rows`)
+summed by ``.sum(-1)``, so no sum runs through float atomics and every
+run on the card gives the same bits.  Matrix-free operators
+(:mod:`acg_tpu_torch.ops.operator`) ride the same :func:`spmv` through
+their ``matfree_apply``.
 
 Everything here is plain torch: what the JAX package leaves to XLA the
 port leaves to PyTorch's own operators (``kernels="xla"``).  Each class
@@ -60,13 +67,21 @@ class EllMatrix:
 
 @dataclasses.dataclass
 class CooMatrix:
-    """Row-sorted COO; SpMV via an index-add over rows."""
+    """Row-sorted COO.  ``rows``/``cols``/``vals`` are the format's
+    arrays (the JAX package's, bitwise); the SpMV runs on ``groups``,
+    the same entries as padded rows (:func:`padded_rows`), built at
+    construction."""
 
     rows: torch.Tensor  # (nnz,) int64, sorted ascending
     cols: torch.Tensor  # (nnz,) int32
     vals: torch.Tensor  # (nnz,) float
     nrows: int
     ncols_padded: int
+    groups: tuple = None
+
+    def __post_init__(self):
+        if self.groups is None:
+            self.groups = _padded_groups(self.rows, self.cols, self.vals)
 
     @property
     def dtype(self):
@@ -122,6 +137,13 @@ class BinnedEllMatrix:
     bin_ks: tuple     # K_b per bin
     nrows: int
     ncols_padded: int
+    tail_groups: tuple = None  # the hub tail as padded rows (padded_rows)
+
+    def __post_init__(self):
+        if self.tail_groups is None:
+            self.tail_groups = _padded_groups(self.tail_rows,
+                                              self.tail_cols,
+                                              self.tail_vals)
 
     @property
     def dtype(self):
@@ -141,6 +163,57 @@ BELL_WIDTHS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192,
 # DIA-eligibility thresholds of the auto format choice
 MAX_DIAGS = 64
 DIA_WASTE_LIMIT = 3.0
+
+
+def padded_rows(rows, widths=BELL_WIDTHS) -> list:
+    """Row-sorted COO row ids (numpy) -> the padded-row layout ``[(dst,
+    idx), ...]``: every row appears once, as one row of ``idx`` (m, K)
+    holding its entries' positions in index order, -1 padding after.
+    Rows are binned by entry count into the first of ``widths`` (doubled
+    past its last) that holds them, so padding stays under 2x.  Summing
+    each padded row with ``.sum(-1)`` and writing it once takes the
+    place of a scatter-add, whose float atomics on CUDA sum in an order
+    that changes from run to run."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size == 0:
+        return []
+    dst, start, cnt = np.unique(rows, return_index=True, return_counts=True)
+    w = list(widths)
+    while w[-1] < cnt.max():
+        w.append(2 * w[-1])
+    bidx = np.searchsorted(w, cnt)
+    groups = []
+    for b in np.unique(bidx):
+        sel = np.flatnonzero(bidx == b)
+        slot = np.arange(int(cnt[sel].max()))
+        idx = start[sel, None] + slot
+        idx[slot >= cnt[sel, None]] = -1
+        groups.append((dst[sel], idx))
+    return groups
+
+
+def _padded_groups(rows, cols, vals) -> tuple:
+    """The entries ``(rows, cols, vals)`` (tensors on one device) as
+    :func:`padded_rows` groups of tensors ``(dst, data, cols)``: padding
+    holds value 0 and column 0."""
+    dev = vals.device
+    out = []
+    for dst, idx in padded_rows(rows.cpu().numpy()):
+        i = torch.from_numpy(idx).to(dev)
+        pad = i < 0
+        i = i.clamp(min=0)
+        out.append((torch.from_numpy(dst).to(dev),
+                    vals[i].masked_fill(pad, 0),
+                    cols[i].long().masked_fill(pad, 0)))
+    return tuple(out)
+
+
+def _padded_mv(groups, y, x, adt):
+    """``y[dst] = (data * x[cols]).sum(-1)`` per group, in place: each
+    row written once, with no scatter-add."""
+    for dst, data, cols in groups:
+        y.index_copy_(0, dst, (data.to(adt) * x[cols].to(adt)).sum(-1))
+    return y
 
 
 def binned_ell_arrays(csr, widths=BELL_WIDTHS):
@@ -386,8 +459,8 @@ def matrix_index_bytes(A: DeviceMatrix) -> float:
     """Index bytes read per stored nonzero during SpMV, as the JAX
     package counts them (DIA: none; ELL-family: one int32 column; COO:
     row + column; binned ELL: the nnz-weighted mix of its 4 B bins and
-    8 B hub tail)."""
-    if isinstance(A, DiaMatrix):
+    8 B hub tail; matrix-free operators: none, no nonzero is stored)."""
+    if _is_matfree(A) or isinstance(A, DiaMatrix):
         return 0.0
     if isinstance(A, CooMatrix):
         return 8.0
@@ -399,32 +472,37 @@ def matrix_index_bytes(A: DeviceMatrix) -> float:
     return 4.0
 
 
+def _is_matfree(A) -> bool:
+    """A matrix-free operator (``ops.operator``): it has an apply."""
+    return hasattr(A, "matfree_apply")
+
+
 def spmv(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a device sparse matrix, in plain torch."""
+    """y = A @ x for a device sparse matrix or a matrix-free operator, in
+    plain torch."""
+    if _is_matfree(A):
+        return A.matfree_apply(x)
     adt = acc_dtype(x.dtype)
     if isinstance(A, DiaMatrix):
         return dia_mv(A.data, A.offsets, A.nrows, x)
     if isinstance(A, EllMatrix):
         return (A.data.to(adt) * x[A.cols].to(adt)).sum(1).to(x.dtype)
+    y = torch.zeros(A.nrows, dtype=adt, device=x.device)
     if isinstance(A, CooMatrix):
-        prod = A.vals.to(adt) * x[A.cols].to(adt)
-        y = torch.zeros(A.nrows, dtype=adt, device=x.device)
-        return y.index_add_(0, A.rows, prod).to(x.dtype)
+        return _padded_mv(A.groups, y, x, adt).to(x.dtype)
     if isinstance(A, BinnedEllMatrix):
-        y = torch.zeros(A.nrows, dtype=adt, device=x.device)
-        for rows, data, cols in zip(A.bin_rows, A.bin_data, A.bin_cols):
-            # each row lives in exactly one bin: unique index positions
-            y.index_add_(0, rows, (data.to(adt) * x[cols].to(adt)).sum(1))
-        if A.tail_rows.numel():
-            y.index_add_(0, A.tail_rows,
-                         A.tail_vals.to(adt) * x[A.tail_cols].to(adt))
-        return y.to(x.dtype)
+        # each row lives in exactly one bin or in the hub tail
+        _padded_mv(zip(A.bin_rows, A.bin_data, A.bin_cols), y, x, adt)
+        return _padded_mv(A.tail_groups, y, x, adt).to(x.dtype)
     raise TypeError(f"unsupported device matrix {type(A)}")
 
 
 def spmv_flops(A: DeviceMatrix) -> float:
     """Analytic flops per SpMV, reference convention (3 per stored nz);
-    nonzeros are counted on the device, so one scalar crosses to the host."""
+    nonzeros are counted on the device, so one scalar crosses to the
+    host (matrix-free operators count analytically)."""
+    if _is_matfree(A):
+        return 3.0 * float(A.matfree_nnz())
     if isinstance(A, DiaMatrix):
         nnz = int(torch.count_nonzero(A.data))
     elif isinstance(A, EllMatrix):

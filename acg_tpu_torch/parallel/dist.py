@@ -15,8 +15,10 @@ CPU) runs any number of parts:
   and reduction, with no masks in the loop;
 * the local (owned x owned) block is gather-free DIA planes when the
   partition keeps it banded -- kernel K1 batched over parts on the card
-  -- else ELL or length-binned ELL gathers; the ghost (owned x ghost)
-  block covers only the rows that touch ghosts;
+  -- else ELL or length-binned ELL gathers; with a matrix-free stencil
+  armed (:func:`arm_matfree`) its planes are generated per part instead
+  -- kernel K7 stacked over parts for Poisson on the card; the ghost
+  (owned x ghost) block covers only the rows that touch ghosts;
 * the halo exchange is a pack gather, a transport (the transpose of the
   send plane for ``comm="xla"``, kernel K6 for ``comm="dma"``) and an
   unpack gather (:mod:`.halo`, :mod:`.halo_dma`);
@@ -36,12 +38,14 @@ import numpy as np
 import torch
 
 from acg_tpu_torch._device import resolve_device
+from acg_tpu_torch.errors import AcgError, ErrorCode
 from acg_tpu_torch.graph import (Subdomain, partition_matrix,
                                  reorder_owned_natural)
 from acg_tpu_torch.ops import kernels as K
+from acg_tpu_torch.ops.operator import StencilOperator, stencil_planes
 from acg_tpu_torch.ops.spmv import (BELL_WIDTHS, acc_dtype, csr_diag_offsets,
                                     dia_mv, dia_planes_fixed,
-                                    ell_planes_from_csr)
+                                    ell_planes_from_csr, padded_rows)
 from acg_tpu_torch.parallel.halo import (DeviceHaloPlan, build_device_halo,
                                          halo_exchange)
 from acg_tpu_torch.parallel.halo_dma import halo_exchange_dma
@@ -85,23 +89,31 @@ class StackedLocalBlock:
     ``"binnedell"``: ``(bin_rows, bin_data, bin_cols, tail_rows,
     tail_cols, tail_vals)`` -- per-bin tuples with part-uniform row
     counts (absent rows padded with row id ``nrows``) and a padded COO
-    tail for hub rows.
+    tail for hub rows.  ``"matfree"``: ``(row0 (P,), nowned (P,), *tables
+    (P, L))`` -- each part's first global row and owned count, and the
+    stencil ``operator``'s coefficient tables stacked per part; the
+    planes are generated in the SpMV (:func:`arm_matfree`).
 
     On upload the binned-ELL block drops its padding rows and turns its
     hub tail into one padded row per hub row (:meth:`_bell_groups`), so
     every row of the stack is one ``.sum(-1)`` written once: no scatter
     adds, and the same bits on every run."""
 
-    format: str      # "dia" | "ell" | "binnedell"
+    format: str      # "dia" | "ell" | "binnedell" | "matfree"
     arrays: tuple
-    offsets: tuple   # dia: static diagonal offsets, ascending
+    offsets: tuple   # dia/matfree: static diagonal offsets, ascending
     nrows: int
     bin_ks: tuple = ()   # binnedell only: K_b per bin
+    operator: object = None  # matfree only: the StencilOperator template
 
     def to(self, device, dtype) -> tuple:
         """Device tensors for :meth:`mv`: values in ``dtype``, indices
         int64."""
         i64 = torch.int64
+        if self.format == "matfree":
+            row0, nowned, *tables = self.arrays
+            return (_put(row0, device, i64), _put(nowned, device, i64),
+                    *(_put(t, device, dtype) for t in tables))
         if self.format == "dia":
             return (_put(self.arrays[0], device, dtype).contiguous(),
                     torch.tensor(self.offsets, dtype=i64, device=device))
@@ -114,10 +126,11 @@ class StackedLocalBlock:
 
     def _bell_groups(self) -> list:
         """The binned-ELL block as ``(dst, data, cols)`` groups over the
-        real rows only, one per bin and one for the hub tail: ``dst`` (m,)
-        and ``cols`` (m, K) index the flattened (P * nrows) stack.  Hub
-        rows become one padded row each, their entries in the tail's
-        order (zero values and column 0 pad them, as in every ELL row)."""
+        real rows only, one per bin and the hub tail's padded rows
+        (:func:`~acg_tpu_torch.ops.spmv.padded_rows`): ``dst`` (m,) and
+        ``cols`` (m, K) index the flattened (P * nrows) stack.  Each hub
+        row is one padded row, its entries in the tail's order (zero
+        values and column 0 pad it, as in every ELL row)."""
         brows, bdata, bcols, trows, tcols, tvals = self.arrays
         n = self.nrows
         groups = []
@@ -126,24 +139,30 @@ class StackedLocalBlock:
             groups.append((p * n + rows[p, i], data[p, i],
                            p[:, None] * n + cols[p, i]))
         p, i = np.nonzero(trows < n)
-        if p.size:
-            # ascending: parts in order, hub rows ascending in each part
-            key = p * n + trows[p, i]
-            dst, start, cnt = np.unique(key, return_index=True,
-                                        return_counts=True)
-            row = np.repeat(np.arange(dst.size), cnt)
-            slot = np.arange(key.size) - np.repeat(start, cnt)
-            data = np.zeros((dst.size, int(cnt.max())))
-            cols = np.zeros((dst.size, int(cnt.max())), np.int64)
-            data[row, slot] = tvals[p, i]
-            cols[row, slot] = p * n + tcols[p, i]
-            groups.append((dst, data, cols))
+        # ascending: parts in order, hub rows ascending in each part
+        tc, tv = p * n + tcols[p, i], tvals[p, i]
+        for dst, idx in padded_rows(p * n + trows[p, i]):
+            pad = idx < 0
+            groups.append((dst, np.where(pad, 0.0, tv[idx]),
+                           np.where(pad, 0, tc[idx])))
         return groups
 
     def mv(self, arrays, x, use_kernel: bool):
         """y = A_local @ x for all parts at once (``arrays`` from
-        :meth:`to`); ``use_kernel`` takes kernel K1 for DIA blocks."""
+        :meth:`to`); ``use_kernel`` takes kernel K1 for DIA blocks and
+        kernel K7 for Poisson matfree blocks."""
         adt = acc_dtype(x.dtype)
+        if self.format == "matfree":
+            op = self.operator
+            row0, nowned, *tables = arrays
+            if use_kernel and op.kind == "poisson":
+                return K.stencil_spmv(op, x, row0=row0, nowned=nowned)
+            # the generated planes of every part, then dia_mv
+            # (acg_tpu/parallel/dist.py:116-139)
+            planes = stencil_planes(op.kind, op.grid, self.offsets,
+                                    tuple(tables), self.nrows, op.dtype,
+                                    row0=row0, nowned=nowned)
+            return dia_mv(planes, self.offsets, self.nrows, x)
         if self.format == "dia":
             planes, offsets_t = arrays
             if use_kernel:
@@ -345,6 +364,7 @@ class DistributedProblem:
     nnz_total: int
     dtype: torch.dtype
     vector_dtype: torch.dtype | None = None
+    operator: object = None   # the armed stencil (arm_matfree), if any
 
     @property
     def vdtype(self):
@@ -411,6 +431,59 @@ class DistributedProblem:
         return [int(s.nowned) for s in self.subs]
 
 
+def arm_matfree(prob: DistributedProblem, op) -> DistributedProblem:
+    """Arm the matrix-free operator tier over a built problem
+    (``acg_tpu.parallel.dist.arm_matfree``): the assembled local planes
+    give way to a ``matfree`` stacked block whose SpMV generates the
+    stencil values per part from ``(row0, nowned)`` and the operator's
+    O(grid-side) tables, while the halo plan and the ghost block stay
+    assembled and ride the exchange unchanged.  In place; returns
+    ``prob``.
+
+    Needs a contiguous natural-order band partition (each part's owned
+    rows are then one global row range, so the generated planes masked to
+    the owned window equal the assembled stacking bitwise); anything else
+    refuses rather than answer a different system."""
+    if not isinstance(op, StencilOperator):
+        raise AcgError(
+            ErrorCode.NOT_SUPPORTED,
+            "the distributed matrix-free tier runs the built-in "
+            "stencil operators (their local structure is derivable per "
+            "part); user-registered operators ride the single-device "
+            "tiers")
+    if int(op.nrows) != int(prob.n):
+        raise AcgError(
+            ErrorCode.INVALID_VALUE,
+            f"operator computes a {op.nrows}-row system; this problem "
+            f"has {prob.n} rows")
+    if op.dtype != prob.dtype:
+        raise AcgError(
+            ErrorCode.INVALID_VALUE,
+            f"operator dtype {op.dtype} != problem dtype {prob.dtype}")
+    rows0, nowns = [], []
+    for s in prob.subs:
+        gids = np.asarray(s.global_ids[: s.nowned], dtype=np.int64)
+        if s.nowned and (s.owned_order != "natural"
+                         or int(gids[-1]) - int(gids[0]) + 1 != s.nowned):
+            raise AcgError(
+                ErrorCode.NOT_SUPPORTED,
+                f"matrix-free stencils need a contiguous natural-order "
+                f"band partition (part {s.part} owns a scattered row "
+                f"set); use --partition-method band")
+        rows0.append(int(gids[0]) if s.nowned else 0)
+        nowns.append(int(s.nowned))
+    P = prob.nparts
+    arrays = (np.asarray(rows0, np.int64), np.asarray(nowns, np.int64))
+    for t in op.tables:
+        t = t.cpu().double().numpy()
+        arrays = arrays + (np.broadcast_to(t, (P,) + t.shape).copy(),)
+    prob.local = StackedLocalBlock(format="matfree", arrays=arrays,
+                                   offsets=op.offsets,
+                                   nrows=prob.nmax_owned, operator=op)
+    prob.operator = op
+    return prob
+
+
 def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
                    use_kernel: bool, recv=None):
     """``spmv(x)`` for stacked x: the local block (kernel K1 batched over
@@ -453,8 +526,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     plane, the all_to_all analog) or ``"dma"`` (the one-sided puts of
     kernel K6; its plain version on the CPU).  ``kernels``: ``"auto"``
     takes the hand kernels (K1 batched over parts for DIA local blocks,
-    and K5 for the pipelined update) on CUDA in every dtype and plain
-    PyTorch on the CPU; ``"pallas"`` the kernels (their plain versions
+    K7 stacked over parts for an armed Poisson stencil, and K5 for the
+    pipelined update) on CUDA and plain PyTorch on the CPU; ``"pallas"`` the kernels (their plain versions
     on the CPU, ``"pallas-plain"``); ``"xla"`` plain PyTorch.  The ELL
     and binned-ELL local blocks, the ghost block and the pack/unpack
     gathers are plain PyTorch in every tier.  The receive plane of the
@@ -483,19 +556,28 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         self.pipelined = pipelined
         self.comm = comm
         on_cuda = self.device.type == "cuda"
-        is_dia = problem.local.format == "dia"
-        dia_ok = (problem.dtype, problem.vdtype) in K.DIA_SPMV_TYPES
+        # a local block with a kernel: DIA planes (K1 batched over parts)
+        # or the armed Poisson stencil (K7 stacked over parts); other
+        # stencils generate plain planes
+        if problem.local.format == "matfree":
+            has_kernel = problem.operator.kind == "poisson"
+            kernel_ok = (problem.dtype == problem.vdtype
+                         and problem.vdtype in K.STENCIL_TYPES)
+        else:
+            has_kernel = problem.local.format == "dia"
+            kernel_ok = (problem.dtype, problem.vdtype) in K.DIA_SPMV_TYPES
         if kernels == "fused":
             raise ValueError("kernels='fused' (the overlapped interior/"
                              "border tier) is not ported to the multi-part "
                              "tier yet; use kernels='auto'/'xla'/'pallas'")
         if kernels == "auto":
-            kernels = "pallas" if on_cuda and is_dia and dia_ok else "xla"
+            kernels = ("pallas" if on_cuda and has_kernel and kernel_ok
+                       else "xla")
         elif kernels == "pallas":
-            if is_dia and not dia_ok:
-                raise ValueError(f"kernels='pallas': no DIA kernel for "
-                                 f"{problem.dtype} planes with "
-                                 f"{problem.vdtype} vectors")
+            if has_kernel and not kernel_ok:
+                raise ValueError(f"kernels='pallas': no {problem.local.format}"
+                                 f" kernel for {problem.dtype} local blocks "
+                                 f"with {problem.vdtype} vectors")
             if not on_cuda:
                 kernels = "pallas-plain"
         if kernels not in ("xla", "pallas", "pallas-plain"):
@@ -565,7 +647,10 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         dbl = torch.empty((), dtype=prob.vdtype).element_size()
         mat_dbl = torch.empty((), dtype=prob.dtype).element_size()
         idx_b = 0 if prob.local.format == "dia" else 4
-        mat_read = prob.nnz_total * (mat_dbl + idx_b)
+        # matrix-free local blocks read no planes: the matrix term is the
+        # operator's O(grid-side) coefficient tables
+        mat_read = (prob.operator.table_bytes() if prob.operator is not None
+                    else prob.nnz_total * (mat_dbl + idx_b))
         ngemv = niter + 1
         st.ops["gemv"].add(ngemv, 0.0, (mat_read + 2 * n * dbl) * ngemv)
         st.ops["dot"].add(niter, 0.0, 2 * n * dbl * niter)

@@ -28,7 +28,10 @@ dots, and :class:`ChunkedCGSolver` holds the solve both tiers share.
 plain PyTorch formulation (what the JAX package leaves to XLA);
 ``"pallas"`` the hand-written CUDA kernels of :mod:`acg_tpu_torch.ops.
 kernels` (their plain versions for CPU tensors); ``"fused"`` the
-two-phase iteration on kernels K3/K4.
+two-phase iteration on kernels K3/K4.  A matrix-free operator
+(:mod:`acg_tpu_torch.ops.operator`) takes the place of the device matrix
+in the classic and pipelined loops: kernel K7 for the constant-
+coefficient Poisson stencil, its own torch apply for other operators.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from acg_tpu_torch._device import device_sync, resolve_device
 from acg_tpu_torch.errors import NotConvergedError
 from acg_tpu_torch.ops import kernels as K
+from acg_tpu_torch.ops.operator import is_matrix_free
 from acg_tpu_torch.ops.spmv import (DeviceMatrix, DiaMatrix, acc_dtype,
                                     matrix_dtype, matrix_index_bytes, spmv,
                                     spmv_flops)
@@ -127,16 +131,25 @@ class _State:
         self.__dict__.update(kw)
 
 
+def _stencil_kernel_ok(A) -> bool:
+    """A constant-coefficient Poisson operator: kernel K7 computes it."""
+    return is_matrix_free(A) and getattr(A, "kind", None) == "poisson"
+
+
 def _spmv_fn(kernels: str):
-    """The SpMV of a kernel choice: the hand-written DIA kernel for
-    square DIA matrices under "pallas"/"fused" (plain versions for CPU
-    tensors), the plain PyTorch formulation otherwise."""
+    """The SpMV of a kernel choice: under "pallas"/"fused" the hand-written
+    DIA kernel K1 for square DIA matrices and the stencil kernel K7 for
+    constant-coefficient Poisson operators (plain versions for CPU
+    tensors), the plain PyTorch formulation otherwise (other operators:
+    their own apply, ``acg_tpu/ops/pallas_kernels.py:798-800``)."""
     if kernels == "xla":
         return spmv
 
     def f(A, x):
         if isinstance(A, DiaMatrix) and A.ncols_padded == A.nrows:
             return K.dia_spmv(A.data, A.offsets, x, offsets_t=A.offsets_t)
+        if _stencil_kernel_ok(A):
+            return K.stencil_spmv(A, x)
         return spmv(A, x)
 
     return f
@@ -411,7 +424,8 @@ class TorchCGSolver(ChunkedCGSolver):
 
     * ``"auto"``: the hand-written kernels for square DIA matrices on CUDA,
       in every dtype (f64 included: the H100 has native f64, unlike the
-      TPU whose ``auto`` gate this drops); plain PyTorch otherwise.
+      TPU whose ``auto`` gate this drops), and K7 for constant-coefficient
+      Poisson operators; plain PyTorch otherwise.
     * ``"xla"``: plain PyTorch (what the JAX package leaves to XLA).
     * ``"pallas"``: the hand kernels (on the CPU their plain versions,
       resolved as ``"pallas-plain"``).
@@ -430,15 +444,27 @@ class TorchCGSolver(ChunkedCGSolver):
         self.pipelined = pipelined
         self.vector_dtype = vector_dtype
         vdt = self._solve_dtype()
+        if is_matrix_free(A) and vdt == torch.bfloat16:
+            raise ValueError(
+                "matrix-free operators generate their plane values in the "
+                "storage dtype and have no matrix HBM traffic for bf16 to "
+                "halve; use f32/f64 vectors (the assembled tiers keep the "
+                "bf16 contract)")
         square_dia = isinstance(A, DiaMatrix) and A.ncols_padded == A.nrows
         on_cuda = self.device.type == "cuda"
         dia_ok = square_dia and (A.dtype, vdt) in K.DIA_SPMV_TYPES
+        stencil_ok = (_stencil_kernel_ok(A) and vdt == A.dtype
+                      and vdt in K.STENCIL_TYPES)
         if kernels == "auto":
-            kernels = "pallas" if on_cuda and dia_ok else "xla"
+            kernels = "pallas" if on_cuda and (dia_ok or stencil_ok) \
+                else "xla"
         elif kernels == "pallas":
             if square_dia and not dia_ok:
                 raise ValueError(f"kernels='pallas': no DIA kernel for "
                                  f"{A.dtype} planes with {vdt} vectors")
+            if _stencil_kernel_ok(A) and not stencil_ok:
+                raise ValueError(f"kernels='pallas': no stencil kernel for "
+                                 f"a {A.dtype} operator with {vdt} vectors")
             if not on_cuda:
                 kernels = "pallas-plain"
         elif kernels == "fused":

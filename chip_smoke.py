@@ -14,7 +14,11 @@ checkout it sits in.  Phases, each of which raises on failure:
    K1 batched over the flagship's 4 band parts in every dtype, K5 on
    their flat stack (with and without the live flag), and K6 gated and
    dense on that 4-part halo plan, on the irregular matrix's 4-part
-   graph plan and on an 8-part all-pairs plane;
+   graph plan and on an 8-part all-pairs plane; K7 (the matrix-free
+   Poisson stencil) in f64 and f32 on 2D n = 2048, 3D n = 512, a ragged
+   3D n = 37 and 1D, bitwise against its plain version and against K1
+   on the same operator's assembled planes, and K7 stacked over the
+   flagship's 4 band parts against the generated planes through dia_mv;
 3. the paths through acg_tpu_torch.cli.main, with the kernels' launch
    counters reset before and read after each run: on gen:poisson2d:2048
    (a) classic f64 --kernels auto, (b) pipelined f64, (c) --kernels
@@ -24,7 +28,16 @@ checkout it sits in.  Phases, each of which raises on failure:
    classic f64, (f) the same with --comm xla (bitwise-equal x), (g)
    pipelined f64 --nparts 4 --comm dma, and (h) gen:irregular:262144
    --nparts 4 --partition-method graph (binned-ELL local blocks), run
-   twice for bitwise-equal x;
+   twice for bitwise-equal x; then the matrix-free tier: (i) (a) with
+   --operator stencil (the same iterations, x bitwise-equal to (a), K7
+   and no K1), (j) (b) with --operator stencil (bitwise-equal to (b), K7
+   and K5), (k) (e) with --operator stencil (bitwise-equal to (e),
+   stacked K7 and K6, no batched K1), (l) the gen-direct tier on
+   gen:poisson3d:512 (134M rows, no host matrix), 300 iterations
+   assembled on the device (K1) and with --operator stencil (K7), x
+   bitwise-equal, and (m) the single-device gather formats, binned ELL
+   with hub rows on gen:irregular:262144 and --spmv-format coo on
+   gen:irregular:65536, each solved twice to the same bits;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up),
    single-device and 4-part with each transport, and per-kernel medians
    of 50 CUDA-event-timed launches (after 50 ms of warm-up launches, L2
@@ -33,9 +46,13 @@ checkout it sits in.  Phases, each of which raises on failure:
    (cuSPARSE through torch.mv on a CSR tensor for the SpMVs, a
    transposing copy for K6, also timed on the irregular graph plan; the
    port never calls them); nvidia-smi's SM clock and power draw beside
-   them; a torch.profiler breakdown of the
-   4-part --comm dma solve by op, with the device's busy share; path
-   (h)'s SpMV split into local block, halo exchange and ghost block.
+   them; torch.profiler breakdowns of the 4-part --comm dma solve and of
+   the single-part --operator stencil solve by op, with the device's
+   busy share; path
+   (h)'s SpMV split into local block, halo exchange and ghost block;
+   K7 at 2048^2 and 512^3 in f64 and f32 beside K1 on the assembled
+   planes, and stacked K7 on the 4-part plan; classic f64 rates with
+   --operator stencil against assembled at 2048^2 and 512^3.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -69,7 +86,10 @@ FLAGSHIP = 2048
 MAIN_SPEC = f"gen:poisson2d:{FLAGSHIP}"
 NPARTS = 4
 IRREGULAR_SPEC = "gen:irregular:262144"
+COO_SPEC = "gen:irregular:65536"
+DIRECT_N = 512   # gen:poisson3d:512, the gen-direct tier's size
 LOG = []
+ITS = {}   # iterations of each phase-3 path, by path letter
 
 
 def say(msg: str) -> None:
@@ -389,6 +409,68 @@ def dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs):
         inputs[("halo_irr", kind)] = (send, icnt)
 
 
+def armed_parts(torch, prob):
+    """The flagship's 4-part band problem with the f64 Poisson stencil
+    armed (a copy: ``prob`` keeps its assembled local planes)."""
+    import dataclasses
+
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.parallel.dist import arm_matfree
+
+    return arm_matfree(dataclasses.replace(prob), poisson_stencil(
+        FLAGSHIP, 2, dtype=torch.float64, device="cuda"))
+
+
+def stencil_checks(torch, K, dev, mf, errs):
+    """K7 against its plain version (the shifted-view apply) and against
+    K1 on the same operator's device-built assembled planes, bitwise, in
+    f64 and f32 on the paths' grids (2D 2048, 3D 512) and on ragged ones
+    (3D 37, 1D); stacked K7 against the generated planes through dia_mv
+    on the flagship's 4-part band plan (real row0/nowned)."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.operator import poisson_stencil
+
+    g = torch.Generator(device=dev).manual_seed(777)
+    for label, n, dim in (("2d-2048", FLAGSHIP, 2), ("3d-512", DIRECT_N, 3),
+                          ("3d-37", 37, 3), ("1d-1000003", 1000003, 1)):
+        for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            op = poisson_stencil(n, dim, dtype=dt, device=dev)
+            x = torch.randn(op.nrows, generator=g, dtype=dt, device=dev)
+            y = K.stencil_spmv(op, x)
+            yr = K.stencil_spmv_plain(op, x)
+            torch.cuda.synchronize()
+            same = torch.equal(y, yr)
+            err = max_abs(y, yr)
+            del yr
+            planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
+                                                 device=dev)
+            y1 = K.dia_spmv(planes, offs, x, offsets_t=torch.tensor(
+                offs, device=dev))
+            torch.cuda.synchronize()
+            same_k1 = torch.equal(y, y1)
+            say(f"K7 stencil_spmv {label} {kind} (N={op.nrows}): y bitwise="
+                f"{same} vs plain, bitwise={same_k1} vs K1 on the "
+                f"assembled planes")
+            check(same and same_k1, f"K7 {label} {kind}")
+            errs[("stencil_spmv", kind)] = max(
+                err, errs.get(("stencil_spmv", kind), 0.0))
+            del x, y, y1, planes
+            torch.cuda.empty_cache()
+    row0, nowned = (torch.from_numpy(a).to(dev) for a in mf.local.arrays[:2])
+    for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        op = poisson_stencil(FLAGSHIP, 2, dtype=dt, device=dev)
+        x = torch.randn((mf.nparts, mf.nmax_owned), generator=g, dtype=dt,
+                        device=dev)
+        y = K.stencil_spmv(op, x, row0=row0, nowned=nowned)
+        yr = K.stencil_spmv_plain(op, x, row0, nowned)
+        torch.cuda.synchronize()
+        say(f"K7 stencil_spmv batched {mf.nparts}x{mf.nmax_owned} {kind} "
+            f"(row0 {row0.tolist()}, nowned {nowned.tolist()}): y bitwise="
+            f"{torch.equal(y, yr)}")
+        check(torch.equal(y, yr), f"K7 batched {kind}")
+        errs[("stencil_spmv_batched", kind)] = max_abs(y, yr)
+
+
 # -- phase 3: the main path through the CLI ------------------------------
 
 def run_cli(torch, K, argv, tag):
@@ -439,6 +521,7 @@ def main_path(torch, K, tmp, csr, irr):
         "--max-iterations", "20000", "-o", out], "a-classic-f64")
     its = int(stat(text, "iterations").replace(",", ""))
     stat_of = {"a": its}
+    ITS["a"] = its
     res = true_rel_residual(read_x(out))
     say(f"path a: {its} iterations, true relative residual {res:.3e} "
         f"(limit 1e-7), solver time {stat(text, 'total solver time')}")
@@ -453,6 +536,7 @@ def main_path(torch, K, tmp, csr, irr):
         "--max-iterations", "20000", "--solver", "acg-pipelined",
         "-o", out], "b-pipelined-f64")
     its = int(stat(text, "iterations").replace(",", ""))
+    ITS["b"] = its
     res = true_rel_residual(read_x(out))
     say(f"path b: {its} iterations, true relative residual {res:.3e} "
         f"(limit 1e-6), solver time {stat(text, 'total solver time')}")
@@ -505,7 +589,119 @@ def main_path(torch, K, tmp, csr, irr):
     paths["d"] = c
     its_a = int(stat_of["a"])
     paths.update(multipart_paths(torch, K, tmp, base, b, csr, its_a, irr))
+    paths.update(matfree_paths(torch, K, tmp, base, paths))
+    paths.update(gen_direct_paths(torch, K, tmp))
+    paths.update(reproducible_gather_paths(torch, K, tmp, irr))
     return paths
+
+
+def matfree_paths(torch, K, tmp, base, paths):
+    """(i)-(k): paths (a), (b) and (e) again with --operator stencil: the
+    same iterations and bits, K7 (stacked over parts for (k)) in place of
+    K1, launched as often as K1 was."""
+    out = {}
+    for tag, ref, k1, extra in (
+            ("i", "a", "dia_spmv", []),
+            ("j", "b", "dia_spmv", ["--solver", "acg-pipelined"]),
+            ("k", "e", "dia_spmv_batched", ["--nparts", str(NPARTS),
+                                            "--comm", "dma"])):
+        k7 = "stencil_spmv_batched" if tag == "k" else "stencil_spmv"
+        x_out = os.path.join(tmp, f"{tag}.bin")
+        rc, text, c = run_cli(torch, K, base + [
+            "--manufactured-solution", "--residual-rtol", "1e-8",
+            "--max-iterations", "20000", "--operator", "stencil", "-o",
+            x_out] + extra, f"{tag}-operator-of-{ref}")
+        its = int(stat(text, "iterations").replace(",", ""))
+        same = np.array_equal(read_x(x_out),
+                              read_x(os.path.join(tmp, f"{ref}.bin")))
+        say(f"path {tag}: {its} iterations (path {ref}: {ITS[ref]}), x "
+            f"bitwise equal to path {ref} = {same}; {k7} launches "
+            f"{c[k7]} ({ref}'s {k1}: {paths[ref][k1]}), {k1} launches "
+            f"{c[k1]}, solver time {stat(text, 'total solver time')}")
+        check(rc == 0 and its == ITS[ref] and same,
+              f"path {tag} == path {ref}: iterations and bits")
+        check(c[k7] == paths[ref][k1] and c[k1] == 0 and c["dia_spmv"] == 0,
+              f"path {tag} ran K7 where {ref} ran K1, and no K1")
+        if tag == "j":
+            check(c["pipelined_update"] == paths["b"]["pipelined_update"],
+                  "path j went through K5 as path b did")
+        if tag == "k":
+            check(c["halo_put"] == paths["e"]["halo_put"],
+                  "path k went through K6 as path e did")
+        out[tag] = c
+    return out
+
+
+def gen_direct_paths(torch, K, tmp):
+    """(l): gen:poisson3d:512 (134,217,728 rows) through the gen-direct
+    tier, 300 iterations with no tolerance: DIA planes built on the
+    device (K1), then --operator stencil (K7); the two x bitwise-equal,
+    and no host matrix built."""
+    spec = f"gen:poisson3d:{DIRECT_N}"
+    argv = [spec, "--warmup", "0", "-v", "--max-iterations", "300",
+            "--residual-rtol", "0"]
+    xs, counts = [], {}
+    for tag, extra, kern in (("l-assembled", [], "dia_spmv"),
+                             ("l-operator", ["--operator", "stencil"],
+                              "stencil_spmv")):
+        x_out = os.path.join(tmp, f"{tag}.bin")
+        torch.cuda.reset_peak_memory_stats()
+        rc, text, c = run_cli(torch, K, argv + extra + ["-o", x_out], tag)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        direct = [ln for ln in text.splitlines() if "gen-direct" in ln]
+        say(f"path {tag}: {stat(text, 'iterations')} iterations, solver "
+            f"time {stat(text, 'total solver time')}, {kern} launches "
+            f"{c[kern]}, peak device memory {peak:.2f} GiB; "
+            f"{direct[0] if direct else 'no gen-direct line'}")
+        check(rc == 0 and direct and "no host matrix" in direct[0]
+              and "synthesizing" not in text,
+              f"path {tag} took the gen-direct tier with no host matrix")
+        check(c[kern] == 301 and sum(c.values()) == 301,
+              f"path {tag}: 301 launches of {kern} and no other kernel")
+        x = read_x(x_out)
+        os.remove(x_out)
+        check(x.shape == (DIRECT_N ** 3,) and bool(np.isfinite(x).all()),
+              f"path {tag}: a finite x of N rows")
+        xs.append(x)
+        counts[tag] = c
+    same = np.array_equal(xs[0], xs[1])
+    say(f"path l: operator x bitwise equal to assembled x = {same}")
+    check(same, "path l: operator == assembled, bitwise")
+    return {"l": {k: counts["l-assembled"][k] + counts["l-operator"][k]
+                  for k in counts["l-assembled"]}}
+
+
+def reproducible_gather_paths(torch, K, tmp, irr):
+    """(m): the single-device gather formats solved twice each to the
+    same bits -- binned ELL with hub rows in its tail on the irregular
+    matrix, and --spmv-format coo on a smaller one."""
+    A = irr[0]
+    row_nnz = np.diff(A.indptr)
+    out = {}
+    for tag, spec, extra in (("m-bell", IRREGULAR_SPEC, []),
+                             ("m-coo", COO_SPEC, ["--spmv-format", "coo"])):
+        argv = [spec, "--warmup", "0", "-q", "--comm", "none",
+                "--manufactured-solution", "--residual-rtol", "1e-8",
+                "--max-iterations", "20000"] + extra
+        runs = []
+        for k in range(2):
+            x_out = os.path.join(tmp, f"{tag}{k}.bin")
+            rc, text, c = run_cli(torch, K, argv + ["-o", x_out],
+                                  f"{tag}-run{k}")
+            check(rc == 0, f"path {tag} run {k} converged")
+            runs.append((int(stat(text, "iterations").replace(",", "")),
+                         read_x(x_out), stat(text, "total solver time")))
+        same = runs[0][0] == runs[1][0] and np.array_equal(runs[0][1],
+                                                            runs[1][1])
+        hubs = (f", {int((row_nnz > 512).sum())} hub rows past the widest "
+                f"bin (512; longest {int(row_nnz.max())})"
+                if tag == "m-bell" else "")
+        say(f"path {tag}: {spec}{hubs}: {runs[0][0]} / {runs[1][0]} "
+            f"iterations, x bitwise equal across the two runs = {same}, "
+            f"solver times {runs[0][2]} / {runs[1][2]}")
+        check(same, f"path {tag}: the same iterations and bits twice")
+        out[tag] = c
+    return out
 
 
 def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
@@ -529,6 +725,7 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
     rc, text, c = run_cli(torch, K, mp + ["--comm", "dma", "-o", out_e],
                           "e-4part-dma-f64")
     its = int(stat(text, "iterations").replace(",", ""))
+    ITS["e"] = its
     res = true_rel_residual(csr, b, read_x(out_e))
     say(f"path e: {its} iterations (single part: {its_a}), true relative "
         f"residual {res:.3e} (limit 1e-7), solver time "
@@ -614,16 +811,22 @@ def solve_rates(torch, dev, card):
     from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
     from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
 
+    from acg_tpu_torch.ops.operator import poisson_stencil
+
     planes, offsets, N = poisson_dia(FLAGSHIP, 2)
     meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
     rates = {}
     for name, dtype, pipelined, kernels in (
             ("classic f64", torch.float64, False, "auto"),
+            ("classic f64 --operator stencil", torch.float64, False, "auto"),
             ("classic f32", torch.float32, False, "auto"),
             ("pipelined f64", torch.float64, True, "auto"),
             ("classic f64 plain torch", torch.float64, False, "xla")):
-        A = device_matrix_from_arrays("dia", planes, meta, dtype=dtype,
-                                      device=dev)
+        if "operator" in name:
+            A = poisson_stencil(FLAGSHIP, 2, dtype=dtype, device=dev)
+        else:
+            A = device_matrix_from_arrays("dia", planes, meta, dtype=dtype,
+                                          device=dev)
         s = TorchCGSolver(A, pipelined=pipelined, kernels=kernels,
                           device=dev)
         b = np.ones(N)
@@ -641,6 +844,42 @@ def solve_rates(torch, dev, card):
         del A, s
         torch.cuda.empty_cache()
     return rates
+
+
+def direct_rates(torch, dev, card, nits: int = 100):
+    """Classic f64 at 512^3 (the gen-direct size): the device-built
+    assembled planes (K1) against the operator (K7), ``nits`` fixed
+    iterations after a 10-iteration warm-up, three timed solves each,
+    in turns."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.ops.spmv import DiaMatrix
+    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
+
+    planes, offs, N = poisson_dia_device(DIRECT_N, 3, dtype=torch.float64,
+                                         device=dev)
+    solvers = {"assembled (K1)": TorchCGSolver(DiaMatrix(planes, offs, N, N),
+                                               device=dev),
+               "--operator stencil (K7)": TorchCGSolver(poisson_stencil(
+                   DIRECT_N, 3, dtype=torch.float64, device=dev),
+                   device=dev)}
+    b = torch.ones(N, dtype=torch.float64, device=dev)
+    runs = {k: [] for k in solvers}
+    for s in solvers.values():
+        s.solve(b, criteria=StoppingCriteria(maxits=10), host_result=False)
+    for _ in range(3):
+        for k, s in solvers.items():
+            s.stats.tsolve = 0.0
+            s.solve(b, criteria=StoppingCriteria(maxits=nits),
+                    host_result=False)
+            runs[k].append(nits / s.stats.tsolve)
+    for k, r in runs.items():
+        say(f"solve rate classic f64 gen:poisson3d:{DIRECT_N} {k}: "
+            f"{', '.join(f'{v:.2f}' for v in r)} iters/s (median "
+            f"{np.median(r):.2f}; {nits} iterations after a 10-iteration "
+            f"warm-up, in turns; {card})")
+    del solvers, planes, b
+    torch.cuda.empty_cache()
 
 
 def dist_rates(torch, dev, card, prob):
@@ -707,19 +946,16 @@ def irregular_spmv_times(torch, dev, card, irr):
     torch.cuda.empty_cache()
 
 
-def dist_profile(torch, dev, card, prob, nits: int = 100):
-    """Where the time of the 4-part --comm dma classic f64 solve goes:
-    torch.profiler over ``nits`` iterations (after a 50-iteration
-    warm-up), the ops by device time, and the device's busy share of
-    the profiled wall time.  Reports "not measured" when the profiler
-    records no device time."""
+def profile_solve(torch, card, label, s, n, nits: int = 100):
+    """Where the time of solver ``s``'s solve goes: torch.profiler over
+    ``nits`` iterations (after a 50-iteration warm-up), the ops by
+    device time, and the device's busy share of the profiled wall time.
+    Reports "not measured" when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from acg_tpu_torch.parallel.dist import DistCGSolver
     from acg_tpu_torch.solvers import StoppingCriteria
 
-    s = DistCGSolver(prob, comm="dma", device=dev)
-    b = np.ones(prob.n)
+    b = np.ones(n)
     s.solve(b, criteria=StoppingCriteria(maxits=50))
     torch.cuda.synchronize()
     try:
@@ -730,8 +966,7 @@ def dist_profile(torch, dev, card, prob, nits: int = 100):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     except RuntimeError as e:   # a profiler that cannot trace the card
-        say(f"profile {prob.nparts}-part dma classic f64: the profiler "
-            f"failed ({e}); not measured")
+        say(f"profile {label}: the profiler failed ({e}); not measured")
         return
     # device-side events only (kernels and copies; a CPU op's device
     # time repeats its kernels'), without the profiler's own buffers
@@ -746,10 +981,9 @@ def dist_profile(torch, dev, card, prob, nits: int = 100):
             rows.append((dt, ev.count, ev.key))
     busy_us = sum(r[0] for r in rows)
     if not rows:
-        say(f"profile {prob.nparts}-part dma classic f64: no device time "
-            f"recorded (not measured)")
+        say(f"profile {label}: no device time recorded (not measured)")
         return
-    say(f"profile {prob.nparts}-part dma classic f64, {nits} iterations "
+    say(f"profile {label}, {nits} iterations "
         f"(setup included): wall under the profiler "
         f"{wall * 1e6 / nits:.1f} us/iteration, device busy "
         f"{busy_us / nits:.1f} us/iteration ({busy_us / (wall * 1e6):.1%} "
@@ -760,7 +994,7 @@ def dist_profile(torch, dev, card, prob, nits: int = 100):
             f"launches/iteration  {key[:100]}")
 
 
-def kernel_times(torch, K, inputs, errs, paths, csr, card, prob):
+def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
     N = FLAGSHIP ** 2
     out = []
 
@@ -803,14 +1037,7 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob):
         if kind != "mixed":   # no one call takes bf16 planes with f32 x
             dt = {"f64": torch.float64, "f32": torch.float32,
                   "bf16": torch.bfloat16}[kind]
-            with warnings.catch_warnings():
-                # PyTorch flags its sparse CSR layout as beta on creation
-                warnings.simplefilter("ignore", UserWarning)
-                At = torch.sparse_csr_tensor(
-                    torch.from_numpy(csr.indptr.astype(np.int64)),
-                    torch.from_numpy(csr.indices.astype(np.int64)),
-                    torch.from_numpy(csr.data).to(dt), size=csr.shape
-                ).to(x.device)
+            At = csr_tensor(torch, csr, dt, x.device)
             try:
                 lib = median_ms(torch, lambda: torch.mv(At, x))
             except RuntimeError as err:   # bf16 CSR: recorded, not timed
@@ -862,6 +1089,90 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob):
                            plain, 13 * N * item[kind], 12 * N, None)
     out.append(pipe["f64"])
     out.extend(dist_kernel_times(torch, K, inputs, prob, entry, item))
+    out.extend(stencil_times(torch, K, csr, mf, entry))
+    return out
+
+
+def csr_tensor(torch, csr, dtype, device):
+    """A scipy CSR as a PyTorch sparse CSR tensor (the cuSPARSE
+    yardstick; the port never multiplies with one)."""
+    with warnings.catch_warnings():
+        # PyTorch flags its sparse CSR layout as beta on creation
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int64)),
+            torch.from_numpy(csr.indices.astype(np.int64)),
+            torch.from_numpy(csr.data).to(dtype), size=csr.shape
+        ).to(device)
+
+
+def stencil_times(torch, K, csr, mf, entry):
+    """K7 against its bound, its plain version and one library call: at
+    2048^2 (cuSPARSE through torch.mv on the assembled CSR, as for K1)
+    and 512^3 (K1 on the device-built planes beside it; no CSR of 940M
+    nonzeros is built), in f64 and f32; stacked K7 on the 4-part plan
+    (cuSPARSE on the block-diagonal CSR of the local blocks, as for
+    batched K1).  Returns the f64 entries of the single and stacked
+    forms."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.operator import poisson_stencil
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(99)
+    src = "acg_tpu_torch/csrc/stencil_spmv.cu"
+    rep = "acg_tpu/ops/pallas_kernels.py:759"
+    out = []
+    for label, n, dim in (("2d-2048", FLAGSHIP, 2), ("3d-512", DIRECT_N, 3)):
+        for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            op = poisson_stencil(n, dim, dtype=dt, device=dev)
+            N = op.nrows
+            item = torch.empty((), dtype=dt).element_size()
+            x = torch.randn(N, generator=g, dtype=dt, device=dev)
+            ms = median_ms(torch, lambda: K.stencil_spmv(op, x))
+            plain = median_ms(torch, lambda: K.stencil_spmv_plain(op, x))
+            extra, lib = {}, None
+            planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
+                                                 device=dev)
+            ot = torch.tensor(offs, device=dev)
+            D = len(offs)
+            extra["k1_ms"] = round(median_ms(torch, lambda: K.dia_spmv(
+                planes, offs, x, offsets_t=ot)), 6)
+            extra["k1_bound_ms"] = round(bound_ms((D + 2) * N * item,
+                                                  2 * D * N, kind)[0], 6)
+            del planes
+            torch.cuda.empty_cache()
+            if label == "2d-2048":
+                At = csr_tensor(torch, csr, dt, dev)
+                lib = median_ms(torch, lambda: torch.mv(At, x))
+                del At
+            e = entry("stencil_spmv", src, rep, kind, ms, plain,
+                      2 * N * item, 2 * (2 * dim + 1) * N, lib,
+                      shape=f"{label} N={N}", **extra)
+            if label == "2d-2048" and kind == "f64":
+                out.append(e)
+            del x
+            torch.cuda.empty_cache()
+    row0, nowned = (torch.from_numpy(a).to(dev) for a in mf.local.arrays[:2])
+    bd = _block_diag_csr(mf)
+    NP = mf.nparts * mf.nmax_owned
+    for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        op = poisson_stencil(FLAGSHIP, 2, dtype=dt, device=dev)
+        item = torch.empty((), dtype=dt).element_size()
+        x = torch.randn((mf.nparts, mf.nmax_owned), generator=g, dtype=dt,
+                        device=dev)
+        ms = median_ms(torch, lambda: K.stencil_spmv(op, x, row0=row0,
+                                                     nowned=nowned))
+        plain = median_ms(torch, lambda: K.stencil_spmv_plain(
+            op, x, row0, nowned))
+        At = csr_tensor(torch, bd, dt, dev)
+        xf = x.reshape(-1)
+        lib = median_ms(torch, lambda: torch.mv(At, xf))
+        del At
+        e = entry("stencil_spmv_batched", src, rep, kind, ms, plain,
+                  2 * NP * item + 2 * mf.nparts * 8, 2 * 5 * NP, lib,
+                  shape=f"{mf.nparts}x{mf.nmax_owned}")
+        if kind == "f64":
+            out.append(e)
     return out
 
 
@@ -886,6 +1197,7 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
     out = []
     NP = prob.nparts * prob.nmax_owned
     kb = {}
+    bd = _block_diag_csr(prob)
     for kind in ("f64", "f32", "mixed", "bf16"):
         P, offsets, ot, x = inputs[("dia_b", kind)]
         D = P.shape[0]
@@ -894,22 +1206,19 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
         ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x,
                                                  offsets_t=ot))
         plain = median_ms(torch, lambda: K.dia_spmv_plain(P, offsets, x))
-        lib = None
-        if kind == "f64":
-            bd = _block_diag_csr(prob)
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", UserWarning)
-                At = torch.sparse_csr_tensor(
-                    torch.from_numpy(bd.indptr.astype(np.int64)),
-                    torch.from_numpy(bd.indices.astype(np.int64)),
-                    torch.from_numpy(bd.data), size=bd.shape).to(x.device)
+        lib, lib_note = None, {}
+        if kind != "mixed":   # no one call takes bf16 planes with f32 x
+            At = csr_tensor(torch, bd, x.dtype, x.device)
             xf = x.reshape(-1)
-            lib = median_ms(torch, lambda: torch.mv(At, xf))
+            try:
+                lib = median_ms(torch, lambda: torch.mv(At, xf))
+            except RuntimeError as err:   # recorded, not timed
+                lib_note = {"library_error": str(err).splitlines()[0][:160]}
             del At
         kb[kind] = entry("dia_spmv_batched", "acg_tpu_torch/csrc/dia_spmv.cu",
                          "acg_tpu/ops/pallas_kernels.py:379", kind, ms, plain,
                          D * NP * pb + 2 * NP * xb, 2 * D * NP, lib,
-                         shape=f"{prob.nparts}x{prob.nmax_owned}")
+                         shape=f"{prob.nparts}x{prob.nmax_owned}", **lib_note)
     out.append(kb["f64"])
     k6 = {}
     # the flagship's band plan (the JSON entry) and, logged only, the
@@ -970,6 +1279,8 @@ def main() -> int:
     prob = flagship_parts(csr)
     irr = irregular_parts()
     dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs)
+    mf = armed_parts(torch, prob)
+    stencil_checks(torch, K, dev, mf, errs)
     torch.cuda.synchronize()
     say(f"phase 2 (kernels vs plain) passed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -985,11 +1296,22 @@ def main() -> int:
     t0 = time.perf_counter()
     solve_rates(torch, dev, card)
     dist_rates(torch, dev, card, prob)
-    dist_profile(torch, dev, card, prob)
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import TorchCGSolver
+
+    profile_solve(torch, card, f"{prob.nparts}-part dma classic f64",
+                  DistCGSolver(prob, comm="dma", device=dev), prob.n)
+    profile_solve(torch, card, "single part classic f64 --operator "
+                  "stencil (K7)", TorchCGSolver(poisson_stencil(
+                      FLAGSHIP, 2, dtype=torch.float64, device=dev),
+                      device=dev), FLAGSHIP ** 2)
     irregular_spmv_times(torch, dev, card, irr)
     say(f"clocks after the solve rates (sm, max sm, draw, limit): "
         f"{clocks_line()}")
-    kernels = kernel_times(torch, K, inputs, errs, paths, csr, card, prob)
+    direct_rates(torch, dev, card)
+    kernels = kernel_times(torch, K, inputs, errs, paths, csr, card, prob,
+                           mf)
     say(f"clocks after the kernel times (sm, max sm, draw, limit): "
         f"{clocks_line()}")
     say(f"phase 4 (times) done in {time.perf_counter() - t0:.1f} s")

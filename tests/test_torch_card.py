@@ -218,3 +218,145 @@ def test_hub_rows_solve_on_card_is_reproducible(dev):
           for d in ("cpu", dev, dev)]
     assert np.array_equal(xs[1], xs[2])
     assert np.linalg.norm(xs[1] - xs[0]) <= 1e-10 * np.linalg.norm(xs[0])
+
+
+def _stencil_band_problem(n, dim, nparts=4):
+    """A Poisson band problem on ``nparts`` parts with the stencil armed
+    (f64), and the same problem with assembled local planes."""
+    from acg_tpu_torch.matrix import SymCsrMatrix
+    from acg_tpu_torch.io.generators import poisson_mtx
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.parallel.dist import DistributedProblem, arm_matfree
+    from acg_tpu_torch.partition import partition_rows
+
+    csr = SymCsrMatrix.from_mtx(poisson_mtx(n, dim=dim)).to_csr()
+    part = partition_rows(csr, nparts, method="band")
+    asm = DistributedProblem.build(csr, part, nparts)
+    mf = DistributedProblem.build(csr, part, nparts)
+    arm_matfree(mf, poisson_stencil(n, dim, dtype=torch.float64,
+                                    device="cpu"))
+    return csr, asm, mf
+
+
+def test_stencil_kernel_matches_plain_and_k1_on_card(dev):
+    """K7 bitwise against its plain version (the shifted-view apply) and
+    against K1 on the same operator's assembled planes, in f32 and f64,
+    on 1D, 2D and 3D grids with ragged N; stacked K7 bitwise against the
+    generated planes through dia_mv on a 4-part band plan."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.operator import poisson_stencil
+
+    g = torch.Generator().manual_seed(3)
+    for n, dim in ((1000, 1), (64, 2), (37, 2), (37, 3), (16, 3)):
+        for dt in K.STENCIL_TYPES:
+            op = poisson_stencil(n, dim, dtype=dt, device=dev)
+            x = torch.randn(op.nrows, generator=g,
+                            dtype=torch.float64).to(dev, dt)
+            y = K.stencil_spmv(op, x)
+            assert torch.equal(y, K.stencil_spmv_plain(op, x))
+            planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
+                                                 device=dev)
+            assert torch.equal(y, K.dia_spmv(planes, offs, x, offsets_t=
+                                             torch.tensor(offs, device=dev)))
+    for n, dim in ((64, 2), (16, 3)):
+        _, _, mf = _stencil_band_problem(n, dim)
+        row0, nowned = (torch.from_numpy(a).to(dev)
+                        for a in mf.local.arrays[:2])
+        for dt in K.STENCIL_TYPES:
+            op = poisson_stencil(n, dim, dtype=dt, device=dev)
+            x = torch.randn((4, mf.nmax_owned), generator=g,
+                            dtype=torch.float64).to(dev, dt)
+            got = K.stencil_spmv(op, x, row0=row0, nowned=nowned)
+            want = K.stencil_spmv_plain(op, x, row0, nowned)
+            assert torch.equal(got, want)
+
+
+def test_stencil_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from acg_tpu_torch.ops.operator import aniso2d_stencil, poisson_stencil
+
+    op = poisson_stencil(8, 2, dtype=torch.float32, device=dev)
+    x = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="one of"):
+        K.stencil_spmv(op, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="64-vectors"):
+        K.stencil_spmv(op, torch.zeros(65, device=dev))
+    with pytest.raises(ValueError, match="for a torch.float32 operator"):
+        K.stencil_spmv(op, x.double())
+    with pytest.raises(ValueError, match="Poisson"):
+        K.stencil_spmv(aniso2d_stencil(8, 0.5, device=dev), x)
+    r0 = torch.zeros(2, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="row0"):
+        K.stencil_spmv(op, torch.zeros((2, 32), device=dev), row0=r0.int(),
+                       nowned=r0)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_operator_solve_on_card_equals_assembled_k1_solve(dev, pipelined):
+    """An operator solve on the card runs K7 (no K1) and gives the
+    iterations and bits of the assembled K1 solve, on one part and on 4
+    stacked parts with --comm dma."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.ops.spmv import DiaMatrix
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+
+    n = 96
+    b = np.random.default_rng(7).standard_normal(n * n)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-10)
+    planes, offs, N = poisson_dia_device(n, 2, dtype=torch.float64,
+                                         device=dev)
+    out = []
+    for A in (DiaMatrix(planes, offs, N, N),
+              poisson_stencil(n, 2, dtype=torch.float64, device=dev)):
+        K.reset_launches()
+        s = TorchCGSolver(A, pipelined=pipelined, device=dev)
+        out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                    dict(K.launches)))
+    (xa, ka, la), (xm, km, lm) = out
+    assert ka == km and np.array_equal(xa, xm)
+    assert la["stencil_spmv"] == 0 and lm["dia_spmv"] == 0
+    assert lm["stencil_spmv"] == la["dia_spmv"] >= km
+    _, asm, mf = _stencil_band_problem(n, 2)
+    out = []
+    for prob in (asm, mf):
+        K.reset_launches()
+        s = DistCGSolver(prob, pipelined=pipelined, comm="dma", device=dev)
+        out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                    dict(K.launches)))
+    (xa, ka, la), (xm, km, lm) = out
+    assert ka == km and np.array_equal(xa, xm)
+    assert lm["dia_spmv_batched"] == 0
+    assert lm["stencil_spmv_batched"] == la["dia_spmv_batched"] >= km
+    assert lm["halo_put"] == la["halo_put"] > 0
+
+
+@pytest.mark.parametrize("fmt", ["coo", "bell"])
+def test_single_device_gather_formats_are_reproducible_on_card(dev, fmt):
+    """COO and binned ELL (with hub rows past the widest bin) on one part:
+    two solves on the card give the same bits, within 1e-10 of the CPU
+    solve -- no row is summed through float atomics."""
+    import scipy.sparse as sp
+
+    from acg_tpu_torch.io.generators import irregular_spd_coo
+    from acg_tpu_torch.matrix import SymCsrMatrix
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+
+    r, c, v, n = irregular_spd_coo(3000, avg_degree=6.0, seed=0)
+    csr = SymCsrMatrix.from_coo(n, r, c, v).to_csr()
+    hub = np.repeat([10, 1600], 700)
+    nb = np.concatenate([np.arange(11, 711), np.arange(1601, 2301)])
+    H = sp.csr_matrix((np.full(2 * hub.size, -0.01),
+                       (np.r_[hub, nb], np.r_[nb, hub])), shape=(n, n))
+    csr = (csr + H + sp.diags(np.asarray(abs(H).sum(axis=1)).ravel())
+           ).tocsr()
+    b = csr @ np.random.default_rng(2).standard_normal(n)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-10)
+    xs = []
+    for d in ("cpu", dev, dev):
+        A = device_matrix_from_csr(csr, dtype=torch.float64, format=fmt,
+                                   device=d)
+        if fmt == "bell":
+            assert A.tail_rows.numel() > 0   # hub rows in the tail
+        xs.append(TorchCGSolver(A, device=d).solve(b, criteria=crit))
+    assert np.array_equal(xs[1], xs[2])
+    assert np.linalg.norm(xs[1] - xs[0]) <= 1e-10 * np.linalg.norm(xs[0])

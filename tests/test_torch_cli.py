@@ -189,9 +189,16 @@ def test_cli_refuses_flags_of_other_tiers(flag, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_cli_refuses_gen_direct_sizes():
-    with pytest.raises(SystemExit, match="gen-direct tier"):
-        torch_main(["gen:poisson3d:300", "--device", "cpu"])
+@pytest.mark.parametrize("flag", [["--nparts", "4"],
+                                  ["--manufactured-solution"]])
+def test_cli_refuses_gen_direct_sizes(flag):
+    """Above 2^24 rows a gen: spec takes the gen-direct tier; its sharded
+    branch (parts, manufactured solutions) is refused by name before any
+    device work."""
+    with pytest.raises(SystemExit, match="the sharded gen-direct tier "
+                                         r"\(parallel/sharded_dia\) is not "
+                                         "yet ported"):
+        torch_main(["gen:poisson3d:300", "--device", "cpu"] + flag)
 
 
 _NO_JAX = """
@@ -213,6 +220,14 @@ assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--manufactured-solution", "--solver", "acg-pipelined",
              "--nparts", "3", "--comm", "dma", "--kernels", "pallas",
              "--max-iterations", "300"]) == 0
+for extra in (["--nparts", "3", "--comm", "dma"], ["--comm", "none"]):
+    assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
+                 "0", "--operator", "stencil", "--kernels", "pallas",
+                 "--max-iterations", "300"] + extra) == 0
+import os
+os.environ["ACG_TPU_GEN_DIRECT_MIN"] = "100"
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
+             "--operator", "stencil", "--max-iterations", "300"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded

@@ -324,7 +324,7 @@ def test_kernel_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
         log = (lib.parent / "build.log").read_text()
         srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
         assert srcs == ["cg_fused.cu", "dia_spmv.cu", "halo_put.cu",
-                        "pipelined_update.cu"]
+                        "pipelined_update.cu", "stencil_spmv.cu"]
         assert all(f"-c {_build.CSRC / s}" in log for s in srcs)
         assert "sm_90a" in log and "--fmad=false" in log
     else:

@@ -182,3 +182,31 @@ def test_matrix_construction_refuses_missing_card(poisson16):
     from acg_tpu_torch.errors import AcgError
     with pytest.raises(AcgError, match="no CUDA device"):
         tspmv.device_matrix_from_csr(poisson16)
+
+
+@pytest.mark.parametrize("case", ["irregular", "hub", "empty-rows"])
+def test_padded_rows_write_each_row_once(case, irregular):
+    """The padded-row layout of COO entries and of the binned-ELL hub
+    tail: every row in exactly one group, its entry positions in index
+    order (-1 padding after), padding under 2x -- the layout that keeps
+    the single-device SpMV free of scatter-adds, so every run on the
+    card gives the same bits; and the COO SpMV on it equals scipy's."""
+    csr = {"irregular": irregular, "hub": _arrow(1500),
+           "empty-rows": sp.csr_matrix(sp.diags(
+               np.r_[np.zeros(5), np.ones(5)]))}[case]
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    groups = tspmv.padded_rows(rows)
+    dst = np.concatenate([d for d, _ in groups])
+    assert np.array_equal(np.sort(dst), np.flatnonzero(np.diff(csr.indptr)))
+    slots = sum(idx.size for _, idx in groups)
+    assert csr.nnz <= slots < 2 * csr.nnz
+    for d, idx in groups:
+        for r, irow in zip(d, idx):
+            lo, hi = csr.indptr[r], csr.indptr[r + 1]
+            assert np.array_equal(irow[:hi - lo], np.arange(lo, hi))
+            assert (irow[hi - lo:] == -1).all()
+    A = tspmv.device_matrix_from_csr(csr, dtype=torch.float64, format="coo",
+                                     device=CPU)
+    x = np.random.default_rng(2).standard_normal(csr.shape[0])
+    np.testing.assert_allclose(tspmv.spmv(A, torch.from_numpy(x)).numpy(),
+                               csr @ x, rtol=1e-13, atol=1e-13)
