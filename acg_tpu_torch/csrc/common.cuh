@@ -76,6 +76,25 @@ void reduce_partials(const T* part, long long m, T* out, cudaStream_t s) {
   reduce_partials_kernel<T><<<1, kReduceBlock, 0, s>>>(part, m, out);
 }
 
+// the 16 bytes starting `delta` bytes into a ++ b (delta in 0..15, a
+// multiple of 2): a branch-free word select and funnel shift
+__device__ __forceinline__ uint4 shift16(uint4 a, uint4 b, int delta) {
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int ws = delta >> 2, bs = (delta & 3) * 8;
+  unsigned out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned lo = w[k], hi = w[k + 1];
+#pragma unroll
+    for (int m = 1; m < 4; ++m) {
+      lo = ws == m ? w[k + m] : lo;
+      hi = ws == m ? w[k + m + 1] : hi;
+    }
+    out[k] = __funnelshift_r(lo, hi, bs);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
 inline unsigned int row_blocks(long long n) {
   return static_cast<unsigned int>((n + kBlock - 1) / kBlock);
 }

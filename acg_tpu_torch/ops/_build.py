@@ -37,9 +37,10 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)   # a host int64 array
 # argtypes of every exported function; each returns cudaGetLastError()
 _SIGNATURES = {
-    "acg_dia_spmv": (_I, _I, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P),
+    "acg_dia_spmv": (_I, _I, _P, _LP, _I, _L, _P, _P, _P, _P, _P),
     "acg_cg_phase_a": (_I, _I, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P),
     "acg_cg_phase_b": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),

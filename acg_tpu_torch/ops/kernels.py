@@ -38,17 +38,21 @@ configurations (the CUDA kernels themselves take any shape).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
 from acg_tpu_torch.ops import _build
-from acg_tpu_torch.ops.spmv import acc_dtype, dia_mv, dia_mv_acc
+from acg_tpu_torch.ops.spmv import MAX_DIAGS, acc_dtype, dia_mv, dia_mv_acc
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
             "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
             "stencil_spmv": 0, "stencil_spmv_batched": 0}
 
-_BLOCK = 256  # csrc/common.cuh kBlock: rows per block, partial-sum count
+_BLOCK = 256  # csrc/common.cuh kBlock: threads per block (K3/K4: rows)
 
 
 def reset_launches() -> None:
@@ -93,7 +97,7 @@ def _check_scalars(name, dtype, dev, *scalars):
                              f"{tuple(s.shape)} on {s.device}")
 
 
-def _check_planes(name, planes, offsets_t, n, dev, allowed):
+def _check_planes(name, planes, n, dev, allowed):
     if planes.device != dev or planes.dim() != 2 \
             or planes.shape[1] != n or not planes.is_contiguous() \
             or planes.dtype not in allowed:
@@ -101,11 +105,13 @@ def _check_planes(name, planes, offsets_t, n, dev, allowed):
                          f"tensor on {dev} in one of "
                          f"{[str(d) for d in allowed]}, got {planes.dtype} "
                          f"{tuple(planes.shape)} on {planes.device}")
+
+
+def _check_offsets_t(name, offsets_t, nd, dev):
     if offsets_t is None or offsets_t.device != dev \
-            or offsets_t.dtype != torch.int64 \
-            or offsets_t.numel() != planes.shape[0]:
+            or offsets_t.dtype != torch.int64 or offsets_t.numel() != nd:
         raise ValueError(f"{name}: offsets_t must be an int64 tensor of "
-                         f"{planes.shape[0]} offsets on {dev}")
+                         f"{nd} offsets on {dev}")
 
 
 def _live_flag(name, live, dev):
@@ -139,11 +145,53 @@ def dia_spmv_plain(planes, offsets, x, with_dot: bool = False):
     return y
 
 
-def dia_spmv(planes, offsets, x, *, offsets_t=None, with_dot: bool = False):
+@dataclasses.dataclass(frozen=True)
+class DiaTilePlan:
+    """How K1 (``csrc/dia_spmv.cu``) cuts one DIA product: each thread
+    owns ``rows_per_thread`` rows (one 16-byte vector of every plane), a
+    block a tile of ``tile`` rows of one part, ``nblocks`` tiles per part
+    (also the count of the dot's partial sums).  ``index_bits`` is 32
+    while every plane and row index fits 31 bits, else 64."""
+
+    offsets: tuple
+    rows_per_thread: int
+    tile: int
+    nblocks: int
+    index_bits: int
+
+    def packed(self):
+        """The int64 array ``acg_dia_spmv`` reads: rows, tile, nd, bits,
+        then the offsets in accumulation order."""
+        vals = [self.rows_per_thread, self.tile, len(self.offsets),
+                self.index_bits, *self.offsets]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+_packed_plan = functools.lru_cache(maxsize=256)(DiaTilePlan.packed)
+
+
+@functools.lru_cache(maxsize=256)
+def dia_tile_plan(offsets: tuple, n: int, dtype,
+                  nparts: int = 1) -> DiaTilePlan:
+    """K1's plan for ``planes`` of ``dtype`` with these ``offsets`` over
+    ``nparts`` parts of ``n`` rows."""
+    offsets = tuple(int(o) for o in offsets)
+    if not 1 <= len(offsets) <= MAX_DIAGS:
+        raise ValueError(f"dia_spmv: 1 to {MAX_DIAGS} diagonals, got "
+                         f"{len(offsets)}")
+    R = 16 // _itemsize(dtype)
+    T = _BLOCK * R
+    span = max(abs(o) for o in offsets)
+    big = max(len(offsets) * nparts * n, nparts * n + span + 2 * T)
+    return DiaTilePlan(offsets, R, T, max(1, -(-n // T)),
+                       32 if big < 2 ** 31 else 64)
+
+
+def dia_spmv(planes, offsets, x, *, with_dot: bool = False):
     """``y = A x`` for square DIA ``planes`` ((ndiags, n)) with static
     ``offsets``; with ``with_dot`` also ``x . y`` as a one-element tensor
-    in the accumulation dtype.  ``offsets_t`` holds the offsets as an
-    int64 tensor on x's device (the kernel reads it).
+    in the accumulation dtype.  The kernel takes the offsets by value in
+    its launch plan (:func:`dia_tile_plan`).
 
     Batched over parts: x of shape (P, n) with planes (ndiags, P, n)
     multiplies every part by its own planes with its own edges [0, n)
@@ -167,25 +215,27 @@ def dia_spmv(planes, offsets, x, *, offsets_t=None, with_dot: bool = False):
                              f"contiguous (ndiags, {nparts}, {n}) tensor, "
                              f"got {tuple(planes.shape)}")
         _check_planes("dia_spmv", planes.view(planes.shape[0], -1),
-                      offsets_t, nparts * n, dev, kinds)
+                      nparts * n, dev, kinds)
     else:
         dev, n = _check_vectors("dia_spmv", kinds, x)
         nparts = 1
-        _check_planes("dia_spmv", planes, offsets_t, n, dev, kinds)
+        _check_planes("dia_spmv", planes, n, dev, kinds)
     if (planes.dtype, x.dtype) not in DIA_SPMV_TYPES:
         raise ValueError(f"dia_spmv: no kernel for {planes.dtype} planes "
                          f"with {x.dtype} x")
+    plan = dia_tile_plan(tuple(offsets), n, planes.dtype, nparts)
+    packed = _packed_plan(plan)
     codes = _build.DTYPE_CODES
     y = torch.empty_like(x)
     part = dot = None
     if with_dot:
         adt = acc_dtype(x.dtype)
-        part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=adt, device=dev)
+        part = torch.empty(plan.nblocks, dtype=adt, device=dev)
         dot = torch.empty((), dtype=adt, device=dev)
     err = _build.lib().acg_dia_spmv(
-        codes[planes.dtype], codes[x.dtype], planes.data_ptr(),
-        offsets_t.data_ptr(), planes.shape[0], nparts, n, x.data_ptr(),
-        y.data_ptr(), _ptr(part), _ptr(dot), _stream())
+        codes[planes.dtype], codes[x.dtype], planes.data_ptr(), packed,
+        nparts, n, x.data_ptr(), y.data_ptr(), _ptr(part), _ptr(dot),
+        _stream())
     _build.check("dia_spmv", err)
     launches["dia_spmv_batched" if stacked else "dia_spmv"] += 1
     return (y, dot) if with_dot else y
@@ -225,8 +275,9 @@ def cg_phase_a(planes, offsets, r, p_old, gamma, gamma_prev, *,
                             r, p_old)
     if p_old.dtype != r.dtype:
         raise ValueError("cg_phase_a: r and p_old must share a dtype")
-    _check_planes("cg_phase_a", planes, offsets_t, n, dev,
+    _check_planes("cg_phase_a", planes, n, dev,
                   (torch.float32, torch.bfloat16))
+    _check_offsets_t("cg_phase_a", offsets_t, planes.shape[0], dev)
     if (planes.dtype, r.dtype) not in FUSED_TYPES:
         raise ValueError(f"cg_phase_a: no kernel for {planes.dtype} planes "
                          f"with {r.dtype} vectors")

@@ -96,10 +96,11 @@ class CooMatrix:
 class DiaMatrix:
     """Diagonal (DIA) storage: ``data[d, i] = A[i, i + offsets[d]]``.
 
-    ``data`` is one contiguous (ndiags, nrows) tensor, so the CUDA kernel
-    takes one pointer for all planes; ``offsets`` is a tuple of ints
+    ``data`` is one contiguous (ndiags, nrows) tensor, so the CUDA kernels
+    take one pointer for all planes; ``offsets`` is a tuple of ints
     (ascending) and ``offsets_t`` the same offsets as an int64 tensor on
-    the matrix's device, which the kernel reads.
+    the matrix's device, which the fused kernel K3 reads (K1 takes them
+    by value in its launch plan).
     """
 
     data: torch.Tensor     # (ndiags, nrows) float

@@ -115,8 +115,7 @@ class StackedLocalBlock:
             return (_put(row0, device, i64), _put(nowned, device, i64),
                     *(_put(t, device, dtype) for t in tables))
         if self.format == "dia":
-            return (_put(self.arrays[0], device, dtype).contiguous(),
-                    torch.tensor(self.offsets, dtype=i64, device=device))
+            return (_put(self.arrays[0], device, dtype).contiguous(),)
         if self.format == "ell":
             data, cols = self.arrays
             return (_put(data, device, dtype), _put(cols, device, i64))
@@ -164,10 +163,9 @@ class StackedLocalBlock:
                                     row0=row0, nowned=nowned)
             return dia_mv(planes, self.offsets, self.nrows, x)
         if self.format == "dia":
-            planes, offsets_t = arrays
+            planes, = arrays
             if use_kernel:
-                return K.dia_spmv(planes, self.offsets, x,
-                                  offsets_t=offsets_t)
+                return K.dia_spmv(planes, self.offsets, x)
             return dia_mv(planes, self.offsets, self.nrows, x)
         if self.format == "ell":
             data, cols = arrays

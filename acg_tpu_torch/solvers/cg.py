@@ -147,7 +147,7 @@ def _spmv_fn(kernels: str):
 
     def f(A, x):
         if isinstance(A, DiaMatrix) and A.ncols_padded == A.nrows:
-            return K.dia_spmv(A.data, A.offsets, x, offsets_t=A.offsets_t)
+            return K.dia_spmv(A.data, A.offsets, x)
         if _stencil_kernel_ok(A):
             return K.stencil_spmv(A, x)
         return spmv(A, x)

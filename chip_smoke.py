@@ -7,7 +7,8 @@ Needs one CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and the
 checkout it sits in.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build
-   from the sources in acg_tpu_torch/csrc/;
+   from the sources in acg_tpu_torch/csrc/ (ptxas registers, shared
+   memory and spills of K1 and K6 printed; every kernel's in the log);
 2. every kernel of the paths against its plain PyTorch version on the
    card, at the paths' shapes: vectors bitwise-equal (the kernels are
    built with --fmad=false), dots within the stated relative error;
@@ -19,6 +20,12 @@ checkout it sits in.  Phases, each of which raises on failure:
    3D n = 37 and 1D, bitwise against its plain version and against K1
    on the same operator's assembled planes, and K7 stacked over the
    flagship's 4 band parts against the generated planes through dia_mv;
+   K1 on its edge shapes in every dtype, single and over 3 parts: odd
+   n, offsets all >= 0 or all <= 0, a 64-diagonal band, the 512^3
+   device-built planes and a band of 2.1e9 plane values (64-bit
+   indices); K6 on a 16-part plane of gated and ungated
+   pairs, windows of a byte length off 16 and a 5-part plane of 7-value
+   windows, into receive planes of random values;
 3. the paths through acg_tpu_torch.cli.main, with the kernels' launch
    counters reset before and read after each run: on gen:poisson2d:2048
    (a) classic f64 --kernels auto, (b) pipelined f64, (c) --kernels
@@ -66,6 +73,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -134,13 +142,16 @@ def bound_ms(nbytes: float, nops: float, kind: str):
 _FLUSH = {}
 
 
-def median_ms(torch, fn, reps: int = 50, warm_s: float = 0.05) -> float:
+def median_ms(torch, fn, reps: int = 50, warm_s: float = 0.05,
+              clean: bool = False) -> float:
     """Median time of one call of ``fn`` over ``reps`` launches, each
     bracketed by CUDA events, after at least ``warm_s`` seconds of
     back-to-back calls (short kernels otherwise time the card's clock
     ramp, not the kernel).  The 50 MB L2 is flushed before each timed
     launch, as a CG iteration's other vector passes evict it: the bf16
-    flagship planes (42 MB) would otherwise be timed from cache."""
+    flagship planes (42 MB) would otherwise be timed from cache.  The
+    flush writes 256 MB, so the launch also pays for writing back the
+    dirty lines it finds; ``clean`` flushes by reading instead."""
     if "buf" not in _FLUSH:
         _FLUSH["buf"] = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                     device="cuda")   # 256 MB
@@ -153,7 +164,10 @@ def median_ms(torch, fn, reps: int = 50, warm_s: float = 0.05) -> float:
             break
     evs = []
     for _ in range(reps):
-        _FLUSH["buf"].zero_()
+        if clean:
+            _FLUSH["buf"].sum()
+        else:
+            _FLUSH["buf"].zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -178,13 +192,30 @@ def max_abs(a, b) -> float:
 DOT_REL = {"f64": 1e-12, "f32": 1e-5, "mixed": 1e-5, "bf16": 1e-5}
 
 
+def kinds(torch):
+    """K1's dtype labels: (plane dtype, vector dtype)."""
+    return {"f64": (torch.float64, torch.float64),
+            "f32": (torch.float32, torch.float32),
+            "mixed": (torch.bfloat16, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def ptxas_lines(build_log: str) -> dict:
+    """The ptxas lines (entries, registers, shared memory, spills) of the
+    build log, by source file."""
+    out, cur = {}, None
+    for ln in build_log.splitlines():
+        if " -c " in ln:   # the nvcc command of one source
+            cur = os.path.basename(ln.split(" -c ", 1)[1].split()[0])
+        elif cur and "ptxas" in ln:
+            out.setdefault(cur, []).append(ln.strip())
+    return out
+
+
 def kernel_checks(torch, K, dev):
     from acg_tpu_torch.io.generators import poisson_dia
 
-    dt = {"f64": (torch.float64, torch.float64),
-          "f32": (torch.float32, torch.float32),
-          "mixed": (torch.bfloat16, torch.float32),
-          "bf16": (torch.bfloat16, torch.bfloat16)}
+    dt = kinds(torch)
     g = torch.Generator(device=dev).manual_seed(1234)
     inputs = {}
     errs = {}
@@ -197,21 +228,9 @@ def kernel_checks(torch, K, dev):
         for kind in dt:
             pdt, xdt = dt[kind]
             P, x = P64.to(pdt).contiguous(), x64.to(xdt)
-            y = K.dia_spmv(P, offsets, x, offsets_t=ot)
-            yd, d = K.dia_spmv(P, offsets, x, offsets_t=ot, with_dot=True)
-            yr, dr = K.dia_spmv_plain(P, offsets, x, with_dot=True)
-            torch.cuda.synchronize()
-            rel = abs(float(d) - float(dr)) / abs(float(dr))
-            say(f"K1 dia_spmv {label} {kind}: y bitwise={torch.equal(y, yr)}"
-                f" (dot form {torch.equal(yd, yr)}), dot rel err {rel:.3e}"
-                f" (limit {DOT_REL[kind]:g})")
-            check(torch.equal(y, yr) and torch.equal(yd, yr),
-                  f"K1 {label} {kind} y")
-            check(rel <= DOT_REL[kind], f"K1 {label} {kind} dot")
+            k1_check(torch, K, label, kind, P, offsets, x, errs)
             if label == "2d-2048":
-                errs[("dia_spmv", kind)] = max(max_abs(y, yr),
-                                               max_abs(yd, yr))
-                inputs[("dia", kind)] = (P, offsets, ot, x)
+                inputs[("dia", kind)] = (P, offsets, x)
         if label != "2d-2048":
             continue
         N2 = N
@@ -269,6 +288,112 @@ def kernel_checks(torch, K, dev):
     return inputs, errs
 
 
+def k1_check(torch, K, label, kind, P, offsets, x, errs, abs_scale=False):
+    """K1 bitwise against its plain version (single-part x also with the
+    dot, within DOT_REL of the plain dot, or with ``abs_scale`` of sum
+    |x_i y_i|: random planes give terms of both signs, whose sum may lie
+    far below its terms)."""
+    single = x.dim() == 1
+    y = K.dia_spmv(P, offsets, x)
+    if single:
+        yr, dr = K.dia_spmv_plain(P, offsets, x, with_dot=True)
+        yd, d = K.dia_spmv(P, offsets, x, with_dot=True)
+        scale = float((yr.double() * x.double()).abs().sum()) if abs_scale \
+            else abs(float(dr))
+        rel = abs(float(d) - float(dr)) / scale
+        ok = torch.equal(y, yr) and torch.equal(yd, yr)
+    else:
+        yr = K.dia_spmv_plain(P, offsets, x)
+        ok = torch.equal(y, yr)
+    torch.cuda.synchronize()
+    name = "dia_spmv" if single else "dia_spmv_batched"
+    errs[(name, kind)] = max(errs.get((name, kind), 0.0), max_abs(y, yr))
+    plan = K.dia_tile_plan(tuple(offsets), x.shape[-1], P.dtype,
+                           1 if single else x.shape[0])
+    say(f"K1 dia_spmv {label} {kind} {tuple(x.shape)}, {len(offsets)} "
+        f"diagonals, {plan.index_bits}-bit index: y bitwise={ok}"
+        + (f", dot err {rel:.3e} of "
+           f"{'sum |x y|' if abs_scale else '|x . y|'} (limit "
+           f"{DOT_REL[kind]:g})" if single else ""))
+    check(ok, f"K1 {label} {kind} y")
+    if single:
+        check(rel <= DOT_REL[kind], f"K1 {label} {kind} dot")
+
+
+def k1_edge_checks(torch, K, dev, errs):
+    """K1's edge shapes in every dtype, single and batched over 3 parts:
+    odd n (every part of a batch starts off a 16-byte boundary),
+    one-sided offsets, a 64-diagonal band 12,600 rows wide, the 3D 512^3
+    device-built planes (single), and a band whose nd * P * n passes
+    2^31 (64-bit index arithmetic)."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    wide = tuple(200 * k for k in range(-32, 32))
+    cases = (("odd n", (-1001, -1, 0, 1, 1001), 333_333),
+             ("offsets >= 0", (0, 1, 2, 1024, 4096), 500_001),
+             ("offsets <= 0", (-4096, -1024, -2, -1, 0), 500_001),
+             ("64-diagonal band", wide, 1_000_003))
+    for kind, (pdt, xdt) in kinds(torch).items():
+        for label, offsets, n in cases:
+            for nparts in (1, 3):
+                shape = (n,) if nparts == 1 else (nparts, n)
+                P = torch.randn((len(offsets),) + shape, generator=g,
+                                device=dev).to(pdt)
+                x = torch.randn(shape, generator=g, device=dev).to(xdt)
+                k1_check(torch, K, label, kind, P, offsets, x, errs,
+                         abs_scale=True)
+        planes, offsets, N = poisson_dia_device(DIRECT_N, 3,
+                                                dtype=torch.float64,
+                                                device=dev)
+        planes = planes.to(pdt)
+        x = torch.randn(N, generator=g, dtype=torch.float32,
+                        device=dev).to(xdt)
+        k1_check(torch, K, f"3d-{DIRECT_N} device planes", kind, planes,
+                 offsets, x, errs, abs_scale=True)
+        del planes, x
+        # 64 x (2^25 + 1) planes: 2.1e9 values, past 31-bit indices
+        n = 2 ** 25 + 1
+        P = torch.empty((64, n), dtype=pdt, device=dev).uniform_(
+            -1, 1, generator=g)
+        x = torch.randn(n, generator=g, device=dev).to(xdt)
+        k1_check(torch, K, "64-bit index band", kind, P, wide, x, errs,
+                 abs_scale=True)
+        del P, x
+        torch.cuda.empty_cache()
+
+
+def k6_edge_checks(torch, K, dev, errs):
+    """K6 on a 16-part plane with gated and ungated pairs mixed, windows
+    whose byte length is not a multiple of 16 (odd maxcnt, bf16 and f32)
+    and a 5-part plane of 7-value windows, gated and dense, each into a
+    receive plane that starts from random values."""
+    g = torch.Generator(device=dev).manual_seed(1357)
+    for P, maxcnt in ((16, 1001), (16, 4096), (5, 7)):
+        cnt = torch.randint(-1, 3, (P, P), generator=g, device=dev,
+                            dtype=torch.int32)
+        ungated = int(((cnt <= 0) & ~torch.eye(P, dtype=torch.bool,
+                                                device=dev)).sum())
+        for kind in ("f64", "f32", "bf16"):
+            vdt = kinds(torch)[kind][1]
+            send = torch.randn((P, P, maxcnt), generator=g,
+                               device=dev).to(vdt)
+            recv0 = torch.randn((P, P, maxcnt), generator=g,
+                                device=dev).to(vdt)
+            for gate in (True, False):
+                got = K.halo_put(send, cnt, recv0.clone(), gate_by_counts=gate)
+                want = K.halo_put_plain(send, cnt, recv0.clone(), gate)
+                torch.cuda.synchronize()
+                ok = torch.equal(got, want)
+                say(f"K6 halo_put {P}-part plane {tuple(send.shape)} {kind} "
+                    f"({maxcnt * send.element_size()} bytes a window, "
+                    f"{ungated} ungated pairs) {'gated' if gate else 'dense'}"
+                    f": recv bitwise={ok}")
+                check(ok, f"K6 {P} parts maxcnt {maxcnt} {kind} gate={gate}")
+                errs[("halo_put", kind)] = max(
+                    errs.get(("halo_put", kind), 0.0), max_abs(got, want))
+
+
 def flagship_parts(csr):
     """The flagship matrix band-partitioned into NPARTS stacked parts, as
     the CLI's --nparts 4 builds it (--partition-method auto picks band)."""
@@ -313,25 +438,15 @@ def dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs):
     from acg_tpu_torch.parallel.halo import pack
 
     g = torch.Generator(device=dev).manual_seed(4321)
-    dt = {"f64": (torch.float64, torch.float64),
-          "f32": (torch.float32, torch.float32),
-          "mixed": (torch.bfloat16, torch.float32),
-          "bf16": (torch.bfloat16, torch.bfloat16)}
+    dt = kinds(torch)
     P64 = torch.from_numpy(prob.local.arrays[0]).to(dev)
     offs = prob.local.offsets
-    ot = torch.tensor(offs, dtype=torch.int64, device=dev)
     x64 = torch.randn((prob.nparts, prob.nmax_owned), generator=g,
                       dtype=torch.float64, device=dev)
     for kind, (pdt, xdt) in dt.items():
         P, x = P64.to(pdt).contiguous(), x64.to(xdt)
-        y = K.dia_spmv(P, offs, x, offsets_t=ot)
-        yr = K.dia_spmv_plain(P, offs, x)
-        torch.cuda.synchronize()
-        say(f"K1 dia_spmv batched {prob.nparts}x{prob.nmax_owned} {kind}: "
-            f"y bitwise={torch.equal(y, yr)}")
-        check(torch.equal(y, yr), f"K1 batched {kind}")
-        errs[("dia_spmv_batched", kind)] = max_abs(y, yr)
-        inputs[("dia_b", kind)] = (P, offs, ot, x)
+        k1_check(torch, K, "batched flagship parts", kind, P, offs, x, errs)
+        inputs[("dia_b", kind)] = (P, offs, x)
     halo = prob.halo.to(dev)
     scnt = torch.from_numpy(prob.neighbor_counts()[0]).to(dev)
     c8 = torch.full((8, 8), 4096, dtype=torch.int32, device=dev)
@@ -444,8 +559,7 @@ def stencil_checks(torch, K, dev, mf, errs):
             del yr
             planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
                                                  device=dev)
-            y1 = K.dia_spmv(planes, offs, x, offsets_t=torch.tensor(
-                offs, device=dev))
+            y1 = K.dia_spmv(planes, offs, x)
             torch.cuda.synchronize()
             same_k1 = torch.equal(y, y1)
             say(f"K7 stencil_spmv {label} {kind} (N={op.nrows}): y bitwise="
@@ -1022,15 +1136,16 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
     item = {"f64": 8, "f32": 4, "bf16": 2}
     k1 = {}
     for kind in ("f64", "f32", "mixed", "bf16"):
-        P, offsets, ot, x = inputs[("dia", kind)]
+        P, offsets, x = inputs[("dia", kind)]
         D = P.shape[0]
         pb = item["bf16"] if kind in ("mixed", "bf16") else item[kind]
         xb = item["f32"] if kind == "mixed" else pb
         nbytes = D * N * pb + 2 * N * xb
-        ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x,
-                                                 offsets_t=ot))
+        ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x))
+        clean_ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x),
+                             clean=True)
         dot_ms = median_ms(torch, lambda: K.dia_spmv(
-            P, offsets, x, offsets_t=ot, with_dot=True))
+            P, offsets, x, with_dot=True))
         plain = median_ms(torch, lambda: K.dia_spmv_plain(P, offsets, x))
         lib = None
         lib_note = {}
@@ -1047,7 +1162,8 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
         e = entry("dia_spmv", "acg_tpu_torch/csrc/dia_spmv.cu",
                   "acg_tpu/ops/pallas_kernels.py:379", kind, ms, plain,
                   nbytes, 2 * D * N, lib, dot_ms=round(dot_ms, 6),
-                  dot_bound_ms=round(dbms, 6), **lib_note)
+                  dot_bound_ms=round(dbms, 6), clean_l2_ms=round(clean_ms, 6),
+                  **lib_note)
         k1[kind] = e
     out.append(k1["f64"])
     fused = {}
@@ -1133,10 +1249,9 @@ def stencil_times(torch, K, csr, mf, entry):
             extra, lib = {}, None
             planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
                                                  device=dev)
-            ot = torch.tensor(offs, device=dev)
             D = len(offs)
             extra["k1_ms"] = round(median_ms(torch, lambda: K.dia_spmv(
-                planes, offs, x, offsets_t=ot)), 6)
+                planes, offs, x)), 6)
             extra["k1_bound_ms"] = round(bound_ms((D + 2) * N * item,
                                                   2 * D * N, kind)[0], 6)
             del planes
@@ -1199,12 +1314,13 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
     kb = {}
     bd = _block_diag_csr(prob)
     for kind in ("f64", "f32", "mixed", "bf16"):
-        P, offsets, ot, x = inputs[("dia_b", kind)]
+        P, offsets, x = inputs[("dia_b", kind)]
         D = P.shape[0]
         pb = item["bf16"] if kind in ("mixed", "bf16") else item[kind]
         xb = item["f32"] if kind == "mixed" else pb
-        ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x,
-                                                 offsets_t=ot))
+        ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x))
+        clean_ms = median_ms(torch, lambda: K.dia_spmv(P, offsets, x),
+                             clean=True)
         plain = median_ms(torch, lambda: K.dia_spmv_plain(P, offsets, x))
         lib, lib_note = None, {}
         if kind != "mixed":   # no one call takes bf16 planes with f32 x
@@ -1218,7 +1334,8 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
         kb[kind] = entry("dia_spmv_batched", "acg_tpu_torch/csrc/dia_spmv.cu",
                          "acg_tpu/ops/pallas_kernels.py:379", kind, ms, plain,
                          D * NP * pb + 2 * NP * xb, 2 * D * NP, lib,
-                         shape=f"{prob.nparts}x{prob.nmax_owned}", **lib_note)
+                         shape=f"{prob.nparts}x{prob.nmax_owned}",
+                         clean_l2_ms=round(clean_ms, 6), **lib_note)
     out.append(kb["f64"])
     k6 = {}
     # the flagship's band plan (the JSON entry) and, logged only, the
@@ -1234,11 +1351,16 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
             plain = median_ms(torch, lambda: K.halo_put_plain(send, scnt,
                                                               recv))
             lib = median_ms(torch, lambda: send.transpose(0, 1).contiguous())
+            clean_ms = median_ms(torch, lambda: K.halo_put(send, scnt, recv),
+                                 clean=True)
+            clean_lib = median_ms(
+                torch, lambda: send.transpose(0, 1).contiguous(), clean=True)
             e = entry("halo_put", "acg_tpu_torch/csrc/halo_put.cu",
                       "acg_tpu/parallel/halo_dma.py:248", kind, ms, plain,
                       2 * gated * maxcnt * item[kind], 0, lib,
                       shape=f"{plan} plane {tuple(send.shape)}",
-                      gated_pairs=gated)
+                      gated_pairs=gated, clean_l2_ms=round(clean_ms, 6),
+                      clean_l2_library_ms=round(clean_lib, 6))
             if plan == "halo":
                 k6[kind] = e
     out.append(k6["f64"])
@@ -1267,10 +1389,19 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     say(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
-    regs = [ln.strip() for ln in
-            (lib.parent / "build.log").read_text().splitlines()
-            if "registers" in ln]
-    LOG.extend(regs)
+    ptxas = ptxas_lines((lib.parent / "build.log").read_text())
+    for src, lines in ptxas.items():
+        LOG.append(f"ptxas -v of {src}:")
+        LOG.extend(lines)
+    for src in ("dia_spmv.cu", "halo_put.cu"):
+        text = "\n".join(ptxas.get(src, []))
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
+                                               text))
+        smem = [int(v) for v in re.findall(r"(\d+) bytes smem", text)]
+        say(f"ptxas {src}: {len(regs)} kernels, registers {min(regs)}-"
+            f"{max(regs)}, static smem <= {max(smem, default=0)} bytes, "
+            f"spill stores {spill} bytes (full log: chip_smoke.log)")
 
     t0 = time.perf_counter()
     inputs, errs = kernel_checks(torch, K, dev)
@@ -1279,6 +1410,8 @@ def main() -> int:
     prob = flagship_parts(csr)
     irr = irregular_parts()
     dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs)
+    k1_edge_checks(torch, K, dev, errs)
+    k6_edge_checks(torch, K, dev, errs)
     mf = armed_parts(torch, prob)
     stencil_checks(torch, K, dev, mf, errs)
     torch.cuda.synchronize()

@@ -39,10 +39,20 @@ def test_kernels_match_plain_on_card(dev):
             for _ in range(7)]
     for pdt, xdt in sorted(K.DIA_SPMV_TYPES, key=str):
         x = vecs[0].to(xdt)
-        y, d = K.dia_spmv(P.to(pdt), offsets, x, offsets_t=ot, with_dot=True)
+        y, d = K.dia_spmv(P.to(pdt), offsets, x, with_dot=True)
         yr, dr = K.dia_spmv_plain(P.to(pdt), offsets, x, with_dot=True)
         assert torch.equal(y, yr)
         assert float(d) == pytest.approx(float(dr), rel=1e-5)
+    # K1's edge shapes: odd n (planes and x off 16-byte boundaries),
+    # one-sided offsets, a 64-diagonal band, n below one tile
+    for offs, n in (((-33, -1, 0, 1, 33), 20001), ((0, 1, 7, 300), 9999),
+                    ((-300, -7, -1, 0), 9999),
+                    (tuple(200 * k for k in range(-32, 32)), 30001),
+                    ((-3, 0, 3), 100)):
+        Pe = torch.randn((len(offs), n), generator=g,
+                         dtype=torch.float64).to(dev)
+        xe = torch.randn(n, generator=g, dtype=torch.float64).to(dev)
+        _k1_matches_plain(Pe, offs, xe)
     for pdt, vdt in sorted(K.FUSED_TYPES, key=str):
         r, po, x = (v.to(vdt) for v in vecs[:3])
         gm, gp = (torch.tensor(v, device=dev) for v in (2.0, 4.0))
@@ -64,16 +74,35 @@ def test_kernels_match_plain_on_card(dev):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _k1_matches_plain(P, offsets, x):
+    """K1 bitwise against its plain version in every dtype it takes, with
+    the dot for a single-part x."""
+    for pdt, xdt in sorted(K.DIA_SPMV_TYPES, key=str):
+        Pd, xd = P.to(pdt), x.to(xdt)
+        yr = K.dia_spmv_plain(Pd, offsets, xd)
+        assert torch.equal(K.dia_spmv(Pd, offsets, xd), yr)
+        if x.dim() == 1:
+            y, d = K.dia_spmv(Pd, offsets, xd, with_dot=True)
+            _, dr = K.dia_spmv_plain(Pd, offsets, xd, with_dot=True)
+            assert torch.equal(y, yr)
+            # random planes: terms of both signs, scaled by their sum
+            scale = float((yr.double() * xd.double()).abs().sum())
+            assert abs(float(d) - float(dr)) <= 1e-5 * scale
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(64, dtype=torch.float32, device=dev)
     P = torch.zeros((1, 64), dtype=torch.float32, device=dev)
-    ot = torch.zeros(1, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="no kernel"):
-        K.dia_spmv(P, (0,), x.to(torch.bfloat16), offsets_t=ot)
+        K.dia_spmv(P, (0,), x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
-        K.dia_spmv(P, (0,), torch.zeros(128, device=dev)[::2], offsets_t=ot)
+        K.dia_spmv(P, (0,), torch.zeros(128, device=dev)[::2])
+    with pytest.raises(ValueError, match="1 to 64 diagonals"):
+        K.dia_spmv(torch.zeros((65, 64), device=dev), tuple(range(65)), x)
+    # K3 reads the offsets from the device tensor: it must be there
+    gm = torch.tensor(1.0, device=dev)
     with pytest.raises(ValueError, match="offsets_t"):
-        K.dia_spmv(P, (0,), x)
+        K.cg_phase_a(P, (0,), x, x, gm, gm)
 
 
 @pytest.mark.parametrize("pipelined,kernels,dtype", [
@@ -121,35 +150,47 @@ def test_batched_k1_and_k6_match_plain_on_card(dev):
     their plain versions in every dtype they take."""
     _, prob = _band_problem()
     offs = prob.local.offsets
-    ot = torch.tensor(offs, device=dev)
     planes = torch.from_numpy(prob.local.arrays[0]).to(dev)
     g = torch.Generator().manual_seed(1)
     x = torch.randn((4, prob.nmax_owned), generator=g,
                     dtype=torch.float64).to(dev)
     for pdt, xdt in sorted(K.DIA_SPMV_TYPES, key=str):
         P, xx = planes.to(pdt), x.to(xdt)
-        assert torch.equal(K.dia_spmv(P, offs, xx, offsets_t=ot),
+        assert torch.equal(K.dia_spmv(P, offs, xx),
                            K.dia_spmv_plain(P, offs, xx))
+    # odd n: every part after the first starts off a 16-byte boundary
+    for eoffs, n in (((-41, -1, 0, 1, 41), 4001), ((0, 2, 900), 3001),
+                     ((-900, -2, 0), 3001)):
+        Pe = torch.randn((len(eoffs), 3, n), generator=g,
+                         dtype=torch.float64).to(dev)
+        xe = torch.randn((3, n), generator=g, dtype=torch.float64).to(dev)
+        _k1_matches_plain(Pe, eoffs, xe)
     scnt_np, _ = prob.neighbor_counts()
     cases = [(torch.from_numpy(scnt_np), prob.halo.maxcnt)]
     dense = torch.full((8, 8), 5, dtype=torch.int32)
     cases.append((dense, 5))
+    # 16 parts, gated and ungated pairs mixed, 1,001-value windows (not a
+    # whole number of 16-byte vectors in bf16 or f32)
+    cases.append((torch.randint(-1, 3, (16, 16), generator=g,
+                                dtype=torch.int32), 1001))
     for scnt, maxcnt in cases:
         nparts = scnt.shape[0]
         scnt = scnt.to(dev)
         for dt in (torch.float64, torch.float32, torch.bfloat16):
             send = torch.randn((nparts, nparts, maxcnt), generator=g,
                                dtype=torch.float64).to(dev, dt)
+            # ungated rows keep what the receive plane held
+            recv0 = torch.randn((nparts, nparts, maxcnt), generator=g,
+                                dtype=torch.float64).to(dev, dt)
             for gate in (True, False):
-                want = K.halo_put_plain(send, scnt, torch.zeros_like(send),
-                                        gate)
-                got = K.halo_put(send, scnt, torch.zeros_like(send),
+                want = K.halo_put_plain(send, scnt, recv0.clone(), gate)
+                got = K.halo_put(send, scnt, recv0.clone(),
                                  gate_by_counts=gate)
                 assert torch.equal(got, want)
     with pytest.raises(ValueError, match="int32"):
         K.halo_put(send, scnt.long(), torch.zeros_like(send))
     with pytest.raises(ValueError, match="stacked planes"):
-        K.dia_spmv(planes[:, :2], offs, x, offsets_t=ot)
+        K.dia_spmv(planes[:, :2], offs, x)
 
 
 @pytest.mark.parametrize("pipelined", [False, True])
@@ -256,8 +297,7 @@ def test_stencil_kernel_matches_plain_and_k1_on_card(dev):
             assert torch.equal(y, K.stencil_spmv_plain(op, x))
             planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
                                                  device=dev)
-            assert torch.equal(y, K.dia_spmv(planes, offs, x, offsets_t=
-                                             torch.tensor(offs, device=dev)))
+            assert torch.equal(y, K.dia_spmv(planes, offs, x))
     for n, dim in ((64, 2), (16, 3)):
         _, _, mf = _stencil_band_problem(n, dim)
         row0, nowned = (torch.from_numpy(a).to(dev)

@@ -198,8 +198,7 @@ def test_batched_dia_plain_matches_jax_per_part(mats):
     offs = prob.local.offsets
     x = np.random.default_rng(5).standard_normal((4, prob.nmax_owned))
     x[2, 7] = np.inf   # a non-finite entry stays in its own part
-    y = K.dia_spmv(torch.from_numpy(planes), offs, torch.from_numpy(x),
-                   offsets_t=torch.tensor(offs))
+    y = K.dia_spmv(torch.from_numpy(planes), offs, torch.from_numpy(x))
     assert K.launches["dia_spmv_batched"] == 0  # CPU: plain, not counted
     for p in range(4):
         want = jax_dia_mv(tuple(jnp.asarray(planes[d, p])

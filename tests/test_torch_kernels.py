@@ -332,3 +332,76 @@ def test_kernel_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
             _build.build()
         assert not lib.exists()
         assert not any((tmp_path / "build").glob("build-*"))
+
+
+# -- K1's launch plan (csrc/dia_spmv.cu takes it by value) ---------------
+
+def _plan_case(name):
+    """(offsets, n, dtype, nparts) of the plan cases worked by hand."""
+    return {
+        "2d-5pt": ((-2048, -1, 0, 1, 2048), 2048 ** 2, torch.float64, 1),
+        "3d-7pt": ((-512 ** 2, -512, -1, 0, 1, 512, 512 ** 2), 512 ** 3,
+                   torch.float64, 1),
+        "band64": (tuple(200 * k for k in range(-32, 32)), 10 ** 6,
+                   torch.float64, 1),
+        "band64-huge": (tuple(200 * k for k in range(-32, 32)),
+                        2 ** 25 + 1, torch.bfloat16, 1),
+        "tiny": ((-3, 0, 3), 100, torch.float32, 3),
+    }[name]
+
+
+@pytest.mark.parametrize("name,rows,tile,nblocks,bits", [
+    ("2d-5pt", 2, 512, 8192, 32),
+    ("3d-7pt", 2, 512, 262144, 32),
+    ("band64", 2, 512, 1954, 32),
+    ("band64-huge", 8, 2048, 16385, 64),
+    ("tiny", 4, 1024, 1, 32),
+])
+def test_dia_tile_plan_worked_by_hand(name, rows, tile, nblocks, bits):
+    """R = 16 / plane itemsize rows a thread, T = 256 R rows a block,
+    ceil(n / T) blocks a part (at least one: n = 100 is under one tile);
+    64-bit indices once nd * P * n passes 2^31 (64 x (2^25 + 1) bf16
+    values), 32-bit for the 940M plane values of 3D 7-point at 512."""
+    offsets, n, dtype, nparts = _plan_case(name)
+    plan = K.dia_tile_plan(offsets, n, dtype, nparts)
+    assert (plan.rows_per_thread, plan.tile, plan.nblocks) == \
+        (rows, tile, nblocks)
+    assert plan.index_bits == bits and plan.offsets == offsets
+
+
+def test_dia_tile_plan_packs_what_the_kernel_reads():
+    """The int64 array acg_dia_spmv unpacks: rows, tile, nd, index bits,
+    then the offsets in accumulation order (bf16 planes: R = 8)."""
+    offsets = (2048, -1, 0, 1, -2048)   # accumulation order, not sorted
+    plan = K.dia_tile_plan(offsets, 2048 ** 2, torch.bfloat16)
+    assert list(K._packed_plan(plan)) == [8, 2048, 5, 32,
+                                          2048, -1, 0, 1, -2048]
+    with pytest.raises(ValueError, match="1 to 64 diagonals"):
+        K.dia_tile_plan(tuple(range(65)), 1000, torch.float64)
+
+
+# the edge shapes chip_smoke.py holds K1 to on the card, at small n
+@pytest.mark.parametrize("offsets,n,nparts", [
+    ((-33, -1, 0, 1, 33), 2001, 1),              # odd n
+    ((-33, -1, 0, 1, 33), 2001, 3),              # odd n, parts off 16 B
+    ((0, 1, 7, 300), 999, 1),                    # offsets >= 0
+    ((-300, -7, -1, 0), 999, 3),                 # offsets <= 0
+    (tuple(40 * k for k in range(-32, 32)), 3001, 1),   # 64 diagonals
+    ((-3, 0, 3), 100, 2),                        # n under one tile
+])
+def test_dia_spmv_edge_shapes_match_dia_mv(offsets, n, nparts):
+    """K1's plain version on its edge shapes against the JAX dia_mv of
+    every part (random f64 planes: XLA may contract a product into a
+    fused multiply-add, so within 1e-12)."""
+    rng = np.random.default_rng(7)
+    planes = rng.standard_normal((len(offsets), nparts, n))
+    x = rng.standard_normal((nparts, n))
+    got = K.dia_spmv(torch.from_numpy(planes if nparts > 1 else planes[:, 0]),
+                     offsets, torch.from_numpy(x if nparts > 1 else x[0]))
+    got = got.numpy().reshape(nparts, n)
+    for p in range(nparts):
+        want = jax_dia_mv(tuple(jnp.asarray(planes[d, p])
+                                for d in range(len(offsets))), offsets, n,
+                          jnp.asarray(x[p]))
+        np.testing.assert_allclose(got[p], np.asarray(want), rtol=1e-12,
+                                   atol=1e-12)
