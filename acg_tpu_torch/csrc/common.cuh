@@ -1,6 +1,7 @@
 // Shared helpers of the port's Hopper kernels: storage <-> accumulation
-// conversions, a fixed-order block reduction, and the single-block pass
-// that folds per-block partial sums into one scalar.
+// conversions, a fixed-order block reduction, the single-block pass that
+// folds per-block partial sums into one scalar, and 16-byte vector
+// loads and stores.
 //
 // Built with --fmad=false: a*b + c is a rounded multiply followed by a
 // rounded add, as in PyTorch's separate elementwise ops, so every vector
@@ -13,6 +14,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
+
 // dtype codes of the C interface (ops/_build.py keeps the same table)
 enum AcgDtype { ACG_F64 = 0, ACG_F32 = 1, ACG_BF16 = 2 };
 
@@ -20,6 +24,7 @@ namespace {
 
 constexpr int kBlock = 256;        // threads per block of the row kernels
 constexpr int kReduceBlock = 1024; // threads of the partial-sum fold
+constexpr int kMaxDiags = 64;      // ops/spmv.py MAX_DIAGS
 
 // widen storage to the accumulation type
 __device__ __forceinline__ double ld(double v) { return v; }
@@ -93,6 +98,65 @@ __device__ __forceinline__ uint4 shift16(uint4 a, uint4 b, int delta) {
     out[k] = __funnelshift_r(lo, hi, bs);
   }
   return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// v[0..N) = p[0..N); p 16-byte aligned, N * sizeof(T) a multiple of 16;
+// STREAM takes the streaming hint (values used once), else read-only
+template <bool STREAM, typename T, int N>
+__device__ __forceinline__ void ldv(const T* p, T (&v)[N]) {
+  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
+  constexpr int K = 16 / static_cast<int>(sizeof(T));
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint4 u = STREAM ? __ldcs(q + c) : __ldg(q + c);
+    memcpy(&v[c * K], &u, 16);
+  }
+}
+
+// v[0..N) = p[0..N) for p at any 16-byte phase (a whole number of
+// elements): the aligned vectors around the values, each output vector
+// funnel-shifted out of two of them.  Reads no byte outside the 16-byte
+// vectors that hold p[0] and p[N - 1].  The phase test is uniform where
+// every lane's p has the same phase, as in every caller.
+template <bool STREAM, typename T, int N>
+__device__ __forceinline__ void ldv_any(const T* p, T (&v)[N]) {
+  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
+  constexpr int K = 16 / static_cast<int>(sizeof(T));
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int delta = static_cast<int>(a & 15);
+  if (delta == 0) {
+    ldv<STREAM>(p, v);
+    return;
+  }
+  const uint4* q = reinterpret_cast<const uint4*>(a - delta);
+  uint4 lo = STREAM ? __ldcs(q) : __ldg(q);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint4 hi = STREAM ? __ldcs(q + c + 1) : __ldg(q + c + 1);
+    const uint4 u = shift16(lo, hi, delta);
+    memcpy(&v[c * K], &u, 16);
+    lo = hi;
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void stv(T* p, const T (&v)[N]) {
+  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
+  constexpr int K = 16 / static_cast<int>(sizeof(T));
+  uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    uint4 u;
+    memcpy(&u, &v[c * K], 16);
+    q[c] = u;
+  }
+}
+
+template <typename I>
+__device__ __forceinline__ I mod_pos(I a, int m) {   // a mod m in [0, m)
+  const I r = a % m;
+  return r < 0 ? r + m : r;
 }
 
 inline unsigned int row_blocks(long long n) {

@@ -53,12 +53,7 @@
 // the single-vector entry.  The dot epilogue is single-part only.
 #include "common.cuh"
 
-#include <cstdint>
-#include <cstring>
-
 namespace {
-
-constexpr int kMaxDiags = 64;   // ops/spmv.py MAX_DIAGS
 
 // the launch plan, packed by ops/kernels.py DiaTilePlan.packed()
 struct DiaPlan {
@@ -71,38 +66,6 @@ struct DiaPlan {
   long long off[kMaxDiags];    // offsets, in accumulation order
 };
 constexpr int kPlanHead = 4;
-
-// v[0..N) = p[0..N); p 16-byte aligned, N * sizeof(T) a multiple of 16
-template <bool STREAM, typename T, int N>
-__device__ __forceinline__ void ldv(const T* p, T (&v)[N]) {
-  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
-  constexpr int K = 16 / static_cast<int>(sizeof(T));
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const uint4 u = STREAM ? __ldcs(q + c) : __ldg(q + c);
-    memcpy(&v[c * K], &u, 16);
-  }
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void stv(T* p, const T (&v)[N]) {
-  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
-  constexpr int K = 16 / static_cast<int>(sizeof(T));
-  uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    uint4 u;
-    memcpy(&u, &v[c * K], 16);
-    q[c] = u;
-  }
-}
-
-template <typename I>
-__device__ __forceinline__ I mod_pos(I a, int m) {   // a mod m in [0, m)
-  const I r = a % m;
-  return r < 0 ? r + m : r;
-}
 
 // one row, every diagonal checked: the head, ragged and unaligned tiles
 template <typename PT, typename XT, typename AT, typename I>

@@ -41,8 +41,8 @@ _LP = ctypes.POINTER(ctypes.c_longlong)   # a host int64 array
 # argtypes of every exported function; each returns cudaGetLastError()
 _SIGNATURES = {
     "acg_dia_spmv": (_I, _I, _P, _LP, _I, _L, _P, _P, _P, _P, _P),
-    "acg_cg_phase_a": (_I, _I, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P),
+    "acg_cg_phase_a": (_I, _I, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P),
     "acg_cg_phase_b": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P),

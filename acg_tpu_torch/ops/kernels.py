@@ -52,7 +52,7 @@ launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
             "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
             "stencil_spmv": 0, "stencil_spmv_batched": 0}
 
-_BLOCK = 256  # csrc/common.cuh kBlock: threads per block (K3/K4: rows)
+_BLOCK = 256  # csrc/common.cuh kBlock: threads per block (K4: rows)
 
 
 def reset_launches() -> None:
@@ -267,7 +267,9 @@ def cg_phase_a(planes, offsets, r, p_old, gamma, gamma_prev, *,
     """Phase A of the fused classic-CG iteration: returns new tensors
     ``(p, t, pdott)`` -- see :func:`cg_phase_a_plain`.  ``gamma`` and
     ``gamma_prev`` are one-element f32 device tensors; ``live`` an
-    optional one-element bool tensor."""
+    optional one-element bool tensor.  The kernel reads the offsets from
+    ``offsets_t`` and cuts the rows as K1's plan for the planes' dtype
+    says (:func:`dia_tile_plan`)."""
     if r.device.type == "cpu":
         return cg_phase_a_plain(planes, offsets, r, p_old, gamma, gamma_prev,
                                 live)
@@ -283,18 +285,18 @@ def cg_phase_a(planes, offsets, r, p_old, gamma, gamma_prev, *,
                          f"with {r.dtype} vectors")
     _check_scalars("cg_phase_a", torch.float32, dev, gamma, gamma_prev)
     live = _live_flag("cg_phase_a", live, dev)
+    plan = dia_tile_plan(tuple(offsets), n, planes.dtype)
     codes = _build.DTYPE_CODES
     p = torch.empty_like(r)
     t = torch.empty_like(r)
-    part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=torch.float32,
-                       device=dev)
+    part = torch.empty(plan.nblocks, dtype=torch.float32, device=dev)
     pdott = torch.empty((), dtype=torch.float32, device=dev)
     err = _build.lib().acg_cg_phase_a(
         codes[planes.dtype], codes[r.dtype], planes.data_ptr(),
-        offsets_t.data_ptr(), planes.shape[0], n, r.data_ptr(),
-        p_old.data_ptr(), gamma.data_ptr(), gamma_prev.data_ptr(),
-        _ptr(live), p.data_ptr(), t.data_ptr(), part.data_ptr(),
-        pdott.data_ptr(), _stream())
+        offsets_t.data_ptr(), planes.shape[0], n, plan.rows_per_thread,
+        plan.index_bits, r.data_ptr(), p_old.data_ptr(), gamma.data_ptr(),
+        gamma_prev.data_ptr(), _ptr(live), p.data_ptr(), t.data_ptr(),
+        part.data_ptr(), pdott.data_ptr(), _stream())
     _build.check("cg_phase_a", err)
     launches["cg_phase_a"] += 1
     return p, t, pdott

@@ -8,7 +8,8 @@ checkout it sits in.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build
    from the sources in acg_tpu_torch/csrc/ (ptxas registers, shared
-   memory and spills of K1 and K6 printed; every kernel's in the log);
+   memory and spills of K1, K3/K4, K6 and K7 printed; every kernel's in
+   the log);
 2. every kernel of the paths against its plain PyTorch version on the
    card, at the paths' shapes: vectors bitwise-equal (the kernels are
    built with --fmad=false), dots within the stated relative error;
@@ -16,10 +17,15 @@ checkout it sits in.  Phases, each of which raises on failure:
    their flat stack (with and without the live flag), and K6 gated and
    dense on that 4-part halo plan, on the irregular matrix's 4-part
    graph plan and on an 8-part all-pairs plane; K7 (the matrix-free
-   Poisson stencil) in f64 and f32 on 2D n = 2048, 3D n = 512, a ragged
-   3D n = 37 and 1D, bitwise against its plain version and against K1
-   on the same operator's assembled planes, and K7 stacked over the
-   flagship's 4 band parts against the generated planes through dia_mv;
+   Poisson stencil) in f64 and f32 on 2D n = 2048, 3D n = 512 and its
+   edge shapes (ragged 3D n = 37, 1D, odd n = 2047, n = 2046, 3D 131
+   and 130, n = 2 and 3 below the rows a thread, and 1D n = 2^31 + 5 in
+   f32 on 64-bit indices), bitwise against its plain version and
+   against K1 on the same operator's assembled planes, and K7 stacked
+   over the flagship's 4 band parts and over 8 ragged parts of 2D 2047
+   against the generated planes through dia_mv; K3 on its edge shapes
+   in f32, mixed and bf16 (odd n, one-sided offsets, the 3D 7-point
+   planes, each on the first iteration and frozen);
    K1 on its edge shapes in every dtype, single and over 3 parts: odd
    n, offsets all >= 0 or all <= 0, a 64-diagonal band, the 512^3
    device-built planes and a band of 2.1e9 plane values (64-bit
@@ -53,13 +59,16 @@ checkout it sits in.  Phases, each of which raises on failure:
    (cuSPARSE through torch.mv on a CSR tensor for the SpMVs, a
    transposing copy for K6, also timed on the irregular graph plan; the
    port never calls them); nvidia-smi's SM clock and power draw beside
-   them; torch.profiler breakdowns of the 4-part --comm dma solve and of
-   the single-part --operator stencil solve by op, with the device's
-   busy share; path
-   (h)'s SpMV split into local block, halo exchange and ghost block;
-   K7 at 2048^2 and 512^3 in f64 and f32 beside K1 on the assembled
-   planes, and stacked K7 on the 4-part plan; classic f64 rates with
-   --operator stencil against assembled at 2048^2 and 512^3.
+   them; torch.profiler breakdowns by op, with the device's busy share,
+   of the 4-part --comm dma solve, the single-part --operator stencil
+   solves (f64 and f32 at 2048^2, f64 at 512^3: K7 in the loop) and the
+   --kernels fused f32 solve (K3 and K4 in the loop); path (h)'s SpMV
+   split into local block, halo exchange and ghost block; K7 at 2048^2
+   and 512^3 in f64 and f32 beside K1 on the assembled planes, stacked
+   K7 on the 4-part plan, and K1 on the 512^3 planes in mixed and bf16;
+   classic f64 rates with --operator stencil against assembled at
+   2048^2 and 512^3.  K1, K3, K4, K6 and K7 are also timed with L2
+   flushed by reading (clean_l2_ms).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -201,13 +210,14 @@ def kinds(torch):
 
 
 def ptxas_lines(build_log: str) -> dict:
-    """The ptxas lines (entries, registers, shared memory, spills) of the
-    build log, by source file."""
+    """The ptxas lines (entries, registers, shared memory, and the stack
+    frame and spill line under each entry) of the build log, by source
+    file."""
     out, cur = {}, None
     for ln in build_log.splitlines():
         if " -c " in ln:   # the nvcc command of one source
             cur = os.path.basename(ln.split(" -c ", 1)[1].split()[0])
-        elif cur and "ptxas" in ln:
+        elif cur and ("ptxas" in ln or "bytes spill" in ln):
             out.setdefault(cur, []).append(ln.strip())
     return out
 
@@ -536,53 +546,158 @@ def armed_parts(torch, prob):
         FLAGSHIP, 2, dtype=torch.float64, device="cuda"))
 
 
+# K7's grids: (label, n, dim, dtypes); the paths' grids (2D 2048, 3D
+# 512), then the edge shapes: ragged N (3D 37), odd n (every +-n vector
+# off the 16-byte phase), n = 2 mod 4 (off it in f32), n below the rows
+# a thread (2, 3), 1D, and 1D past 2^31 rows (64-bit indices; f32 only:
+# one f32 vector is 8.6 GB)
+K7_GRIDS = (("2d-2048", FLAGSHIP, 2, ("f64", "f32")),
+            ("3d-512", DIRECT_N, 3, ("f64", "f32")),
+            ("3d-37", 37, 3, ("f64", "f32")),
+            ("1d-1000003", 1000003, 1, ("f64", "f32")),
+            ("2d-2047", 2047, 2, ("f64", "f32")),
+            ("2d-2046", 2046, 2, ("f64", "f32")),
+            ("3d-131", 131, 3, ("f64", "f32")),
+            ("3d-130", 130, 3, ("f64", "f32")),
+            ("2d-2", 2, 2, ("f64", "f32")),
+            ("2d-3", 3, 2, ("f64", "f32")),
+            ("3d-3", 3, 3, ("f64", "f32")),
+            ("1d-2^31+5", 2 ** 31 + 5, 1, ("f32",)))
+
+
 def stencil_checks(torch, K, dev, mf, errs):
     """K7 against its plain version (the shifted-view apply) and against
-    K1 on the same operator's device-built assembled planes, bitwise, in
-    f64 and f32 on the paths' grids (2D 2048, 3D 512) and on ragged ones
-    (3D 37, 1D); stacked K7 against the generated planes through dia_mv
-    on the flagship's 4-part band plan (real row0/nowned)."""
+    K1 on the same operator's device-built assembled planes, bitwise, on
+    every grid of K7_GRIDS; stacked K7 against the generated planes
+    through dia_mv on the flagship's 4-part band plan (real row0/nowned)
+    and on an 8-part band plan of ragged owned counts over 2D 2047 whose
+    parts start off 16-byte boundaries."""
     from acg_tpu_torch.io.generators import poisson_dia_device
     from acg_tpu_torch.ops.operator import poisson_stencil
 
     g = torch.Generator(device=dev).manual_seed(777)
-    for label, n, dim in (("2d-2048", FLAGSHIP, 2), ("3d-512", DIRECT_N, 3),
-                          ("3d-37", 37, 3), ("1d-1000003", 1000003, 1)):
-        for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+    types = {"f64": torch.float64, "f32": torch.float32}
+    for label, n, dim, kinds_ in K7_GRIDS:
+        for kind in kinds_:
+            dt = types[kind]
             op = poisson_stencil(n, dim, dtype=dt, device=dev)
             x = torch.randn(op.nrows, generator=g, dtype=dt, device=dev)
             y = K.stencil_spmv(op, x)
             yr = K.stencil_spmv_plain(op, x)
             torch.cuda.synchronize()
             same = torch.equal(y, yr)
-            err = max_abs(y, yr)
+            err = 0.0 if same else max_abs(y, yr)
             del yr
+            torch.cuda.empty_cache()
             planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
                                                  device=dev)
             y1 = K.dia_spmv(planes, offs, x)
             torch.cuda.synchronize()
             same_k1 = torch.equal(y, y1)
-            say(f"K7 stencil_spmv {label} {kind} (N={op.nrows}): y bitwise="
-                f"{same} vs plain, bitwise={same_k1} vs K1 on the "
-                f"assembled planes")
+            # the kernel's index width (csrc/stencil_spmv.cu dispatch)
+            tile = 256 * 16 // x.element_size()
+            bits = 32 if op.nrows + 2 * n ** (dim - 1) + 2 * tile \
+                < 2 ** 31 - 1 else 64
+            say(f"K7 stencil_spmv {label} {kind} (N={op.nrows}, {bits}-bit "
+                f"index): y bitwise={same} vs plain, bitwise={same_k1} vs "
+                f"K1 on the assembled planes")
             check(same and same_k1, f"K7 {label} {kind}")
             errs[("stencil_spmv", kind)] = max(
                 err, errs.get(("stencil_spmv", kind), 0.0))
             del x, y, y1, planes
             torch.cuda.empty_cache()
     row0, nowned = (torch.from_numpy(a).to(dev) for a in mf.local.arrays[:2])
-    for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
-        op = poisson_stencil(FLAGSHIP, 2, dtype=dt, device=dev)
-        x = torch.randn((mf.nparts, mf.nmax_owned), generator=g, dtype=dt,
-                        device=dev)
-        y = K.stencil_spmv(op, x, row0=row0, nowned=nowned)
-        yr = K.stencil_spmv_plain(op, x, row0, nowned)
-        torch.cuda.synchronize()
-        say(f"K7 stencil_spmv batched {mf.nparts}x{mf.nmax_owned} {kind} "
-            f"(row0 {row0.tolist()}, nowned {nowned.tolist()}): y bitwise="
-            f"{torch.equal(y, yr)}")
-        check(torch.equal(y, yr), f"K7 batched {kind}")
-        errs[("stencil_spmv_batched", kind)] = max_abs(y, yr)
+    plans = {f"{mf.nparts}x{mf.nmax_owned} (flagship {mf.nparts}-part band)":
+             (FLAGSHIP, row0, nowned, mf.nmax_owned)}
+    r8, o8, nrows8 = ragged_plan(torch, 2047 ** 2, 8)
+    plans[f"8x{nrows8} (2D 2047, ragged)"] = (2047, r8.to(dev), o8.to(dev),
+                                              nrows8)
+    for label, (n, r0, no, nrows) in plans.items():
+        for kind, dt in types.items():
+            op = poisson_stencil(n, 2, dtype=dt, device=dev)
+            x = torch.randn((r0.shape[0], nrows), generator=g, dtype=dt,
+                            device=dev)
+            y = K.stencil_spmv(op, x, row0=r0, nowned=no)
+            yr = K.stencil_spmv_plain(op, x, r0, no)
+            torch.cuda.synchronize()
+            say(f"K7 stencil_spmv batched {label} {kind} (row0 "
+                f"{r0.tolist()}, nowned {no.tolist()}): y bitwise="
+                f"{torch.equal(y, yr)}")
+            check(torch.equal(y, yr), f"K7 batched {label} {kind}")
+            errs[("stencil_spmv_batched", kind)] = max(
+                max_abs(y, yr), errs.get(("stencil_spmv_batched", kind), 0.0))
+
+
+def ragged_plan(torch, N, nparts, seed=11):
+    """A band plan of ``nparts`` contiguous parts of uneven sizes over N
+    rows: (row0, nowned) int64 tensors and a padded row count that is
+    odd, so every part but the first starts off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, N), nparts - 1, replace=False))
+    bounds = np.concatenate([[0], cuts, [N]])
+    nowned = np.diff(bounds)
+    nrows = int(nowned.max()) + 1 + int(nowned.max()) % 2
+    return (torch.from_numpy(bounds[:-1].astype(np.int64)),
+            torch.from_numpy(nowned.astype(np.int64)), nrows)
+
+
+def k3_edge_checks(torch, K, dev, errs):
+    """K3 on its edge shapes in f32, mixed and bf16: odd n (2D 2047
+    Poisson planes: plane rows and the +-1 vectors off the 16-byte
+    phase), offsets all >= 0 or all <= 0 (random planes), the 3D 7-point
+    planes (128^3), each with gamma_prev finite and infinite (the first
+    iteration, beta = 0) and with the live flag true and false (a frozen
+    solve: p = p_old): p and t bitwise-equal to the plain version, (p,
+    t) within 1e-5 of sum |p_i t_i| (random planes give terms of both
+    signs, whose sum may lie far below them)."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+
+    g = torch.Generator(device=dev).manual_seed(1122)
+    cases = []
+    for label, n, dim in (("odd n 2d-2047", 2047, 2), ("3d-128", 128, 3)):
+        planes, offs, N = poisson_dia_device(n, dim, dtype=torch.float64,
+                                             device=dev)
+        cases.append((label, planes, offs, N))
+    for label, offs in (("offsets >= 0", (0, 1, 2, 1024, 4096)),
+                        ("offsets <= 0", (-4096, -1024, -2, -1, 0))):
+        cases.append((label, torch.randn((len(offs), 500_001), generator=g,
+                                         dtype=torch.float64, device=dev),
+                      offs, 500_001))
+    dt = kinds(torch)
+    gm = torch.tensor(2.0, device=dev)
+    for label, P64, offs, N in cases:
+        ot = torch.tensor(offs, dtype=torch.int64, device=dev)
+        for kind in ("f32", "mixed", "bf16"):
+            pdt, vdt = dt[kind]
+            P = P64.to(pdt)
+            r, po = (torch.randn(N, generator=g, dtype=torch.float64,
+                                 device=dev).to(vdt) for _ in range(2))
+            for gp_v, live in ((4.0, None), (float("inf"), None),
+                               (4.0, True), (4.0, False)):
+                gp = torch.tensor(gp_v, device=dev)
+                lv = None if live is None else torch.tensor(live, device=dev)
+                pa, ta, da = K.cg_phase_a(P, offs, r, po, gm, gp,
+                                          offsets_t=ot, live=lv)
+                pr, tr, dr = K.cg_phase_a_plain(P, offs, r, po, gm, gp, lv)
+                torch.cuda.synchronize()
+                scale = float((pr.double() * tr.double()).abs().sum())
+                rel = abs(float(da) - float(dr)) / scale
+                ok = torch.equal(pa, pr) and torch.equal(ta, tr)
+                if live is False:
+                    ok = ok and torch.equal(pa, po)
+                if gp_v == float("inf"):
+                    ok = ok and torch.equal(pa, r)
+                say(f"K3 cg_phase_a {label} (N={N}, {len(offs)} offsets) "
+                    f"{kind} gamma_prev={gp_v} live={live}: p, t bitwise="
+                    f"{ok}, (p,t) err {rel:.3e} of sum |p t| (limit 1e-5)")
+                check(ok and rel <= 1e-5,
+                      f"K3 {label} {kind} gamma_prev={gp_v} live={live}")
+                errs[("cg_phase_a", kind)] = max(
+                    errs[("cg_phase_a", kind)], max_abs(pa, pr),
+                    max_abs(ta, tr))
+            del P, r, po
+        del P64
+        torch.cuda.empty_cache()
 
 
 # -- phase 3: the main path through the CLI ------------------------------
@@ -1108,6 +1223,21 @@ def profile_solve(torch, card, label, s, n, nits: int = 100):
             f"launches/iteration  {key[:100]}")
 
 
+def fused_solver(torch, dev):
+    """Path (c)'s solver: the flagship matrix shifted by --epsilon 2,
+    f32, --kernels fused."""
+    from acg_tpu_torch.io.generators import poisson_dia
+    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
+    from acg_tpu_torch.solvers import TorchCGSolver
+
+    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
+    planes[offsets.index(0)] = planes[offsets.index(0)] + 2.0
+    A = device_matrix_from_arrays("dia", planes, {
+        "offsets": offsets, "nrows": N, "ncols_padded": N},
+        dtype=torch.float32, device=dev)
+    return TorchCGSolver(A, kernels="fused", device=dev)
+
+
 def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
     N = FLAGSHIP ** 2
     out = []
@@ -1174,6 +1304,8 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
         pb = item["f32"] if kind == "f32" else item["bf16"]
         a_ms = median_ms(torch, lambda: K.cg_phase_a(
             P, offsets, r, po, gm, gp, offsets_t=ot))
+        a_clean = median_ms(torch, lambda: K.cg_phase_a(
+            P, offsets, r, po, gm, gp, offsets_t=ot), clean=True)
         a_plain = median_ms(torch, lambda: K.cg_phase_a_plain(
             P, offsets, r, po, gm, gp))
         pa, ta, _ = K.cg_phase_a(P, offsets, r, po, gm, gp, offsets_t=ot)
@@ -1181,15 +1313,18 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
         tiny = torch.tensor(1e30, device=r.device)  # alpha ~ 0: no drift
         b_ms = median_ms(torch, lambda: K.cg_phase_b(xb, pa, rb, ta, gm,
                                                      tiny))
+        b_clean = median_ms(torch, lambda: K.cg_phase_b(xb, pa, rb, ta, gm,
+                                                        tiny), clean=True)
         b_plain = median_ms(torch, lambda: K.cg_phase_b_plain(
             xb, pa, rb, ta, gm, tiny))
         fused[kind] = (
             entry("cg_phase_a", "acg_tpu_torch/csrc/cg_fused.cu",
                   "acg_tpu/ops/pallas_kernels.py:572", kind, a_ms, a_plain,
-                  D * N * pb + 4 * N * vb, (2 * D + 4) * N, None),
+                  D * N * pb + 4 * N * vb, (2 * D + 4) * N, None,
+                  clean_l2_ms=round(a_clean, 6)),
             entry("cg_phase_b", "acg_tpu_torch/csrc/cg_fused.cu",
                   "acg_tpu/ops/pallas_kernels.py:627", kind, b_ms, b_plain,
-                  6 * N * vb, 6 * N, None))
+                  6 * N * vb, 6 * N, None, clean_l2_ms=round(b_clean, 6)))
     out.extend(fused["f32"])
     pipe = {}
     for kind in ("f64", "f32", "bf16"):
@@ -1228,8 +1363,9 @@ def stencil_times(torch, K, csr, mf, entry):
     and 512^3 (K1 on the device-built planes beside it; no CSR of 940M
     nonzeros is built), in f64 and f32; stacked K7 on the 4-part plan
     (cuSPARSE on the block-diagonal CSR of the local blocks, as for
-    batched K1).  Returns the f64 entries of the single and stacked
-    forms."""
+    batched K1).  Beside each, a PyTorch copy of x into y (``copy_ms``):
+    the bytes K7 must move and nothing else.  Returns the f64 entries of
+    the single and stacked forms."""
     from acg_tpu_torch.io.generators import poisson_dia_device
     from acg_tpu_torch.ops.operator import poisson_stencil
 
@@ -1245,8 +1381,16 @@ def stencil_times(torch, K, csr, mf, entry):
             item = torch.empty((), dtype=dt).element_size()
             x = torch.randn(N, generator=g, dtype=dt, device=dev)
             ms = median_ms(torch, lambda: K.stencil_spmv(op, x))
+            clean = median_ms(torch, lambda: K.stencil_spmv(op, x),
+                              clean=True)
             plain = median_ms(torch, lambda: K.stencil_spmv_plain(op, x))
-            extra, lib = {}, None
+            extra, lib = {"clean_l2_ms": round(clean, 6)}, None
+            # a copy of x into y moves K7's bytes and nothing else
+            y = torch.empty_like(x)
+            extra["copy_ms"] = round(median_ms(torch, lambda: y.copy_(x)), 6)
+            extra["copy_clean_l2_ms"] = round(median_ms(
+                torch, lambda: y.copy_(x), clean=True), 6)
+            del y
             planes, offs, _ = poisson_dia_device(n, dim, dtype=dt,
                                                  device=dev)
             D = len(offs)
@@ -1267,6 +1411,7 @@ def stencil_times(torch, K, csr, mf, entry):
                 out.append(e)
             del x
             torch.cuda.empty_cache()
+    k1_direct_low_precision(torch, K)
     row0, nowned = (torch.from_numpy(a).to(dev) for a in mf.local.arrays[:2])
     bd = _block_diag_csr(mf)
     NP = mf.nparts * mf.nmax_owned
@@ -1277,18 +1422,51 @@ def stencil_times(torch, K, csr, mf, entry):
                         device=dev)
         ms = median_ms(torch, lambda: K.stencil_spmv(op, x, row0=row0,
                                                      nowned=nowned))
+        clean = median_ms(torch, lambda: K.stencil_spmv(
+            op, x, row0=row0, nowned=nowned), clean=True)
         plain = median_ms(torch, lambda: K.stencil_spmv_plain(
             op, x, row0, nowned))
+        y = torch.empty_like(x)
+        copy = median_ms(torch, lambda: y.copy_(x))
+        del y
         At = csr_tensor(torch, bd, dt, dev)
         xf = x.reshape(-1)
         lib = median_ms(torch, lambda: torch.mv(At, xf))
         del At
         e = entry("stencil_spmv_batched", src, rep, kind, ms, plain,
                   2 * NP * item + 2 * mf.nparts * 8, 2 * 5 * NP, lib,
-                  shape=f"{mf.nparts}x{mf.nmax_owned}")
+                  shape=f"{mf.nparts}x{mf.nmax_owned}",
+                  clean_l2_ms=round(clean, 6), copy_ms=round(copy, 6))
         if kind == "f64":
             out.append(e)
     return out
+
+
+def k1_direct_low_precision(torch, K):
+    """K1 on the 512^3 device-built planes in bf16, with f32 x (mixed)
+    and bf16 x: logged beside its bound (22 and 18 bytes a row), not in
+    the JSON line (its K1 entry is f64)."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(98)
+    planes, offs, N = poisson_dia_device(DIRECT_N, 3, dtype=torch.bfloat16,
+                                         device=dev)
+    D = len(offs)
+    for kind, xdt, xb in (("mixed", torch.float32, 4),
+                          ("bf16", torch.bfloat16, 2)):
+        x = torch.randn(N, generator=g, dtype=torch.float32,
+                        device=dev).to(xdt)
+        ms = median_ms(torch, lambda: K.dia_spmv(planes, offs, x))
+        clean = median_ms(torch, lambda: K.dia_spmv(planes, offs, x),
+                          clean=True)
+        bms, by = bound_ms((D * 2 + 2 * xb) * N, 2 * D * N, kind)
+        say(f"time dia_spmv {kind} 3d-{DIRECT_N} device planes N={N}: "
+            f"kernel {ms:.4f} ms (clean L2 {clean:.4f} ms), bound "
+            f"{bms:.4f} ms ({by}); {device_line(torch)}")
+        del x
+    del planes
+    torch.cuda.empty_cache()
 
 
 def _block_diag_csr(prob):
@@ -1393,7 +1571,8 @@ def main() -> int:
     for src, lines in ptxas.items():
         LOG.append(f"ptxas -v of {src}:")
         LOG.extend(lines)
-    for src in ("dia_spmv.cu", "halo_put.cu"):
+    for src in ("dia_spmv.cu", "halo_put.cu", "stencil_spmv.cu",
+                "cg_fused.cu"):
         text = "\n".join(ptxas.get(src, []))
         regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
         spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
@@ -1412,6 +1591,7 @@ def main() -> int:
     dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs)
     k1_edge_checks(torch, K, dev, errs)
     k6_edge_checks(torch, K, dev, errs)
+    k3_edge_checks(torch, K, dev, errs)
     mf = armed_parts(torch, prob)
     stencil_checks(torch, K, dev, mf, errs)
     torch.cuda.synchronize()
@@ -1435,10 +1615,19 @@ def main() -> int:
 
     profile_solve(torch, card, f"{prob.nparts}-part dma classic f64",
                   DistCGSolver(prob, comm="dma", device=dev), prob.n)
+    for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        profile_solve(torch, card, f"single part classic {kind} --operator "
+                      "stencil (K7)", TorchCGSolver(poisson_stencil(
+                          FLAGSHIP, 2, dtype=dt, device=dev),
+                          device=dev), FLAGSHIP ** 2)
     profile_solve(torch, card, "single part classic f64 --operator "
-                  "stencil (K7)", TorchCGSolver(poisson_stencil(
-                      FLAGSHIP, 2, dtype=torch.float64, device=dev),
-                      device=dev), FLAGSHIP ** 2)
+                  f"stencil (K7) gen:poisson3d:{DIRECT_N}",
+                  TorchCGSolver(poisson_stencil(DIRECT_N, 3,
+                                                dtype=torch.float64,
+                                                device=dev), device=dev),
+                  DIRECT_N ** 3, nits=20)
+    profile_solve(torch, card, "single part --kernels fused f32 (K3, K4)",
+                  fused_solver(torch, dev), FLAGSHIP ** 2)
     irregular_spmv_times(torch, dev, card, irr)
     say(f"clocks after the solve rates (sm, max sm, draw, limit): "
         f"{clocks_line()}")

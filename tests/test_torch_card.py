@@ -282,13 +282,18 @@ def _stencil_band_problem(n, dim, nparts=4):
 def test_stencil_kernel_matches_plain_and_k1_on_card(dev):
     """K7 bitwise against its plain version (the shifted-view apply) and
     against K1 on the same operator's assembled planes, in f32 and f64,
-    on 1D, 2D and 3D grids with ragged N; stacked K7 bitwise against the
-    generated planes through dia_mv on a 4-part band plan."""
+    on 1D, 2D and 3D grids with ragged N, odd n (every +-n vector off
+    the 16-byte phase), n = 2 mod 4 (off it in f32) and n below the rows
+    a thread (2, 3); stacked K7 bitwise against the generated planes
+    through dia_mv on a 4-part band plan and on an 8-part plan of ragged
+    owned counts whose parts start off 16-byte boundaries."""
     from acg_tpu_torch.io.generators import poisson_dia_device
     from acg_tpu_torch.ops.operator import poisson_stencil
 
     g = torch.Generator().manual_seed(3)
-    for n, dim in ((1000, 1), (64, 2), (37, 2), (37, 3), (16, 3)):
+    for n, dim in ((1000, 1), (64, 2), (37, 2), (37, 3), (16, 3),
+                   (100003, 1), (511, 2), (510, 2), (2, 2), (3, 2),
+                   (3, 3), (2, 3), (67, 3), (66, 3)):
         for dt in K.STENCIL_TYPES:
             op = poisson_stencil(n, dim, dtype=dt, device=dev)
             x = torch.randn(op.nrows, generator=g,
@@ -309,6 +314,71 @@ def test_stencil_kernel_matches_plain_and_k1_on_card(dev):
             got = K.stencil_spmv(op, x, row0=row0, nowned=nowned)
             want = K.stencil_spmv_plain(op, x, row0, nowned)
             assert torch.equal(got, want)
+    row0, nowned, nrows = _ragged_plan(511 ** 2, 8)
+    for dt in K.STENCIL_TYPES:
+        op = poisson_stencil(511, 2, dtype=dt, device=dev)
+        x = torch.randn((8, nrows), generator=g,
+                        dtype=torch.float64).to(dev, dt)
+        r0, no = row0.to(dev), nowned.to(dev)
+        assert torch.equal(K.stencil_spmv(op, x, row0=r0, nowned=no),
+                           K.stencil_spmv_plain(op, x, r0, no))
+
+
+def _ragged_plan(N, nparts, seed=11):
+    """A band plan of ``nparts`` contiguous parts of uneven sizes over N
+    rows: (row0, nowned) int64 tensors and a padded row count that is
+    odd, so every part but the first starts off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, N), nparts - 1, replace=False))
+    bounds = np.concatenate([[0], cuts, [N]])
+    nowned = np.diff(bounds)
+    nrows = int(nowned.max()) + 1 + int(nowned.max()) % 2
+    return (torch.from_numpy(bounds[:-1].astype(np.int64)),
+            torch.from_numpy(nowned.astype(np.int64)), nrows)
+
+
+def test_cg_phase_a_edge_shapes_match_plain_on_card(dev):
+    """K3 on its edge shapes in f32, mixed and bf16: odd n (plane rows
+    and the +-1 vectors off the 16-byte phase), offsets all >= 0 or all
+    <= 0, the 3D 7-point planes, the first iteration (gamma_prev = inf)
+    and a frozen solve (live false): p and t bitwise-equal to the plain
+    version, (p, t) within 1e-5 of sum |p_i t_i| (random planes give
+    terms of both signs)."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+
+    g = torch.Generator().manual_seed(9)
+    cases = []
+    for n, dim in ((511, 2), (67, 3)):
+        planes, offs, N = poisson_dia_device(n, dim, dtype=torch.float64,
+                                             device=dev)
+        cases.append((planes, offs, N))
+    for offs, N in (((0, 1, 2, 1024, 4096), 50001),
+                    ((-4096, -1024, -2, -1, 0), 50001),
+                    ((-3, 0, 3), 100)):
+        cases.append((torch.randn((len(offs), N), generator=g,
+                                  dtype=torch.float64).to(dev), offs, N))
+    ot_of = {}
+    for P64, offs, N in cases:
+        ot = ot_of.setdefault(offs, torch.tensor(offs, device=dev))
+        for pdt, vdt in sorted(K.FUSED_TYPES, key=str):
+            P = P64.to(pdt)
+            r, po = (torch.randn(N, generator=g, dtype=torch.float64)
+                     .to(dev, vdt) for _ in range(2))
+            gm = torch.tensor(2.0, device=dev)
+            for gp, live in ((4.0, None), (float("inf"), None),
+                             (4.0, False), (4.0, True)):
+                gpt = torch.tensor(gp, device=dev)
+                lv = None if live is None else torch.tensor(live, device=dev)
+                a = K.cg_phase_a(P, offs, r, po, gm, gpt, offsets_t=ot,
+                                 live=lv)
+                b = K.cg_phase_a_plain(P, offs, r, po, gm, gpt, lv)
+                assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                scale = float((b[0].double() * b[1].double()).abs().sum())
+                assert abs(float(a[2]) - float(b[2])) <= 1e-5 * scale
+                if live is False:
+                    assert torch.equal(a[0], po)
+                if gp == float("inf"):
+                    assert torch.equal(a[0], r)
 
 
 def test_stencil_wrapper_refuses_what_the_kernel_does_not_take(dev):

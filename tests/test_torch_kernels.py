@@ -152,6 +152,56 @@ def test_cg_phase_a_first_iteration_beta_zero_and_frozen():
     assert torch.equal(t2, K.dia_spmv(torch.from_numpy(planes), offsets, p))
 
 
+@pytest.mark.parametrize("case", ["3d-7pt", "odd-n", "offsets>=0",
+                                  "offsets<=0"])
+def test_cg_phase_a_plain_edge_shapes_match_jax(case):
+    """K3's edge shapes on the CPU: the 3D 7-point planes (n = 32, two
+    tiles) against the Pallas kernel in interpret mode; odd n and
+    one-sided offsets, which the Pallas kernel refuses (no fast route),
+    against the JAX formulation it computes (p = r + beta p_old, t =
+    dia_mv(planes, p)), as tests/test_fused_cg.py holds the kernel.
+    Stencil planes: every product exact, so p and t are bitwise-equal;
+    random planes: within the JAX tests' 1e-5 (XLA:CPU contracts into
+    fused multiply-adds)."""
+    rng = np.random.default_rng(11)
+    if case == "3d-7pt":
+        planes, offsets, N = jax_poisson_dia(32, 3, dtype=np.float64)
+        planes = np.stack(planes).astype(np.float32)
+    elif case == "odd-n":
+        planes, offsets, N = jax_poisson_dia(63, 2, dtype=np.float64)
+        planes = np.stack(planes).astype(np.float32)
+    else:
+        offsets = (0, 1, 2, 300, 1024) if case == "offsets>=0" \
+            else (-1024, -300, -2, -1, 0)
+        N = 4001
+        planes = rng.standard_normal((len(offsets), N)).astype(np.float32)
+    r = rng.standard_normal(N).astype(np.float32)
+    p_old = rng.standard_normal(N).astype(np.float32)
+    p, t, d = K.cg_phase_a(torch.from_numpy(planes), offsets,
+                           torch.from_numpy(r), torch.from_numpy(p_old),
+                           torch.tensor(2.0), torch.tensor(4.0))
+    if case == "3d-7pt":
+        pj, tj, _ = pk.cg_phase_a(tuple(jnp.asarray(q) for q in planes),
+                                  offsets, jnp.asarray(r),
+                                  jnp.asarray(p_old), jnp.float32(2.0),
+                                  jnp.float32(4.0), interpret=True)
+    else:
+        assert pk.fused_cg_route(offsets, N, jnp.float32) is None
+        pj = jnp.asarray(r) + jnp.float32(0.5) * jnp.asarray(p_old)
+        tj = jax_dia_mv(tuple(jnp.asarray(q) for q in planes), offsets, N,
+                        pj)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(pj))
+    if case == "odd-n":
+        np.testing.assert_array_equal(t.numpy(), np.asarray(tj))
+    else:
+        np.testing.assert_allclose(t.numpy(), np.asarray(tj), rtol=1e-5,
+                                   atol=1e-5)
+    dref = float(np.asarray(pj, np.float64) @ np.asarray(tj, np.float64))
+    scale = float(np.abs(np.asarray(pj, np.float64)
+                         * np.asarray(tj, np.float64)).sum())
+    assert abs(float(d) - dref) <= 1e-5 * scale
+
+
 def test_cg_phase_b_plain_matches_pallas():
     N = TILE
     rng = np.random.default_rng(2)
@@ -347,6 +397,11 @@ def _plan_case(name):
         "band64-huge": (tuple(200 * k for k in range(-32, 32)),
                         2 ** 25 + 1, torch.bfloat16, 1),
         "tiny": ((-3, 0, 3), 100, torch.float32, 3),
+        # K3's plans (phase A cuts its rows as K1 does for its planes)
+        "2d-5pt-bf16": ((-2048, -1, 0, 1, 2048), 2048 ** 2, torch.bfloat16,
+                        1),
+        "2d-5pt-f32-odd": ((-2047, -1, 0, 1, 2047), 2047 ** 2,
+                           torch.float32, 1),
     }[name]
 
 
@@ -356,12 +411,16 @@ def _plan_case(name):
     ("band64", 2, 512, 1954, 32),
     ("band64-huge", 8, 2048, 16385, 64),
     ("tiny", 4, 1024, 1, 32),
+    ("2d-5pt-bf16", 8, 2048, 2048, 32),
+    ("2d-5pt-f32-odd", 4, 1024, 4093, 32),
 ])
 def test_dia_tile_plan_worked_by_hand(name, rows, tile, nblocks, bits):
     """R = 16 / plane itemsize rows a thread, T = 256 R rows a block,
-    ceil(n / T) blocks a part (at least one: n = 100 is under one tile);
-    64-bit indices once nd * P * n passes 2^31 (64 x (2^25 + 1) bf16
-    values), 32-bit for the 940M plane values of 3D 7-point at 512."""
+    ceil(n / T) blocks a part (at least one: n = 100 is under one tile;
+    4,190,209 = 4,092 x 1,024 + 1 takes 4,093); 64-bit indices once nd * P
+    * n passes 2^31 (64 x (2^25 + 1) bf16 values), 32-bit for the 940M
+    plane values of 3D 7-point at 512.  K3 takes the plan of its planes'
+    dtype: 8 rows a thread under bf16 planes (mixed and bf16)."""
     offsets, n, dtype, nparts = _plan_case(name)
     plan = K.dia_tile_plan(offsets, n, dtype, nparts)
     assert (plan.rows_per_thread, plan.tile, plan.nblocks) == \
