@@ -475,15 +475,9 @@ def _main(args) -> int:
     phases["ingest"] = time.perf_counter() - t_ingest
     n = A.nrows
 
-    # stage 3: partition rows (cli.py:3348-3382): every part lives on
-    # the one device, so nparts defaults to the device count
+    # stage 3: partition rows (cli.py:3348-3382)
     comm = args.comm
-    nparts = args.nparts
-    if comm == "none":
-        nparts = nparts or 1
-    else:
-        nparts = nparts or (torch.cuda.device_count()
-                            if device.type == "cuda" else 1)
+    nparts = args.nparts or _default_nparts(device)
     t0 = time.perf_counter()
     part = _partition(args, csr, n, nparts)
     if args.partition:
@@ -574,6 +568,16 @@ def _main(args) -> int:
         _write_comm_matrix(comm_mtx, nparts)
     _emit_solution(args, x)
     return 0
+
+
+def _default_nparts(device: torch.device) -> int:
+    """The part count when ``--nparts`` is not given: 1, whatever the
+    device and however many cards the host has.  ``acg_tpu`` takes one
+    part per device (``cli.py:3348-3352``) and places each part on its
+    own; the port stacks every part on ``device``, where k stacked parts
+    only run slower than one, so it keeps one part until each part can
+    have a card of its own."""
+    return 1
 
 
 def _partition(args, csr, n: int, nparts: int) -> np.ndarray:

@@ -44,8 +44,22 @@
 // (pallas_call at :627):
 //   alpha = gamma / (p, t);  x += alpha p;  r -= alpha t;  gamma' = (r, r)
 // updating x and r in place.  Bound: memory, 6 * N * itemsize bytes
-// (x, p, r, t read; x, r written; flagship f32: ~101 MB -> ~30 us).  One
-// row a thread; its redesign is later work.
+// (x, p, r, t read; x, r written; flagship f32: ~101 MB -> ~30 us; bf16
+// ~15 us).  The first design (one row a thread, scalar 2- or 4-byte
+// loads and stores, a block sum for every 256 rows) was bound by
+// latency and instruction issue: bf16 took 87 % of f32's time for half
+// the bytes.  So phase B takes phase A's structure, with no offsets:
+//  - each thread owns R = 16 / sizeof(vector) rows (4 f32, 8 bf16), a
+//    block a tile of 256 R rows, so one partial of (r, r) a tile;
+//  - x, p, r and t arrive as 16-byte loads, x and r leave as 16-byte
+//    stores; x and r, written back in place, through plain loads, p
+//    through the read-only path (the next phase A reads it again as
+//    p_old), t with the streaming hint (phase B is its last reader);
+//  - whole tiles with all four pointers 16-byte aligned run with no
+//    check and no branch; the ragged last tile and any call with a
+//    pointer off 16 bytes run one row at a time with checks;
+//  - a false live flag (uniform over the launch) skips the x, p and t
+//    loads and every store.
 //
 // Scalars are f32 as on the TPU (gamma, gamma_prev, (p, t) and gamma'
 // are one-element f32 device tensors).  Vectors are f32 or bf16 and the
@@ -168,20 +182,45 @@ cg_phase_b_kernel(long long n, VT* __restrict__ x, const VT* __restrict__ p,
                   const float* __restrict__ gamma,
                   const float* __restrict__ pdott,
                   const unsigned char* __restrict__ live,
-                  float* __restrict__ part) {
+                  float* __restrict__ part, int vec_ok) {
+  constexpr int R = 16 / static_cast<int>(sizeof(VT));
+  constexpr long long T = kBlock * R;
   const bool on = live == nullptr || live[0] != 0;
   const float alpha = *gamma / *pdott;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
+  const long long t0 = static_cast<long long>(blockIdx.x) * T;
+  const long long i = t0 + static_cast<long long>(threadIdx.x) * R;
   float prod = 0.0f;
-  if (i < n) {
-    float rn = ld(r[i]);
+  if (vec_ok && t0 + T <= n) {
+    VT rv[R];
+    ldv_rw(r + i, rv);
     if (on) {
-      st(&x[i], ld(x[i]) + alpha * ld(p[i]));
-      rn = rnd(rn - alpha * ld(t[i]), r);
-      st(&r[i], rn);
+      VT xv[R], pv[R], tv[R];
+      ldv_rw(x + i, xv);
+      ldv<false>(p + i, pv);
+      ldv<true>(t + i, tv);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        st(&xv[k], ld(xv[k]) + alpha * ld(pv[k]));
+        st(&rv[k], ld(rv[k]) - alpha * ld(tv[k]));
+      }
+      stv(x + i, xv);
+      stv(r + i, rv);
     }
-    prod = rn * rn;
+#pragma unroll
+    for (int k = 0; k < R; ++k) prod = prod + ld(rv[k]) * ld(rv[k]);
+  } else {
+    // the ragged last tile, or a pointer off 16 bytes: row by row
+    for (int k = 0; k < R; ++k) {
+      const long long row = i + k;
+      if (row >= n) break;
+      float rn = ld(r[row]);
+      if (on) {
+        st(&x[row], ld(x[row]) + alpha * ld(p[row]));
+        rn = rnd(rn - alpha * ld(t[row]), r);
+        st(&r[row], rn);
+      }
+      prod = prod + rn * rn;
+    }
   }
   prod = block_sum(prod);
   if (threadIdx.x == 0) part[blockIdx.x] = prod;
@@ -227,15 +266,23 @@ int launch_a_plan(int rows, int bits, const void* planes, const void* offs,
 }
 
 template <typename VT>
-int launch_b(long long n, void* x, const void* p, void* r, const void* t,
-             const void* gamma, const void* pdott, const void* live,
-             void* part, void* out, cudaStream_t s) {
-  const unsigned int grid = row_blocks(n);
+int launch_b(int rows, long long n, void* x, const void* p, void* r,
+             const void* t, const void* gamma, const void* pdott,
+             const void* live, void* part, void* out, cudaStream_t s) {
+  constexpr int R = 16 / static_cast<int>(sizeof(VT));
+  if (rows != R) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid =
+      static_cast<unsigned int>((n + kBlock * R - 1) / (kBlock * R));
+  const int vec_ok = ((reinterpret_cast<uintptr_t>(x) |
+                       reinterpret_cast<uintptr_t>(p) |
+                       reinterpret_cast<uintptr_t>(r) |
+                       reinterpret_cast<uintptr_t>(t)) & 15) == 0;
   cg_phase_b_kernel<VT><<<grid, kBlock, 0, s>>>(
       n, static_cast<VT*>(x), static_cast<const VT*>(p), static_cast<VT*>(r),
       static_cast<const VT*>(t), static_cast<const float*>(gamma),
       static_cast<const float*>(pdott),
-      static_cast<const unsigned char*>(live), static_cast<float*>(part));
+      static_cast<const unsigned char*>(live), static_cast<float*>(part),
+      vec_ok);
   reduce_partials<float>(static_cast<float*>(part), grid,
                          static_cast<float*>(out), s);
   return static_cast<int>(cudaGetLastError());
@@ -276,17 +323,21 @@ extern "C" int acg_cg_phase_a(int ptype, int vtype, const void* planes,
 }
 
 // Phase B.  x, r updated in place; p, t read; gamma, pdott, out: one f32
-// each; live: one byte or null; part: (ceil(n / 256),) f32.  out <- (r, r).
-extern "C" int acg_cg_phase_b(int vtype, long long n, void* x, const void* p,
-                              void* r, const void* t, const void* gamma,
-                              const void* pdott, const void* live,
-                              void* part, void* out, void* stream) {
+// each; live: one byte or null; rows: the plan's rows a thread (16 /
+// sizeof(vector), ops/kernels.py cg_phase_b_plan); part: (plan nblocks,)
+// f32 scratch.  out <- (r, r).
+extern "C" int acg_cg_phase_b(int vtype, long long n, int rows, void* x,
+                              const void* p, void* r, const void* t,
+                              const void* gamma, const void* pdott,
+                              const void* live, void* part, void* out,
+                              void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vtype == ACG_F32)
-    return launch_b<float>(n, x, p, r, t, gamma, pdott, live, part, out, s);
+    return launch_b<float>(rows, n, x, p, r, t, gamma, pdott, live, part,
+                           out, s);
   if (vtype == ACG_BF16)
-    return launch_b<__nv_bfloat16>(n, x, p, r, t, gamma, pdott, live, part,
-                                   out, s);
+    return launch_b<__nv_bfloat16>(rows, n, x, p, r, t, gamma, pdott, live,
+                                   part, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -114,6 +114,20 @@ __device__ __forceinline__ void ldv(const T* p, T (&v)[N]) {
   }
 }
 
+// as ldv, through plain (coherent) loads: for values the kernel writes
+// back in place, which the read-only path may not hold
+template <typename T, int N>
+__device__ __forceinline__ void ldv_rw(const T* p, T (&v)[N]) {
+  constexpr int C = N * static_cast<int>(sizeof(T)) / 16;
+  constexpr int K = 16 / static_cast<int>(sizeof(T));
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint4 u = q[c];
+    memcpy(&v[c * K], &u, 16);
+  }
+}
+
 // v[0..N) = p[0..N) for p at any 16-byte phase (a whole number of
 // elements): the aligned vectors around the values, each output vector
 // funnel-shifted out of two of them.  Reads no byte outside the 16-byte

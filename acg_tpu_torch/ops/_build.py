@@ -43,7 +43,8 @@ _SIGNATURES = {
     "acg_dia_spmv": (_I, _I, _P, _LP, _I, _L, _P, _P, _P, _P, _P),
     "acg_cg_phase_a": (_I, _I, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P),
-    "acg_cg_phase_b": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "acg_cg_phase_b": (_I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P),
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P),
     "acg_halo_put": (_I, _P, _P, _I, _L, _I, _P, _P),

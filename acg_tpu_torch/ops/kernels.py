@@ -52,7 +52,7 @@ launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
             "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
             "stencil_spmv": 0, "stencil_spmv_batched": 0}
 
-_BLOCK = 256  # csrc/common.cuh kBlock: threads per block (K4: rows)
+_BLOCK = 256  # csrc/common.cuh kBlock: threads per block
 
 
 def reset_launches() -> None:
@@ -318,10 +318,20 @@ def cg_phase_b_plain(x, p, r, t, gamma, pdott, live=None):
     return xn, rn, torch.dot(rf, rf)
 
 
+def cg_phase_b_plan(n: int, dtype) -> tuple[int, int]:
+    """How K4 (``csrc/cg_fused.cu``) cuts ``n`` rows of ``dtype`` vectors:
+    ``(rows a thread, blocks)`` -- one 16-byte vector of each vector a
+    thread, a tile of 256 of them a block, one partial of ``(r, r)`` a
+    block."""
+    rows = 16 // _itemsize(dtype)
+    return rows, max(1, -(-n // (_BLOCK * rows)))
+
+
 def cg_phase_b(x, p, r, t, gamma, pdott, *, live=None):
     """Phase B of the fused classic-CG iteration: updates ``x`` and ``r``
     IN PLACE (see :func:`cg_phase_b_plain`) and returns ``(x, r,
-    gamma')`` with ``gamma'`` a one-element f32 tensor."""
+    gamma')`` with ``gamma'`` a one-element f32 tensor.  The kernel cuts
+    the rows as :func:`cg_phase_b_plan` says."""
     if x.device.type == "cpu":
         xn, rn, g = cg_phase_b_plain(x, p, r, t, gamma, pdott, live)
         x.copy_(xn)
@@ -333,11 +343,11 @@ def cg_phase_b(x, p, r, t, gamma, pdott, *, live=None):
         raise ValueError("cg_phase_b: x, p, r, t must share a dtype")
     _check_scalars("cg_phase_b", torch.float32, dev, gamma, pdott)
     live = _live_flag("cg_phase_b", live, dev)
-    part = torch.empty((n + _BLOCK - 1) // _BLOCK, dtype=torch.float32,
-                       device=dev)
+    rows, nblocks = cg_phase_b_plan(n, x.dtype)
+    part = torch.empty(nblocks, dtype=torch.float32, device=dev)
     g = torch.empty((), dtype=torch.float32, device=dev)
     err = _build.lib().acg_cg_phase_b(
-        _build.DTYPE_CODES[x.dtype], n, x.data_ptr(), p.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], n, rows, x.data_ptr(), p.data_ptr(),
         r.data_ptr(), t.data_ptr(), gamma.data_ptr(), pdott.data_ptr(),
         _ptr(live), part.data_ptr(), g.data_ptr(), _stream())
     _build.check("cg_phase_b", err)

@@ -8,8 +8,8 @@ checkout it sits in.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi), and the kernel build
    from the sources in acg_tpu_torch/csrc/ (ptxas registers, shared
-   memory and spills of K1, K3/K4, K6 and K7 printed; every kernel's in
-   the log);
+   memory and spills of K1, K3/K4, K4 alone, K6 and K7 printed; every
+   kernel's in the log);
 2. every kernel of the paths against its plain PyTorch version on the
    card, at the paths' shapes: vectors bitwise-equal (the kernels are
    built with --fmad=false), dots within the stated relative error;
@@ -25,7 +25,10 @@ checkout it sits in.  Phases, each of which raises on failure:
    over the flagship's 4 band parts and over 8 ragged parts of 2D 2047
    against the generated planes through dia_mv; K3 on its edge shapes
    in f32, mixed and bf16 (odd n, one-sided offsets, the 3D 7-point
-   planes, each on the first iteration and frozen);
+   planes, each on the first iteration and frozen); K4 on its edge
+   shapes in f32, mixed and bf16 (odd n, n = 1, 3, 7, 9, 2048^2 + 5,
+   every pointer off 16 bytes; the live flag absent, true and false; the
+   same bits twice);
    K1 on its edge shapes in every dtype, single and over 3 parts: odd
    n, offsets all >= 0 or all <= 0, a 64-diagonal band, the 512^3
    device-built planes and a band of 2.1e9 plane values (64-bit
@@ -52,7 +55,8 @@ checkout it sits in.  Phases, each of which raises on failure:
    with hub rows on gen:irregular:262144 and --spmv-format coo on
    gen:irregular:65536, each solved twice to the same bits;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up),
-   single-device and 4-part with each transport, and per-kernel medians
+   single-device (classic, --kernels fused in f32, mixed and bf16,
+   pipelined) and 4-part with each transport, and per-kernel medians
    of 50 CUDA-event-timed launches (after 50 ms of warm-up launches, L2
    flushed before each) beside each kernel's bound, its plain version
    and, where one PyTorch call computes the same function, that call
@@ -62,13 +66,15 @@ checkout it sits in.  Phases, each of which raises on failure:
    them; torch.profiler breakdowns by op, with the device's busy share,
    of the 4-part --comm dma solve, the single-part --operator stencil
    solves (f64 and f32 at 2048^2, f64 at 512^3: K7 in the loop) and the
-   --kernels fused f32 solve (K3 and K4 in the loop); path (h)'s SpMV
-   split into local block, halo exchange and ghost block; K7 at 2048^2
-   and 512^3 in f64 and f32 beside K1 on the assembled planes, stacked
-   K7 on the 4-part plan, and K1 on the 512^3 planes in mixed and bf16;
+   --kernels fused solves in f32, mixed and bf16 (K3 and K4 in the
+   loop); path (h)'s SpMV split into local block, halo exchange and
+   ghost block; K7 at 2048^2 and 512^3 in f64 and f32 beside K1 on the
+   assembled planes, stacked K7 on the 4-part plan, and K1 on the 512^3
+   planes in mixed and bf16;
    classic f64 rates with --operator stencil against assembled at
    2048^2 and 512^3.  K1, K3, K4, K6 and K7 are also timed with L2
-   flushed by reading (clean_l2_ms).
+   flushed by reading (clean_l2_ms), K4 and K7 beside a copy of their
+   bytes (copy_ms).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -219,6 +225,17 @@ def ptxas_lines(build_log: str) -> dict:
             cur = os.path.basename(ln.split(" -c ", 1)[1].split()[0])
         elif cur and ("ptxas" in ln or "bytes spill" in ln):
             out.setdefault(cur, []).append(ln.strip())
+    return out
+
+
+def ptxas_entries(lines: list) -> list:
+    """One source's ptxas lines cut into kernels: each list starts at its
+    "Compiling entry function" line."""
+    out = []
+    for ln in lines:
+        if "Compiling entry function" in ln or not out:
+            out.append([])
+        out[-1].append(ln)
     return out
 
 
@@ -700,6 +717,67 @@ def k3_edge_checks(torch, K, dev, errs):
         torch.cuda.empty_cache()
 
 
+# K4's edge shapes: (label, n, elements each vector sits past a 16-byte
+# boundary); odd n (a ragged last tile), n below and near the rows a
+# thread (4 f32, 8 bf16), n past a whole tile count, and every pointer
+# one element off 16 bytes
+K4_CASES = (("odd n 2047^2", 2047 ** 2, 0), ("n=1", 1, 0), ("n=3", 3, 0),
+            ("n=7", 7, 0), ("n=9", 9, 0), ("n=2048^2+5", FLAGSHIP ** 2 + 5, 0),
+            ("n=2048^2, pointers off 16 bytes", FLAGSHIP ** 2, 1),
+            ("n=9, pointers off 16 bytes", 9, 1))
+
+
+def k4_edge_checks(torch, K, dev, errs):
+    """K4 on the K4_CASES shapes in f32, mixed (f32 vectors, as the fused
+    tier runs them under bf16 planes) and bf16, each with the live flag
+    absent, true and false: x and r bitwise-equal to the plain version
+    and untouched when live is false, gamma' within 1e-5 of sum r_i^2
+    (relative), the same bits twice, and nothing written outside the
+    vectors (each is the view [off, off + n) of a buffer of n + off + 1
+    elements)."""
+    g = torch.Generator(device=dev).manual_seed(3344)
+    gm = torch.tensor(2.0, device=dev)
+    pd = torch.tensor(6.0, device=dev)   # alpha = 1/3
+    for label, n, off in K4_CASES:
+        for kind in ("f32", "mixed", "bf16"):
+            vdt = kinds(torch)[kind][1]
+            bufs = [torch.randn(n + off + 1, generator=g, device=dev).to(vdt)
+                    for _ in range(4)]
+            x0, p, r0, t = (b[off:off + n] for b in bufs)
+            for live in (None, True, False):
+                lv = None if live is None else torch.tensor(live, device=dev)
+                xw, rw, _ = K.cg_phase_b_plain(x0, p, r0, t, gm, pd, lv)
+                runs = []
+                for _ in range(2):
+                    xb, rb = bufs[0].clone(), bufs[2].clone()
+                    x, r = xb[off:off + n], rb[off:off + n]
+                    _, _, gam = K.cg_phase_b(x, p, r, t, gm, pd, live=lv)
+                    runs.append((xb, rb, gam))
+                torch.cuda.synchronize()
+                xb, rb, gam = runs[0]
+                ok = torch.equal(xb[off:off + n], xw) and \
+                    torch.equal(rb[off:off + n], rw)
+                if live is False:
+                    ok = ok and torch.equal(xw, x0) and torch.equal(rw, r0)
+                outside = all(torch.equal(v[:off], b[:off])
+                              and torch.equal(v[off + n:], b[off + n:])
+                              for v, b in ((xb, bufs[0]), (rb, bufs[2])))
+                twice = all(torch.equal(a, b)
+                            for a, b in zip(runs[0], runs[1]))
+                ref = float((rw.double() ** 2).sum())
+                rel = abs(float(gam) - ref) / ref
+                say(f"K4 cg_phase_b {label} (N={n}) {kind} live={live}: x, r "
+                    f"bitwise={ok}, outside untouched={outside}, same bits "
+                    f"twice={twice}, (r,r) rel err {rel:.3e} (limit 1e-5)")
+                check(ok and outside and twice and rel <= 1e-5,
+                      f"K4 {label} {kind} live={live}")
+                errs[("cg_phase_b", kind)] = max(
+                    errs[("cg_phase_b", kind)],
+                    max_abs(xb[off:off + n], xw), max_abs(rb[off:off + n], rw))
+            del bufs, x0, p, r0, t, runs
+        torch.cuda.empty_cache()
+
+
 # -- phase 3: the main path through the CLI ------------------------------
 
 def run_cli(torch, K, argv, tag):
@@ -1035,42 +1113,66 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
 
 # -- phase 4: times --------------------------------------------------------
 
-def solve_rates(torch, dev, card):
+def rate_runs(s, n: int, nruns: int = 3) -> list:
+    """iters/s of ``nruns`` fixed 1000-iteration solves of solver ``s``
+    on b = ones, after a 50-iteration warm-up solve."""
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    b = np.ones(n)
+    s.solve(b, criteria=StoppingCriteria(maxits=50))
+    runs = []
+    for _ in range(nruns):
+        s.stats.tsolve = 0.0
+        s.solve(b, criteria=StoppingCriteria(maxits=1000))
+        runs.append(1000.0 / s.stats.tsolve)
+    return runs
+
+
+def rate_solver(torch, dev, name: str):
+    """The flagship solver of a solve_rates row: "classic f64", "classic
+    f64 --operator stencil", "classic f32", "pipelined f64", "classic f64
+    plain torch", or "fused f32" / "fused mixed" / "fused bf16" (--kernels
+    fused; mixed = bf16 planes under f32 vectors)."""
     from acg_tpu_torch.io.generators import poisson_dia
-    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
-    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
-
     from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
+    from acg_tpu_torch.solvers import TorchCGSolver
 
-    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
-    meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
+    dtype = {"f64": torch.float64, "f32": torch.float32,
+             "mixed": torch.bfloat16, "bf16": torch.bfloat16}[
+                 name.split()[1]]
+    vdt = torch.float32 if "mixed" in name else None
+    kernels = ("xla" if "plain torch" in name
+               else "fused" if name.startswith("fused") else "auto")
+    if "operator" in name:
+        A = poisson_stencil(FLAGSHIP, 2, dtype=dtype, device=dev)
+    else:
+        planes, offsets, N = poisson_dia(FLAGSHIP, 2)
+        A = device_matrix_from_arrays("dia", planes, {
+            "offsets": offsets, "nrows": N, "ncols_padded": N}, dtype=dtype,
+            device=dev)
+    return TorchCGSolver(A, pipelined=name.startswith("pipelined"),
+                         kernels=kernels, vector_dtype=vdt, device=dev)
+
+
+RATE_ROWS = ("classic f64", "classic f64 --operator stencil", "classic f32",
+             "fused f32", "fused mixed", "fused bf16", "pipelined f64",
+             "classic f64 plain torch")
+
+
+def solve_rates(torch, dev, card):
+    """Fixed-iteration rates of the flagship solvers of RATE_ROWS, three
+    timed solves each (the median printed)."""
     rates = {}
-    for name, dtype, pipelined, kernels in (
-            ("classic f64", torch.float64, False, "auto"),
-            ("classic f64 --operator stencil", torch.float64, False, "auto"),
-            ("classic f32", torch.float32, False, "auto"),
-            ("pipelined f64", torch.float64, True, "auto"),
-            ("classic f64 plain torch", torch.float64, False, "xla")):
-        if "operator" in name:
-            A = poisson_stencil(FLAGSHIP, 2, dtype=dtype, device=dev)
-        else:
-            A = device_matrix_from_arrays("dia", planes, meta, dtype=dtype,
-                                          device=dev)
-        s = TorchCGSolver(A, pipelined=pipelined, kernels=kernels,
-                          device=dev)
-        b = np.ones(N)
-        s.solve(b, criteria=StoppingCriteria(maxits=50))
-        runs = []
-        for _ in range(3):
-            s.stats.tsolve = 0.0
-            s.solve(b, criteria=StoppingCriteria(maxits=1000))
-            runs.append(1000.0 / s.stats.tsolve)
+    for name in RATE_ROWS:
+        s = rate_solver(torch, dev, name)
+        runs = rate_runs(s, FLAGSHIP ** 2)
         rates[name] = runs
         say(f"solve rate {name} (kernels={s.kernels}): "
             f"{', '.join(f'{r:.1f}' for r in runs)} iters/s "
             f"(median {np.median(runs):.1f}; 1000 iterations after a 50-"
             f"iteration warm-up; {card})")
-        del A, s
+        del s
         torch.cuda.empty_cache()
     return rates
 
@@ -1223,21 +1325,6 @@ def profile_solve(torch, card, label, s, n, nits: int = 100):
             f"launches/iteration  {key[:100]}")
 
 
-def fused_solver(torch, dev):
-    """Path (c)'s solver: the flagship matrix shifted by --epsilon 2,
-    f32, --kernels fused."""
-    from acg_tpu_torch.io.generators import poisson_dia
-    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
-    from acg_tpu_torch.solvers import TorchCGSolver
-
-    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
-    planes[offsets.index(0)] = planes[offsets.index(0)] + 2.0
-    A = device_matrix_from_arrays("dia", planes, {
-        "offsets": offsets, "nrows": N, "ncols_padded": N},
-        dtype=torch.float32, device=dev)
-    return TorchCGSolver(A, kernels="fused", device=dev)
-
-
 def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
     N = FLAGSHIP ** 2
     out = []
@@ -1317,6 +1404,12 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
                                                         tiny), clean=True)
         b_plain = median_ms(torch, lambda: K.cg_phase_b_plain(
             xb, pa, rb, ta, gm, tiny))
+        # a copy of 3 N values moves K4's bytes and nothing else
+        src = torch.empty(3 * N, dtype=r.dtype, device=r.device)
+        dst = torch.empty_like(src)
+        b_copy = {f"copy{'_clean_l2' if c else ''}_ms": round(median_ms(
+            torch, lambda: dst.copy_(src), clean=c), 6) for c in (False, True)}
+        del src, dst
         fused[kind] = (
             entry("cg_phase_a", "acg_tpu_torch/csrc/cg_fused.cu",
                   "acg_tpu/ops/pallas_kernels.py:572", kind, a_ms, a_plain,
@@ -1324,7 +1417,8 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
                   clean_l2_ms=round(a_clean, 6)),
             entry("cg_phase_b", "acg_tpu_torch/csrc/cg_fused.cu",
                   "acg_tpu/ops/pallas_kernels.py:627", kind, b_ms, b_plain,
-                  6 * N * vb, 6 * N, None, clean_l2_ms=round(b_clean, 6)))
+                  6 * N * vb, 6 * N, None, clean_l2_ms=round(b_clean, 6),
+                  **b_copy))
     out.extend(fused["f32"])
     pipe = {}
     for kind in ("f64", "f32", "bf16"):
@@ -1571,9 +1665,13 @@ def main() -> int:
     for src, lines in ptxas.items():
         LOG.append(f"ptxas -v of {src}:")
         LOG.extend(lines)
-    for src in ("dia_spmv.cu", "halo_put.cu", "stencil_spmv.cu",
-                "cg_fused.cu"):
-        text = "\n".join(ptxas.get(src, []))
+    groups = {src: ptxas.get(src, []) for src in (
+        "dia_spmv.cu", "halo_put.cu", "stencil_spmv.cu", "cg_fused.cu")}
+    groups["cg_fused.cu K4"] = [ln for e in ptxas_entries(
+        ptxas.get("cg_fused.cu", [])) if "cg_phase_b_kernel" in e[0]
+        for ln in e]
+    for src, lines in groups.items():
+        text = "\n".join(lines)
         regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
         spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
                                                text))
@@ -1592,6 +1690,7 @@ def main() -> int:
     k1_edge_checks(torch, K, dev, errs)
     k6_edge_checks(torch, K, dev, errs)
     k3_edge_checks(torch, K, dev, errs)
+    k4_edge_checks(torch, K, dev, errs)
     mf = armed_parts(torch, prob)
     stencil_checks(torch, K, dev, mf, errs)
     torch.cuda.synchronize()
@@ -1626,8 +1725,10 @@ def main() -> int:
                                                 dtype=torch.float64,
                                                 device=dev), device=dev),
                   DIRECT_N ** 3, nits=20)
-    profile_solve(torch, card, "single part --kernels fused f32 (K3, K4)",
-                  fused_solver(torch, dev), FLAGSHIP ** 2)
+    for kind in ("f32", "mixed", "bf16"):
+        profile_solve(torch, card, f"single part --kernels fused {kind} (K3, "
+                      "K4)", rate_solver(torch, dev, f"fused {kind}"),
+                      FLAGSHIP ** 2)
     irregular_spmv_times(torch, dev, card, irr)
     say(f"clocks after the solve rates (sm, max sm, draw, limit): "
         f"{clocks_line()}")

@@ -381,6 +381,51 @@ def test_cg_phase_a_edge_shapes_match_plain_on_card(dev):
                     assert torch.equal(a[0], r)
 
 
+def test_cg_phase_b_edge_shapes_match_plain_on_card(dev):
+    """K4 on some of chip_smoke.py's edge shapes in f32 and bf16: odd n
+    (a ragged last tile), n below and near the rows a thread, n past a
+    whole tile count, every pointer one element off 16 bytes; the live
+    flag absent, true and false: x and r bitwise-equal to the plain
+    version (untouched when live is false), gamma' within 1e-5 of sum
+    r_i^2, the same bits twice."""
+    g = torch.Generator().manual_seed(21)
+    gm, pd = (torch.tensor(v, device=dev) for v in (2.0, 6.0))
+    for n, off in ((511 ** 2, 0), (1, 0), (7, 0), (9, 0), (2 ** 16 + 5, 0),
+                   (2 ** 16, 1)):
+        for vdt in (torch.float32, torch.bfloat16):
+            bufs = [torch.randn(n + off, generator=g, dtype=torch.float64)
+                    .to(dev, vdt) for _ in range(4)]
+            x0, p, r0, t = (b[off:] for b in bufs)
+            for live in (None, True, False):
+                lv = None if live is None else torch.tensor(live, device=dev)
+                xw, rw, _ = K.cg_phase_b_plain(x0, p, r0, t, gm, pd, lv)
+                runs = []
+                for _ in range(2):
+                    xb, rb = bufs[0].clone(), bufs[2].clone()
+                    _, _, gam = K.cg_phase_b(xb[off:], p, rb[off:], t, gm,
+                                             pd, live=lv)
+                    runs.append((xb[off:], rb[off:], gam))
+                x, r, gam = runs[0]
+                assert torch.equal(x, xw) and torch.equal(r, rw)
+                if live is False:
+                    assert torch.equal(x, x0) and torch.equal(r, r0)
+                assert all(torch.equal(a, b) for a, b in zip(*runs))
+                ref = float((rw.double() ** 2).sum())
+                assert abs(float(gam) - ref) <= 1e-5 * ref
+
+
+def test_cli_default_is_one_part_on_card(dev, capsys):
+    """A plain run on the card solves as one part, however many cards
+    the host has: the single-device solver (K1, no batched K1)."""
+    from acg_tpu_torch.cli import main
+
+    K.reset_launches()
+    assert main(["gen:poisson2d:64", "-v", "--warmup", "0",
+                 "--max-iterations", "1000"]) == 0
+    assert "partition rows into 1 parts" in capsys.readouterr().err
+    assert K.launches["dia_spmv"] > 0 and K.launches["dia_spmv_batched"] == 0
+
+
 def test_stencil_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from acg_tpu_torch.ops.operator import aniso2d_stencil, poisson_stencil
 

@@ -259,3 +259,26 @@ def test_cli_without_device_flag_refuses_to_solve_on_cpu():
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert "total solver time" not in res.stderr
+
+
+def test_default_nparts_is_one_on_a_many_card_host(monkeypatch):
+    """On CUDA the default part count is 1 however many cards the host
+    has: the port stacks every part on one card, where acg_tpu places
+    one part on each device."""
+    from acg_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert cli._default_nparts(torch.device("cuda")) == 1
+
+
+@pytest.mark.parametrize("extra,nparts", [([], 1), (["--nparts", "4"], 4),
+                                          (["--comm", "none"], 1)])
+def test_cli_part_count_with_four_cards(monkeypatch, capsys, extra, nparts):
+    """Through the CLI with a patched count of 4 cards: no --nparts
+    gives one part, an explicit --nparts 4 still stacks 4, and --comm
+    none keeps 1 (the -v log names the count)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert torch_main(["gen:poisson2d:12", "--device", "cpu", "-v",
+                       "--warmup", "0", "--max-iterations", "300"]
+                      + extra) == 0
+    assert f"partition rows into {nparts} parts" in capsys.readouterr().err

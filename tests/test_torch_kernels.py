@@ -261,6 +261,99 @@ def test_fused_phases_bf16_within_rounding_of_pallas():
                                    atol=2 ** -5 * np.abs(w).max())
 
 
+_PHASE_B_DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
+                   "bf16": (np.float64, jnp.bfloat16, torch.bfloat16)}
+
+
+def _phase_b_case(dtype, n, seed):
+    """x, p, r, t as (numpy, torch) pairs of one dtype, the numpy arrays
+    in the dtype JAX takes them from."""
+    ndt, _, tdt = _PHASE_B_DTYPES[dtype]
+    rng = np.random.default_rng(seed)
+    vecs = [rng.standard_normal(n).astype(ndt) for _ in range(4)]
+    return vecs, [_t(v, tdt) for v in vecs]
+
+
+def _check_phase_b(dtype, live, vecs, tv, gamma, pdott, want):
+    """The port's K4 (its plain version here) on ``tv`` against ``want``
+    = (x, r, gamma') of the JAX reference.  The reference has no live
+    flag: absent or true, x and r are held to it (bitwise in f32, within
+    the bf16 rounding of test_fused_phases_bf16_within_rounding_of_pallas
+    in bf16) and gamma' to (r, r) of the port's own r; false, x and r
+    come back unchanged and gamma' is (r, r) of the unchanged r."""
+    xt, pt, rt, tt = tv
+    x0, r0 = xt.clone(), rt.clone()
+    lv = None if live is None else torch.tensor(live)
+    xo, ro, g = K.cg_phase_b(xt, pt, rt, tt, torch.tensor(gamma),
+                             torch.tensor(pdott), live=lv)
+    assert xo is xt and ro is rt  # updated in place
+    if live is False:
+        assert torch.equal(xo, x0) and torch.equal(ro, r0)
+        rf = r0.to(torch.float32)
+        assert torch.equal(g, torch.dot(rf, rf))
+        return
+    for got, w in zip((xo, ro), want[:2]):
+        w = np.asarray(w, np.float64)
+        if dtype == "f32":
+            np.testing.assert_array_equal(_np(got), w)
+        else:
+            np.testing.assert_allclose(_np(got), w,
+                                       atol=2 ** -5 * np.abs(w).max())
+    rr = float((_np(ro) ** 2).sum())
+    assert float(g) == pytest.approx(rr, rel=1e-5)
+    gj = float(want[2])
+    assert abs(float(g) - gj) <= (1e-5 if dtype == "f32" else 2 ** -6) * gj
+
+
+@pytest.mark.parametrize("n", [TILE, 2 * TILE])
+@pytest.mark.parametrize("live", [None, True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cg_phase_b_plain_matches_pallas_with_live(dtype, live, n):
+    """K4's plain version against the Pallas kernel in interpret mode,
+    at the tile multiples it takes.  alpha = 3/1.5 = 2 is exact, so the
+    interpret mode's fused multiply-adds round as the port's separate
+    product and sum do (f32 bitwise)."""
+    vecs, tv = _phase_b_case(dtype, n, 12)
+    jdt = _PHASE_B_DTYPES[dtype][1]
+    want = pk.cg_phase_b(*(jnp.asarray(v, jdt) for v in vecs),
+                         jnp.float32(3.0), jnp.float32(1.5), interpret=True)
+    _check_phase_b(dtype, live, vecs, tv, 3.0, 1.5, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, TILE + 5])
+@pytest.mark.parametrize("live", [None, True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cg_phase_b_plain_ragged_matches_jax_formulation(dtype, live, n):
+    """Ragged n, which the Pallas kernel refuses: K4's plain version
+    against the kernel's formulation in jax.numpy, op by op (alpha in
+    the vector dtype, x + alpha p, r - alpha t, (r, r) in f32), with an
+    inexact alpha = 3/1.7 (eager jax.numpy contracts nothing, so f32 is
+    bitwise)."""
+    vecs, tv = _phase_b_case(dtype, n, 13)
+    jdt = _PHASE_B_DTYPES[dtype][1]
+    x, p, r, t = (jnp.asarray(v, jdt) for v in vecs)
+    with pytest.raises(ValueError, match="not supported"):
+        pk.cg_phase_b(x, p, r, t, jnp.float32(3.0), jnp.float32(1.7),
+                      interpret=True)
+    alpha = (jnp.float32(3.0) / jnp.float32(1.7)).astype(jdt)
+    rj = r - alpha * t
+    rf = rj.astype(jnp.float32)
+    want = (x + alpha * p, rj, jnp.sum(rf * rf))
+    _check_phase_b(dtype, live, vecs, tv, 3.0, 1.7, want)
+
+
+@pytest.mark.parametrize("n,rows,nblocks", [
+    (2048 ** 2, 4, 4096), (2047 ** 2, 4, 4093), (1, 4, 1), (9, 4, 1),
+    (1025, 4, 2)])
+def test_cg_phase_b_plan_worked_by_hand(n, rows, nblocks):
+    """K4's cut: 16-byte vectors a thread (4 f32 rows, 8 bf16), 256
+    threads a block, one partial a block: f32 as listed, bf16 with
+    twice the rows and half the blocks (at least one)."""
+    assert K.cg_phase_b_plan(n, torch.float32) == (rows, nblocks)
+    assert K.cg_phase_b_plan(n, torch.bfloat16) == \
+        (2 * rows, max(1, -(-n // 2048)))
+
+
 def test_pipelined_update_plain_matches_pallas_f32():
     """f32: the loop-body form agrees with the Pallas kernel (alpha/beta
     already f32; XLA:CPU's fused multiply-adds differ by an ulp)."""
