@@ -13,9 +13,13 @@ on the one device, with the halo transport of ``--comm``.
 operator) in place of the assembled matrix, and ``gen:poisson*`` specs
 above ``ACG_TPU_GEN_DIRECT_MIN`` rows (default 2^24) skip the host
 matrix altogether: planes or operator on the device, ``b = ones``
-(the single-device gen-direct tier).  Flag names and defaults follow the
-JAX package's CLI; flags of tiers the port does not have yet
-(``--precond``, ``--serve``, ...) are not accepted.
+(the single-device gen-direct tier).  ``--precond`` makes the classic
+and pipelined solvers preconditioned, ``--precise-dots`` computes their
+scalars with compensated dots, ``--replace-every`` runs the bf16 tier
+with periodic f32 residual replacement, and ``--refine`` wraps the
+solve in f64 iterative refinement on the host.  Flag names and defaults
+follow the JAX package's CLI; flags of tiers the port does not have yet
+(``--algorithm``, ``--serve``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU.
@@ -121,6 +125,23 @@ def make_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dia", "ell", "coo"],
                    help="force the device sparse format; auto picks by "
                         "sparsity structure")
+    p.add_argument("--replace-every", type=int, default=0, metavar="K",
+                   help="with --dtype bf16: periodic f32 residual "
+                        "replacement every K iterations (classic CG; "
+                        "single-part and multi-part tiers) -- the "
+                        "sound-bf16 contract: f32-class residuals for one "
+                        "mixed SpMV per K iterations (0 = off)")
+    p.add_argument("--precond", default="none", metavar="KIND",
+                   help="preconditioner: none | jacobi (inverse-diagonal "
+                        "scaling, no extra communication) | bjacobi[:BS] "
+                        "(Cholesky of the BSxBS local diagonal blocks, "
+                        "batched triangular solves, no halo traffic; "
+                        "default BS 32) | cheby:K (degree-K Chebyshev "
+                        "polynomial: K extra SpMVs per iteration through "
+                        "the tier's own SpMV and halo exchange, "
+                        "lambda_max from a power iteration at setup).  "
+                        "Turns the classic/pipelined solvers into PCG / "
+                        "pipelined PCG on every tier (default: none)")
     p.add_argument("--operator", default="none", metavar="SPEC",
                    help="matrix-free operator tier: solve with A as an "
                         "apply instead of stored planes (no matrix reads "
@@ -137,6 +158,22 @@ def make_parser() -> argparse.ArgumentParser:
                    help="with gen:poisson2d:N: generate the anisotropic "
                         "(stretched-grid) Poisson family instead, "
                         "y-spacings graded by stretch factor EPS in (0, 1]")
+    p.add_argument("--precise-dots", action="store_true",
+                   help="compensated (double-float) dot products for the "
+                        "CG scalars; lets f32 storage converge past the "
+                        "~1e-6 relative-residual stall")
+    p.add_argument("--refine", action="store_true",
+                   help="mixed-precision iterative refinement: f64 outer "
+                        "residual on the host, --dtype inner solves on the "
+                        "device; reaches f64 tolerances at f32 device "
+                        "speed")
+    p.add_argument("--refine-rtol", type=float, default=1e-5, metavar="TOL",
+                   help="relative tolerance of each inner refinement solve "
+                        "(default: 1e-5)")
+    p.add_argument("--refine-inner-maxits", type=int, default=None,
+                   metavar="N",
+                   help="cap each inner refinement solve at N iterations "
+                        "(default: the remaining --max-iterations budget)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to solve (default: cuda; cpu only when "
                         "asked for)")
@@ -273,6 +310,49 @@ def _validate_operator(args) -> None:
                 "Poisson family and needs a gen:poisson2d:N matrix spec")
 
 
+def _validate_precision(args) -> None:
+    """Parse ``--precond`` and refuse the configurations an armed
+    preconditioner could never serve, before anything expensive
+    (``acg_tpu/cli.py:2683-2706``)."""
+    from acg_tpu_torch.precond import parse_precond
+
+    try:
+        args._precond = parse_precond(args.precond)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    if args._precond is not None:
+        unsupported = [flag for flag, on in [
+            ("--replace-every (the replacement segments restructure "
+             "the recurrences M^-1 threads through)",
+             args.replace_every > 0),
+            ("--kernels fused (the two-phase kernels fold the whole "
+             "iteration; no preconditioner hook)",
+             args.kernels == "fused"),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --precond {args.precond} does not "
+                f"support: {', '.join(unsupported)}")
+
+
+def _solver_options(args) -> dict:
+    """The precision and preconditioning keywords both solver tiers
+    take."""
+    return dict(precise_dots=args.precise_dots,
+                replace_every=args.replace_every, precond=args._precond)
+
+
+def _fold_inner_timings(solver) -> None:
+    """Under ``--refine`` the wrapper's statistics are the ones printed:
+    they take the device solver's phase timings."""
+    inner = getattr(solver, "inner", None)
+    if inner is None:
+        return
+    for k, v in inner.stats.timings.items():
+        solver.stats.timings[k] = solver.stats.timings.get(k, 0.0) + v
+    inner.stats.timings.clear()
+
+
 def _build_cli_operator(args, n: int, dtype, device):
     """The armed ``--operator`` for this solve, validated against the
     matrix being solved."""
@@ -323,6 +403,7 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     sharded = [flag for flag, on in [
         (f"--nparts {args.nparts}", args.nparts > 1),
         ("--manufactured-solution", args.manufactured_solution),
+        ("--refine", args.refine),
     ] if on]
     if sharded:
         raise SystemExit(
@@ -351,7 +432,7 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     try:
         solver = TorchCGSolver(A, pipelined="pipelined" in args.solver,
                                kernels=args.kernels, vector_dtype=vec_dtype,
-                               device=device)
+                               device=device, **_solver_options(args))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     solver.stats.timings["ingest"] = ingest
@@ -427,6 +508,7 @@ def _main(args) -> int:
 
     # stage 0: the device, before anything expensive
     _validate_operator(args)
+    _validate_precision(args)
     try:
         device = resolve_device(args.device)
     except AcgError as e:
@@ -504,6 +586,11 @@ def _main(args) -> int:
         diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
 
     # stages 6-8: device matrix, solver, solve
+    if args.replace_every and (args.diff_atol > 0 or args.diff_rtol > 0):
+        sys.stderr.write("acg-tpu-torch: --replace-every supports residual "
+                         "criteria only (--diff-atol/--diff-rtol have no "
+                         "meaning across replacement segments)\n")
+        return 1
     t0 = time.perf_counter()
     pipelined = "pipelined" in args.solver
     comm_mtx = None
@@ -518,7 +605,8 @@ def _main(args) -> int:
         try:
             solver = TorchCGSolver(dev, pipelined=pipelined,
                                    kernels=args.kernels,
-                                   vector_dtype=vec_dtype, device=device)
+                                   vector_dtype=vec_dtype, device=device,
+                                   **_solver_options(args))
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     else:
@@ -540,9 +628,15 @@ def _main(args) -> int:
         try:
             solver = DistCGSolver(prob, pipelined=pipelined,
                                   comm=resolve_comm(comm),
-                                  kernels=args.kernels, device=device)
+                                  kernels=args.kernels, device=device,
+                                  **_solver_options(args))
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
+    if args.refine:
+        # the device solver inside the f64 host refinement loop
+        from acg_tpu_torch.solvers.refine import RefinedSolver
+        solver = RefinedSolver(solver, csr, inner_rtol=args.refine_rtol,
+                               inner_maxits=args.refine_inner_maxits)
     solver.stats.timings.update(phases)
     try:
         x = solver.solve(b, x0=x0, criteria=criteria, warmup=args.warmup)
@@ -550,8 +644,10 @@ def _main(args) -> int:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _fold_inner_timings(solver)
         solver.stats.fwrite(sys.stderr)
         return 1
+    _fold_inner_timings(solver)
     _log(args, "solve:", t0)
 
     # stage 9: statistics block (grep-compatible with the reference)

@@ -28,7 +28,8 @@ A wrapper takes the plain version for tensors on the CPU -- and only
 because they lie there; for CUDA tensors it launches its kernel or
 raises.  :data:`launches` counts kernel launches per wrapper (plain
 calls are not counted; K1 and K7 count their stacked (P, n) forms apart,
-as ``dia_spmv_batched`` and ``stencil_spmv_batched``), so a run can show
+as ``dia_spmv_batched`` and ``stencil_spmv_batched``, and
+:data:`dia_spmv_types` splits K1's by dtype pair), so a run can show
 that its path went through the kernels.
 
 The route predicates :func:`dia_spmv_route` / :func:`fused_cg_route`
@@ -52,12 +53,19 @@ launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
             "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
             "stencil_spmv": 0, "stencil_spmv_batched": 0}
 
+# K1's launches of the same period by (planes, x) dtype pair, e.g.
+# "bf16/f32" for the mixed product
+dia_spmv_types: dict = {}
+
 _BLOCK = 256  # csrc/common.cuh kBlock: threads per block
+
+_SHORT = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    dia_spmv_types.clear()
 
 
 def _itemsize(dtype) -> int:
@@ -238,6 +246,8 @@ def dia_spmv(planes, offsets, x, *, with_dot: bool = False):
         _stream())
     _build.check("dia_spmv", err)
     launches["dia_spmv_batched" if stacked else "dia_spmv"] += 1
+    pair = f"{_SHORT[planes.dtype]}/{_SHORT[x.dtype]}"
+    dia_spmv_types[pair] = dia_spmv_types.get(pair, 0) + 1
     return (y, dot) if with_dot else y
 
 

@@ -212,6 +212,24 @@ class StencilOperator:
             y2 = y2 + coeff * sh.to(adt)
         return y2.reshape(x.shape).to(x.dtype)
 
+    def matfree_diagonal(self):
+        """Analytic ``diag(A)`` (the ``--precond jacobi`` twin of
+        :func:`~acg_tpu_torch.ops.spmv.matrix_diagonal`), in the
+        accumulation dtype like the assembled extraction."""
+        d = stencil_planes(self.kind, self.grid, (0,), self.tables,
+                           self.nrows, self.dtype, device=self.device)[0]
+        return d.to(acc_dtype(self.dtype))
+
+    def host_diagonal(self) -> np.ndarray:
+        """diag(A) as host numpy f64 of the rounded stored values: what
+        the stacked Jacobi builder inverts, equal to the device
+        extraction."""
+        n, dim = self.grid
+        if self.kind == "poisson":
+            return np.full(self.nrows, float(2 * dim))
+        dtab = self.tables[2].cpu().double().numpy()
+        return np.repeat(dtab, n)
+
     def matfree_nnz(self) -> float:
         """Analytic stored-nonzero count (the assembled twin's nnz): each
         off-diagonal plane is zero on one boundary slice of N/n
@@ -297,7 +315,7 @@ def register_operator(name: str, apply_fn, diagonal_fn=None,
     """Register a user-supplied operator under ``name``: ``apply_fn(
     captures, x) -> y`` runs wherever the assembled SpMV would
     (``captures`` is the operator instance's tuple of tensors);
-    ``diagonal_fn(captures)`` is kept for the preconditioned tier;
+    ``diagonal_fn(captures)`` gives diag(A) for ``--precond jacobi``;
     ``nnz`` feeds the flop statistic (default: 0, unknown work)."""
     if not callable(apply_fn):
         raise ValueError(f"operator {name!r}: apply_fn must be callable")
@@ -332,6 +350,17 @@ class UserOperator:
 
     def matfree_apply(self, x):
         return self._entry()["apply"](self.captures, x)
+
+    def matfree_diagonal(self):
+        dfn = self._entry()["diagonal"]
+        if dfn is None:
+            raise AcgError(
+                ErrorCode.NOT_SUPPORTED,
+                f"operator {self.name!r} was registered without a "
+                f"diagonal_fn: --precond jacobi needs the analytic "
+                f"diagonal (register_operator(..., diagonal_fn=...), "
+                f"or use --precond cheby:K, which needs only applies)")
+        return dfn(self.captures)
 
     def matfree_nnz(self) -> float:
         return float(self._entry()["nnz"] or 0.0)

@@ -498,6 +498,40 @@ def spmv(A: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unsupported device matrix {type(A)}")
 
 
+def _padded_diag(groups, d):
+    """``d[dst] = sum of the row's entries whose column is the row``,
+    per padded-row group ``(dst, data, cols)``: each row written once."""
+    for dst, data, cols in groups:
+        on = cols == dst[:, None]
+        d.index_copy_(0, dst, torch.where(on, data, 0).to(d.dtype).sum(-1))
+    return d
+
+
+def matrix_diagonal(A: DeviceMatrix) -> torch.Tensor:
+    """``diag(A)`` as an (nrows,) tensor in the accumulation dtype on the
+    matrix's device (``acg_tpu.ops.spmv.matrix_diagonal``): the setup
+    primitive of the Jacobi preconditioner.  Rows without a stored
+    diagonal entry come back exactly 0.  Matrix-free operators answer
+    through their ``matfree_diagonal`` hook."""
+    adt = acc_dtype(matrix_dtype(A))
+    if _is_matfree(A):
+        return A.matfree_diagonal().to(adt)
+    if isinstance(A, DiaMatrix):
+        if 0 in A.offsets:
+            return A.data[A.offsets.index(0)][: A.nrows].to(adt)
+        return torch.zeros(A.nrows, dtype=adt, device=A.device)
+    if isinstance(A, EllMatrix):
+        rows = torch.arange(A.nrows, device=A.device)[:, None]
+        return torch.where(A.cols == rows, A.data, 0).sum(1).to(adt)
+    d = torch.zeros(A.nrows, dtype=adt, device=A.device)
+    if isinstance(A, CooMatrix):
+        return _padded_diag(A.groups, d)
+    if isinstance(A, BinnedEllMatrix):
+        _padded_diag(zip(A.bin_rows, A.bin_data, A.bin_cols), d)
+        return _padded_diag(A.tail_groups, d)
+    raise TypeError(f"unsupported device matrix {type(A)}")
+
+
 def spmv_flops(A: DeviceMatrix) -> float:
     """Analytic flops per SpMV, reference convention (3 per stored nz);
     nonzeros are counted on the device, so one scalar crosses to the

@@ -51,6 +51,10 @@ from acg_tpu_torch.parallel.halo import (DeviceHaloPlan, build_device_halo,
 from acg_tpu_torch.parallel.halo_dma import halo_exchange_dma
 from acg_tpu_torch.parallel.reductions import (make_ldot, make_pdot,
                                                make_pdotk, psum)
+from acg_tpu_torch.precond import (CHEBY_RATIO, CHEBY_SAFETY, POWER_ITERS,
+                                   make_apply, parse_precond,
+                                   stacked_bjacobi_state,
+                                   stacked_jacobi_state, state_from_numpy)
 from acg_tpu_torch.solvers import cg as _cg
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
@@ -487,19 +491,31 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
     """``spmv(x)`` for stacked x: the local block (kernel K1 batched over
     parts when ``use_kernel`` and the blocks are DIA), then the halo
     exchange of ``comm`` ("xla": transpose; "dma": kernel K6 into the
-    zeroed receive plane ``recv``) and the ghost block's contribution
+    zeroed receive plane ``recv``, or a plane zeroed at the first
+    exchange of another vector dtype) and the ghost block's contribution
     (``make_dist_spmv``, ``dist.py:761-810``).  ``la``/``ga``/``halo``/
     ``scnt`` are the device arrays of the problem's blocks, halo plan and
     send counts."""
     local, ghost = prob.local, prob.ghost
     has_ghosts = prob.halo.has_ghosts
+    # one zeroed receive plane per vector dtype (the replacement program
+    # exchanges bf16 and f32 vectors)
+    recvs = {} if recv is None else {recv.dtype: recv}
+
+    def recv_for(x):
+        if x.dtype not in recvs:
+            h = prob.halo
+            recvs[x.dtype] = torch.zeros((h.nparts, h.nparts,
+                                          max(h.maxcnt, 1)),
+                                         dtype=x.dtype, device=x.device)
+        return recvs[x.dtype]
 
     def spmv(x):
         y = local.mv(la, x, use_kernel)
         if has_ghosts:
             if comm == "dma":
                 xg = halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
-                                       halo.ghost_valid, scnt, recv)
+                                       halo.ghost_valid, scnt, recv_for(x))
             else:
                 xg = halo_exchange(x, halo.send_idx, halo.ghost_src)
             ghost.add_to(ga, y, xg)
@@ -508,12 +524,10 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
     return spmv
 
 
-# options of acg_tpu's DistCGSolver that this slice does not carry, each
-# refused by name: (keyword, value that means "off")
-_REFUSED = (("precond", None), ("health", None), ("ckpt", None),
-            ("recovery", None), ("trace", 0), ("progress", 0),
-            ("replace_every", 0), ("algorithm", None),
-            ("precise_dots", False))
+# options of acg_tpu's DistCGSolver that the port does not carry yet,
+# each refused by name: (keyword, value that means "off")
+_REFUSED = (("health", None), ("ckpt", None), ("recovery", None),
+            ("trace", 0), ("progress", 0), ("algorithm", None))
 
 
 class DistCGSolver(_cg.ChunkedCGSolver):
@@ -531,14 +545,24 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     gathers are plain PyTorch in every tier.  The receive plane of the
     dma transport is allocated and zeroed once per solve.
 
-    Not carried by this slice, each refused with a ValueError naming it:
-    ``precond``, ``health``, ``ckpt``, ``recovery``, ``trace``/
-    ``progress``, ``replace_every``, ``algorithm``, ``precise_dots`` and
-    ``kernels="fused"`` (the overlapped interior/border tier).
+    ``precise_dots`` psums compensated dot pairs; ``replace_every``
+    (bf16 vectors) runs the replacement program over the stacked SpMV;
+    ``precond`` makes the classic and pipelined loops preconditioned,
+    with jacobi and bjacobi state built on the host from each part's
+    local block and the cheby interval from a power iteration over the
+    stacked SpMV (``mstate`` takes a state instead, as host arrays with
+    a leading parts axis).
+
+    Not carried yet, each refused with a ValueError naming it:
+    ``health``, ``ckpt``, ``recovery``, ``trace``/``progress``,
+    ``algorithm`` and ``kernels="fused"`` (the overlapped
+    interior/border tier).
     """
 
     def __init__(self, problem: DistributedProblem, pipelined: bool = False,
                  comm: str = "xla", kernels: str = "auto", device=None,
+                 precise_dots: bool = False, replace_every: int = 0,
+                 replace_restart: bool = True, precond=None, mstate=None,
                  **options):
         for name, off in _REFUSED:
             if options.pop(name, off) not in (off,):
@@ -581,6 +605,33 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         if kernels not in ("xla", "pallas", "pallas-plain"):
             raise ValueError(f"unknown kernels choice {kernels!r}")
         self.kernels = kernels
+        self.precise_dots = bool(precise_dots)
+        self.replace_every = int(replace_every)
+        self.replace_restart = bool(replace_restart)
+        if self.replace_every < 0:
+            raise ValueError("replace_every must be >= 0")
+        if self.replace_every:
+            if problem.vdtype != torch.bfloat16:
+                raise ValueError(
+                    "replace_every is the bf16 tier's accuracy contract; "
+                    "build the problem with vector_dtype=bf16 (f32/f64 "
+                    "storage has no replacement drift to correct)")
+            if pipelined:
+                raise ValueError("replace_every implements classic CG")
+            if self.precise_dots:
+                raise ValueError("replace_every computes scalars in "
+                                 "plain f32; precise_dots needs the "
+                                 "direct programs")
+        self.precond_spec = parse_precond(precond)
+        if self.precond_spec is not None and self.replace_every:
+            raise ValueError(
+                "precond does not compose with replace_every: the "
+                "replacement segments restructure the recurrences the "
+                "preconditioner threads through")
+        if mstate is not None and self.precond_spec is None:
+            raise ValueError("mstate is the state of a preconditioner; "
+                             "pass precond too")
+        self._mstate = None
         self.stats = SolverStats(unknowns=problem.n)
         # the matrix, halo plan and counts move to the device once
         dev, dt = self.device, problem.dtype
@@ -590,6 +641,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         self._halo = problem.halo.to(dev)
         scnt, _ = problem.neighbor_counts()
         self._scnt = _put(scnt, dev, torch.int32)
+        if mstate is not None:
+            self._mstate = state_from_numpy(self.precond_spec, mstate, dev)
 
     def _spmv(self):
         """This solve's distributed SpMV, with a fresh zeroed receive
@@ -604,30 +657,97 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                               self._scnt, self.comm,
                               self.kernels != "xla", recv)
 
+    def _solve_dtype(self):
+        """The dtype b and x0 scatter to: the vector dtype, except f32
+        for the replacement program, whose outer iteration owns them."""
+        return torch.float32 if self.replace_every else self.problem.vdtype
+
     def device_args(self, b_global, x0=None):
         """``(b, x0)`` scattered to stacked (nparts, nmax_owned) tensors
-        in the vector dtype on the solver's device."""
+        in the solve dtype on the solver's device."""
         prob = self.problem
-        dev, vdt = self.device, prob.vdtype
+        dev, vdt = self.device, self._solve_dtype()
         b = _put(prob.scatter(np.asarray(b_global, np.float64)), dev, vdt)
         x0 = (torch.zeros_like(b) if x0 is None else
               _put(prob.scatter(np.asarray(x0, np.float64)), dev, vdt))
         return b, x0
 
+    def _power_lmax(self, iters: int = POWER_ITERS) -> float:
+        """Power-iteration lambda_max over the stacked SpMV the solves
+        run, norms psum'd over the parts, from numpy's default_rng(0)
+        start vector (``acg_tpu/parallel/dist.py:2213-2263``)."""
+        prob = self.problem
+        sdt = acc_dtype(prob.vdtype)
+        spmv = self._spmv()
+        ldot = make_ldot(sdt)
+        v = _put(prob.scatter(np.random.default_rng(0).standard_normal(
+            prob.n)), self.device, prob.vdtype)
+        for _ in range(iters):
+            w = spmv(v)
+            v = (w.to(sdt) / torch.sqrt(psum(ldot(w, w)))).to(v.dtype)
+        w = spmv(v)
+        return float(psum(ldot(v, w)) / psum(ldot(v, v)))
+
+    def _ensure_precond_state(self):
+        """The stacked preconditioner state, built once: jacobi and
+        bjacobi from each part's local host block (no communication:
+        diagonal entries are owned x owned), cheby from the power
+        iteration, its interval tiled over the parts."""
+        spec = self.precond_spec
+        if spec is None or self._mstate is not None:
+            return self._mstate
+        prob = self.problem
+        sdt = acc_dtype(prob.vdtype)
+        if spec.kind == "jacobi":
+            host = stacked_jacobi_state(prob, sdt)
+        elif spec.kind == "bjacobi":
+            host = stacked_bjacobi_state(prob, spec.block, sdt)
+        else:
+            lmax = self._power_lmax() * CHEBY_SAFETY
+            host = (np.full(prob.nparts, lmax / CHEBY_RATIO),
+                    np.full(prob.nparts, lmax))
+        self._mstate = tuple(_put(a, self.device, sdt) for a in host)
+        return self._mstate
+
     def _program(self, crit: StoppingCriteria):
-        """``run(b, x0)``: one solve on the shared chunked loop of
+        """``run(b, x0)``: one solve on the shared loops of
         :mod:`acg_tpu_torch.solvers.cg`, over this solve's distributed
         SpMV (a fresh zeroed receive plane each run) and psum'd dots."""
         sdt = acc_dtype(self.problem.vdtype)
         ldot = make_ldot(sdt)
-        pdot = make_pdot(psum, ldot, sdt, False)
+        pdot = make_pdot(psum, ldot, sdt, self.precise_dots)
+        pdotk = make_pdotk(psum, ldot, sdt, self.precise_dots)
         use_kernel = self.kernels != "xla"
-        if self.pipelined:
-            pdotk = make_pdotk(psum, ldot, sdt, False)
-            return lambda b, x0: _cg._cg_pipelined_program(
-                self._spmv(), pdot, pdotk, b, x0, crit, use_kernel)
-        return lambda b, x0: _cg._cg_program(self._spmv(), pdot, b, x0,
-                                             crit)
+        if self.replace_every:
+            if crit.needs_diff:
+                raise ValueError("replace_every supports residual "
+                                 "criteria only")
+            return lambda b, x0: _cg._cg_replaced_program(
+                self._spmv(), pdot, b, x0, crit, self.replace_every,
+                self.replace_restart)
+        spec = self.precond_spec
+        mstate = self._ensure_precond_state()
+
+        def run(b, x0):
+            spmv = self._spmv()
+            if spec is None:
+                if self.pipelined:
+                    return _cg._cg_pipelined_program(spmv, pdot, pdotk, b,
+                                                     x0, crit, use_kernel)
+                return _cg._cg_program(spmv, pdot, b, x0, crit)
+            # the apply rides this run's SpMV: a cheby apply is K more
+            # halo'd SpMVs
+            apply = make_apply(spec, lambda _A, x: spmv(x))
+
+            def papply(r):
+                return apply(mstate, None, r)
+
+            if self.pipelined:
+                return _cg._pcg_pipelined_program(spmv, pdot, pdotk, b, x0,
+                                                  crit, papply)
+            return _cg._cg_program(spmv, pdot, b, x0, crit, papply, pdotk)
+
+        return run
 
     def _host_x(self, x: np.ndarray) -> np.ndarray:
         return self.problem.gather(x)
@@ -644,7 +764,7 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                       + 3.0 * prob.nnz_total + 2.0 * n)
         dbl = torch.empty((), dtype=prob.vdtype).element_size()
         mat_dbl = torch.empty((), dtype=prob.dtype).element_size()
-        idx_b = 0 if prob.local.format == "dia" else 4
+        idx_b = 0 if prob.local.format in ("dia", "matfree") else 4
         # matrix-free local blocks read no planes: the matrix term is the
         # operator's O(grid-side) coefficient tables
         mat_read = (prob.operator.table_bytes() if prob.operator is not None
@@ -660,3 +780,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         st.ops["allreduce"].add(nred * niter, 0.0, 8 * nred * niter)
         halo_total = sum(int(s.halo.total_send) for s in prob.subs)
         st.ops["halo"].add(niter + 1, 0.0, halo_total * dbl * (niter + 1))
+        if self.precond_spec is not None:
+            _cg._account_precond(
+                st, self.precond_spec, self._mstate, niter, n, dbl,
+                3.0 * prob.nnz_total,
+                prob.nnz_total * (mat_dbl + idx_b) + 2 * n * dbl,
+                halo_bytes=halo_total * dbl)

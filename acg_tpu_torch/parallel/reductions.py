@@ -8,13 +8,16 @@ order, so the result does not depend on how a reduction kernel would
 split the axis.  :func:`make_pdotk` fuses k dots into one ``psum`` --
 the single fused allreduce of pipelined CG.
 
-Only the plain dots are ported: ``precise=True`` (compensated hi/lo
-pairs) needs ``ops/precision.py``, which the port does not have yet.
+``precise=True`` psums compensated (hi, lo) pairs
+(:func:`acg_tpu_torch.ops.precision.dot_compensated` per part), so the
+local summation error stays out of the global scalar.
 """
 
 from __future__ import annotations
 
 import torch
+
+from acg_tpu_torch.ops.precision import dot_compensated
 
 
 def psum(v: torch.Tensor) -> torch.Tensor:
@@ -33,16 +36,16 @@ def make_ldot(sdt):
     return ldot
 
 
-def _refuse_precise(precise: bool) -> None:
-    if precise:
-        raise ValueError("precise dots (compensated hi/lo reductions) "
-                         "need ops/precision.py, not yet ported")
-
-
 def make_pdot(psum, ldot, sdt, precise: bool):
     """The single global dot product: ``pdot(a, c)`` = one psum of the
-    per-part dots."""
-    _refuse_precise(precise)
+    per-part dots (plain) or of the per-part compensated hi/lo pairs
+    (``precise``)."""
+    if precise:
+        def pdot(a, c):
+            hi, lo = dot_compensated(a.to(sdt), c.to(sdt))
+            pair = psum(torch.stack([hi, lo], dim=-1))
+            return pair[0] + pair[1]
+        return pdot
 
     def pdot(a, c):
         return psum(ldot(a, c))
@@ -51,8 +54,15 @@ def make_pdot(psum, ldot, sdt, precise: bool):
 
 def make_pdotk(psum, ldot, sdt, precise: bool):
     """``pdotk((a1, c1), ..., (ak, ck))`` -> k global scalars in ONE
-    psum of the stacked (nparts, k) per-part dots."""
-    _refuse_precise(precise)
+    psum of the stacked (nparts, k) per-part dots, or of the (nparts,
+    2k) interleaved hi/lo pairs (``precise``)."""
+    if precise:
+        def pdotk(*pairs):
+            hls = [dot_compensated(a.to(sdt), c.to(sdt)) for a, c in pairs]
+            flat = psum(torch.stack([v for hl in hls for v in hl], dim=-1))
+            return tuple(flat[2 * i] + flat[2 * i + 1]
+                         for i in range(len(pairs)))
+        return pdotk
 
     def pdotk(*pairs):
         red = psum(torch.stack([ldot(a, c) for a, c in pairs], dim=-1))

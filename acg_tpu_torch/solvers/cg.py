@@ -47,9 +47,13 @@ from acg_tpu_torch._device import device_sync, resolve_device
 from acg_tpu_torch.errors import NotConvergedError
 from acg_tpu_torch.ops import kernels as K
 from acg_tpu_torch.ops.operator import is_matrix_free
+from acg_tpu_torch.ops.precision import dot2
 from acg_tpu_torch.ops.spmv import (DeviceMatrix, DiaMatrix, acc_dtype,
                                     matrix_dtype, matrix_index_bytes, spmv,
                                     spmv_flops)
+from acg_tpu_torch.precond import (bytes_per_apply, flops_per_apply,
+                                   make_apply, parse_precond, setup_single,
+                                   state_bytes)
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
 
@@ -73,12 +77,18 @@ class CGResult:
     breakdown: torch.Tensor
 
 
-def _scalar_setup(dtype):
+def _scalar_setup(dtype, precise: bool = False):
     """``(dot, sdt)``: the CG-scalar dot product and scalar dtype for
-    ``dtype`` vector storage.  bf16 storage computes every scalar in f32:
-    ``torch.dot`` on bf16 tensors would return bf16, so both operands
-    are widened first."""
+    ``dtype`` vector storage (``jax_cg.py:91-111``).  bf16 storage
+    computes every scalar in f32: ``torch.dot`` on bf16 tensors would
+    return bf16, so both operands are widened first.  ``precise`` takes
+    the compensated :func:`~acg_tpu_torch.ops.precision.dot2` (over the
+    f32-widened reads for bf16 storage)."""
     sdt = acc_dtype(dtype)
+    if precise:
+        def dot(a, b):
+            return dot2(a.to(sdt), b.to(sdt))
+        return dot, sdt
     if sdt != dtype:
         def dot(a, b):
             return torch.dot(a.to(sdt), b.to(sdt))
@@ -163,12 +173,19 @@ def _dotk(dot):
     return dotk
 
 
-def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria) -> CGResult:
-    """Classic CG (``acg_tpu.solvers.jax_cg._cg_program``, plain path)
-    over the caller's ``spmv(x)`` and global ``dot(a, c)``: one vector on
-    one device, or stacked parts with psum'd dots (``acg_tpu/parallel/
-    dist.py:1585-1694``, unpreconditioned).  The updates are plain
-    PyTorch; the SpMV carries the kernel choice."""
+def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria, papply=None,
+                dotk=None) -> CGResult:
+    """Classic CG (``acg_tpu.solvers.jax_cg._cg_program``) over the
+    caller's ``spmv(x)`` and global ``dot(a, c)``: one vector on one
+    device, or stacked parts with psum'd dots (``acg_tpu/parallel/
+    dist.py:1585-1694``).  The updates are plain PyTorch; the SpMV
+    carries the kernel choice.
+
+    ``papply(r) -> z`` (M^-1 r) makes it preconditioned CG: the CG scalar
+    is gamma = (r, z), and the carried true residual rr = (r, r) keeps the
+    convergence test and the reported rnrm2 unpreconditioned.  Both come
+    from ``dotk((r, z), (r, r))``: two dots on one device, one fused psum
+    on stacked parts (``dist.py:1608-1615``)."""
     dtype = b.dtype
     sdt = acc_dtype(dtype)
     dev = b.device
@@ -177,14 +194,20 @@ def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria) -> CGResult:
     bnrm2 = torch.sqrt(dot(b, b))
     x0nrm2 = torch.sqrt(dot(x0, x0))
     r = b - spmv(x0)
-    gamma = dot(r, r)
-    r0nrm2 = torch.sqrt(gamma)
+    if papply is None:
+        p = r
+        gamma = rr = dot(r, r)
+    else:
+        z0 = papply(r)
+        p = z0.to(dtype)
+        gamma, rr = dotk((r, z0), (r, r))
+    r0nrm2 = torch.sqrt(rr)
     res_tol, diff_tol = _tolerances(crit, r0nrm2, x0nrm2, sdt)
     inf = torch.tensor(math.inf, dtype=sdt, device=dev)
     zero = torch.zeros((), dtype=sdt, device=dev)
-    s = _State(x=x0, r=r, p=r, gamma=gamma, dx=inf,
+    s = _State(x=x0, r=r, p=p, gamma=gamma, rr=rr, dx=inf,
                k=torch.zeros((), dtype=torch.int64, device=dev))
-    s.done = (_converged(gamma, inf, res_tol, diff_tol) if not unbounded
+    s.done = (_converged(rr, inf, res_tol, diff_tol) if not unbounded
               else None)
 
     def step(live):
@@ -196,24 +219,32 @@ def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria) -> CGResult:
         # vectors computed in the scalar dtype, rounded once on store
         s.x = (s.x.to(sdt) + alpha * s.p.to(sdt)).to(dtype)
         r = (s.r.to(sdt) - alpha * t.to(sdt)).to(dtype)
-        gamma_next = dot(r, r)
+        if papply is None:
+            z = r
+            gamma_next = rr_next = dot(r, r)
+        else:
+            z = papply(r)
+            gamma_next, rr_next = dotk((r, z), (r, r))
         beta = gamma_next / s.gamma
-        p_next = (r.to(sdt) + beta * s.p.to(sdt)).to(dtype)
+        p_next = (z.to(sdt) + beta * s.p.to(sdt)).to(dtype)
         dx = alpha * alpha * dot(s.p, s.p) if needs_diff else inf
         s.r = r
         if live is None:
-            s.p, s.gamma, s.dx = p_next, gamma_next, dx
+            s.p, s.gamma, s.rr, s.dx = p_next, gamma_next, rr_next, dx
             return
         s.p = torch.where(live, p_next, s.p)
         s.gamma = torch.where(live, gamma_next, s.gamma)
+        # unpreconditioned, rr is gamma: no second select
+        s.rr = (s.gamma if papply is None
+                else torch.where(live, rr_next, s.rr))
         s.dx = torch.where(live, dx, s.dx)
         s.k = s.k + live.to(torch.int64)
-        s.done = s.done | _converged(s.gamma, s.dx, res_tol, diff_tol)
+        s.done = s.done | _converged(s.rr, s.dx, res_tol, diff_tol)
 
     _iterate(step, crit.maxits, unbounded, s)
     k = torch.tensor(crit.maxits, device=dev) if unbounded else s.k
     done = torch.tensor(True, device=dev) if unbounded else s.done
-    return CGResult(x=s.x, niterations=k, rnrm2=torch.sqrt(s.gamma),
+    return CGResult(x=s.x, niterations=k, rnrm2=torch.sqrt(s.rr),
                     r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2,
                     dxnrm2=torch.sqrt(s.dx), converged=done,
                     breakdown=torch.tensor(False, device=dev))
@@ -291,6 +322,170 @@ def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
                     bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=torch.sqrt(s.dx),
                     converged=done,
                     breakdown=torch.tensor(False, device=dev))
+
+
+def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
+                           papply) -> CGResult:
+    """Preconditioned pipelined CG (``acg_tpu.solvers.jax_cg.
+    _cg_pipelined_program``'s ``pbody``, ``:832-924``; stacked parts:
+    ``acg_tpu/parallel/dist.py:1715-1835``): the carry adds u = M^-1 r
+    and q = M^-1 s; each iteration applies m = M^-1 w and n = A m, and
+    takes its three scalars gamma = (r, u), delta = (w, u) and rr = (r, r)
+    from one ``dotk`` (one fused psum on stacked parts).  Convergence
+    tests the carried rr (the true residual, stale by one, like the
+    unpreconditioned loop's gamma).  The 8-vector update is plain torch
+    (K5 computes only the unpreconditioned six-vector update)."""
+    dtype = b.dtype
+    sdt = acc_dtype(dtype)
+    dev = b.device
+    needs_diff = crit.needs_diff
+    unbounded = crit.unbounded
+    bnrm2 = torch.sqrt(dot(b, b))
+    x0nrm2 = torch.sqrt(dot(x0, x0))
+    r = b - spmv(x0)
+    u0 = papply(r).to(dtype)
+    w = spmv(u0)
+    rr0 = dot(r, r)
+    r0nrm2 = torch.sqrt(rr0)
+    res_tol, diff_tol = _tolerances(crit, r0nrm2, x0nrm2, sdt)
+    inf = torch.tensor(math.inf, dtype=sdt, device=dev)
+    zeros = torch.zeros_like(b)
+    s = _State(x=x0, r=r, u=u0, w=w, p=zeros, s=zeros, q=zeros, z=zeros,
+               gamma_prev=inf, alpha_prev=inf, rr=rr0, dx=inf,
+               k=torch.zeros((), dtype=torch.int64, device=dev))
+    # an already-converged start (r0 = 0) returns x0 in 0 iterations
+    s.done = (_converged(rr0, inf, res_tol, diff_tol) if not unbounded
+              else None)
+
+    def store(v):
+        return v.to(dtype)
+
+    def step(live):
+        gamma, delta, rr = dotk((s.r, s.u), (s.w, s.u), (s.r, s.r))
+        m = papply(s.w)
+        nvec = spmv(m)
+        beta = gamma / s.gamma_prev             # inf -> 0 on first iteration
+        denom = delta - beta * (gamma / s.alpha_prev)
+        alpha = gamma / denom
+        z = store(nvec.to(sdt) + beta * s.z.to(sdt))
+        q = store(m.to(sdt) + beta * s.q.to(sdt))
+        sv = store(s.w.to(sdt) + beta * s.s.to(sdt))
+        p = store(s.u.to(sdt) + beta * s.p.to(sdt))
+        new = (store(s.x.to(sdt) + alpha * p.to(sdt)),
+               store(s.r.to(sdt) - alpha * sv.to(sdt)),
+               store(s.u.to(sdt) - alpha * q.to(sdt)),
+               store(s.w.to(sdt) - alpha * z.to(sdt)), p, sv, q, z)
+        dx = alpha * alpha * dot(p, p) if needs_diff else inf
+        names = ("x", "r", "u", "w", "p", "s", "q", "z")
+        if live is None:
+            for name, v in zip(names, new):
+                setattr(s, name, v)
+            s.gamma_prev, s.alpha_prev, s.rr, s.dx = gamma, alpha, rr, dx
+            return
+        for name, v in zip(names, new):
+            setattr(s, name, torch.where(live, v, getattr(s, name)))
+        s.gamma_prev = torch.where(live, gamma, s.gamma_prev)
+        s.alpha_prev = torch.where(live, alpha, s.alpha_prev)
+        s.rr = torch.where(live, rr, s.rr)
+        s.dx = torch.where(live, dx, s.dx)
+        s.k = s.k + live.to(torch.int64)
+        s.done = s.done | _converged(s.rr, s.dx, res_tol, diff_tol)
+
+    _iterate(step, crit.maxits, unbounded, s)
+    rnrm2 = torch.sqrt(dot(s.r, s.r))
+    if unbounded:
+        k = torch.tensor(crit.maxits, device=dev)
+        done = torch.tensor(True, device=dev)
+    else:
+        k = s.k
+        done = s.done | (rnrm2 <= res_tol)
+    return CGResult(x=s.x, niterations=k, rnrm2=rnrm2, r0nrm2=r0nrm2,
+                    bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=torch.sqrt(s.dx),
+                    converged=done,
+                    breakdown=torch.tensor(False, device=dev))
+
+
+def _cg_replaced_program(spmv, dot, b, x0, crit: StoppingCriteria, K: int,
+                         restart: bool) -> CGResult:
+    """Classic CG over bf16 vectors with an f32 true-residual replacement
+    every ``K`` iterations (``acg_tpu.solvers.jax_cg._cg_replaced_program``;
+    stacked parts: ``acg_tpu/parallel/dist.py:1491-1578``): the accuracy
+    contract of the bf16 tier.
+
+    ``b``/``x0`` arrive in f32 and x accumulates in f32; each segment
+    solves A d = r from d = 0 with bf16 CG (f32 scalars), adds d to x once
+    and recomputes r = b - A x with the mixed SpMV (bf16 matrix, f32
+    vector).  ``restart`` resets p = r at each replacement; otherwise p
+    carries over (reset to r when it has blown up) and the step takes the
+    line-search numerator (r, p).  Convergence is tested on the
+    recomputed residual once per segment (one host read a segment), so
+    a converged report rests on the true f32 residual.  The last segment
+    runs only the iterations left, so ``maxits`` is honoured exactly."""
+    sdt = torch.float32
+    vdt = torch.bfloat16
+    dev = b.device
+    b = b.to(sdt)
+    x0 = x0.to(sdt)
+    bnrm2 = torch.sqrt(dot(b, b))
+    x0nrm2 = torch.sqrt(dot(x0, x0))
+    r32 = b - spmv(x0)
+    gamma32 = dot(r32, r32)
+    r0nrm2 = torch.sqrt(gamma32)
+    res_tol, _ = _tolerances(crit, r0nrm2, x0nrm2, sdt)
+    tol2 = res_tol * res_tol
+    inf = torch.tensor(math.inf, dtype=sdt, device=dev)
+    zero = torch.zeros((), dtype=sdt, device=dev)
+    big = torch.tensor(1e24, dtype=sdt, device=dev)
+    maxits = crit.maxits
+
+    def segment(x32, r32, p, nin):
+        r = r32.to(vdt)
+        g = dot(r, r)
+        if restart:
+            p = r
+        else:
+            # the carried direction can blow up across segments at high
+            # condition numbers; reset it to r where it has
+            pn = dot(p, p)
+            bad = (~torch.isfinite(pn)) | (pn > big * g)
+            p = torch.where(bad, r, p)
+        d = torch.zeros_like(r)
+        for _ in range(nin):
+            t = spmv(p)
+            pdott = dot(p, t)
+            num = g if restart else dot(r, p)
+            # (p, Ap) <= 0 once bf16 rounding has used up the segment's
+            # progress: freeze the updates rather than poison d
+            alpha = torch.where(pdott > 0, num / pdott, zero)
+            d = (d.to(sdt) + alpha * p.to(sdt)).to(vdt)
+            r = (r.to(sdt) - alpha * t.to(sdt)).to(vdt)
+            g_next = dot(r, r)
+            beta = torch.where(g > 0, g_next / g, zero)
+            p = (r.to(sdt) + beta * p.to(sdt)).to(vdt)
+            g = g_next
+        x32 = x32 + d.to(sdt)
+        r32 = b - spmv(x32)
+        return x32, r32, p, dot(r32, r32)
+
+    x32, p, its, gamma = x0, r32.to(vdt), 0, gamma32
+    if crit.unbounded:
+        while its < maxits:
+            nin = min(K, maxits - its)
+            x32, r32, p, gamma = segment(x32, r32, p, nin)
+            its += nin
+        done = torch.isfinite(gamma)
+    else:
+        # NaN >= tol2 is False: a non-finite recomputed residual ends the
+        # loop, and the segment boundary is the breakdown detector
+        while its < maxits and bool(gamma >= tol2):
+            nin = min(K, maxits - its)
+            x32, r32, p, gamma = segment(x32, r32, p, nin)
+            its += nin
+        done = gamma < tol2
+    return CGResult(x=x32, niterations=torch.tensor(its, device=dev),
+                    rnrm2=torch.sqrt(gamma), r0nrm2=r0nrm2, bnrm2=bnrm2,
+                    x0nrm2=x0nrm2, dxnrm2=inf, converged=done,
+                    breakdown=~torch.isfinite(gamma))
 
 
 def _cg_fused_program(A: DiaMatrix, b, x0, crit: StoppingCriteria,
@@ -431,10 +626,22 @@ class TorchCGSolver(ChunkedCGSolver):
       resolved as ``"pallas-plain"``).
     * ``"fused"``: classic CG on the two-phase kernels K3/K4, with the
       JAX package's refusals (``"fused-plain"`` on the CPU).
+
+    ``precise_dots`` computes the CG scalars with the compensated dot2;
+    ``replace_every`` (bf16 vectors) runs the f32 residual-replacement
+    program every that many iterations (``replace_restart``: reset p at
+    each replacement); ``precond`` (a :class:`~acg_tpu_torch.precond.
+    PrecondSpec` or its text) makes the classic and pipelined loops
+    preconditioned, with its state built at the first solve, or taken
+    from ``mstate`` (:func:`~acg_tpu_torch.precond.state_from_numpy`).
+    Each refuses the combinations ``JaxCGSolver`` refuses, with its
+    messages.
     """
 
     def __init__(self, A: DeviceMatrix, pipelined: bool = False,
-                 kernels: str = "auto", vector_dtype=None, device=None):
+                 kernels: str = "auto", vector_dtype=None, device=None,
+                 precise_dots: bool = False, replace_every: int = 0,
+                 replace_restart: bool = True, precond=None, mstate=None):
         self.device = resolve_device(device)
         if A.device != self.device:
             raise ValueError(f"the matrix lives on {A.device}, the solver "
@@ -443,7 +650,10 @@ class TorchCGSolver(ChunkedCGSolver):
         self.A = A
         self.pipelined = pipelined
         self.vector_dtype = vector_dtype
-        vdt = self._solve_dtype()
+        self.precise_dots = bool(precise_dots)
+        self.replace_every = int(replace_every)
+        self.replace_restart = bool(replace_restart)
+        vdt = self._vector_dtype()
         if is_matrix_free(A) and vdt == torch.bfloat16:
             raise ValueError(
                 "matrix-free operators generate their plane values in the "
@@ -473,6 +683,11 @@ class TorchCGSolver(ChunkedCGSolver):
                                  "on the single-device tier (use the "
                                  "pipelined variant with kernels="
                                  "'pallas'/'xla')")
+            if self.precise_dots:
+                raise ValueError("kernels='fused' accumulates its dots "
+                                 "in plain f32 SMEM; compensated dots "
+                                 "(precise_dots) need kernels='xla'/"
+                                 "'pallas'")
             if not (square_dia and (A.dtype, vdt) in K.FUSED_TYPES
                     and K.fused_cg_route(A.offsets, A.nrows, vdt)
                     is not None):
@@ -484,6 +699,48 @@ class TorchCGSolver(ChunkedCGSolver):
         if kernels not in ("xla", "pallas", "pallas-plain", "fused",
                            "fused-plain"):
             raise ValueError(f"unknown kernels choice {kernels!r}")
+        if self.replace_every < 0:
+            raise ValueError("replace_every must be >= 0 (a negative "
+                             "period would compile a non-terminating "
+                             "segment loop)")
+        if self.replace_every:
+            if vdt != torch.bfloat16:
+                raise ValueError(
+                    "replace_every is the bf16 tier's accuracy contract "
+                    "(periodic f32 residual replacement); f32/f64 vector "
+                    "storage has no replacement drift to correct -- use "
+                    "precise_dots or a RefinedSolver there")
+            if pipelined:
+                raise ValueError("replace_every implements classic CG "
+                                 "(the pipelined recurrence carries w=Ar, "
+                                 "which replacement would invalidate)")
+            if self.precise_dots:
+                raise ValueError("replace_every computes its scalars in "
+                                 "plain f32 (the bf16 tier's scalar "
+                                 "path); precise_dots needs the direct "
+                                 "programs")
+            if kernels.startswith("fused"):
+                raise ValueError("replace_every composes with "
+                                 "kernels='xla'/'pallas' (the fused "
+                                 "two-phase iteration has no replacement "
+                                 "hook)")
+        self.precond_spec = parse_precond(precond)
+        if self.precond_spec is not None:
+            if self.replace_every:
+                raise ValueError(
+                    "precond does not compose with replace_every: the "
+                    "replacement segments restructure the recurrences "
+                    "the preconditioner threads through (use the direct "
+                    "classic/pipelined PCG programs)")
+            if kernels.startswith("fused"):
+                raise ValueError(
+                    "kernels='fused' folds the whole iteration into two "
+                    "streamed kernels and has no preconditioner hook; "
+                    "precond needs kernels='xla'/'pallas'")
+        if mstate is not None and self.precond_spec is None:
+            raise ValueError("mstate is the state of a preconditioner; "
+                             "pass precond too")
+        self._mstate = None if mstate is None else tuple(mstate)
         self.kernels = kernels
         self.stats = SolverStats(unknowns=A.nrows)
         self._spmv_flops_cache: float | None = None
@@ -494,12 +751,32 @@ class TorchCGSolver(ChunkedCGSolver):
             self._spmv_flops_cache = spmv_flops(self.A)
         return self._spmv_flops_cache
 
-    def _solve_dtype(self):
-        """The vector dtype: the matrix dtype unless ``vector_dtype``
-        overrides it."""
+    def _vector_dtype(self):
+        """The vector storage dtype: the matrix dtype unless
+        ``vector_dtype`` overrides it."""
         if self.vector_dtype is not None:
             return self.vector_dtype
         return matrix_dtype(self.A)
+
+    def _solve_dtype(self):
+        """The dtype of a solve's b and x0: the vector dtype, except f32
+        for the replacement program, whose outer iteration owns x in f32
+        (rounding b to bf16 would bake a bf16-sized error into every
+        replaced residual)."""
+        if self.replace_every:
+            return torch.float32
+        return self._vector_dtype()
+
+    def _ensure_precond_state(self):
+        """The preconditioner state, built once at the first solve: the
+        diagonal or the block factors from the matrix, or the Chebyshev
+        interval from a power iteration through this solver's SpMV."""
+        if self.precond_spec is None or self._mstate is not None:
+            return self._mstate
+        self._mstate = setup_single(self.precond_spec, self.A,
+                                    _spmv_fn(self.kernels),
+                                    acc_dtype(self._solve_dtype()))
+        return self._mstate
 
     def _program(self, crit: StoppingCriteria):
         A, kernels = self.A, self.kernels
@@ -513,11 +790,31 @@ class TorchCGSolver(ChunkedCGSolver):
         def spmv(x):
             return spmv_(A, x)
 
-        dot, _ = _scalar_setup(self._solve_dtype())
+        if self.replace_every:
+            if crit.needs_diff:
+                raise ValueError("replace_every supports residual "
+                                 "criteria only (the diff criterion has "
+                                 "no meaning across replacement segments)")
+            dot, _ = _scalar_setup(torch.bfloat16)
+            return lambda b, x0: _cg_replaced_program(
+                spmv, dot, b, x0, crit, self.replace_every,
+                self.replace_restart)
+        dot, _ = _scalar_setup(self._solve_dtype(), self.precise_dots)
+        papply = None
+        if self.precond_spec is not None:
+            mstate = self._ensure_precond_state()
+            apply = make_apply(self.precond_spec, spmv_)
+
+            def papply(r):
+                return apply(mstate, A, r)
+        if self.pipelined and papply is not None:
+            return lambda b, x0: _pcg_pipelined_program(
+                spmv, dot, _dotk(dot), b, x0, crit, papply)
         if self.pipelined:
             return lambda b, x0: _cg_pipelined_program(
                 spmv, dot, _dotk(dot), b, x0, crit, kernels != "xla")
-        return lambda b, x0: _cg_program(spmv, dot, b, x0, crit)
+        return lambda b, x0: _cg_program(spmv, dot, b, x0, crit, papply,
+                                         _dotk(dot))
 
     def _to_device(self, v, dtype) -> torch.Tensor:
         if not isinstance(v, torch.Tensor):
@@ -545,6 +842,22 @@ class TorchCGSolver(ChunkedCGSolver):
         mat_dbl = torch.empty((), dtype=matrix_dtype(self.A)).element_size()
         idx_b = matrix_index_bytes(self.A)
         mat_bytes = int((self._spmv_flops / 3.0) * (mat_dbl + idx_b))
+        if self.replace_every:
+            # inner vectors are bf16 whatever the (f32) outer dtype; each
+            # segment adds one f32-vector replacement SpMV
+            nseg = -(-niter // self.replace_every) if niter else 0
+            st.nflops += self._spmv_flops * nseg
+            vb = 2
+            st.ops["gemv"].add(niter + nseg + 1, 0.0,
+                               (mat_bytes + 2 * n * vb) * niter
+                               + (mat_bytes + 2 * n * 4) * (nseg + 1))
+            # carried-direction mode adds the (r, p) line-search dot per
+            # iteration and a (p, p) check per segment
+            ndot = (2 * niter if self.replace_restart
+                    else 3 * niter + nseg)
+            st.ops["dot"].add(ndot, 0.0, 2 * n * vb * ndot)
+            st.ops["axpy"].add(3 * niter, 0.0, 3 * n * vb * 3 * niter)
+            return
         if self.kernels.startswith("fused"):
             # phase A (planes + r/p windows + p/t writes) as gemv, phase B
             # (4 reads + 2 writes) as axpy; no vector is re-read for dots
@@ -559,6 +872,38 @@ class TorchCGSolver(ChunkedCGSolver):
         st.ops["axpy"].add(3 * niter, 0.0, 3 * n * dbl * 3 * niter)
         if not self.pipelined:
             st.ops["copy"].add(1, 0.0, 2 * n * dbl)
+        if self.precond_spec is not None:
+            _account_precond(st, self.precond_spec, self._mstate, niter, n,
+                             dbl, self._spmv_flops,
+                             mat_bytes + 2 * n * dbl)
+
+
+def _account_precond(st: SolverStats, spec, mstate, niter: int, n: int,
+                     dbl: int, spmv_flops: float, spmv_bytes: float,
+                     halo_bytes: int = 0) -> None:
+    """The preconditioner's share of the census and the ``precond:``
+    section (``jax_cg.py:2070-2106``; stacked parts: ``acg_tpu/parallel/
+    dist.py:3003-3033``): niter + 1 applies (setup and one an
+    iteration), cheby billing its degree-many SpMVs per apply (and on
+    stacked parts their halo exchanges), and the (r, z) dot of each
+    apply."""
+    nappl = niter + 1
+    per_apply_flops = flops_per_apply(spec, n, spmv_flops)
+    st.nflops += per_apply_flops * nappl
+    sb = state_bytes(mstate)
+    per_apply_bytes = bytes_per_apply(spec, n, dbl, spmv_bytes, sb)
+    nops = nappl * (spec.degree if spec.kind == "cheby" else 1)
+    st.ops["precond"].add(nops, 0.0, int(per_apply_bytes * nappl))
+    st.ops["dot"].add(nappl, 0.0, 2 * n * dbl * nappl)
+    if spec.kind == "cheby" and halo_bytes:
+        st.ops["halo"].add(spec.degree * nappl, 0.0,
+                           halo_bytes * spec.degree * nappl)
+    st.precond.update({"kind": str(spec), "applies": nappl,
+                       "flops_per_apply": per_apply_flops,
+                       "state_bytes": sb})
+    if spec.kind == "cheby":
+        st.precond["lambda_min"] = float(mstate[0].reshape(-1)[0])
+        st.precond["lambda_max"] = float(mstate[1].reshape(-1)[0])
 
 
 def _add_timing(st: SolverStats, name: str, seconds: float) -> None:

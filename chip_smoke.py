@@ -53,18 +53,32 @@ checkout it sits in.  Phases, each of which raises on failure:
    assembled on the device (K1) and with --operator stencil (K7), x
    bitwise-equal, and (m) the single-device gather formats, binned ELL
    with hub rows on gen:irregular:262144 and --spmv-format coo on
-   gen:irregular:65536, each solved twice to the same bits;
+   gen:irregular:65536, each solved twice to the same bits; then the
+   preconditioned and precision tiers: (n) --precond jacobi classic f64
+   (K1 once per SpMV), (o) (n) with --operator stencil (K7, no K1, x
+   bitwise-equal to (n)), (p) --aniso 0.01 with --precond cheby:4
+   against plain CG (fewer iterations; K1 counted exactly: 5 per step
+   and setup plus the power iteration's 25), (q) --nparts 4 --precond
+   bjacobi:32 classic and --precond jacobi pipelined on --comm dma (K6
+   and batched K1 once per SpMV), each again on --comm xla to the same
+   bits, (r) --dtype f32 --precise-dots at 1e-9 beside the same run
+   without the flag, and pipelined with the flag for 500 iterations
+   (K5), (s) --dtype bf16 --replace-every 50 for 2000 iterations (the
+   reported residual is the true f32 one; bf16 and mixed K1 counted)
+   and (t) --dtype f32 --refine to a true f64 residual of 1e-12;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up),
    single-device (classic, --kernels fused in f32, mixed and bf16,
-   pipelined) and 4-part with each transport, and per-kernel medians
-   of 50 CUDA-event-timed launches (after 50 ms of warm-up launches, L2
-   flushed before each) beside each kernel's bound, its plain version
-   and, where one PyTorch call computes the same function, that call
-   (cuSPARSE through torch.mv on a CSR tensor for the SpMVs, a
-   transposing copy for K6, also timed on the irregular graph plan; the
-   port never calls them); nvidia-smi's SM clock and power draw beside
-   them; torch.profiler breakdowns by op, with the device's busy share,
-   of the 4-part --comm dma solve, the single-part --operator stencil
+   pipelined; --precond jacobi and cheby:4 in f64, cheby also as
+   SpMVs/s; f32 with and without --precise-dots) and 4-part with each
+   transport, and per-kernel medians of 50 CUDA-event-timed launches
+   (after 50 ms of warm-up launches, L2 flushed before each) beside
+   each kernel's bound, its plain version and, where one PyTorch call
+   computes the same function, that call (cuSPARSE through torch.mv on
+   a CSR tensor for the SpMVs, a transposing copy for K6, also timed on
+   the irregular graph plan; the port never calls them); nvidia-smi's
+   SM clock and power draw beside them; torch.profiler breakdowns by
+   op, with the device's busy share, of the 4-part --comm dma solve,
+   the --precond jacobi f64 solve, the single-part --operator stencil
    solves (f64 and f32 at 2048^2, f64 at 512^3: K7 in the loop) and the
    --kernels fused solves in f32, mixed and bf16 (K3 and K4 in the
    loop); path (h)'s SpMV split into local block, halo exchange and
@@ -899,7 +913,204 @@ def main_path(torch, K, tmp, csr, irr):
     paths.update(matfree_paths(torch, K, tmp, base, paths))
     paths.update(gen_direct_paths(torch, K, tmp))
     paths.update(reproducible_gather_paths(torch, K, tmp, irr))
+    paths.update(precond_paths(torch, K, tmp, base, b, csr))
+    paths.update(precision_paths(torch, K, tmp, base, b, csr))
     return paths
+
+
+def chunked(its: int) -> int:
+    """The loop steps a converged solve ran: the convergence flag is read
+    once per CHUNK steps, and the last chunk's frozen steps launch too."""
+    from acg_tpu_torch.solvers.cg import CHUNK
+    return -(-its // CHUNK) * CHUNK
+
+
+def solve_path(torch, K, tmp, argv, tag, rhs=None, A=None):
+    """One CLI run writing x to ``tag``.bin: returns (rc, stats text,
+    launch counts, K1's counts by dtype pair, iterations, x, true
+    relative residual of x against ``rhs`` through host ``A``)."""
+    out = os.path.join(tmp, f"{tag}.bin")
+    rc, text, c = run_cli(torch, K, argv + ["-o", out], tag)
+    types = dict(K.dia_spmv_types)
+    its = int(stat(text, "iterations").replace(",", ""))
+    x = read_x(out) if os.path.exists(out) else None
+    res = (float(np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs))
+           if x is not None and A is not None else float("nan"))
+    return rc, text, c, types, its, x, res
+
+
+def precond_paths(torch, K, tmp, base, b, csr):
+    """(n)-(q): the preconditioned tier on the card.  (n) --precond
+    jacobi, classic f64 (K1 once per SpMV); (o) the same with --operator
+    stencil (K7 in place of K1, x bitwise-equal: both diagonals are 4,
+    and K7 equals K1 on these planes); (p) the anisotropic family
+    (--aniso 0.01) with --precond cheby:4 against plain CG (fewer
+    iterations, K1 counted exactly: 5 per step and setup, and the power
+    iteration's 25); (q) 4 stacked parts with bjacobi:32 (classic) and
+    jacobi (pipelined) on --comm dma, K6 and batched K1 once per SpMV,
+    and each again on --comm xla to the same bits."""
+    out = {}
+    mp = base + ["--manufactured-solution", "--residual-rtol", "1e-8",
+                 "--max-iterations", "20000"]
+    rc, text, c, _, its, xn, res = solve_path(
+        torch, K, tmp, mp + ["--precond", "jacobi"], "n-jacobi-f64", b, csr)
+    say(f"path n: --precond jacobi {its} iterations (path a: {ITS['a']}), "
+        f"true relative residual {res:.3e} (limit 1e-7), K1 launches "
+        f"{c['dia_spmv']} (steps run {chunked(its)} + setup 1), solver "
+        f"time {stat(text, 'total solver time')}")
+    check(rc == 0 and res <= 1e-7, "path n converged to 1e-7")
+    check(c["dia_spmv"] == chunked(its) + 1
+          and sum(c.values()) == c["dia_spmv"],
+          "path n: one K1 launch per SpMV and no other kernel")
+    out["n"] = c
+
+    rc, text, c, _, its_o, xo, _ = solve_path(
+        torch, K, tmp, mp + ["--precond", "jacobi", "--operator", "stencil"],
+        "o-jacobi-operator-f64")
+    same = xo is not None and np.array_equal(xo, xn)
+    say(f"path o: {its_o} iterations (path n: {its}), x bitwise equal to "
+        f"path n = {same}; K7 launches {c['stencil_spmv']}, K1 "
+        f"{c['dia_spmv']}")
+    check(rc == 0 and its_o == its and same, "path o == path n bitwise")
+    check(c["stencil_spmv"] == chunked(its) + 1 and c["dia_spmv"] == 0,
+          "path o ran K7 where path n ran K1, and no K1")
+    out["o"] = c
+
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    aniso = synthesize_host_matrix(MAIN_SPEC, aniso=0.01).to_csr()
+    xs = np.random.default_rng(42).standard_normal(aniso.shape[0])
+    ba = aniso @ (xs / np.linalg.norm(xs))
+    ap = base + ["--aniso", "0.01", "--manufactured-solution",
+                 "--residual-rtol", "1e-8", "--max-iterations", "40000"]
+    rc, text, c, _, its_p, _, res = solve_path(
+        torch, K, tmp, ap + ["--precond", "cheby:4"], "p-cheby4-aniso",
+        ba, aniso)
+    lam = (stat(text, "lambda_min"), stat(text, "lambda_max"))
+    rc0, text0, c0, _, its_0, _, res0 = solve_path(
+        torch, K, tmp, ap, "p-plain-aniso", ba, aniso)
+    want = 5 * (chunked(its_p) + 1) + 25
+    say(f"path p: {MAIN_SPEC} --aniso 0.01 --precond cheby:4 {its_p} "
+        f"iterations (interval {lam[0]} .. {lam[1]}), true relative "
+        f"residual {res:.3e}, solver time "
+        f"{stat(text, 'total solver time')}; plain CG {its_0} iterations "
+        f"(rc {rc0}), residual {res0:.3e}, solver time "
+        f"{stat(text0, 'total solver time')}; K1 launches {c['dia_spmv']} "
+        f"(5 x (steps {chunked(its_p)} + setup 1) + 25 power iterations "
+        f"= {want}), plain {c0['dia_spmv']}")
+    check(rc == 0 and res <= 1e-7, "path p (cheby:4) converged to 1e-7")
+    check(its_p < its_0, "path p: cheby:4 took fewer iterations than CG")
+    check(c["dia_spmv"] == want and c0["dia_spmv"] == chunked(its_0) + 1,
+          "path p: K1 launched once per SpMV, counted exactly")
+    out["p"] = {k: c[k] + c0[k] for k in c}
+
+    q = base + ["--nparts", str(NPARTS), "--manufactured-solution",
+                "--residual-rtol", "1e-8", "--max-iterations", "20000"]
+    for tag, extra, setup, limit in (
+            ("q-bjacobi32", ["--precond", "bjacobi:32"], 1, 1e-7),
+            ("q-jacobi-pipelined", ["--precond", "jacobi", "--solver",
+                                    "acg-pipelined"], 2, 1e-6)):
+        runs = {}
+        for comm in ("dma", "xla"):
+            runs[comm] = solve_path(torch, K, tmp, q + extra + [
+                "--comm", comm], f"{tag}-{comm}", b, csr)
+        rc, text, c, _, its_q, xq, res = runs["dma"]
+        rcx, _, cx, _, its_x, xx, _ = runs["xla"]
+        nspmv = chunked(its_q) + setup
+        same = np.array_equal(xq, xx)
+        say(f"path {tag}: {its_q} iterations, true relative residual "
+            f"{res:.3e} (limit {limit:g}), solver time "
+            f"{stat(text, 'total solver time')}; K6 {c['halo_put']} and "
+            f"batched K1 {c['dia_spmv_batched']} launches for {nspmv} "
+            f"SpMVs; --comm xla {its_x} iterations, x bitwise equal = "
+            f"{same}")
+        check(rc == 0 and res <= limit, f"path {tag} converged")
+        check(c["halo_put"] == c["dia_spmv_batched"] == nspmv,
+              f"path {tag}: K6 and batched K1 once per SpMV")
+        check(rcx == 0 and its_x == its_q and same
+              and cx["halo_put"] == 0
+              and cx["dia_spmv_batched"] == nspmv,
+              f"path {tag}: --comm xla gives the same bits")
+        out[tag] = {k: c[k] + cx[k] for k in c}
+    return out
+
+
+def precision_paths(torch, K, tmp, base, b, csr):
+    """(r)-(t): the precision tier on the card.  (r) --dtype f32
+    --precise-dots at 1e-9 against the same run without the flag, and
+    the pipelined solver with the flag for 500 fixed iterations (K5 once
+    per step); (s)
+    --dtype bf16 --replace-every 50, 2000 iterations: the reported
+    residual is the true f32 residual, bf16 K1 in the segments and mixed
+    K1 for each replacement counted exactly; (t) --dtype f32 --refine to
+    1e-12, checked with the host's f64 residual."""
+    out = {}
+    mp = base + ["--manufactured-solution"]
+    r = mp + ["--dtype", "f32", "--residual-rtol", "1e-9",
+              "--max-iterations", "20000"]
+    rc, text, c, _, its, _, res = solve_path(
+        torch, K, tmp, r + ["--precise-dots"], "r-precise-f32", b, csr)
+    rc0, text0, c0, _, its0, _, res0 = solve_path(
+        torch, K, tmp, r, "r-plain-f32", b, csr)
+    say(f"path r: --dtype f32 --precise-dots {its} iterations (rc {rc}), "
+        f"reported residual {stat(text, 'residual 2-norm')}, true relative "
+        f"residual {res:.3e}, solver time {stat(text, 'total solver time')}"
+        f"; without the flag {its0} iterations (rc {rc0}, "
+        f"{'converged' if rc0 == 0 else 'stalled'}), reported residual "
+        f"{stat(text0, 'residual 2-norm')}, true relative residual "
+        f"{res0:.3e}, solver time {stat(text0, 'total solver time')}")
+    check(rc == 0, "path r: f32 with --precise-dots converged to 1e-9")
+    check(c["dia_spmv"] == chunked(its) + 1,
+          "path r: one K1 launch per SpMV")
+    # the unpreconditioned pipelined loop keeps K5 under --precise-dots;
+    # its f32 recurrences stall short of tight tolerances, so it runs a
+    # fixed 500 iterations
+    rcp, textp, cp, _, itsp, xp, resp = solve_path(
+        torch, K, tmp, mp + ["--dtype", "f32", "--precise-dots", "--solver",
+                             "acg-pipelined", "--residual-rtol", "0",
+                             "--max-iterations", "500"],
+        "r-precise-pipelined-f32", b, csr)
+    say(f"path r pipelined: --dtype f32 --precise-dots --solver "
+        f"acg-pipelined, {itsp} fixed iterations: true relative residual "
+        f"{resp:.3e}, solver time {stat(textp, 'total solver time')}; K5 "
+        f"launches {cp['pipelined_update']}, K1 {cp['dia_spmv']} (500 "
+        f"steps + setup 2)")
+    check(rcp == 0 and itsp == 500 and bool(np.isfinite(xp).all())
+          and resp < 1.0, "path r pipelined: a finite, reduced residual")
+    check(cp["pipelined_update"] == 500 and cp["dia_spmv"] == 502,
+          "path r pipelined: K5 once per step, K1 once per SpMV")
+    out["r"] = {k: c[k] + c0[k] + cp[k] for k in c}
+
+    rc, text, c, types, its, x, _ = solve_path(
+        torch, K, tmp, mp + ["--dtype", "bf16", "--replace-every", "50",
+                             "--residual-rtol", "0", "--max-iterations",
+                             "2000"], "s-bf16-replace50")
+    rep = float(stat(text, "residual 2-norm"))
+    true = float(np.linalg.norm(b - csr @ x))
+    bn = float(np.linalg.norm(b))
+    say(f"path s: --dtype bf16 --replace-every 50, {its} iterations: "
+        f"reported residual {rep:.6e}, true residual of x {true:.6e} "
+        f"(|difference| {abs(rep - true):.3e}, limit 1e-5 x ||b|| = "
+        f"{1e-5 * bn:.3e}), relative {true / bn:.3e}; K1 launches by "
+        f"(planes/x) {types}, solver time "
+        f"{stat(text, 'total solver time')}")
+    check(rc == 0 and its == 2000 and abs(rep - true) <= 1e-5 * bn,
+          "path s: the reported residual is the true f32 residual")
+    check(types == {"bf16/bf16": 2000, "bf16/f32": 41},
+          "path s: bf16 K1 per iteration, mixed K1 per replacement")
+    out["s"] = c
+
+    rc, text, c, _, its, x, res = solve_path(
+        torch, K, tmp, mp + ["--dtype", "f32", "--refine",
+                             "--residual-rtol", "1e-12",
+                             "--max-iterations", "20000"],
+        "t-f32-refine", b, csr)
+    say(f"path t: --dtype f32 --refine {its} inner iterations, true f64 "
+        f"relative residual {res:.3e} (limit 1e-12), solver time "
+        f"{stat(text, 'total solver time')}, K1 launches {c['dia_spmv']}")
+    check(rc == 0 and res <= 1e-12, "path t: refined to 1e-12 in f64")
+    check(c["dia_spmv"] >= its, "path t went through K1")
+    out["t"] = c
+    return out
 
 
 def matfree_paths(torch, K, tmp, base, paths):
@@ -1175,6 +1386,46 @@ def solve_rates(torch, dev, card):
         del s
         torch.cuda.empty_cache()
     return rates
+
+
+PRECISION_ROWS = (("classic f64 --precond jacobi", "f64",
+                   dict(precond="jacobi")),
+                  ("classic f64 --precond cheby:4", "f64",
+                   dict(precond="cheby:4")),
+                  ("classic f32", "f32", {}),
+                  ("classic f32 --precise-dots", "f32",
+                   dict(precise_dots=True)))
+
+
+def precision_rates(torch, dev, card):
+    """Fixed-iteration rates of the preconditioned and precise-dot
+    flagship solvers (rate_runs' protocol; the preconditioner state is
+    built in the warm-up solve), plain f32 beside --precise-dots in the
+    same call; then the jacobi solve under torch.profiler."""
+    from acg_tpu_torch.io.generators import poisson_dia
+    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
+    from acg_tpu_torch.solvers import TorchCGSolver
+
+    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
+    meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
+    dts = {"f64": torch.float64, "f32": torch.float32}
+    for name, kind, kw in PRECISION_ROWS:
+        A = device_matrix_from_arrays("dia", planes, meta, dtype=dts[kind],
+                                      device=dev)
+        s = TorchCGSolver(A, device=dev, **kw)
+        runs = rate_runs(s, N)
+        med = float(np.median(runs))
+        spmvs = (f"; {5 * med:.1f} SpMVs/s (5 an iteration)"
+                 if "cheby:4" in name else "")
+        say(f"solve rate {name} (kernels={s.kernels}): "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{med:.1f}{spmvs}; 1000 iterations after a 50-iteration "
+            f"warm-up; {card})")
+        if "jacobi" in name:
+            profile_solve(torch, card, "single part classic f64 --precond "
+                          "jacobi (K1)", s, N)
+        del s, A
+        torch.cuda.empty_cache()
 
 
 def direct_rates(torch, dev, card, nits: int = 100):
@@ -1707,6 +1958,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     solve_rates(torch, dev, card)
+    precision_rates(torch, dev, card)
     dist_rates(torch, dev, card, prob)
     from acg_tpu_torch.ops.operator import poisson_stencil
     from acg_tpu_torch.parallel.dist import DistCGSolver

@@ -515,3 +515,67 @@ def test_single_device_gather_formats_are_reproducible_on_card(dev, fmt):
         xs.append(TorchCGSolver(A, device=d).solve(b, criteria=crit))
     assert np.array_equal(xs[1], xs[2])
     assert np.linalg.norm(xs[1] - xs[0]) <= 1e-10 * np.linalg.norm(xs[0])
+
+
+@pytest.mark.parametrize("kind", ["jacobi", "bjacobi:8", "cheby:3"])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_pcg_on_card_matches_cpu(dev, kind, pipelined):
+    """Preconditioned CG on the card (K1 for the solve's and the cheby
+    apply's SpMVs) takes the CPU's iterations and agrees to 1e-10; the
+    cheby interval is carried from the CPU solver, and K1 launches once
+    per SpMV: (iterations run + 1) x (1 + degree) + the power iteration's
+    25 on the CPU side only."""
+    from acg_tpu_torch.io.generators import aniso_poisson2d_coo
+    from acg_tpu_torch.matrix import SymCsrMatrix
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.solvers.cg import CHUNK
+
+    r, c, v, N = aniso_poisson2d_coo(96, 0.05)
+    csr = SymCsrMatrix.from_coo(N, r, c, v).to_csr()
+    b = np.random.default_rng(3).standard_normal(N)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-10)
+    cpu = TorchCGSolver(device_matrix_from_csr(csr, device="cpu"),
+                        pipelined=pipelined, precond=kind, device="cpu")
+    xc = cpu.solve(b, criteria=crit)
+    mstate = (tuple(a.to(dev) for a in cpu._mstate)
+              if kind.startswith("cheby") else None)
+    K.reset_launches()
+    s = TorchCGSolver(device_matrix_from_csr(csr, device=dev),
+                      pipelined=pipelined, precond=kind, mstate=mstate,
+                      device=dev)
+    xg = s.solve(b, criteria=crit)
+    assert s.kernels == "pallas"
+    its = s.stats.niterations
+    assert its == cpu.stats.niterations
+    assert np.linalg.norm(xg - xc) <= 1e-10 * np.linalg.norm(xc)
+    per = 1 + (int(kind.split(":")[1]) if kind.startswith("cheby") else 0)
+    run = -(-its // CHUNK) * CHUNK
+    setup = 2 if pipelined else 1   # r0 = b - A x0 (and w = A u0)
+    assert K.launches["dia_spmv"] == setup + per * run + (per - 1)
+
+
+def test_replaced_and_precise_on_card_match_cpu(dev):
+    """bf16 with f32 residual replacement (bf16 K1 in the segments, mixed
+    K1 for each replacement) and f32 with compensated dots: the CPU's
+    iterations, x within the storage precision."""
+    planes, offsets, N = poisson_dia(128, 2)
+    meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
+    b = np.random.default_rng(5).standard_normal(N)
+    for dtype, kw, crit, tol in (
+            (torch.bfloat16, dict(replace_every=50),
+             StoppingCriteria(maxits=1000), 1e-2),
+            (torch.float32, dict(precise_dots=True),
+             StoppingCriteria(maxits=3000, residual_rtol=1e-6), 1e-4)):
+        out = []
+        for d in ("cpu", dev):
+            K.reset_launches()
+            A = device_matrix_from_arrays("dia", planes, meta, dtype=dtype,
+                                          device=d)
+            s = TorchCGSolver(A, device=d, **kw)
+            out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                        dict(K.dia_spmv_types)))
+        (xc, kc, _), (xg, kg, types) = out
+        assert abs(kg - kc) <= (0 if "replace_every" in kw else 2)
+        assert np.linalg.norm(xg - xc) <= tol * np.linalg.norm(xc)
+        if "replace_every" in kw:
+            assert types == {"bf16/bf16": 1000, "bf16/f32": 21}

@@ -180,7 +180,7 @@ def test_cli_text_output_uses_numfmt(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--algorithm", "sstep:2"],
-                                  ["--precond", "jacobi"],
+                                  ["--nrhs", "2"],
                                   ["--serve"], ["--trace", "/tmp/x"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -212,6 +212,9 @@ import acg_tpu_torch.parallel.halo
 import acg_tpu_torch.parallel.halo_dma
 import acg_tpu_torch.parallel.reductions
 import acg_tpu_torch.partition
+import acg_tpu_torch.precond
+import acg_tpu_torch.ops.precision
+import acg_tpu_torch.solvers.refine
 from acg_tpu_torch.cli import main
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--manufactured-solution", "--solver", "acg-pipelined",
@@ -224,6 +227,15 @@ for extra in (["--nparts", "3", "--comm", "dma"], ["--comm", "none"]):
     assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
                  "0", "--operator", "stencil", "--kernels", "pallas",
                  "--max-iterations", "300"] + extra) == 0
+for extra in (["--precond", "cheby:2", "--solver", "acg-pipelined"],
+              ["--precond", "bjacobi:8", "--nparts", "3", "--comm", "dma"],
+              ["--dtype", "f32", "--precise-dots", "--residual-rtol", "1e-6"],
+              ["--dtype", "bf16", "--replace-every", "20",
+               "--residual-rtol", "1e-3"],
+              ["--dtype", "f32", "--refine", "--residual-rtol", "1e-11"]):
+    assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
+                 "0", "--kernels", "pallas", "--max-iterations", "600"]
+                + extra) == 0
 import os
 os.environ["ACG_TPU_GEN_DIRECT_MIN"] = "100"
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
