@@ -17,12 +17,19 @@ matrix altogether: planes or operator on the device, ``b = ones``
 and pipelined solvers preconditioned, ``--precise-dots`` computes their
 scalars with compensated dots, ``--replace-every`` runs the bf16 tier
 with periodic f32 residual replacement, and ``--refine`` wraps the
-solve in f64 iterative refinement on the host.  Flag names and defaults
+solve in f64 iterative refinement on the host.  ``--nrhs B`` solves B
+right-hand sides in one batched solve
+(:class:`~acg_tpu_torch.solvers.batched.BatchedCGSolver`, ``--block-cg``
+for block CG), and ``--solver host|host-native|petsc`` runs a host
+oracle (:mod:`acg_tpu_torch.solvers.host_cg`, ``petsc_cg``).  A matrix
+file with a ``.perm.mtx`` sidecar (``mtx2bin --partition``) is solved
+with b, x0 and x in the original row order.  Flag names and defaults
 follow the JAX package's CLI; flags of tiers the port does not have yet
 (``--algorithm``, ``--serve``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
-exits with an error instead of solving on the CPU.
+exits with an error instead of solving on the CPU (the host oracles
+too: the device is resolved before anything else).
 """
 
 from __future__ import annotations
@@ -57,9 +64,14 @@ def make_parser() -> argparse.ArgumentParser:
                    help="initial guess (default: zeros)")
     p.add_argument("--solver", default="acg",
                    choices=["acg", "acg-pipelined", "acg-device",
-                            "acg-pipelined-device"],
+                            "acg-pipelined-device", "host", "host-native",
+                            "petsc"],
                    help="solver variant (default: acg); the -device names "
-                        "run the same solvers")
+                        "run the same solvers.  host = the numpy f64 "
+                        "oracle (multi-part under --nparts N > 1), "
+                        "host-native = the same CG in the native C++ "
+                        "core, petsc = scipy's CG (the external oracle); "
+                        "these three compute on the host")
     p.add_argument("--comm", default="xla",
                    choices=["none", "xla", "dma", "mpi", "nccl", "nvshmem"],
                    help="halo transport of the multi-part solver: xla = "
@@ -89,6 +101,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "matrix to stdout as Matrix Market")
     p.add_argument("--binary", action="store_true",
                    help="matrix/vector files are in binary Matrix Market format")
+    p.add_argument("--gzip", "--gunzip", "--ungzip", action="store_true",
+                   dest="gzip",
+                   help="accepted for drop-in compatibility; gzip input is "
+                        "auto-detected from the magic bytes regardless")
     p.add_argument("--max-iterations", type=int, default=100, metavar="N",
                    help="maximum number of iterations (default: 100)")
     p.add_argument("--residual-atol", type=float, default=0.0, metavar="TOL",
@@ -158,6 +174,25 @@ def make_parser() -> argparse.ArgumentParser:
                    help="with gen:poisson2d:N: generate the anisotropic "
                         "(stretched-grid) Poisson family instead, "
                         "y-spacings graded by stretch factor EPS in (0, 1]")
+    p.add_argument("--nrhs", type=int, default=0, metavar="B",
+                   help="batched multi-RHS tier: solve B right-hand sides "
+                        "against the one matrix in a single batched solve "
+                        "-- one multi-column SpMV an iteration, every "
+                        "per-RHS dot one column reduction, per-RHS "
+                        "convergence masks (converged columns freeze).  b "
+                        "may be an n x B dense array file; without a b "
+                        "file, B seeded random unit-norm columns (--seed); "
+                        "with --manufactured-solution, B manufactured "
+                        "columns.  Per-RHS evidence lands in a 'batch:' "
+                        "stats section.  B=1 (or flag absent) runs the "
+                        "single-RHS solvers")
+    p.add_argument("--block-cg", action="store_true",
+                   help="with --nrhs B: the block-CG recurrence instead "
+                        "of the masked batched one -- one shared Krylov "
+                        "block, B x B Gram solves with rank deflation; "
+                        "fewer total iterations than B independent solves "
+                        "on ill-conditioned families (--aniso).  One part "
+                        "(--nparts 1 / --comm none)")
     p.add_argument("--precise-dots", action="store_true",
                    help="compensated (double-float) dot products for the "
                         "CG scalars; lets f32 storage converge past the "
@@ -189,7 +224,59 @@ def make_parser() -> argparse.ArgumentParser:
                         "array) instead of stdout")
     p.add_argument("-v", "--verbose", action="count", default=0,
                    help="print stage timings to stderr")
+    from acg_tpu_torch import __version__
+    p.add_argument("--version", action="version",
+                   version=f"acg-tpu-torch {__version__}")
+    p.add_argument("--buildinfo", action="store_true",
+                   help="print the runtime feature matrix (torch, the "
+                        "card, the kernel and native-core builds) and "
+                        "exit")
     return p
+
+
+def _buildinfo(out) -> int:
+    """The runtime feature matrix (``acg_tpu/cli.py:801``'s twin for the
+    port): torch and its CUDA, the card, ``nvcc``, the kernel build
+    directory, the native host core and libmetis."""
+    import subprocess
+
+    from acg_tpu_torch import __version__, _native
+    from acg_tpu_torch.ops import _build
+    from acg_tpu_torch.partition import metis_available
+
+    card = "unavailable"
+    if torch.cuda.is_available():
+        card = torch.cuda.get_device_name(0)
+        try:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=30)
+            if smi.returncode == 0 and smi.stdout.strip():
+                card = smi.stdout.strip().splitlines()[0]
+        except (OSError, subprocess.SubprocessError):
+            card += " (power limit unavailable: no nvidia-smi)"
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    kdir = _build.library_path().parent
+    rows = [
+        ("acg-tpu-torch", __version__),
+        ("torch", torch.__version__),
+        ("torch CUDA", torch.version.cuda or "none (CPU build)"),
+        ("device", card),
+        ("nvcc", nvcc or "not found (the CUDA kernels cannot be built)"),
+        ("kernel build directory",
+         f"{kdir} ({'built' if kdir.exists() else 'not built yet'})"),
+        ("native core (libacg_core)", _native.describe()),
+        ("libmetis", "yes" if metis_available() else
+         "no (built-in bisection fallback)"),
+        ("float64", "native on CUDA"),
+    ]
+    for k, v in rows:
+        out.write(f"{k}: {v}\n")
+    return 0
 
 
 def _log(args, msg, t0=None):
@@ -279,12 +366,22 @@ def _validate_operator(args) -> None:
         raise SystemExit(f"acg-tpu-torch: {e}")
     if args._operator_spec is not None:
         unsupported = [flag for flag, on in [
+            (f"--solver {args.solver} (the host/external oracles run "
+             f"assembled matrices)",
+             args.solver in ("host", "host-native", "petsc")),
             (f"--dtype {args.dtype} (operators generate plane values "
              f"in the storage dtype; bf16 has no matrix traffic left "
              f"to halve)", args.dtype in ("bf16", "mixed")),
             (f"--spmv-format {args.spmv_format} (forcing an assembled "
              f"device format contradicts matrix-free)",
              args.spmv_format != "auto"),
+            ("--block-cg (the block-Gram tier keeps assembled "
+             "matrices)", args.block_cg),
+            ("--nrhs on the mesh (the batched dist tier keeps "
+             "assembled local blocks; --nrhs rides matrix-free on the "
+             "single-device tier: --comm none / --nparts 1)",
+             args._batched and not (args.comm == "none"
+                                    or args.nparts in (0, 1))),
             ("--epsilon (the stencil computes the UNshifted system; a "
              "shifted solve needs the assembled path)",
              bool(args.epsilon)),
@@ -308,6 +405,39 @@ def _validate_operator(args) -> None:
             raise SystemExit(
                 "acg-tpu-torch: --aniso generates the stretched-grid 2D "
                 "Poisson family and needs a gen:poisson2d:N matrix spec")
+
+
+def _validate_batched(args) -> None:
+    """Validate ``--nrhs``/``--block-cg`` and refuse what the batched
+    solvers cannot serve, before anything expensive (``acg_tpu/cli.py:
+    2906-2944``, for the flags the port has).  ``--nrhs 1`` and no flag
+    take the single-RHS path."""
+    if args.nrhs < 0:
+        raise SystemExit("acg-tpu-torch: --nrhs must be >= 0")
+    if args.block_cg and args.nrhs < 2:
+        raise SystemExit(
+            "acg-tpu-torch: --block-cg shares one Krylov block across B "
+            "right-hand sides; add --nrhs B (B >= 2)")
+    args._batched = args.nrhs >= 2
+    if args._batched:
+        unsupported = [flag for flag, on in [
+            (f"--solver {args.solver} (use the device solvers; the "
+             f"host batched oracle is a library API)",
+             args.solver in ("host", "host-native", "petsc")),
+            ("--refine", args.refine),
+            ("--replace-every", args.replace_every > 0),
+            (f"--kernels {args.kernels} (batched runs the XLA "
+             f"multi-vector SpMV)", args.kernels in ("pallas", "fused")),
+            ("--comm dma (the batched mesh tier runs the XLA "
+             "all_to_all transport)", args.comm in ("dma", "nvshmem")),
+            ("--diff-atol/--diff-rtol (residual criteria only)",
+             args.diff_atol > 0 or args.diff_rtol > 0),
+            ("--output-comm-matrix", args.output_comm_matrix),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --nrhs {args.nrhs} does not support: "
+                f"{', '.join(unsupported)}")
 
 
 def _validate_precision(args) -> None:
@@ -389,10 +519,15 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     from acg_tpu_torch.solvers.stats import StoppingCriteria
 
     unsupported = [flag for flag, on in [
+        (f"--solver {args.solver}",
+         args.solver in ("host", "host-native", "petsc")),
         ("b/x0 input files", bool(args.b or args.x0)),
         ("--output-comm-matrix", args.output_comm_matrix),
         (f"--spmv-format {args.spmv_format}",
          args.spmv_format not in ("auto", "dia")),
+        ("--nrhs/--block-cg (the batched tiers need the host-CSR "
+         "ingest path; lower ACG_TPU_GEN_DIRECT_MIN only for "
+         "single-RHS solves)", args._batched),
     ] if on]
     if unsupported:
         raise SystemExit(
@@ -457,20 +592,53 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     return 0
 
 
-def _emit_solution(args, x) -> None:
+def _emit_solution(args, x, perm=None) -> None:
     """``--output FILE`` writes a binary array vector (readable with
     ``read_mtx(binary=True)``) regardless of ``--quiet``; otherwise the
-    text form goes to stdout unless ``--quiet``."""
+    text form goes to stdout unless ``--quiet``.  ``perm`` (the
+    ``.perm.mtx`` sidecar) maps the rows back to the original order; a
+    batched ``(n, B)`` block is written as one dense array file with B
+    columns (``acg_tpu/cli.py:2245-2266``)."""
     if args.output is None and args.quiet:
         return
-    from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
+    from acg_tpu_torch.io.mtxfile import (multi_vector_mtx, vector_mtx,
+                                          write_mtx)
 
-    x = np.asarray(x).reshape(-1)
+    x = np.asarray(x)
+    if perm is not None:
+        xo = np.empty_like(x)
+        xo[perm] = x
+        x = xo
+    wrap = (multi_vector_mtx if x.ndim == 2 and x.shape[1] > 1
+            else lambda v: vector_mtx(np.asarray(v).reshape(-1)))
     if args.output is not None:
-        write_mtx(args.output, vector_mtx(np.asarray(x, np.float64)),
+        write_mtx(args.output, wrap(np.asarray(x, np.float64)),
                   binary=True)
     else:
-        write_mtx(sys.stdout.buffer, vector_mtx(x), numfmt=args.numfmt)
+        write_mtx(sys.stdout.buffer, wrap(x), numfmt=args.numfmt)
+
+
+def _load_perm_sidecar(matrix_path: str, n: int):
+    """The permuted-to-original row map written by ``mtx2bin
+    --partition``, or None (``acg_tpu/cli.py:2269``).  A sidecar whose
+    size disagrees with the matrix is stale (e.g. the matrix was
+    regenerated for a different size at the same path): fail loudly
+    rather than scramble the output."""
+    import os
+
+    from acg_tpu_torch.io.mtxfile import read_mtx
+
+    path = matrix_path + ".perm.mtx"
+    if not os.path.exists(path):
+        return None
+    perm = np.asarray(read_mtx(path, binary=True).vals
+                      ).reshape(-1).astype(np.int64) - 1
+    if perm.size != n or (np.sort(perm) != np.arange(n)).any():
+        raise SystemExit(
+            f"acg-tpu-torch: {path} is not a permutation of {n} rows -- "
+            f"stale sidecar from an earlier mtx2bin run?  Regenerate with "
+            f"mtx2bin --expand [--partition] or delete it")
+    return perm
 
 
 def _read_vector(path, binary, n, what):
@@ -485,7 +653,11 @@ def _read_vector(path, binary, n, what):
 
 
 def main(argv=None) -> int:
-    args = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    if argv is None:
+        argv = sys.argv[1:]
+    if "--buildinfo" in argv:
+        return _buildinfo(sys.stdout)
+    args = make_parser().parse_args(argv)
     args.numfmt = _validate_numfmt(args.numfmt)
     from acg_tpu_torch.errors import AcgError
 
@@ -507,6 +679,7 @@ def _main(args) -> int:
     from acg_tpu_torch.solvers.stats import StoppingCriteria
 
     # stage 0: the device, before anything expensive
+    _validate_batched(args)
     _validate_operator(args)
     _validate_precision(args)
     try:
@@ -532,16 +705,6 @@ def _main(args) -> int:
         A = synthesize_host_matrix(args.A, aniso=args.aniso, seed=args.seed)
         _log(args, "synthesize matrix:", t0)
     else:
-        import os
-
-        if os.path.exists(args.A + ".perm.mtx"):
-            # acg-tpu maps b, x0 and x through this sidecar (written by
-            # its mtx2bin --partition); solving without it would print
-            # the solution in the permuted row order
-            raise SystemExit(
-                f"acg-tpu-torch: {args.A}.perm.mtx: partition-permuted "
-                f"inputs are not supported yet; solve the unpermuted "
-                f"matrix")
         t0 = time.perf_counter()
         _log(args, f"reading matrix from {args.A}")
         try:
@@ -556,6 +719,11 @@ def _main(args) -> int:
     _log(args, "assemble symmetric CSR:", t0)
     phases["ingest"] = time.perf_counter() - t_ingest
     n = A.nrows
+    # partition-permuted input (mtx2bin --partition): the matrix on disk
+    # is P A P^T, but b, x0 and the printed solution stay in the
+    # original row order
+    perm = (None if args.A.startswith("gen:")
+            else _load_perm_sidecar(args.A, n))
 
     # stage 3: partition rows (cli.py:3348-3382)
     comm = args.comm
@@ -570,22 +738,58 @@ def _main(args) -> int:
     # stage 4: right-hand side and initial guess
     rng = np.random.default_rng(args.seed)
     xsol = None
-    if args.manufactured_solution:
-        # random unit-norm solution; b = A*xsol via the host SpMV
-        xsol = rng.standard_normal(n)
-        xsol /= np.linalg.norm(xsol)
-        b = A.dsymv(xsol, epsilon=args.epsilon)
-    elif args.b:
-        b = _read_vector(args.b, args.binary, n, "b")
+    x0 = None
+    if args._batched:
+        # one column per system: an n x B dense array file, a
+        # manufactured block, or B seeded random unit columns
+        from acg_tpu_torch.io.generators import batched_rhs
+        from acg_tpu_torch.io.mtxfile import vector_columns
+        if args.manufactured_solution:
+            xsol = rng.standard_normal((n, args.nrhs))
+            xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
+            # one multi-column product through the shifted CSR: each
+            # column is A.dsymv's, bit for bit
+            b = csr @ xsol
+        elif args.b:
+            b = vector_columns(read_mtx(args.b, binary=args.binary), n,
+                               args.nrhs)
+            if perm is not None:
+                b = b[perm]
+        else:
+            b = batched_rhs(n, args.nrhs, seed=args.seed)
+        if args.x0:
+            x0 = vector_columns(read_mtx(args.x0, binary=args.binary), n,
+                                args.nrhs)
+            if perm is not None:
+                x0 = x0[perm]
     else:
-        b = np.ones(n)
-    x0 = _read_vector(args.x0, args.binary, n, "x0") if args.x0 else None
+        if args.manufactured_solution:
+            # random unit-norm solution; b = A*xsol via the host SpMV
+            xsol = rng.standard_normal(n)
+            xsol /= np.linalg.norm(xsol)
+            b = A.dsymv(xsol, epsilon=args.epsilon)
+        elif args.b:
+            b = _read_vector(args.b, args.binary, n, "b")
+            if perm is not None:
+                b = b[perm]
+        else:
+            b = np.ones(n)
+        if args.x0:
+            x0 = _read_vector(args.x0, args.binary, n, "x0")
+            if perm is not None:
+                x0 = x0[perm]
     criteria = StoppingCriteria(
         maxits=args.max_iterations,
         residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
         diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
 
     # stages 6-8: device matrix, solver, solve
+    host = args.solver in ("host", "host-native", "petsc")
+    if args.replace_every and host:
+        sys.stderr.write("acg-tpu-torch: --replace-every applies to the "
+                         "device bf16 solvers (use --refine for "
+                         "f64-grade accuracy on host paths)\n")
+        return 1
     if args.replace_every and (args.diff_atol > 0 or args.diff_rtol > 0):
         sys.stderr.write("acg-tpu-torch: --replace-every supports residual "
                          "criteria only (--diff-atol/--diff-rtol have no "
@@ -594,7 +798,46 @@ def _main(args) -> int:
     t0 = time.perf_counter()
     pipelined = "pipelined" in args.solver
     comm_mtx = None
-    if comm == "none" or nparts == 1:
+    if host:
+        # the host oracles (acg_tpu/cli.py:3495-3565): numpy, the native
+        # C++ core and scipy compute on the host by definition
+        solver = _host_solver(args, csr, part, nparts, comm, pipelined)
+        if solver is None:
+            return 1
+    elif args._batched:
+        # B columns, one batched solve (acg_tpu/cli.py:3566-3596)
+        if not (comm == "none" or nparts == 1):
+            if args.block_cg:
+                raise SystemExit(
+                    "acg-tpu-torch: --block-cg is a single-device tier (its "
+                    "B x B Gram solves are not distributed); use --nparts "
+                    "1/--comm none, or drop --block-cg for the batched mesh "
+                    "tier")
+            raise SystemExit(
+                f"acg-tpu-torch: --nrhs {args.nrhs} with --nparts {nparts}: "
+                f"the batched multi-part tier (parallel/dist_batched) is "
+                f"not yet ported; use --nparts 1 or --comm none")
+        from acg_tpu_torch.solvers.batched import BatchedCGSolver
+        mode = ("block" if args.block_cg
+                else "pipelined" if pipelined else "batched")
+        if args._operator_spec is not None:
+            # matrix-free batched: spmv_multi takes the operator's
+            # multi-column apply
+            dev = _build_cli_operator(args, n, dtype, device)
+        else:
+            dev = device_matrix_from_csr(csr, dtype=dtype,
+                                         format=args.spmv_format,
+                                         device=device)
+            _log(args, f"device matrix: {type(dev).__name__} "
+                       f"(--spmv-format {args.spmv_format})")
+        try:
+            solver = BatchedCGSolver(dev, mode=mode,
+                                     precise_dots=args.precise_dots,
+                                     vector_dtype=vec_dtype,
+                                     precond=args._precond, device=device)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
+    elif comm == "none" or nparts == 1:
         if args._operator_spec is not None:
             # matrix-free: the operator is the device matrix
             dev = _build_cli_operator(args, n, dtype, device)
@@ -602,6 +845,8 @@ def _main(args) -> int:
             dev = device_matrix_from_csr(csr, dtype=dtype,
                                          format=args.spmv_format,
                                          device=device)
+            _log(args, f"device matrix: {type(dev).__name__} "
+                       f"(--spmv-format {args.spmv_format})")
         try:
             solver = TorchCGSolver(dev, pipelined=pipelined,
                                    kernels=args.kernels,
@@ -632,14 +877,16 @@ def _main(args) -> int:
                                   **_solver_options(args))
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
-    if args.refine:
+    if args.refine and not host:
         # the device solver inside the f64 host refinement loop
         from acg_tpu_torch.solvers.refine import RefinedSolver
         solver = RefinedSolver(solver, csr, inner_rtol=args.refine_rtol,
                                inner_maxits=args.refine_inner_maxits)
     solver.stats.timings.update(phases)
+    # the host oracles run once: no warm-up solves
+    solve_kw = {} if host else {"warmup": args.warmup}
     try:
-        x = solver.solve(b, x0=x0, criteria=criteria, warmup=args.warmup)
+        x = solver.solve(b, x0=x0, criteria=criteria, **solve_kw)
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
@@ -649,6 +896,9 @@ def _main(args) -> int:
         return 1
     _fold_inner_timings(solver)
     _log(args, "solve:", t0)
+    if solver.stats.batch:
+        _log(args, f"batch: per-RHS iterations "
+                   f"{solver.stats.batch['iterations']}")
 
     # stage 9: statistics block (grep-compatible with the reference)
     solver.stats.fwrite(sys.stderr)
@@ -658,12 +908,49 @@ def _main(args) -> int:
                          f"{np.linalg.norm(x0ref - xsol):.15g}\n")
         sys.stderr.write(f"error 2-norm: "
                          f"{np.linalg.norm(np.asarray(x) - xsol):.15g}\n")
+        if xsol.ndim == 2 and xsol.shape[1] > 1:
+            per = np.linalg.norm(np.asarray(x) - xsol, axis=0)
+            sys.stderr.write(f"worst per-RHS error 2-norm: "
+                             f"{float(per.max()):.15g} "
+                             f"(rhs {int(per.argmax())})\n")
 
     # stage 10: communication matrix and solution output
     if comm_mtx is not None:
         _write_comm_matrix(comm_mtx, nparts)
-    _emit_solution(args, x)
+    _emit_solution(args, x, perm)
     return 0
+
+
+def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
+    """The ``--solver host|host-native|petsc`` oracle for this solve, or
+    None (after the error message) when the native core is missing.  A
+    multi-part ``host`` solve (``--nparts N > 1``) runs the subdomain
+    oracle, which has no preconditioner hook."""
+    from acg_tpu_torch.errors import AcgError, ErrorCode
+
+    if args.solver == "host-native":
+        from acg_tpu_torch.solvers.host_cg import NativeHostCGSolver
+        try:
+            return NativeHostCGSolver(csr)
+        except RuntimeError as e:
+            sys.stderr.write(f"acg-tpu-torch: {e}\n")
+            return None
+    if args.solver == "petsc":
+        from acg_tpu_torch.solvers.petsc_cg import PetscBaselineSolver
+        return PetscBaselineSolver(csr, pipelined=pipelined)
+    if nparts > 1 and comm != "none":
+        from acg_tpu_torch.graph import partition_matrix
+        from acg_tpu_torch.solvers.host_cg import HostDistCGSolver
+        if args._precond is not None:
+            # silently running unpreconditioned CG would not be the solve
+            # that was asked for
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "--precond has no hooks in the multi-part host solver; "
+                "use --nparts 1 or the device solvers")
+        return HostDistCGSolver(partition_matrix(csr, part, nparts))
+    from acg_tpu_torch.solvers.host_cg import HostCGSolver
+    return HostCGSolver(csr, precond=args._precond)
 
 
 def _default_nparts(device: torch.device) -> int:

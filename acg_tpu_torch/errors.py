@@ -81,6 +81,15 @@ class NotConvergedError(AcgError):
         super().__init__(ErrorCode.NOT_CONVERGED, detail)
 
 
+class IndefiniteMatrixError(AcgError):
+    """Raised when CG hits (p, Ap) == 0: the matrix is not positive
+    definite (the reference's ``ACG_ERR_NOT_CONVERGED_INDEFINITE_MATRIX``
+    abort, ``cg.c:304``)."""
+
+    def __init__(self, detail: str = ""):
+        super().__init__(ErrorCode.NOT_CONVERGED_INDEFINITE_MATRIX, detail)
+
+
 class BreakdownError(AcgError):
     """Raised when the numerical state of a solve is junk (non-finite
     residual, non-positive (p, Ap)) and iterating further would only

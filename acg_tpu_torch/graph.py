@@ -9,9 +9,11 @@ global id within each group, so each neighbour's receive window is a
 contiguous slice of the ghost region; both sides order halo entries by
 global id, which is the agreement rule between sender and receiver.
 
-The JAX package's native C++ partitioner (``acg_tpu/_native.py``) is
-not ported; this module always takes the vectorised numpy passes
-(O(n * nparts)).
+Subdomains are built by the native C++ one-pass partitioner
+(:mod:`acg_tpu_torch._native`, O(nnz) whatever nparts) when its library
+is built, else by vectorised numpy passes (O(n * nparts)); both give the
+same subdomains.  :func:`dsymv_dist_host` and :func:`halo_exchange_host`
+are the host multi-part SpMV the host oracle solver runs.
 """
 
 from __future__ import annotations
@@ -82,9 +84,67 @@ class Subdomain:
 
 def partition_graph_nodes(full_csr: sp.csr_matrix, part: np.ndarray,
                           nparts: int) -> list[Subdomain]:
-    """Build all subdomains (without matrix blocks) from a partition
-    vector: interface extraction, interior/border/ghost ordering,
-    neighbour lists and halo plans (``graph.c:813-1452,1898-1981``)."""
+    """Build all subdomains (without matrix blocks) from a partition vector.
+
+    The role of ``acggraph_partition`` (``graph.c:813-1452``): interface
+    extraction, interior/border/ghost reordering, neighbour lists, and halo
+    plan derivation (``graph.c:1898-1981``).  Dispatches to the native
+    one-pass C++ partitioner (``native/src/graph.cpp``, O(nnz) independent
+    of nparts) when available, else vectorised numpy whole-graph passes
+    (O(n * nparts)).
+    """
+    from acg_tpu_torch import _native
+    if _native.available():
+        try:
+            return _partition_graph_nodes_native(full_csr, part, nparts)
+        except _native.NativeParseError:
+            pass  # fall through to the numpy path for the error message
+    return _partition_graph_nodes_numpy(full_csr, part, nparts)
+
+
+def _partition_graph_nodes_native(full_csr, part, nparts) -> list[Subdomain]:
+    from acg_tpu_torch import _native
+    n = full_csr.shape[0]
+    part = np.asarray(part)
+    if part.size != n:
+        raise AcgError(ErrorCode.INVALID_PARTITION,
+                       f"partition vector has {part.size} entries, matrix has {n} rows")
+    if n and (part.min() < 0 or part.max() >= nparts):
+        raise AcgError(ErrorCode.INVALID_PARTITION,
+                       f"part ids outside [0, {nparts})")
+    res = _native.graph_partition(n, np.asarray(full_csr.indptr, IDX_DTYPE),
+                                  np.asarray(full_csr.indices, IDX_DTYPE),
+                                  part, nparts)
+    gid_off = np.concatenate([[0], np.cumsum(res["nowned"] + res["nghost"])])
+    ghost_off = np.concatenate([[0], np.cumsum(res["nghost"])])
+    send_off = np.concatenate([[0], np.cumsum(res["nsend"])])
+    subdomains = []
+    for p in range(nparts):
+        nowned = int(res["nowned"][p])
+        nghost = int(res["nghost"][p])
+        global_ids = res["global_ids"][gid_off[p]:gid_off[p + 1]]
+        ghost_owner = res["ghost_owner"][ghost_off[p]:ghost_off[p + 1]]
+        sp_p = res["send_part"][send_off[p]:send_off[p + 1]]
+        send_idx = res["send_lidx"][send_off[p]:send_off[p + 1]]
+        send_parts, send_counts = np.unique(sp_p, return_counts=True)
+        send_ptr = np.concatenate([[0], np.cumsum(send_counts)]).astype(IDX_DTYPE)
+        recv_parts, recv_counts = np.unique(ghost_owner, return_counts=True)
+        recv_ptr = np.concatenate([[0], np.cumsum(recv_counts)]).astype(IDX_DTYPE)
+        recv_idx = np.arange(nowned, nowned + nghost, dtype=IDX_DTYPE)
+        halo = HaloPlan(send_parts=send_parts.astype(np.int32),
+                        send_counts=send_counts.astype(IDX_DTYPE),
+                        send_ptr=send_ptr, send_idx=send_idx,
+                        recv_parts=recv_parts.astype(np.int32),
+                        recv_counts=recv_counts.astype(IDX_DTYPE),
+                        recv_ptr=recv_ptr, recv_idx=recv_idx)
+        subdomains.append(Subdomain(
+            part=p, ninterior=int(res["ninterior"][p]),
+            nborder=nowned - int(res["ninterior"][p]), nghost=nghost,
+            global_ids=global_ids, ghost_owner=ghost_owner, halo=halo))
+    return subdomains
+
+
+def _partition_graph_nodes_numpy(full_csr, part, nparts) -> list[Subdomain]:
     n = full_csr.shape[0]
     part = np.asarray(part)
     if part.size != n:
@@ -214,6 +274,46 @@ def reorder_owned_natural(subs: list[Subdomain]) -> list[Subdomain]:
             s.A_ghost.sort_indices()
         s.owned_order = "natural"
     return subs
+
+
+def halo_exchange_host(subs: list[Subdomain], xs: list[np.ndarray]) -> None:
+    """Host-side halo exchange over subdomain vectors, in place.
+
+    The role of ``acghalo_exchange`` (``halo.c:687``) for the host
+    reference path: gather each part's send entries, deliver into the
+    matching ghost windows.  Used by the distributed host SpMV oracle and
+    as the semantics model for the device implementations.
+    """
+    packed = {}
+    for i, s in enumerate(subs):
+        h = s.halo
+        for j, q in enumerate(h.send_parts):
+            idx = h.send_idx[h.send_ptr[j]:h.send_ptr[j + 1]]
+            packed[(s.part, int(q))] = xs[i][idx]
+    # deliver
+    for i, s in enumerate(subs):
+        h = s.halo
+        for j, q in enumerate(h.recv_parts):
+            window = h.recv_idx[h.recv_ptr[j]:h.recv_ptr[j + 1]]
+            buf = packed[(int(q), s.part)]
+            if buf.size != window.size:
+                raise AcgError(ErrorCode.INVALID_PARTITION,
+                               f"halo window mismatch {q}->{s.part}: "
+                               f"{buf.size} != {window.size}")
+            xs[i][window] = buf
+
+
+def dsymv_dist_host(subs: list[Subdomain], xs: list[np.ndarray]) -> list[np.ndarray]:
+    """Distributed host SpMV (the ``acgsymcsrmatrix_dsymvmpi`` role,
+    ``symcsrmatrix.c:1353-1397``): halo exchange then local + offdiag SpMV."""
+    halo_exchange_host(subs, xs)
+    out = []
+    for s, x in zip(subs, xs):
+        y = s.A_local @ x[: s.nowned]
+        if s.nghost:
+            y = y + s.A_ghost @ x[s.nowned: s.nowned + s.nghost]
+        out.append(y)
+    return out
 
 
 def comm_matrix(subs: list[Subdomain], nparts: int) -> np.ndarray:

@@ -4,8 +4,10 @@ and irregular SPD matrices.
 A copy of the numpy builders of ``acg_tpu/io/generators.py``: COO
 triplets of the FULL symmetric matrix (callers needing one-triangle
 storage filter ``r <= c``), DIA planes built directly (on the host, or
-on the device with no host matrix: :func:`poisson_dia_device`), and the
-symmetric Matrix Market wrapper.
+on the device with no host matrix: :func:`poisson_dia_device`), the
+symmetric Matrix Market wrappers (:func:`poisson_mtx`,
+:func:`irregular_mtx`) and the seeded right-hand-side block of
+``--nrhs`` (:func:`batched_rhs`).
 """
 
 from __future__ import annotations
@@ -148,6 +150,19 @@ def poisson_dia_device(n: int, dim: int = 2, dtype=None, device=None):
     return planes, tuple(int(o) for o in offsets), N
 
 
+def batched_rhs(n: int, nrhs: int, seed: int = 42,
+                dtype=np.float64) -> np.ndarray:
+    """Default multi-RHS block for ``--nrhs B``: B random unit-norm
+    columns (seeded).  Random, NOT replicated ones: parallel columns
+    would collapse the block Krylov space to rank 1, making every
+    batched/block measurement degenerate -- a serving fleet's requests
+    differ, and so must the default benchmark block."""
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((n, int(nrhs))).astype(dtype)
+    B /= np.linalg.norm(B, axis=0, keepdims=True)
+    return B
+
+
 def irregular_spd_coo(n: int, avg_degree: float = 16.0, seed: int = 0,
                       dtype=np.float64):
     """Random irregular SPD matrix -> full COO.
@@ -183,6 +198,17 @@ def irregular_spd_coo(n: int, avg_degree: float = 16.0, seed: int = 0,
     cols = np.concatenate([idx, hi, lo])
     vals = np.concatenate([diag, w, w])
     return rows, cols, vals, n
+
+
+def irregular_mtx(n: int, avg_degree: float = 16.0, seed: int = 0) -> MtxFile:
+    """Irregular SPD matrix as a symmetric (lower-triangle) MtxFile."""
+    r, c, v, N = irregular_spd_coo(n, avg_degree, seed)
+    keep = r >= c
+    order = np.lexsort((c[keep], r[keep]))
+    return MtxFile(object="matrix", format="coordinate", field="real",
+                   symmetry="symmetric", nrows=N, ncols=N, nnz=int(keep.sum()),
+                   rowidx=r[keep][order], colidx=c[keep][order],
+                   vals=v[keep][order])
 
 
 def poisson_mtx(n: int, dim: int = 2) -> MtxFile:

@@ -166,12 +166,13 @@ class StencilOperator:
         exists, else 0: a pad and slice of the reshaped (-1, n, stride)
         view of x, with no per-element index arithmetic."""
         n = self.grid[0]
-        x3 = x.reshape(-1, n, stride)
-        z = torch.zeros_like(x3[:, :1, :])
+        # a trailing batch axis (the (N, B) column block) rides along
+        x3 = x.reshape((-1, n, stride) + tuple(x.shape[1:]))
+        z = torch.zeros_like(x3[:, :1])
         if sign < 0:
-            sh = torch.cat([z, x3[:, :-1, :]], dim=1)
+            sh = torch.cat([z, x3[:, :-1]], dim=1)
         else:
-            sh = torch.cat([x3[:, 1:, :], z], dim=1)
+            sh = torch.cat([x3[:, 1:], z], dim=1)
         return sh.reshape(x.shape)
 
     def matfree_apply(self, x):
@@ -211,6 +212,44 @@ class StencilOperator:
                 coeff = -wy[1:, None].to(adt)      # -wy[j+1]
             y2 = y2 + coeff * sh.to(adt)
         return y2.reshape(x.shape).to(x.dtype)
+
+    def matfree_apply_multi(self, X):
+        """Y = A @ X for an ``(N, B)`` column block (the batched tier,
+        ``acg_tpu.ops.operator.StencilOperator.matfree_apply_multi``):
+        the shifted-view apply of :meth:`matfree_apply` with the batch
+        axis trailing every view, so each column gets the identical
+        per-element products in the identical order."""
+        adt = acc_dtype(X.dtype)
+        n, dim = self.grid
+        Y = torch.zeros(X.shape, dtype=adt, device=X.device)
+        if self.kind == "poisson":
+            for off in self.offsets:
+                if off == 0:
+                    Y = Y + float(2 * dim) * X.to(adt)
+                else:
+                    sh = self._shifted(X, abs(int(off)),
+                                       1 if off > 0 else -1)
+                    Y = Y + -1.0 * sh.to(adt)
+            return Y.to(X.dtype)
+        wx, wy, dtab = self.tables
+        B = X.shape[1]
+        X3 = X.reshape(n, n, B)
+        Y3 = Y.reshape(n, n, B)
+        for off in self.offsets:
+            if off == 0:
+                Y3 = Y3 + dtab[:, None, None].to(adt) * X3.to(adt)
+                continue
+            stride = abs(int(off))
+            sh = self._shifted(X, stride,
+                               1 if off > 0 else -1).reshape(n, n, B)
+            if stride == 1:
+                coeff = -wx[:, None, None].to(adt)
+            elif off < 0:
+                coeff = -wy[:-1, None, None].to(adt)
+            else:
+                coeff = -wy[1:, None, None].to(adt)
+            Y3 = Y3 + coeff * sh.to(adt)
+        return Y3.reshape(X.shape).to(X.dtype)
 
     def matfree_diagonal(self):
         """Analytic ``diag(A)`` (the ``--precond jacobi`` twin of

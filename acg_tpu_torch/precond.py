@@ -25,6 +25,10 @@ to the power iteration's accuracy.  :func:`state_from_numpy` carries a
 state (the JAX package's, say) across as tensors, for trajectory parity.
 The stacked tier's start vector is numpy's ``default_rng(0)``, as in the
 JAX package, so its estimate is the same.
+
+:func:`make_apply_batched` broadcasts each apply over the ``(n, B)``
+column block of the batched multi-RHS tier, and :class:`HostPrecond` is
+the f64 numpy twin the host oracle solver runs.
 """
 
 from __future__ import annotations
@@ -317,6 +321,67 @@ def make_apply(spec: PrecondSpec, spmv_fn):
     return apply
 
 
+def make_apply_batched(spec: PrecondSpec, spmv_multi_fn=None):
+    """``apply(mstate, A, R) -> Z`` over a multi-column residual block
+    ``R`` of shape ``(n, B)`` (``acg_tpu.precond.make_apply_batched``):
+    the preconditioner apply broadcast over the batch axis, in plain
+    torch.  Jacobi broadcasts the inverse diagonal across the columns;
+    block-Jacobi runs the same batched triangular solves with B
+    right-hand sides per block; Chebyshev runs its K-step semi-iteration
+    on the whole block through ``spmv_multi_fn`` (default: the
+    single-device multi-vector SpMV), K matrix passes for all B
+    columns."""
+    from acg_tpu_torch.ops.spmv import acc_dtype
+
+    if spec.kind == "jacobi":
+        def apply(mstate, A, R):
+            (dinv,) = mstate
+            return (R.to(dinv.dtype) * dinv[:, None]).to(R.dtype)
+        return apply
+
+    if spec.kind == "bjacobi":
+        bs = spec.block
+
+        def apply(mstate, A, R):
+            (chol,) = mstate
+            n, ncols = R.shape
+            nb = chol.shape[0]
+            Rp = R.to(chol.dtype)
+            if nb * bs != n:
+                Rp = torch.nn.functional.pad(Rp, (0, 0, 0, nb * bs - n))
+            Rb = Rp.reshape(nb, bs, ncols)
+            y = torch.linalg.solve_triangular(chol, Rb, upper=False)
+            z = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+            return z.reshape(nb * bs, ncols)[:n].to(R.dtype).contiguous()
+        return apply
+
+    k = spec.degree
+    if spmv_multi_fn is None:
+        from acg_tpu_torch.solvers.batched import spmv_multi as spmv_multi_fn
+
+    def apply(mstate, A, R):
+        lmin, lmax = (s.reshape(-1)[0] for s in mstate)
+        adt = acc_dtype(R.dtype)
+        lmin = lmin.to(adt)
+        lmax = lmax.to(adt)
+        theta = (lmax + lmin) * 0.5
+        delta = (lmax - lmin) * 0.5
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        Rs = R.to(adt)
+        d = Rs / theta
+        z = d
+        rcur = Rs
+        for _ in range(k):
+            rcur = rcur - spmv_multi_fn(A, d.to(R.dtype)).to(adt)
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = rho_new * rho * d + (2.0 * rho_new / delta) * rcur
+            z = z + d
+            rho = rho_new
+        return z.to(R.dtype)
+    return apply
+
+
 # -- stacked host-side state builders (the multi-part tier) ---------------
 
 def _np_diag_blocks_from_triples(rows, cols, vals, n: int, bs: int,
@@ -461,3 +526,77 @@ def state_bytes(mstate) -> int:
         else:
             total += int(np.asarray(leaf).nbytes)
     return total
+
+
+# -- host (numpy/scipy) twins: the eager solver + the test oracle ---------
+
+class HostPrecond:
+    """Eager numpy preconditioner for the host reference solver (and
+    the scipy-checked oracle the device applies are tested against).
+    Same three kinds, same interval policy, f64 arithmetic."""
+
+    def __init__(self, spec: PrecondSpec, csr):
+        import scipy.sparse as sp
+
+        self.spec = spec
+        csr = sp.csr_matrix(csr)
+        n = csr.shape[0]
+        if spec.kind == "jacobi":
+            d = csr.diagonal().astype(np.float64)
+            dinv = np.zeros_like(d)
+            dinv[d != 0] = 1.0 / d[d != 0]
+            self.state = (dinv,)
+        elif spec.kind == "bjacobi":
+            bs = spec.block
+            nb = -(-n // bs)
+            blocks = np.zeros((nb, bs, bs), np.float64)
+            coo = csr.tocoo()
+            _np_diag_blocks_from_triples(coo.row, coo.col, coo.data, n,
+                                         bs, blocks)
+            dblk = np.einsum("bii->bi", blocks)
+            np.einsum("bii->bi", blocks)[...] = np.where(dblk == 0, 1.0,
+                                                         dblk)
+            self.state = (np.linalg.cholesky(blocks),)
+        else:
+            rng = np.random.default_rng(0)
+            v = rng.standard_normal(n)
+            for _ in range(POWER_ITERS):
+                w = csr @ v
+                v = w / np.linalg.norm(w)
+            lmax = float(v @ (csr @ v) / (v @ v)) * CHEBY_SAFETY
+            self._csr = csr
+            self.state = (lmax / CHEBY_RATIO, lmax)
+        self.n = n
+
+    def apply(self, r: np.ndarray) -> np.ndarray:
+        spec = self.spec
+        if spec.kind == "jacobi":
+            return self.state[0] * r
+        if spec.kind == "bjacobi":
+            import scipy.linalg as sla
+
+            (chol,) = self.state
+            bs = spec.block
+            npad = chol.shape[0] * bs
+            rp = np.zeros(npad)
+            rp[: self.n] = r
+            out = np.empty_like(rp)
+            for b in range(chol.shape[0]):
+                out[b * bs:(b + 1) * bs] = sla.cho_solve(
+                    (chol[b], True), rp[b * bs:(b + 1) * bs])
+            return out[: self.n]
+        lmin, lmax = self.state
+        theta = (lmax + lmin) * 0.5
+        delta = (lmax - lmin) * 0.5
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        d = r / theta
+        z = d.copy()
+        rcur = r.astype(np.float64).copy()
+        for _ in range(spec.degree):
+            rcur = rcur - self._csr @ d
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = rho_new * rho * d + (2.0 * rho_new / delta) * rcur
+            z = z + d
+            rho = rho_new
+        return z

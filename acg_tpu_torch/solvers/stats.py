@@ -5,8 +5,8 @@ port's solvers fill: iteration counts, analytic flop/byte totals and
 per-op-class breakdowns (``cg.h:88-98``, ``cgcuda.h:107-116``), reported
 in the fixed text block of ``acgsolvercuda_fwrite``
 (``cgcuda.c:1927-1975``), plus the ``timings:`` section of pipeline
-phases and the ``precond:`` section of preconditioned solves.
-Line-compatible with the JAX package's block, so scripts that grep
+phases, the ``precond:`` section of preconditioned solves and the
+``batch:`` section of batched multi-RHS solves.  Line-compatible with the JAX package's block, so scripts that grep
 ``total solver time`` work on both.
 """
 
@@ -98,6 +98,9 @@ class SolverStats:
     # the armed preconditioner's kind, applies and spectral interval;
     # rendered (after timings) only when a preconditioned solve ran
     precond: dict = dataclasses.field(default_factory=dict)
+    # the batched multi-RHS tier's per-RHS evidence (solvers.batched);
+    # rendered after precond only when a batched solve ran
+    batch: dict = dataclasses.field(default_factory=dict)
 
     def fwrite(self, f=None, indent: int = 0) -> str:
         """Solver report, line-compatible with ``acgsolvercuda_fwrite``."""
@@ -148,6 +151,9 @@ class SolverStats:
         if self.precond:
             p("precond:")
             _write_section(p, self.precond, 1)
+        if self.batch:
+            p("batch:")
+            _write_section(p, self.batch, 1)
         text = out.getvalue()
         if f is not None:
             f.write(text)

@@ -65,7 +65,25 @@ checkout it sits in.  Phases, each of which raises on failure:
    without the flag, and pipelined with the flag for 500 iterations
    (K5), (s) --dtype bf16 --replace-every 50 for 2000 iterations (the
    reported residual is the true f32 one; bf16 and mixed K1 counted)
-   and (t) --dtype f32 --refine to a true f64 residual of 1e-12;
+   and (t) --dtype f32 --refine to a true f64 residual of 1e-12; then
+   the host layer and the batched tier: (u) the offline tools at full
+   width (genmatrix -n 2048 binary and text, mtxpartition --parts 4,
+   mtx2bin --expand --partition with its .perm.mtx sidecar) and a
+   classic f64 solve of the permuted binary matrix with (a)'s
+   right-hand side in the original order: x in the original order
+   within 1e-8 of (a)'s, iterations within 1, the format auto picked
+   printed; (v) --solver host, host-native and petsc beside the device
+   solve on gen:poisson2d:512 (iterations within 1, x within 1e-10;
+   the native core built; --buildinfo logged); (w) --nrhs 8 batched
+   classic f64 (manufactured columns) against the single-RHS solver on
+   each column (iterations within 1, x within 1e-9), twice to the same
+   bits, no K1 or K5 launch; (x) --nrhs 8 with --solver acg-pipelined
+   (iterations within 1 % of (w)'s), --operator stencil (the same
+   iterations and x within 1e-12), --precond jacobi (iterations within
+   1), and --block-cg against the batched mode on gen:poisson2d:512
+   --aniso 0.01 (fewer column iterations, every column's true
+   residual <= 1e-7); (y) --nrhs 1, bitwise-equal to (a) with K1
+   counted as in (a);
 4. times: solve rates (1000 iterations after a 50-iteration warm-up),
    single-device (classic, --kernels fused in f32, mixed and bf16,
    pipelined; --precond jacobi and cheby:4 in f64, cheby also as
@@ -86,7 +104,9 @@ checkout it sits in.  Phases, each of which raises on failure:
    assembled planes, stacked K7 on the 4-part plan, and K1 on the 512^3
    planes in mixed and bf16;
    classic f64 rates with --operator stencil against assembled at
-   2048^2 and 512^3.  K1, K3, K4, K6 and K7 are also timed with L2
+   2048^2 and 512^3; --nrhs 8 rates (batched classic and pipelined,
+   block CG) as loop and column-iterations/s, and a profile of the
+   batched classic solve.  K1, K3, K4, K6 and K7 are also timed with L2
    flushed by reading (clean_l2_ms), K4 and K7 beside a copy of their
    bytes (copy_ms).
 
@@ -915,6 +935,9 @@ def main_path(torch, K, tmp, csr, irr):
     paths.update(reproducible_gather_paths(torch, K, tmp, irr))
     paths.update(precond_paths(torch, K, tmp, base, b, csr))
     paths.update(precision_paths(torch, K, tmp, base, b, csr))
+    paths.update(tool_paths(torch, K, tmp, b, csr))
+    paths.update(host_paths(torch, K, tmp))
+    paths.update(batched_paths(torch, K, tmp, base, csr, paths))
     return paths
 
 
@@ -1322,6 +1345,279 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
     return paths
 
 
+# -- phase 3 (u)-(y): tools, host oracles, the batched tier ----------------
+
+HOST_SPEC = "gen:poisson2d:512"
+NRHS = 8
+# block CG against the batched mode on the ill-conditioned family, at a
+# quarter of the flagship's side: at 1024^2 its random columns took
+# ~17,000 batched iterations (26 s) and block CG 9,327 trips (18 s)
+ANISO_SPEC = f"gen:poisson2d:{FLAGSHIP // 4}"
+
+
+def _tool_stdout(fn, argv, path):
+    """Run tool ``fn(argv)`` with its standard output (written through
+    ``sys.stdout.buffer``) sent to ``path``."""
+    saved = sys.stdout
+    with open(path, "wb") as f:
+        sys.stdout = io.TextIOWrapper(f, write_through=True)
+        try:
+            rc = fn(argv)
+            sys.stdout.flush()
+        finally:
+            sys.stdout.detach()
+            sys.stdout = saved
+    return rc
+
+
+def _device_format(text: str) -> str:
+    m = re.search(r"device matrix: (\w+)", text)
+    return m.group(1) if m else "not logged"
+
+
+def tool_paths(torch, K, tmp, b, csr):
+    """(u): the offline tools at full width and the permuted input:
+    genmatrix (binary and text), mtxpartition --parts 4 on the binary
+    file, mtx2bin --expand --partition on the text file with its
+    .perm.mtx sidecar; then classic f64 on the permuted binary matrix
+    with (a)'s right-hand side given in the original row order.  The
+    solution comes back in the original order: within 1e-8 of (a)'s x,
+    iterations within 1 of (a)'s, true residual <= 1e-7."""
+    from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
+    from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition
+
+    t0 = time.perf_counter()
+    tb = os.path.join(tmp, "u-A.bin.mtx")
+    tt = os.path.join(tmp, "u-A.mtx")
+    part = os.path.join(tmp, "u-part.mtx")
+    perm = os.path.join(tmp, "u-P.bin.mtx")
+    steps = []
+    for what, fn in (
+            ("genmatrix --binary", lambda: genmatrix.main(
+                ["-n", str(FLAGSHIP), "--binary", "-o", tb])),
+            ("genmatrix", lambda: genmatrix.main(
+                ["-n", str(FLAGSHIP), "-o", tt])),
+            (f"mtxpartition --parts {NPARTS}", lambda: _tool_stdout(
+                mtxpartition.main, [tb, "--binary", "--parts",
+                                    str(NPARTS)], part)),
+            ("mtx2bin --expand --partition", lambda: mtx2bin.main(
+                ["--expand", "--partition", part, tt, perm]))):
+        ts = time.perf_counter()
+        check(fn() == 0, f"path u: {what}")
+        steps.append(f"{what} {time.perf_counter() - ts:.1f} s")
+    check(os.path.exists(perm + ".perm.mtx")
+          and os.path.exists(perm + ".bounds.mtx"),
+          "path u: mtx2bin wrote the .perm.mtx and .bounds.mtx sidecars")
+    bfile = os.path.join(tmp, "u-b.bin")
+    write_mtx(bfile, vector_mtx(b), binary=True)
+    rc, text, c, _, its, x, res = solve_path(
+        torch, K, tmp, [perm, bfile, "--binary", "--warmup", "0", "-q",
+                        "-v", "--residual-rtol", "1e-8",
+                        "--max-iterations", "20000"], "u-permuted", b, csr)
+    xa = read_x(os.path.join(tmp, "a.bin"))
+    rel = float(np.linalg.norm(x - xa) / np.linalg.norm(xa))
+    say(f"path u: tools {'; '.join(steps)}; the permuted solve: format "
+        f"auto picked {_device_format(text)}, {its} iterations (path a: "
+        f"{ITS['a']}), x vs path a's rel {rel:.3e} (limit 1e-8), true "
+        f"relative residual {res:.3e} (limit 1e-7), solver time "
+        f"{stat(text, 'total solver time')}, launches {c}; path u took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rc == 0 and abs(its - ITS["a"]) <= 1 and rel <= 1e-8
+          and res <= 1e-7, "path u: the permuted solve is path a's")
+    return {"u": c}
+
+
+def host_paths(torch, K, tmp):
+    """(v): the host oracles (--solver host, host-native, petsc) beside
+    the device classic f64 solve on gen:poisson2d:512: the same
+    iterations within 1, x within 1e-10 relative; the native core
+    available on this machine; --buildinfo logged."""
+    from acg_tpu_torch import _native, cli
+
+    t0 = time.perf_counter()
+    check(_native.available(), f"path v: the native host core built "
+          f"({_native.build_error})")
+    info = io.StringIO()
+    with contextlib.redirect_stdout(info):
+        check(cli.main(["--buildinfo"]) == 0, "path v: --buildinfo")
+    for line in info.getvalue().splitlines():
+        say(f"  buildinfo: {line}")
+    argv = [HOST_SPEC, "--warmup", "0", "-q", "--manufactured-solution",
+            "--residual-rtol", "1e-8", "--max-iterations", "20000"]
+    runs = {}
+    for solver in ("acg", "host", "host-native", "petsc"):
+        rc, text, c, _, its, x, _ = solve_path(
+            torch, K, tmp, argv + ["--solver", solver], f"v-{solver}")
+        check(rc == 0, f"path v: --solver {solver} converged")
+        runs[solver] = (its, x, stat(text, "total solver time"), c)
+    its0, x0 = runs["acg"][:2]
+    msg = []
+    for solver, (its, x, tsolve, c) in runs.items():
+        rel = float(np.linalg.norm(x - x0) / np.linalg.norm(x0))
+        msg.append(f"{solver} {its} iterations, rel {rel:.2e}, "
+                   f"{tsolve}")
+        check(abs(its - its0) <= 1 and rel <= 1e-10,
+              f"path v: --solver {solver} agrees with the device solve")
+        if solver != "acg":
+            check(sum(c.values()) == 0,
+                  f"path v: --solver {solver} launched no kernel")
+    say(f"path v: {HOST_SPEC}: " + "; ".join(msg)
+        + f" (limits: iterations +-1, x 1e-10); path v took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"v": runs["acg"][3]}
+
+
+def _batched_run(torch, K, tmp, argv, tag):
+    """One --nrhs CLI run (with -v): (rc, stats text, launch counts,
+    per-RHS iterations, the (n, B) solution)."""
+    from acg_tpu_torch.io.mtxfile import read_mtx
+
+    out = os.path.join(tmp, f"{tag}.bin")
+    rc, text, c = run_cli(torch, K, argv + ["-v", "-o", out], tag)
+    m = re.search(r"per-RHS iterations \[([\d, ]*)\]", text)
+    iters = [int(v) for v in m.group(1).split(",")] if m else []
+    X = None
+    if os.path.exists(out):
+        mx = read_mtx(out, binary=True)
+        X = np.asarray(mx.vals, np.float64).reshape((mx.nrows, mx.ncols),
+                                                    order="F")
+    return rc, text, c, iters, X
+
+
+def batched_paths(torch, K, tmp, base, csr, paths):
+    """(w)-(y): the batched multi-RHS tier on the card (plain PyTorch:
+    no kernel), then --nrhs 1 on the single-RHS path.  See the module
+    docstring for each path's checks."""
+    from acg_tpu_torch.io.generators import batched_rhs
+
+    out = {}
+    n = csr.shape[0]
+    tol = ["--residual-rtol", "1e-8", "--max-iterations", "20000"]
+    # manufactured columns, as path (a)'s: smooth right-hand sides, ~2,400
+    # iterations (random columns take ~5,800 at 2048^2)
+    bat = base + ["--nrhs", str(NRHS), "--manufactured-solution"] + tol
+
+    # (w) batched classic f64 against single-RHS solves of its columns
+    t0 = time.perf_counter()
+    runs = []
+    for k in range(2):
+        rc, text, c, iters, X = _batched_run(torch, K, tmp, bat,
+                                             f"w-batched{k}")
+        check(rc == 0 and len(iters) == NRHS, f"path w run {k} converged")
+        runs.append((text, c, iters, X))
+    text, c, iters_w, Xw = runs[0]
+    same = runs[0][2] == runs[1][2] and np.array_equal(Xw, runs[1][3])
+    t_batched = stat(text, "total solver time")
+    # the CLI's --seed 42 block: unit-norm columns xsol, B = A xsol
+    xsol = np.random.default_rng(42).standard_normal((n, NRHS))
+    xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
+    B = csr @ xsol
+    # the reference: each column solved alone by the single-RHS solver
+    # (the library, on K1; launches outside a path run are not counted)
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
+    one = TorchCGSolver(device_matrix_from_csr(csr, dtype=torch.float64,
+                                               device="cuda"),
+                        device="cuda")
+    single = []
+    for j in range(NRHS):
+        x1 = one.solve(B[:, j], criteria=StoppingCriteria(
+            maxits=20000, residual_rtol=1e-8))
+        single.append((one.stats.niterations, x1))
+    del one
+    rels = [float(np.linalg.norm(Xw[:, j] - x1) / np.linalg.norm(x1))
+            for j, (_, x1) in enumerate(single)]
+    say(f"path w: --nrhs {NRHS} classic f64 on {MAIN_SPEC}: per-RHS "
+        f"iterations {iters_w}, single solves {[s[0] for s in single]}; "
+        f"x vs the single solves, worst column rel {max(rels):.2e} "
+        f"(limit 1e-9); the same bits twice = {same}; launches {c}; "
+        f"batched solver time {t_batched}; path w took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(abs(a - s[0]) <= 1 for a, s in zip(iters_w, single)),
+          "path w: each column's iterations within 1 of its single solve")
+    check(max(rels) <= 1e-9, "path w: x within 1e-9 of the single solves")
+    check(same, "path w: the same bits twice")
+    check(c.get("dia_spmv", 0) == 0 and c.get("pipelined_update", 0) == 0,
+          "path w: no K1 or K5 launch on the batched tier")
+    out["w"] = c
+
+    # (x) pipelined, the operator, jacobi; block CG on the aniso family
+    t0 = time.perf_counter()
+    for tag, extra in (("x-pipelined", ["--solver", "acg-pipelined"]),
+                       ("x-stencil", ["--operator", "stencil"]),
+                       ("x-jacobi", ["--precond", "jacobi"])):
+        rc, text, c, iters, X = _batched_run(torch, K, tmp, bat + extra,
+                                             tag)
+        check(rc == 0 and len(iters) == NRHS, f"path {tag} converged")
+        rel = float(np.linalg.norm(X - Xw) / np.linalg.norm(Xw))
+        res = (np.linalg.norm(B - csr @ X, axis=0)
+               / np.linalg.norm(B, axis=0)).max()
+        say(f"path {tag}: iterations {iters}, x vs w rel {rel:.2e}, "
+            f"worst true residual {res:.2e}, "
+            f"{stat(text, 'total solver time')}, launches {c}")
+        if tag == "x-stencil":
+            check(iters == iters_w and rel <= 1e-12,
+                  "path x: --operator stencil is path w (iterations, x "
+                  "within 1e-12)")
+        elif tag == "x-jacobi":
+            check(all(abs(a - b) <= 1 for a, b in zip(iters, iters_w))
+                  and res <= 1e-7,
+                  "path x-jacobi: path w's iterations within 1, converged")
+        else:
+            # the pipelined recurrence rounds otherwise and tests a stale
+            # residual: its counts are held to 1 % of the classic ones
+            check(all(abs(a - b) <= max(2, b // 100)
+                      for a, b in zip(iters, iters_w)) and res <= 1e-6,
+                  "path x-pipelined: path w's iterations within 1 %, "
+                  "true residuals <= 1e-6")
+        check(sum(c.values()) == 0, f"path {tag}: no kernel launched")
+        out[tag] = c
+    aniso = [ANISO_SPEC, "--aniso", "0.01", "--warmup", "0", "-q",
+             "--nrhs", str(NRHS)] + tol
+    rc, text, c, iters_b, _ = _batched_run(torch, K, tmp, aniso,
+                                           "x-aniso-batched")
+    check(rc == 0, "path x: --aniso batched converged")
+    tb = stat(text, "total solver time")
+    rc, text, c, iters_k, Xk = _batched_run(torch, K, tmp, aniso
+                                            + ["--block-cg"],
+                                            "x-aniso-block")
+    check(rc == 0, "path x: --block-cg converged")
+    trips = int(stat(text, "block_iterations").replace(",", ""))
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    Aa = synthesize_host_matrix(ANISO_SPEC, aniso=0.01).to_csr()
+    Ba = batched_rhs(Aa.shape[0], NRHS, seed=42)
+    res = (np.linalg.norm(Ba - Aa @ Xk, axis=0)
+           / np.linalg.norm(Ba, axis=0))
+    say(f"path x-block: {ANISO_SPEC} --aniso 0.01: batched "
+        f"{sum(iters_b)} column iterations ({tb}), --block-cg {trips} "
+        f"trips x {NRHS} = {trips * NRHS} "
+        f"({stat(text, 'total solver time')}), per-column true residuals "
+        f"max {res.max():.2e} (limit 1e-7); path x took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(trips * NRHS < sum(iters_b),
+          "path x: block CG takes fewer column iterations")
+    check(res.max() <= 1e-7, "path x: every block-CG column at its "
+          "tolerance")
+    out["x-block"] = c
+
+    # (y) --nrhs 1 is the single-RHS path: (a) bit for bit
+    t0 = time.perf_counter()
+    rc, text, c, _, its, x, _ = solve_path(
+        torch, K, tmp, base + ["--manufactured-solution", "--nrhs", "1"]
+        + tol, "y-nrhs1")
+    xa = read_x(os.path.join(tmp, "a.bin"))
+    same = np.array_equal(x, xa)
+    say(f"path y: --nrhs 1: {its} iterations (path a: {ITS['a']}), x "
+        f"bitwise equal to path a = {same}, K1 launches "
+        f"{c.get('dia_spmv', 0)} (path a: {paths['a']['dia_spmv']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rc == 0 and same and its == ITS["a"]
+          and c.get("dia_spmv") == paths["a"]["dia_spmv"],
+          "path y: --nrhs 1 is path a")
+    out["y"] = c
+    return out
+
+
 # -- phase 4: times --------------------------------------------------------
 
 def rate_runs(s, n: int, nruns: int = 3) -> list:
@@ -1428,6 +1724,44 @@ def precision_rates(torch, dev, card):
         torch.cuda.empty_cache()
 
 
+def batched_rates(torch, dev, card):
+    """Fixed-iteration rates of --nrhs 8 on the flagship, f64: the
+    batched classic and pipelined modes and block CG, 300 iterations
+    after a 50-iteration warm-up, three timed solves each, as loop
+    iterations/s and column-iterations/s (x 8); then one batched classic
+    solve under torch.profiler."""
+    from acg_tpu_torch.io.generators import batched_rhs, poisson_dia
+    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
+    from acg_tpu_torch.solvers import StoppingCriteria
+    from acg_tpu_torch.solvers.batched import BatchedCGSolver
+
+    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
+    A = device_matrix_from_arrays("dia", planes, {
+        "offsets": offsets, "nrows": N, "ncols_padded": N},
+        dtype=torch.float64, device=dev)
+    B = batched_rhs(N, NRHS, seed=42)
+    nits = 300
+    for mode in ("batched", "pipelined", "block"):
+        s = BatchedCGSolver(A, mode=mode, device=dev)
+        s.solve(B, criteria=StoppingCriteria(maxits=50))
+        runs = []
+        for _ in range(3):
+            s.stats.tsolve = 0.0
+            s.solve(B, criteria=StoppingCriteria(maxits=nits))
+            runs.append(nits / s.stats.tsolve)
+        med = float(np.median(runs))
+        say(f"solve rate --nrhs {NRHS} {mode} f64: "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{med:.1f}: {NRHS * med:.1f} column-iterations/s; {nits} "
+            f"iterations after a 50-iteration warm-up; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card})")
+        if mode == "batched":
+            profile_solve(torch, card, f"--nrhs {NRHS} batched classic "
+                          f"f64 (plain PyTorch)", s, N, b=B)
+        del s
+        torch.cuda.empty_cache()
+
+
 def direct_rates(torch, dev, card, nits: int = 100):
     """Classic f64 at 512^3 (the gen-direct size): the device-built
     assembled planes (K1) against the operator (K7), ``nits`` fixed
@@ -1528,16 +1862,17 @@ def irregular_spmv_times(torch, dev, card, irr):
     torch.cuda.empty_cache()
 
 
-def profile_solve(torch, card, label, s, n, nits: int = 100):
+def profile_solve(torch, card, label, s, n, nits: int = 100, b=None):
     """Where the time of solver ``s``'s solve goes: torch.profiler over
-    ``nits`` iterations (after a 50-iteration warm-up), the ops by
-    device time, and the device's busy share of the profiled wall time.
-    Reports "not measured" when the profiler records no device time."""
+    ``nits`` iterations (after a 50-iteration warm-up) of the solve of
+    ``b`` (default: ones), the ops by device time, and the device's busy
+    share of the profiled wall time.  Reports "not measured" when the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from acg_tpu_torch.solvers import StoppingCriteria
 
-    b = np.ones(n)
+    b = np.ones(n) if b is None else b
     s.solve(b, criteria=StoppingCriteria(maxits=50))
     torch.cuda.synchronize()
     try:
@@ -1891,6 +2226,7 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1960,6 +2296,7 @@ def main() -> int:
     solve_rates(torch, dev, card)
     precision_rates(torch, dev, card)
     dist_rates(torch, dev, card, prob)
+    batched_rates(torch, dev, card)
     from acg_tpu_torch.ops.operator import poisson_stencil
     from acg_tpu_torch.parallel.dist import DistCGSolver
     from acg_tpu_torch.solvers import TorchCGSolver
@@ -1993,6 +2330,7 @@ def main() -> int:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
 
+    say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all")
     (_build.BUILD_ROOT / "chip_smoke.log").write_text("\n".join(LOG) + "\n")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -579,3 +579,55 @@ def test_replaced_and_precise_on_card_match_cpu(dev):
         assert np.linalg.norm(xg - xc) <= tol * np.linalg.norm(xc)
         if "replace_every" in kw:
             assert types == {"bf16/bf16": 1000, "bf16/f32": 21}
+
+
+@pytest.mark.parametrize("fmt", ["dia", "ell", "coo", "bell"])
+def test_multi_column_spmv_is_deterministic_on_card(dev, fmt):
+    """The multi-column SpMV of the batched tier writes every row once
+    (padded rows, no scatter-add): the same bits twice on the card, the
+    CPU's values to rounding, no kernel launched."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.io.generators import batched_rhs
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.solvers.batched import spmv_multi
+
+    spec = "gen:poisson2d:128" if fmt == "dia" else "gen:irregular:20000"
+    csr = synthesize_host_matrix(spec).to_csr()
+    X = batched_rhs(csr.shape[0], 8, seed=1)
+    A = device_matrix_from_csr(csr, dtype=torch.float64, format=fmt,
+                               device=dev)
+    K.reset_launches()
+    Xd = torch.from_numpy(X).to(dev)
+    y1, y2 = spmv_multi(A, Xd), spmv_multi(A, Xd)
+    assert torch.equal(y1, y2)
+    assert sum(K.launches.values()) == 0
+    np.testing.assert_allclose(y1.cpu().numpy(), csr @ X, rtol=0,
+                               atol=1e-12 * np.abs(csr @ X).max())
+
+
+@pytest.mark.parametrize("mode", ["batched", "pipelined", "block"])
+def test_batched_b8_on_card_matches_cpu(dev, mode):
+    """B = 8 columns on the card against the same solve on the CPU: the
+    per-column iterations within 1 (block CG: the trip count within 2),
+    x within 1e-9; the same bits when run twice on the card."""
+    from acg_tpu_torch.io.generators import batched_rhs
+    from acg_tpu_torch.solvers.batched import BatchedCGSolver
+
+    planes, offsets, N = poisson_dia(96, 2)
+    meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
+    B = batched_rhs(N, 8, seed=3)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-9)
+    out = []
+    for d in ("cpu", dev, dev):
+        A = device_matrix_from_arrays("dia", planes, meta,
+                                      dtype=torch.float64, device=d)
+        s = BatchedCGSolver(A, mode=mode, device=d)
+        out.append((s.solve(B, criteria=crit), s.stats.batch))
+    (xc, bc), (xg, bg), (xg2, bg2) = out
+    assert np.array_equal(xg, xg2) and bg == bg2
+    if mode == "block":
+        assert abs(bg["block_iterations"] - bc["block_iterations"]) <= 2
+    else:
+        assert all(abs(a - b) <= 1 for a, b in zip(bg["iterations"],
+                                                   bc["iterations"]))
+    assert np.linalg.norm(xg - xc) <= 1e-9 * np.linalg.norm(xc)

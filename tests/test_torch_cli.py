@@ -90,14 +90,19 @@ def test_cli_reads_matrix_and_vector_files(tmp_path, capsys, form):
 
 
 def test_cli_refuses_partition_permuted_inputs(tmp_path):
+    """A partition-permuted input is solved through its ``.perm.mtx``
+    sidecar (tests/test_torch_tools.py); one whose sidecar is not a
+    permutation of the matrix's rows (stale, from an earlier mtx2bin
+    run) is refused with the JAX CLI's message."""
     from acg_tpu_torch.io.generators import poisson_mtx
     from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
 
     A = tmp_path / "A.mtx"
     write_mtx(A, poisson_mtx(4))
-    write_mtx(str(A) + ".perm.mtx", vector_mtx(np.arange(1.0, 17.0)),
+    write_mtx(str(A) + ".perm.mtx", vector_mtx(np.arange(1.0, 10.0)),
               binary=True)
-    with pytest.raises(SystemExit, match="partition-permuted"):
+    with pytest.raises(SystemExit, match="is not a permutation of 16 rows "
+                                         "-- stale sidecar"):
         torch_main([str(A), "--device", "cpu"])
 
 
@@ -180,7 +185,7 @@ def test_cli_text_output_uses_numfmt(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--algorithm", "sstep:2"],
-                                  ["--nrhs", "2"],
+                                  ["--convergence-log", "/tmp/x"],
                                   ["--serve"], ["--trace", "/tmp/x"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -202,6 +207,7 @@ def test_cli_refuses_gen_direct_sizes(flag):
 
 
 _NO_JAX = """
+import os
 import sys
 sys.modules["jax"] = None
 sys.modules["acg_tpu"] = None
@@ -215,7 +221,36 @@ import acg_tpu_torch.partition
 import acg_tpu_torch.precond
 import acg_tpu_torch.ops.precision
 import acg_tpu_torch.solvers.refine
+import acg_tpu_torch.solvers.batched
+import acg_tpu_torch.solvers.host_cg
+import acg_tpu_torch.solvers.petsc_cg
+import acg_tpu_torch.vector
+import acg_tpu_torch._native
 from acg_tpu_torch.cli import main
+import tempfile
+from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition
+d = tempfile.mkdtemp()
+A = os.path.join(d, "A.mtx")
+assert genmatrix.main(["-n", "12", "-o", A]) == 0
+with open(os.path.join(d, "part.mtx"), "wb") as f:
+    sys.stdout = f
+    sys.stdout.buffer = f
+    try:
+        assert mtxpartition.main([A, "--parts", "3"]) == 0
+    finally:
+        sys.stdout = sys.__stdout__
+assert mtx2bin.main(["--expand", "--partition",
+                     os.path.join(d, "part.mtx"), A, A + ".p"]) == 0
+for extra in (["--solver", "host"], ["--solver", "host-native"],
+              ["--solver", "petsc"], ["--solver", "host", "--nparts", "3"]):
+    assert main([A + ".p", "--binary", "--device", "cpu", "-q",
+                 "--max-iterations", "300"] + extra) == 0
+for extra in (["--nrhs", "3"], ["--nrhs", "3", "--block-cg"],
+              ["--nrhs", "3", "--solver", "acg-pipelined",
+               "--precond", "jacobi"]):
+    assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
+                 "0", "--max-iterations", "300"] + extra) == 0
+assert main(["--buildinfo"]) == 0
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--manufactured-solution", "--solver", "acg-pipelined",
              "--kernels", "pallas", "--max-iterations", "300"]) == 0
@@ -236,7 +271,6 @@ for extra in (["--precond", "cheby:2", "--solver", "acg-pipelined"],
     assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
                  "0", "--kernels", "pallas", "--max-iterations", "600"]
                 + extra) == 0
-import os
 os.environ["ACG_TPU_GEN_DIRECT_MIN"] = "100"
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--operator", "stencil", "--max-iterations", "300"]) == 0
