@@ -17,15 +17,19 @@ matrix altogether: planes or operator on the device, ``b = ones``
 and pipelined solvers preconditioned, ``--precise-dots`` computes their
 scalars with compensated dots, ``--replace-every`` runs the bf16 tier
 with periodic f32 residual replacement, and ``--refine`` wraps the
-solve in f64 iterative refinement on the host.  ``--nrhs B`` solves B
-right-hand sides in one batched solve
+solve in f64 iterative refinement on the host.  ``--algorithm
+sstep:S|pipelined:L`` runs a communication-avoiding recurrence
+(:mod:`acg_tpu_torch.recurrence`) on one part or on stacked parts.
+``--nrhs B`` solves B right-hand sides in one batched solve
 (:class:`~acg_tpu_torch.solvers.batched.BatchedCGSolver`, ``--block-cg``
-for block CG), and ``--solver host|host-native|petsc`` runs a host
-oracle (:mod:`acg_tpu_torch.solvers.host_cg`, ``petsc_cg``).  A matrix
-file with a ``.perm.mtx`` sidecar (``mtx2bin --partition``) is solved
-with b, x0 and x in the original row order.  Flag names and defaults
-follow the JAX package's CLI; flags of tiers the port does not have yet
-(``--algorithm``, ``--serve``, ...) are not accepted.
+for block CG; on ``--nparts N > 1`` the stacked
+:class:`~acg_tpu_torch.parallel.dist_batched.BatchedDistCGSolver`), and
+``--solver host|host-native|petsc`` runs a host oracle
+(:mod:`acg_tpu_torch.solvers.host_cg`, ``petsc_cg``).  A matrix file
+with a ``.perm.mtx`` sidecar (``mtx2bin --partition``) is solved with b,
+x0 and x in the original row order.  Flag names and defaults follow the
+JAX package's CLI; flags of tiers the port does not have yet
+(``--serve``, ``--trace``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU (the host oracles
@@ -72,6 +76,19 @@ def make_parser() -> argparse.ArgumentParser:
                         "host-native = the same CG in the native C++ "
                         "core, petsc = scipy's CG (the external oracle); "
                         "these three compute on the host")
+    p.add_argument("--algorithm", default="auto", metavar="ALG",
+                   help="CG recurrence: 'classic' | 'pipelined' "
+                        "(Ghysels-Vanroose, = --solver acg-pipelined) | "
+                        "'sstep:S' (communication-avoiding s-step CG: "
+                        "ONE fused Gram allreduce per S iterations, "
+                        "monomial basis below S=4, Chebyshev at S>=4) | "
+                        "'pipelined:L' (deep-pipelined p(l)-CG: ONE "
+                        "fused allreduce per iteration consumed L "
+                        "iterations later; restarted on the method's "
+                        "square-root breakdown).  'auto' follows "
+                        "--solver.  The CA recurrences ride the "
+                        "single-device, gen-direct and multi-part tiers "
+                        "and run unpreconditioned over f32/f64 vectors")
     p.add_argument("--comm", default="xla",
                    choices=["none", "xla", "dma", "mpi", "nccl", "nvshmem"],
                    help="halo transport of the multi-part solver: xla = "
@@ -184,8 +201,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "file, B seeded random unit-norm columns (--seed); "
                         "with --manufactured-solution, B manufactured "
                         "columns.  Per-RHS evidence lands in a 'batch:' "
-                        "stats section.  B=1 (or flag absent) runs the "
-                        "single-RHS solvers")
+                        "stats section.  With --nparts N > 1 the parts "
+                        "stack on the device and the halo moves (maxcnt, "
+                        "B) windows in one exchange.  B=1 (or flag "
+                        "absent) runs the single-RHS solvers")
     p.add_argument("--block-cg", action="store_true",
                    help="with --nrhs B: the block-CG recurrence instead "
                         "of the masked batched one -- one shared Krylov "
@@ -440,6 +459,47 @@ def _validate_batched(args) -> None:
                 f"{', '.join(unsupported)}")
 
 
+def _validate_algorithm(args) -> None:
+    """Parse ``--algorithm`` and refuse what an armed communication-
+    avoiding recurrence could never serve, before anything expensive
+    (``acg_tpu/cli.py:2707-2750``, for the flags the port has):
+    classic and pipelined rewrite ``--solver``."""
+    from acg_tpu_torch.recurrence import parse_algorithm
+
+    try:
+        args._algorithm = parse_algorithm(args.algorithm)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    if (args._algorithm is not None
+            and not args._algorithm.communication_avoiding):
+        if args._algorithm.kind == "pipelined" and args.solver == "acg":
+            args.solver = "acg-pipelined"
+        elif (args._algorithm.kind == "classic"
+              and args.solver == "acg-pipelined"):
+            args.solver = "acg"
+        args._algorithm = None
+    if args._algorithm is not None:
+        unsupported = [flag for flag, on in [
+            (f"--solver {args.solver} (the host/external oracles run "
+             f"the classic recurrence)",
+             args.solver in ("host", "host-native", "petsc")),
+            ("--nrhs/--block-cg (no batched CA recurrences yet)",
+             args.nrhs >= 2 or args.block_cg),
+            ("--refine", args.refine),
+            ("--replace-every", args.replace_every > 0),
+            ("--precise-dots", args.precise_dots),
+            (f"--precond {args.precond} (the CA recurrences run "
+             f"unpreconditioned)", args._precond is not None),
+            ("--kernels fused", args.kernels == "fused"),
+            ("--diff-atol/--diff-rtol (residual criteria only)",
+             args.diff_atol > 0 or args.diff_rtol > 0),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --algorithm {args._algorithm} does not "
+                f"support: {', '.join(unsupported)}")
+
+
 def _validate_precision(args) -> None:
     """Parse ``--precond`` and refuse the configurations an armed
     preconditioner could never serve, before anything expensive
@@ -466,10 +526,11 @@ def _validate_precision(args) -> None:
 
 
 def _solver_options(args) -> dict:
-    """The precision and preconditioning keywords both solver tiers
-    take."""
+    """The precision, preconditioning and recurrence keywords both
+    solver tiers take."""
     return dict(precise_dots=args.precise_dots,
-                replace_every=args.replace_every, precond=args._precond)
+                replace_every=args.replace_every, precond=args._precond,
+                algorithm=args._algorithm)
 
 
 def _fold_inner_timings(solver) -> None:
@@ -678,10 +739,12 @@ def _main(args) -> int:
     from acg_tpu_torch.solvers.cg import TorchCGSolver
     from acg_tpu_torch.solvers.stats import StoppingCriteria
 
-    # stage 0: the device, before anything expensive
+    # stage 0: the device, before anything expensive (the reference's
+    # validation order)
+    _validate_precision(args)
+    _validate_algorithm(args)
     _validate_batched(args)
     _validate_operator(args)
-    _validate_precision(args)
     try:
         device = resolve_device(args.device)
     except AcgError as e:
@@ -804,19 +867,30 @@ def _main(args) -> int:
         solver = _host_solver(args, csr, part, nparts, comm, pipelined)
         if solver is None:
             return 1
+    elif args._batched and not (comm == "none" or nparts == 1):
+        # B columns on stacked parts (acg_tpu/cli.py:3597-3616)
+        if args.block_cg:
+            raise SystemExit(
+                "acg-tpu-torch: --block-cg is a single-device tier (its "
+                "B x B Gram solves are not distributed); use --nparts "
+                "1/--comm none, or drop --block-cg for the batched mesh "
+                "tier")
+        from acg_tpu_torch.graph import partition_matrix
+        from acg_tpu_torch.parallel.dist import DistributedProblem
+        from acg_tpu_torch.parallel.dist_batched import BatchedDistCGSolver
+
+        subs = partition_matrix(csr, part, nparts)
+        prob = DistributedProblem.build(csr, part, nparts, dtype=dtype,
+                                        subs=subs, vector_dtype=vec_dtype)
+        try:
+            solver = BatchedDistCGSolver(prob, pipelined=pipelined,
+                                         precise_dots=args.precise_dots,
+                                         precond=args._precond,
+                                         device=device)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
     elif args._batched:
         # B columns, one batched solve (acg_tpu/cli.py:3566-3596)
-        if not (comm == "none" or nparts == 1):
-            if args.block_cg:
-                raise SystemExit(
-                    "acg-tpu-torch: --block-cg is a single-device tier (its "
-                    "B x B Gram solves are not distributed); use --nparts "
-                    "1/--comm none, or drop --block-cg for the batched mesh "
-                    "tier")
-            raise SystemExit(
-                f"acg-tpu-torch: --nrhs {args.nrhs} with --nparts {nparts}: "
-                f"the batched multi-part tier (parallel/dist_batched) is "
-                f"not yet ported; use --nparts 1 or --comm none")
         from acg_tpu_torch.solvers.batched import BatchedCGSolver
         mode = ("block" if args.block_cg
                 else "pipelined" if pipelined else "batched")

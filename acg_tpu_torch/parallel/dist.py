@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from acg_tpu_torch import recurrence as rec
 from acg_tpu_torch._device import resolve_device
 from acg_tpu_torch.errors import AcgError, ErrorCode
 from acg_tpu_torch.graph import (Subdomain, partition_matrix,
@@ -527,7 +528,7 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
 # options of acg_tpu's DistCGSolver that the port does not carry yet,
 # each refused by name: (keyword, value that means "off")
 _REFUSED = (("health", None), ("ckpt", None), ("recovery", None),
-            ("trace", 0), ("progress", 0), ("algorithm", None))
+            ("trace", 0), ("progress", 0))
 
 
 class DistCGSolver(_cg.ChunkedCGSolver):
@@ -553,17 +554,25 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     stacked SpMV (``mstate`` takes a state instead, as host arrays with
     a leading parts axis).
 
+    ``algorithm`` runs a communication-avoiding recurrence
+    (:mod:`acg_tpu_torch.recurrence`) over the stacked SpMV: s-step CG
+    psums each block's per-part Gram matrices once, p(l)-CG each
+    iteration's per-part window dots once, and p(l) restarts on its
+    square-root breakdown; the Chebyshev interval comes from the power
+    iteration over the stacked SpMV.
+
     Not carried yet, each refused with a ValueError naming it:
-    ``health``, ``ckpt``, ``recovery``, ``trace``/``progress``,
-    ``algorithm`` and ``kernels="fused"`` (the overlapped
-    interior/border tier).
+    ``health``, ``ckpt``, ``recovery``, ``trace``/``progress`` and
+    ``kernels="fused"`` (the overlapped interior/border tier).
     """
+
+    _what = "dist-cg"
 
     def __init__(self, problem: DistributedProblem, pipelined: bool = False,
                  comm: str = "xla", kernels: str = "auto", device=None,
                  precise_dots: bool = False, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, mstate=None,
-                 **options):
+                 algorithm=None, **options):
         for name, off in _REFUSED:
             if options.pop(name, off) not in (off,):
                 raise ValueError(f"DistCGSolver: {name} is not ported to "
@@ -575,6 +584,11 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             raise ValueError(f"unknown halo transport {comm!r}")
         self.device = resolve_device(device)
         self.problem = problem
+        self.algo = rec.parse_algorithm(algorithm)
+        if self.algo is not None and not self.algo.communication_avoiding:
+            pipelined = self.algo.kind == "pipelined"
+            self.algo = None
+        self._lam = None
         self.pipelined = pipelined
         self.comm = comm
         on_cuda = self.device.type == "cuda"
@@ -631,6 +645,32 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         if mstate is not None and self.precond_spec is None:
             raise ValueError("mstate is the state of a preconditioner; "
                              "pass precond too")
+        if self.algo is not None:
+            # the reference's set for this tier (dist.py:1192-1237)
+            ca = str(self.algo)
+            if pipelined:
+                raise ValueError(
+                    f"--algorithm {ca} selects its own recurrence; it "
+                    f"does not compose with the pipelined flag")
+            if self.replace_every:
+                raise ValueError(
+                    f"{ca} does not compose with replace_every")
+            if self.precise_dots:
+                raise ValueError(
+                    f"{ca} accumulates its fused Gram/window reductions "
+                    f"in the scalar dtype; precise_dots composes with "
+                    f"the classic/pipelined programs")
+            if self.precond_spec is not None:
+                raise ValueError(
+                    f"{ca} runs unpreconditioned: the s-step basis and "
+                    f"the p(l) auxiliary basis have no M^-1 hook yet")
+            if problem.vdtype == torch.bfloat16:
+                raise ValueError(
+                    f"{ca} amplifies storage rounding through its basis "
+                    f"products; bf16 vectors need the classic/pipelined "
+                    f"tiers")
+            if self.algo.kind == "pl":
+                self.max_restarts = rec.PL_RESTART_BUDGET
         self._mstate = None
         self.stats = SolverStats(unknowns=problem.n)
         # the matrix, halo plan and counts move to the device once
@@ -709,10 +749,45 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         self._mstate = tuple(_put(a, self.device, sdt) for a in host)
         return self._mstate
 
+    def _ensure_lam(self):
+        """The (lmin, lmax) interval of the recurrences: the power
+        iteration over the stacked SpMV times the recurrences' headroom
+        (``acg_tpu/parallel/dist.py:2186-2194``); (0, 0) when unread."""
+        if self._lam is None:
+            self._lam = ((0.0, self._power_lmax() * rec.LAM_SAFETY)
+                         if self.algo.needs_lam else (0.0, 0.0))
+        return self._lam
+
+    def _ca_program(self, crit: StoppingCriteria):
+        """``run(b, x0)`` of a communication-avoiding recurrence over
+        this tier (``_compile_ca``, ``acg_tpu/parallel/dist.py:2063``):
+        the stacked SpMV (K1 batched over parts, K6 under ``--comm
+        dma``), psum'd dots, and one psum of the per-part Gram or window
+        products."""
+        if crit.needs_diff:
+            raise ValueError(f"{self.algo} supports residual criteria "
+                             f"only")
+        sdt = acc_dtype(self.problem.vdtype)
+        pdot = make_pdot(psum, make_ldot(sdt), sdt, False)
+        lam = self._ensure_lam()
+        algo = self.algo
+
+        def run(b, x0):
+            ops = rec.TierOps(spmv=self._spmv(), dot=pdot, psum_stack=psum,
+                              sdt=sdt)
+            if algo.kind == "sstep":
+                return rec._cg_sstep_program(ops, b, x0, crit, algo.param,
+                                             algo.basis, lam)
+            return rec._cg_pl_program(ops, b, x0, crit, algo.param, lam)
+
+        return run
+
     def _program(self, crit: StoppingCriteria):
         """``run(b, x0)``: one solve on the shared loops of
         :mod:`acg_tpu_torch.solvers.cg`, over this solve's distributed
         SpMV (a fresh zeroed receive plane each run) and psum'd dots."""
+        if self.algo is not None:
+            return self._ca_program(crit)
         sdt = acc_dtype(self.problem.vdtype)
         ldot = make_ldot(sdt)
         pdot = make_pdot(psum, ldot, sdt, self.precise_dots)
@@ -759,9 +834,17 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         = 1 fused allreduce."""
         prob = self.problem
         n = prob.n
+        # a CA recurrence runs spmv_eq SpMV-equivalents an iteration, with
+        # a halo exchange each, and its own reduction schedule
+        sched = None
+        spmv_eq = 1.0
+        if self.algo is not None:
+            sched = rec.reduction_schedule(self.algo, False)
+            spmv_eq = sched["spmv_per_iteration"]
         st.nflops += (cg_flops_per_iteration(prob.nnz_total, n,
                                              self.pipelined) * niter
-                      + 3.0 * prob.nnz_total + 2.0 * n)
+                      + 3.0 * prob.nnz_total + 2.0 * n
+                      + 3.0 * prob.nnz_total * (spmv_eq - 1.0) * niter)
         dbl = torch.empty((), dtype=prob.vdtype).element_size()
         mat_dbl = torch.empty((), dtype=prob.dtype).element_size()
         idx_b = 0 if prob.local.format in ("dia", "matfree") else 4
@@ -769,17 +852,23 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         # operator's O(grid-side) coefficient tables
         mat_read = (prob.operator.table_bytes() if prob.operator is not None
                     else prob.nnz_total * (mat_dbl + idx_b))
-        ngemv = niter + 1
+        ngemv = int(niter * spmv_eq) + 1
         st.ops["gemv"].add(ngemv, 0.0, (mat_read + 2 * n * dbl) * ngemv)
         st.ops["dot"].add(niter, 0.0, 2 * n * dbl * niter)
         st.ops["nrm2"].add(niter + 1, 0.0, n * dbl * (niter + 1))
         st.ops["axpy"].add(3 * niter, 0.0, 3 * n * dbl * 3 * niter)
         if not self.pipelined:
             st.ops["copy"].add(1, 0.0, 2 * n * dbl)
-        nred = 1 if self.pipelined else 2
-        st.ops["allreduce"].add(nred * niter, 0.0, 8 * nred * niter)
+        if sched is not None:
+            nred = max(int(round(sched["allreduce_per_iteration"]
+                                 * niter)), 1)
+            st.ops["allreduce"].add(nred, 0.0,
+                                    8 * sched["allreduce_scalars"] * nred)
+        else:
+            nred = 1 if self.pipelined else 2
+            st.ops["allreduce"].add(nred * niter, 0.0, 8 * nred * niter)
         halo_total = sum(int(s.halo.total_send) for s in prob.subs)
-        st.ops["halo"].add(niter + 1, 0.0, halo_total * dbl * (niter + 1))
+        st.ops["halo"].add(ngemv, 0.0, halo_total * dbl * ngemv)
         if self.precond_spec is not None:
             _cg._account_precond(
                 st, self.precond_spec, self._mstate, niter, n, dbl,

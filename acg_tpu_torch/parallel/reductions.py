@@ -1,12 +1,17 @@
 """Mesh reductions on stacked parts.
 
-The counterpart of ``acg_tpu/parallel/reductions.py:28-60``.  A global
+The counterpart of ``acg_tpu/parallel/reductions.py``.  A global
 dot is a per-part dot (``ldot``: the (nparts,) local dots of stacked
 vectors) followed by ``psum``, which on stacked parts is a sum over the
 parts axis.  :func:`psum` folds the parts one after another in part
 order, so the result does not depend on how a reduction kernel would
 split the axis.  :func:`make_pdotk` fuses k dots into one ``psum`` --
 the single fused allreduce of pipelined CG.
+
+The column variants :func:`make_pdot_cols` and :func:`make_pdotk_cols`
+serve the batched tier: every per-RHS dot of a ``(nparts, n, B)`` block
+in one psum of ``(nparts, B)`` (or ``(nparts, k, B)``) payloads, so the
+reduction count does not grow with B.
 
 ``precise=True`` psums compensated (hi, lo) pairs
 (:func:`acg_tpu_torch.ops.precision.dot_compensated` per part), so the
@@ -68,3 +73,44 @@ def make_pdotk(psum, ldot, sdt, precise: bool):
         red = psum(torch.stack([ldot(a, c) for a, c in pairs], dim=-1))
         return tuple(red[i] for i in range(len(pairs)))
     return pdotk
+
+
+def _comp_cols(a, c, sdt):
+    """Per-part compensated column dots of ``(nparts, n, B)`` blocks:
+    the (hi, lo) pairs, each ``(nparts, B)``."""
+    return dot_compensated(a.to(sdt).transpose(-1, -2),
+                           c.to(sdt).transpose(-1, -2))
+
+
+def make_pdot_cols(psum, lcoldot, sdt, precise: bool):
+    """The B-column global dot of the batched tier: ``pdot_cols(a, c)``
+    = one psum of the per-part column dots ``lcoldot(a, c)`` (nparts,
+    B), or of the stacked compensated hi/lo columns (``precise``)."""
+    if precise:
+        def pdot_cols(a, c):
+            hi, lo = _comp_cols(a, c, sdt)
+            pair = psum(torch.stack([hi, lo], dim=1))
+            return pair[0] + pair[1]
+        return pdot_cols
+
+    def pdot_cols(a, c):
+        return psum(lcoldot(a, c))
+    return pdot_cols
+
+
+def make_pdotk_cols(psum, lcoldot, sdt, precise: bool):
+    """The B-column twin of :func:`make_pdotk`: ``pdotk_cols((A1, C1),
+    ..., (Ak, Ck))`` -> k length-B columns in ONE psum of the (nparts,
+    k, B) stack (or (nparts, 2k, B) interleaved hi/lo pairs)."""
+    if precise:
+        def pdotk_cols(*pairs):
+            hls = [_comp_cols(a, c, sdt) for a, c in pairs]
+            flat = psum(torch.stack([v for hl in hls for v in hl], dim=1))
+            return tuple(flat[2 * i] + flat[2 * i + 1]
+                         for i in range(len(pairs)))
+        return pdotk_cols
+
+    def pdotk_cols(*pairs):
+        red = psum(torch.stack([lcoldot(a, c) for a, c in pairs], dim=1))
+        return tuple(red[i] for i in range(len(pairs)))
+    return pdotk_cols

@@ -56,7 +56,8 @@ from acg_tpu_torch.solvers.cg import CHUNK, _add_timing
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
 
-__all__ = ["spmv_multi", "BatchedCGResult", "BatchedCGSolver"]
+__all__ = ["spmv_multi", "BatchedCGResult", "ChunkedBatchedSolver",
+           "BatchedCGSolver"]
 
 
 def _padded_mv_multi(groups, Y, X, adt):
@@ -188,26 +189,29 @@ def _finish(s, crit: StoppingCriteria, nrhs: int, dev, rnrm2, r0nrm2,
                            x0nrm2=x0nrm2, converged=done)
 
 
-def _batched_cg_program(A, Bm, X0, crit: StoppingCriteria,
-                        precise: bool = False, papply=None
-                        ) -> BatchedCGResult:
+def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
+                        papply=None) -> BatchedCGResult:
     """Batched classic CG (``acg_tpu.solvers.batched._batched_cg_program``):
     the single-RHS classic recurrence per column, its dots one column
-    reduction, converged columns frozen by the masks.  ``papply(R)``
-    makes it preconditioned (gamma = (r, z); the carried rr = (r, r)
-    keeps the convergence test unpreconditioned)."""
+    reduction, converged columns frozen by the masks.  ``spmv(X)`` and
+    ``coldot(A, C) -> (B,)`` are the tier's: :func:`spmv_multi` and one
+    column reduction on one device, or the stacked multi-part tier's
+    halo'd SpMV and psum'd column dots (:mod:`acg_tpu_torch.parallel.
+    dist_batched`).  ``papply(R)`` makes it preconditioned (gamma =
+    (r, z); the carried rr = (r, r) keeps the convergence test
+    unpreconditioned)."""
     dtype = Bm.dtype
     dev = Bm.device
-    coldot, sdt = _coldot_setup(dtype, precise)
+    sdt = acc_dtype(dtype)
 
     def store(v):
         return v.to(dtype)
 
-    nrhs = Bm.shape[1]
+    nrhs = Bm.shape[-1]
     unbounded = crit.unbounded
     bnrm2 = torch.sqrt(coldot(Bm, Bm))
     x0nrm2 = torch.sqrt(coldot(X0, X0))
-    R = Bm - spmv_multi(A, X0)
+    R = Bm - spmv(X0)
     if papply is not None:
         Z0 = papply(R)
         P = store(Z0)
@@ -227,7 +231,7 @@ def _batched_cg_program(A, Bm, X0, crit: StoppingCriteria,
 
     def step():
         active = ~s.done
-        T = spmv_multi(A, s.p)
+        T = spmv(s.p)
         pdott = coldot(s.p, T)
         alpha = _safe_div(s.gamma, pdott, active)
         s.x = _col_where(active, store(s.x.to(sdt) + alpha * s.p.to(sdt)),
@@ -255,31 +259,33 @@ def _batched_cg_program(A, Bm, X0, crit: StoppingCriteria,
                    x0nrm2, s.done)
 
 
-def _batched_cg_pipelined_program(A, Bm, X0, crit: StoppingCriteria,
-                                  precise: bool = False, papply=None
+def _batched_cg_pipelined_program(spmv, coldot, coldotk, Bm, X0,
+                                  crit: StoppingCriteria, papply=None
                                   ) -> BatchedCGResult:
     """Batched Ghysels-Vanroose CG (``acg_tpu.solvers.batched.
     _batched_cg_pipelined_program``): the pipelined recurrences with a
     trailing batch axis, both reduction families of an iteration taken
-    at one point; the convergence test is one iteration stale, and a
-    fresh final residual at tolerance counts as converged."""
+    at one point, ``coldotk`` (one fused psum on stacked parts); the
+    convergence test is one iteration stale, and a fresh final residual
+    at tolerance counts as converged.  ``spmv``/``coldot`` as for
+    :func:`_batched_cg_program`."""
     dtype = Bm.dtype
     dev = Bm.device
-    coldot, sdt = _coldot_setup(dtype, precise)
+    sdt = acc_dtype(dtype)
 
     def store(v):
         return v.to(dtype)
 
-    nrhs = Bm.shape[1]
+    nrhs = Bm.shape[-1]
     unbounded = crit.unbounded
     bnrm2 = torch.sqrt(coldot(Bm, Bm))
     x0nrm2 = torch.sqrt(coldot(X0, X0))
-    R = Bm - spmv_multi(A, X0)
+    R = Bm - spmv(X0)
     if papply is not None:
         U0 = store(papply(R))
-        W = spmv_multi(A, U0)
+        W = spmv(U0)
     else:
-        W = spmv_multi(A, R)
+        W = spmv(R)
     rr0 = coldot(R, R)
     r0nrm2 = torch.sqrt(rr0)
     res_tol = _res_tols(crit, r0nrm2)
@@ -301,11 +307,9 @@ def _batched_cg_pipelined_program(A, Bm, X0, crit: StoppingCriteria,
 
     def pstep():
         active = ~s.done
-        gamma = coldot(s.r, s.u)
-        delta = coldot(s.w, s.u)
-        rr_new = coldot(s.r, s.r)
+        gamma, delta, rr_new = coldotk((s.r, s.u), (s.w, s.u), (s.r, s.r))
         M_ = papply(s.w)
-        Nv = spmv_multi(A, M_)
+        Nv = spmv(M_)
         beta = _safe_div(gamma, s.gamma_prev, active)
         denom = delta - beta * _safe_div(gamma, s.alpha_prev, active)
         alpha = _safe_div(gamma, denom, active)
@@ -322,9 +326,8 @@ def _batched_cg_pipelined_program(A, Bm, X0, crit: StoppingCriteria,
     def step():
         active = ~s.done
         # both reduction families at one point
-        gamma = coldot(s.r, s.r)
-        delta = coldot(s.w, s.r)
-        Q = spmv_multi(A, s.w)
+        gamma, delta = coldotk((s.r, s.r), (s.w, s.r))
+        Q = spmv(s.w)
         beta = _safe_div(gamma, s.gamma_prev, active)
         denom = delta - beta * _safe_div(gamma, s.alpha_prev, active)
         alpha = _safe_div(gamma, denom, active)
@@ -440,7 +443,120 @@ def _block_cg_program(A, Bm, X0, crit: StoppingCriteria, papply=None
                    r0nrm2, bnrm2, x0nrm2, s.done)
 
 
-class BatchedCGSolver:
+class ChunkedBatchedSolver:
+    """The timed batched solve and its per-RHS statistics, shared by the
+    single-device batched solver and the stacked multi-part one
+    (``acg_tpu_torch.parallel.dist_batched.BatchedDistCGSolver``), as
+    :class:`~acg_tpu_torch.solvers.cg.ChunkedCGSolver` is by the
+    single-RHS tiers.  A subclass sets ``device``, ``stats`` and ``mode``
+    and provides ``_inner()`` (the single-RHS solver a batch of one
+    delegates to), ``_program(crit)`` (a callable of the device ``(B,
+    X0)`` blocks returning a :class:`BatchedCGResult`), ``device_args(b,
+    x0)``, ``_host_x(X)`` (the host ``(n, B)`` array the caller gets)
+    and ``_account_ops(st, k_total, nrhs)``."""
+
+    def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
+              raise_on_divergence: bool = True, warmup: int = 0,
+              host_result: bool = True):
+        """Solve ``A X = B`` for the ``(n, B)`` column block ``b``.
+        Returns the ``(n, B)`` solution block (host numpy unless
+        ``host_result=False``, then the device block); per-RHS evidence
+        lands in ``stats.batch``."""
+        crit = criteria or StoppingCriteria()
+        st = self.stats
+        st.criteria = crit
+        nrhs = int(b.shape[1]) if b.ndim == 2 else 1
+        if nrhs == 1:
+            inner = self._inner()
+            x = inner.solve(b.reshape(-1),
+                            x0=None if x0 is None else x0.reshape(-1),
+                            criteria=crit,
+                            raise_on_divergence=raise_on_divergence,
+                            warmup=warmup, host_result=host_result)
+            self.stats = st = inner.stats
+            st.batch = {"nrhs": 1, "mode": self.mode,
+                        "iterations": [int(st.niterations)],
+                        "rnrm2": [float(st.rnrm2)],
+                        "converged": [bool(st.converged)],
+                        "iterations_max": int(st.niterations),
+                        "iterations_sum": int(st.niterations)}
+            if host_result:
+                return np.asarray(x).reshape(-1, 1)
+            return x[..., None]
+        program = self._program(crit)
+        t_xfer = time.perf_counter()
+        Bm, X0 = self.device_args(b, x0)
+        device_sync(self.device)
+        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
+        t_warm = time.perf_counter()
+        for _ in range(max(warmup, 0)):
+            program(Bm, X0)
+        device_sync(self.device)
+        if warmup > 0:
+            _add_timing(st, "compile", time.perf_counter() - t_warm)
+        t0 = time.perf_counter()
+        res = program(Bm, X0)
+        device_sync(self.device)
+        t_solve = time.perf_counter() - t0
+        st.tsolve += t_solve
+        _add_timing(st, "solve", t_solve)
+        self._finish_stats(res, nrhs)
+        if host_result:
+            xv = (res.x.to(torch.float32) if res.x.dtype == torch.bfloat16
+                  else res.x)
+            x = self._host_x(xv.cpu().numpy())
+            st.fexcept_arrays = [x]
+        else:
+            x = res.x
+            has_nan = bool(torch.isnan(x).any())
+            has_inf = bool(torch.isinf(x).any())
+            st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
+                                             np.inf if has_inf else 0.0])]
+        if not st.converged and raise_on_divergence:
+            rn = np.asarray(st.batch["rnrm2"])
+            worst = int(np.argmax(rn))
+            raise NotConvergedError(
+                f"{st.niterations} iterations, {st.batch['unconverged']}"
+                f" of {nrhs} RHS unconverged (worst rhs {worst}, "
+                f"residual {float(rn[worst]):.3e})")
+        return x
+
+    def _finish_stats(self, res: BatchedCGResult, nrhs: int) -> None:
+        """Per-RHS evidence -> ``stats.batch``; the aggregate fields keep
+        their single-RHS meaning through the slowest/worst column."""
+        st = self.stats
+        iters = res.niterations.cpu().numpy().astype(int).tolist()
+        rn = [float(v) for v in res.rnrm2.double().cpu().numpy()]
+        conv = [bool(v) for v in res.converged.cpu().numpy()]
+        k_total = int(res.k_total)
+        st.nsolves += 1
+        st.niterations = k_total
+        st.ntotaliterations += k_total
+        st.bnrm2 = float(res.bnrm2.max())
+        st.x0nrm2 = float(res.x0nrm2.max())
+        st.r0nrm2 = float(res.r0nrm2.max())
+        st.rnrm2 = float(max(rn))
+        st.dxnrm2 = float("inf")
+        st.converged = all(conv)
+        st.batch = {
+            "nrhs": nrhs,
+            "mode": self.mode,
+            "iterations": iters,
+            "iterations_max": int(max(iters) if iters else 0),
+            "iterations_sum": int(sum(iters)),
+            "rnrm2": rn,
+            "converged": conv,
+            "unconverged": int(sum(1 for c in conv if not c)),
+        }
+        if self.mode == "block":
+            # each block iteration advances all B columns: the
+            # comparable "total iterations" figure is trips x B
+            st.batch["block_iterations"] = k_total
+            st.batch["total_iterations"] = k_total * nrhs
+        self._account_ops(st, k_total, nrhs)
+
+
+class BatchedCGSolver(ChunkedBatchedSolver):
     """Multi-RHS CG over one device matrix (``acg_tpu.solvers.batched.
     BatchedCGSolver``): B systems sharing the operator, solved by the
     batched (default), batched-pipelined or block recurrence.
@@ -528,6 +644,16 @@ class BatchedCGSolver:
                 f"shape {tuple(v.shape)} for n={self.A.nrows}")
         return v.contiguous()
 
+    def device_args(self, b, x0=None):
+        dtype = self._solve_dtype()
+        Bm = self._as_columns(b, dtype)
+        X0 = (torch.zeros_like(Bm) if x0 is None
+              else self._as_columns(x0, dtype))
+        return Bm, X0
+
+    def _host_x(self, X: np.ndarray) -> np.ndarray:
+        return X
+
     def _program(self, crit: StoppingCriteria):
         if crit.needs_diff:
             raise AcgError(
@@ -546,112 +672,19 @@ class BatchedCGSolver:
         A = self.A
         if self.mode == "block":
             return lambda Bm, X0: _block_cg_program(A, Bm, X0, crit, papply)
-        prog = (_batched_cg_pipelined_program if self.mode == "pipelined"
-                else _batched_cg_program)
-        return lambda Bm, X0: prog(A, Bm, X0, crit, self.precise_dots,
-                                   papply)
+        coldot, _ = _coldot_setup(self._solve_dtype(), self.precise_dots)
 
-    def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
-              raise_on_divergence: bool = True, warmup: int = 0,
-              host_result: bool = True):
-        """Solve ``A X = B`` for the ``(n, B)`` column block ``b``.
-        Returns the ``(n, B)`` solution block (host numpy unless
-        ``host_result=False``); per-RHS evidence lands in
-        ``stats.batch``."""
-        crit = criteria or StoppingCriteria()
-        dtype = self._solve_dtype()
-        st = self.stats
-        st.criteria = crit
-        t_xfer = time.perf_counter()
-        Bm = self._as_columns(b, dtype)
-        X0 = (torch.zeros_like(Bm) if x0 is None
-              else self._as_columns(x0, dtype))
-        device_sync(self.device)
-        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
-        nrhs = int(Bm.shape[1])
-        if nrhs == 1:
-            inner = self._inner()
-            x = inner.solve(Bm[:, 0], x0=None if x0 is None else X0[:, 0],
-                            criteria=crit,
-                            raise_on_divergence=raise_on_divergence,
-                            warmup=warmup, host_result=host_result)
-            self.stats = st = inner.stats
-            st.batch = {"nrhs": 1, "mode": self.mode,
-                        "iterations": [int(st.niterations)],
-                        "rnrm2": [float(st.rnrm2)],
-                        "converged": [bool(st.converged)],
-                        "iterations_max": int(st.niterations),
-                        "iterations_sum": int(st.niterations)}
-            if host_result:
-                return np.asarray(x).reshape(-1, 1)
-            return x[:, None]
-        program = self._program(crit)
-        t_warm = time.perf_counter()
-        for _ in range(max(warmup, 0)):
-            program(Bm, X0)
-        device_sync(self.device)
-        if warmup > 0:
-            _add_timing(st, "compile", time.perf_counter() - t_warm)
-        t0 = time.perf_counter()
-        res = program(Bm, X0)
-        device_sync(self.device)
-        t_solve = time.perf_counter() - t0
-        st.tsolve += t_solve
-        _add_timing(st, "solve", t_solve)
-        self._finish_stats(res, nrhs)
-        if host_result:
-            xv = (res.x.to(torch.float32) if res.x.dtype == torch.bfloat16
-                  else res.x)
-            x = xv.cpu().numpy()
-            st.fexcept_arrays = [x]
-        else:
-            x = res.x
-            has_nan = bool(torch.isnan(x).any())
-            has_inf = bool(torch.isinf(x).any())
-            st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
-                                             np.inf if has_inf else 0.0])]
-        if not st.converged and raise_on_divergence:
-            rn = np.asarray(st.batch["rnrm2"])
-            worst = int(np.argmax(rn))
-            raise NotConvergedError(
-                f"{st.niterations} iterations, {st.batch['unconverged']}"
-                f" of {nrhs} RHS unconverged (worst rhs {worst}, "
-                f"residual {float(rn[worst]):.3e})")
-        return x
+        def spmv(X):
+            return spmv_multi(A, X)
 
-    def _finish_stats(self, res: BatchedCGResult, nrhs: int) -> None:
-        """Per-RHS evidence -> ``stats.batch``; the aggregate fields keep
-        their single-RHS meaning through the slowest/worst column."""
-        st = self.stats
-        iters = res.niterations.cpu().numpy().astype(int).tolist()
-        rn = [float(v) for v in res.rnrm2.double().cpu().numpy()]
-        conv = [bool(v) for v in res.converged.cpu().numpy()]
-        k_total = int(res.k_total)
-        st.nsolves += 1
-        st.niterations = k_total
-        st.ntotaliterations += k_total
-        st.bnrm2 = float(res.bnrm2.max())
-        st.x0nrm2 = float(res.x0nrm2.max())
-        st.r0nrm2 = float(res.r0nrm2.max())
-        st.rnrm2 = float(max(rn))
-        st.dxnrm2 = float("inf")
-        st.converged = all(conv)
-        st.batch = {
-            "nrhs": nrhs,
-            "mode": self.mode,
-            "iterations": iters,
-            "iterations_max": int(max(iters) if iters else 0),
-            "iterations_sum": int(sum(iters)),
-            "rnrm2": rn,
-            "converged": conv,
-            "unconverged": int(sum(1 for c in conv if not c)),
-        }
-        if self.mode == "block":
-            # each block iteration advances all B columns: the
-            # comparable "total iterations" figure is trips x B
-            st.batch["block_iterations"] = k_total
-            st.batch["total_iterations"] = k_total * nrhs
-        self._account_ops(st, k_total, nrhs)
+        if self.mode == "pipelined":
+            def coldotk(*pairs):
+                return tuple(coldot(a, c) for a, c in pairs)
+
+            return lambda Bm, X0: _batched_cg_pipelined_program(
+                spmv, coldot, coldotk, Bm, X0, crit, papply)
+        return lambda Bm, X0: _batched_cg_program(spmv, coldot, Bm, X0,
+                                                  crit, papply)
 
     def _account_ops(self, st, k_total: int, nrhs: int) -> None:
         """Analytic census: matrix bytes are read once an iteration for

@@ -54,6 +54,7 @@ from acg_tpu_torch.ops.spmv import (DeviceMatrix, DiaMatrix, acc_dtype,
 from acg_tpu_torch.precond import (bytes_per_apply, flops_per_apply,
                                    make_apply, parse_precond, setup_single,
                                    state_bytes)
+from acg_tpu_torch.solvers.resilience import RecoveryDriver
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
 
@@ -549,8 +550,42 @@ class ChunkedCGSolver:
     ``_host_x(x)`` (the host array the caller gets) and
     ``_account_ops(st, niter)``."""
 
+    max_restarts = None   # a restart budget arms the restart loop
+    _what = "cg"      # the tier's name in recovery events
+
     def _host_x(self, x: np.ndarray) -> np.ndarray:
         return x
+
+    def _restart(self, res, niter: int, b, x0, crit, t0):
+        """The restart loop of a solve whose program flagged a breakdown
+        (``jax_cg.py:1816-1914``): each restart runs from the last
+        iterate (x0 when it is not finite) with the first attempt's
+        absolute tolerance and the iterations left, its setup
+        recomputing the true residual; iterations add up.  Returns the
+        last attempt's result and the total iterations, or raises once
+        the budget's restarts are spent."""
+        ladder = RecoveryDriver(self.max_restarts, self.stats, self._what)
+        abs_tol = max(crit.residual_atol,
+                      crit.residual_rtol * float(res.r0nrm2))
+        while bool(res.breakdown):
+            if not ladder.on_breakdown(int(res.niterations)):
+                st = self.stats
+                st.tsolve += time.perf_counter() - t0
+                st.converged = False
+                raise ladder.give_up(niter, float(res.rnrm2))
+            x_next = res.x
+            if not bool(torch.isfinite(x_next).all()):
+                ladder.record("iterate non-finite; restarting from the "
+                              "initial guess")
+                x_next = x0
+            program = self._program(StoppingCriteria(
+                maxits=max(crit.maxits - niter, 1), residual_atol=abs_tol,
+                residual_rtol=0.0, diff_atol=crit.diff_atol,
+                diff_rtol=crit.diff_rtol))
+            res = program(b, x_next)
+            device_sync(self.device)
+            niter += int(res.niterations)
+        return res, niter
 
     def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
               raise_on_divergence: bool = True, warmup: int = 0,
@@ -576,16 +611,18 @@ class ChunkedCGSolver:
         t0 = time.perf_counter()
         res = program(b, x0)
         device_sync(self.device)
+        niter = int(res.niterations)
+        # the norms of the first attempt are the solve's, restarts or not
+        norms = (float(res.bnrm2), float(res.x0nrm2), float(res.r0nrm2))
+        if self.max_restarts is not None and bool(res.breakdown):
+            res, niter = self._restart(res, niter, b, x0, crit, t0)
         t_solve = time.perf_counter() - t0
         st.tsolve += t_solve
         _add_timing(st, "solve", t_solve)
-        niter = int(res.niterations)
         st.nsolves += 1
         st.niterations = niter
         st.ntotaliterations += niter
-        st.bnrm2 = float(res.bnrm2)
-        st.x0nrm2 = float(res.x0nrm2)
-        st.r0nrm2 = float(res.r0nrm2)
+        st.bnrm2, st.x0nrm2, st.r0nrm2 = norms
         st.rnrm2 = float(res.rnrm2)
         st.dxnrm2 = float(res.dxnrm2)
         st.converged = bool(res.converged) or crit.unbounded
@@ -627,6 +664,13 @@ class TorchCGSolver(ChunkedCGSolver):
     * ``"fused"``: classic CG on the two-phase kernels K3/K4, with the
       JAX package's refusals (``"fused-plain"`` on the CPU).
 
+    ``algorithm`` (``"sstep:S"``, ``"pipelined:L"``, or ``"classic"`` /
+    ``"pipelined"``, which pick the programs above) runs a
+    communication-avoiding recurrence of :mod:`acg_tpu_torch.recurrence`
+    over this solver's SpMV, unpreconditioned, over f32/f64 vectors;
+    p(l)'s square-root breakdowns restart from the current iterate
+    (the stats block's ``resilience:`` line counts them).
+
     ``precise_dots`` computes the CG scalars with the compensated dot2;
     ``replace_every`` (bf16 vectors) runs the f32 residual-replacement
     program every that many iterations (``replace_restart``: reset p at
@@ -638,16 +682,27 @@ class TorchCGSolver(ChunkedCGSolver):
     messages.
     """
 
+    _what = "torch-cg"
+
     def __init__(self, A: DeviceMatrix, pipelined: bool = False,
                  kernels: str = "auto", vector_dtype=None, device=None,
                  precise_dots: bool = False, replace_every: int = 0,
-                 replace_restart: bool = True, precond=None, mstate=None):
+                 replace_restart: bool = True, precond=None, mstate=None,
+                 algorithm=None):
         self.device = resolve_device(device)
         if A.device != self.device:
             raise ValueError(f"the matrix lives on {A.device}, the solver "
                              f"runs on {self.device}; build the matrix with "
                              f"device={str(self.device)!r}")
         self.A = A
+        # classic/pipelined resolve onto the programs above; sstep:S and
+        # pipelined:L dispatch the recurrences of acg_tpu_torch.recurrence
+        from acg_tpu_torch.recurrence import parse_algorithm
+        self.algo = parse_algorithm(algorithm)
+        if self.algo is not None and not self.algo.communication_avoiding:
+            pipelined = self.algo.kind == "pipelined"
+            self.algo = None
+        self._lam = None  # the (lmin, lmax) estimate, cached
         self.pipelined = pipelined
         self.vector_dtype = vector_dtype
         self.precise_dots = bool(precise_dots)
@@ -740,6 +795,14 @@ class TorchCGSolver(ChunkedCGSolver):
         if mstate is not None and self.precond_spec is None:
             raise ValueError("mstate is the state of a preconditioner; "
                              "pass precond too")
+        if self.algo is not None:
+            _refuse_ca(self.algo, pipelined, self.replace_every,
+                       self.precise_dots, self.precond_spec, kernels, vdt)
+            if self.algo.kind == "pl":
+                # the square-root breakdown of the deep pipeline is
+                # expected: it restarts from the current iterate
+                from acg_tpu_torch.recurrence import PL_RESTART_BUDGET
+                self.max_restarts = PL_RESTART_BUDGET
         self._mstate = None if mstate is None else tuple(mstate)
         self.kernels = kernels
         self.stats = SolverStats(unknowns=A.nrows)
@@ -778,8 +841,40 @@ class TorchCGSolver(ChunkedCGSolver):
                                     acc_dtype(self._solve_dtype()))
         return self._mstate
 
+    def _ensure_lam(self):
+        """The (lmin, lmax) interval of the Chebyshev s-step basis and
+        the p(l) shifts, from one power iteration through this solver's
+        own SpMV at the first solve; (0, 0) when the recurrence does not
+        read it (``jax_cg.py:1450-1466``)."""
+        if self._lam is None:
+            from acg_tpu_torch.recurrence import estimate_lam
+            if self.algo is not None and self.algo.needs_lam:
+                spmv_ = _spmv_fn(self.kernels)
+                self._lam = estimate_lam(
+                    lambda v: spmv_(self.A, v), self.A.nrows,
+                    acc_dtype(self._solve_dtype()), self.device)
+            else:
+                self._lam = (0.0, 0.0)
+        return self._lam
+
     def _program(self, crit: StoppingCriteria):
         A, kernels = self.A, self.kernels
+        if self.algo is not None:
+            from acg_tpu_torch import recurrence as rec
+            if crit.needs_diff:
+                raise ValueError(
+                    f"{self.algo} supports residual criteria only (the "
+                    f"coefficient-space/pipelined updates carry no "
+                    f"||dx|| scalar)")
+            lam = self._ensure_lam()
+            dot, sdt = _scalar_setup(self._solve_dtype())
+            ops = rec.single_ops(A, kernels, dot, sdt)
+            algo = self.algo
+            if algo.kind == "sstep":
+                return lambda b, x0: rec._cg_sstep_program(
+                    ops, b, x0, crit, algo.param, algo.basis, lam)
+            return lambda b, x0: rec._cg_pl_program(ops, b, x0, crit,
+                                                    algo.param, lam)
         if kernels.startswith("fused"):
             if crit.needs_diff:
                 raise ValueError("kernels='fused' supports residual "
@@ -865,6 +960,24 @@ class TorchCGSolver(ChunkedCGSolver):
                                (mat_bytes + 4 * n * dbl) * (niter + 1))
             st.ops["axpy"].add(niter, 0.0, 6 * n * dbl * niter)
             return
+        if self.algo is not None:
+            # s-step runs (2s-1)/s SpMV-equivalents an iteration, p(l) one;
+            # the block's Gram or the window matvec bills as dots, as the
+            # reference bills them (jax_cg.py:2032-2051)
+            from acg_tpu_torch.recurrence import reduction_schedule
+            sched = reduction_schedule(self.algo, False)
+            spmv_eq = sched["spmv_per_iteration"]
+            st.nflops += self._spmv_flops * (spmv_eq - 1.0) * niter
+            st.ops["gemv"].add(int(niter * spmv_eq) + 1, 0.0,
+                               int((mat_bytes + 2 * n * dbl)
+                                   * (niter * spmv_eq + 1)))
+            wred = sched["allreduce_scalars"]
+            ndot = max(int(niter * sched["allreduce_per_iteration"]), 1)
+            st.ops["dot"].add(ndot, 0.0,
+                              int(2 * n * dbl * wred ** 0.5 * ndot))
+            st.ops["nrm2"].add(niter + 1, 0.0, n * dbl * (niter + 1))
+            st.ops["axpy"].add(3 * niter, 0.0, 3 * n * dbl * 3 * niter)
+            return
         st.ops["gemv"].add(niter + 1, 0.0,
                            (mat_bytes + 2 * n * dbl) * (niter + 1))
         st.ops["dot"].add(niter, 0.0, 2 * n * dbl * niter)
@@ -876,6 +989,42 @@ class TorchCGSolver(ChunkedCGSolver):
             _account_precond(st, self.precond_spec, self._mstate, niter, n,
                              dbl, self._spmv_flops,
                              mat_bytes + 2 * n * dbl)
+
+
+def _refuse_ca(algo, pipelined: bool, replace_every: int,
+               precise_dots: bool, precond_spec, kernels: str, vdt) -> None:
+    """The options the communication-avoiding recurrences do not take,
+    refused with the reference's messages (``jax_cg.py:1323-1394``):
+    they run unpreconditioned over f32/f64 vectors with plain dots."""
+    ca = str(algo)
+    if pipelined:
+        raise ValueError(
+            f"--algorithm {ca} selects its own recurrence; it does not "
+            f"compose with the pipelined flag (use --algorithm pipelined "
+            f"for Ghysels-Vanroose)")
+    if replace_every:
+        raise ValueError(
+            f"{ca} does not compose with replace_every (the replacement "
+            f"segments restructure the recurrence)")
+    if precise_dots:
+        raise ValueError(
+            f"{ca} accumulates its fused Gram/window reductions in the "
+            f"scalar dtype; precise_dots composes with the "
+            f"classic/pipelined programs")
+    if precond_spec is not None:
+        raise ValueError(
+            f"{ca} runs unpreconditioned: the s-step basis and the p(l) "
+            f"auxiliary basis have no M^-1 hook yet (use --algorithm "
+            f"classic|pipelined with --precond)")
+    if kernels.startswith("fused"):
+        raise ValueError(
+            f"{ca} needs kernels='xla'/'pallas' (the fused two-phase "
+            f"iteration folds the classic recurrence)")
+    if vdt == torch.bfloat16:
+        raise ValueError(
+            f"{ca} amplifies storage rounding through its basis products; "
+            f"bf16 vectors need the classic/pipelined tiers "
+            f"(replace_every is the bf16 contract)")
 
 
 def _account_precond(st: SolverStats, spec, mstate, niter: int, n: int,

@@ -5,8 +5,9 @@ port's solvers fill: iteration counts, analytic flop/byte totals and
 per-op-class breakdowns (``cg.h:88-98``, ``cgcuda.h:107-116``), reported
 in the fixed text block of ``acgsolvercuda_fwrite``
 (``cgcuda.c:1927-1975``), plus the ``timings:`` section of pipeline
-phases, the ``precond:`` section of preconditioned solves and the
-``batch:`` section of batched multi-RHS solves.  Line-compatible with the JAX package's block, so scripts that grep
+phases, the ``precond:`` section of preconditioned solves, the
+``batch:`` section of batched multi-RHS solves and the ``resilience:``
+line of solves that restarted.  Line-compatible with the JAX package's block, so scripts that grep
 ``total solver time`` work on both.
 """
 
@@ -101,6 +102,11 @@ class SolverStats:
     # the batched multi-RHS tier's per-RHS evidence (solvers.batched);
     # rendered after precond only when a batched solve ran
     batch: dict = dataclasses.field(default_factory=dict)
+    # breakdown recovery (solvers.resilience): detections and restarts,
+    # and the event log printed under the resilience: line
+    nbreakdowns: int = 0
+    nrestarts: int = 0
+    recovery_log: list = dataclasses.field(default_factory=list)
 
     def fwrite(self, f=None, indent: int = 0) -> str:
         """Solver report, line-compatible with ``acgsolvercuda_fwrite``."""
@@ -143,6 +149,14 @@ class SolverStats:
         p(f"  residual 2-norm: {self.rnrm2:.15g}")
         p(f"  difference in solution iterates 2-norm: {self.dxnrm2:.15g}")
         p(f"  floating-point exceptions: {fexcept_str(*self.fexcept_arrays)}")
+        # the resilience lines appear only when something happened, so a
+        # clean solve's block keeps the reference's lines; the port has
+        # no fallback rung, so its count is the reference's 0
+        if self.nbreakdowns or self.nrestarts:
+            p(f"  resilience: {self.nbreakdowns} breakdowns detected, "
+              f"{self.nrestarts} restarts, 0 fallbacks")
+            for ev in self.recovery_log:
+                p(f"    {ev}")
         if self.timings:
             p("timings:")
             for name in PHASE_ORDER:

@@ -76,15 +76,26 @@ checkout it sits in.  Phases, each of which raises on failure:
    solve on gen:poisson2d:512 (iterations within 1, x within 1e-10;
    the native core built; --buildinfo logged); (w) --nrhs 8 batched
    classic f64 (manufactured columns) against the single-RHS solver on
-   each column (iterations within 1, x within 1e-9), twice to the same
-   bits, no K1 or K5 launch; (x) --nrhs 8 with --solver acg-pipelined
+   each column (iterations within 1, x within 1e-9), the library's
+   batched solve of the same block the same bits, no K1 or K5 launch; (x) --nrhs 8 with --solver acg-pipelined
    (iterations within 1 % of (w)'s), --operator stencil (the same
    iterations and x within 1e-12), --precond jacobi (iterations within
    1), and --block-cg against the batched mode on gen:poisson2d:512
    --aniso 0.01 (fewer column iterations, every column's true
    residual <= 1e-7); (y) --nrhs 1, bitwise-equal to (a) with K1
-   counted as in (a);
-4. times: solve rates (1000 iterations after a 50-iteration warm-up),
+   counted as in (a); then the communication-avoiding recurrences and
+   the batched multi-part tier: (z) --algorithm sstep:4 (twice, the
+   same bits) and sstep:8 (iterations within S of (a)'s, K1 counted
+   exactly: 2S-1 per block run, 1 setup, 25 power iterations),
+   sstep:4 with --operator stencil (the same iterations and bits, K7
+   where K1 was) and pipelined:2 twice (converged to 1e-7 through its
+   restarts, the same bits); (aa) --nparts 4 --algorithm sstep:4 under
+   dma and xla (the same bits; K6 and batched K1 once per SpMV, counted
+   exactly); (ab) --nparts 4 --nrhs 8 classic (each column against the
+   stacked single solve, the library's batched solve the same bits, no
+   kernel) and pipelined;
+4. times: solve rates (1000 iterations after a 50-iteration warm-up;
+   200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
    pipelined; --precond jacobi and cheby:4 in f64, cheby also as
    SpMVs/s; f32 with and without --precise-dots) and 4-part with each
@@ -106,7 +117,12 @@ checkout it sits in.  Phases, each of which raises on failure:
    classic f64 rates with --operator stencil against assembled at
    2048^2 and 512^3; --nrhs 8 rates (batched classic and pipelined,
    block CG) as loop and column-iterations/s, and a profile of the
-   batched classic solve.  K1, K3, K4, K6 and K7 are also timed with L2
+   batched classic solve; sstep:4, sstep:8 and pipelined:2 beside
+   classic f64 (iters/s, p(l) with its restarts; the SpMV launches of
+   the timed solves against their iterations), a profile of sstep:4,
+   sstep:4 on the 4 parts (--comm dma) beside the 4-part classic with a
+   profile, and --nparts 4 --nrhs 8 classic and pipelined as
+   column-iterations/s.  K1, K3, K4, K6 and K7 are also timed with L2
    flushed by reading (clean_l2_ms), K4 and K7 beside a copy of their
    bytes (copy_ms).
 
@@ -845,7 +861,7 @@ def read_x(path):
     return np.asarray(read_mtx(path, binary=True).vals, np.float64)
 
 
-def main_path(torch, K, tmp, csr, irr):
+def main_path(torch, K, tmp, csr, irr, prob):
     base = [MAIN_SPEC, "--warmup", "0", "-q"]
     xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
     xsol /= np.linalg.norm(xsol)
@@ -938,6 +954,8 @@ def main_path(torch, K, tmp, csr, irr):
     paths.update(tool_paths(torch, K, tmp, b, csr))
     paths.update(host_paths(torch, K, tmp))
     paths.update(batched_paths(torch, K, tmp, base, csr, paths))
+    paths.update(ca_paths(torch, K, tmp, base, b, csr))
+    paths.update(dist_batched_paths(torch, K, tmp, base, csr, prob))
     return paths
 
 
@@ -1499,38 +1517,39 @@ def batched_paths(torch, K, tmp, base, csr, paths):
 
     # (w) batched classic f64 against single-RHS solves of its columns
     t0 = time.perf_counter()
-    runs = []
-    for k in range(2):
-        rc, text, c, iters, X = _batched_run(torch, K, tmp, bat,
-                                             f"w-batched{k}")
-        check(rc == 0 and len(iters) == NRHS, f"path w run {k} converged")
-        runs.append((text, c, iters, X))
-    text, c, iters_w, Xw = runs[0]
-    same = runs[0][2] == runs[1][2] and np.array_equal(Xw, runs[1][3])
+    rc, text, c, iters_w, Xw = _batched_run(torch, K, tmp, bat, "w-batched")
+    check(rc == 0 and len(iters_w) == NRHS, "path w converged")
     t_batched = stat(text, "total solver time")
     # the CLI's --seed 42 block: unit-norm columns xsol, B = A xsol
     xsol = np.random.default_rng(42).standard_normal((n, NRHS))
     xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
     B = csr @ xsol
-    # the reference: each column solved alone by the single-RHS solver
-    # (the library, on K1; launches outside a path run are not counted)
     from acg_tpu_torch.ops.spmv import device_matrix_from_csr
     from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
-    one = TorchCGSolver(device_matrix_from_csr(csr, dtype=torch.float64,
-                                               device="cuda"),
-                        device="cuda")
+    from acg_tpu_torch.solvers.batched import BatchedCGSolver
+    Ad = device_matrix_from_csr(csr, dtype=torch.float64, device="cuda")
+    # the same bits twice: the library's batched solve of the same block
+    again = BatchedCGSolver(Ad, device="cuda")
+    same = np.array_equal(again.solve(B, criteria=StoppingCriteria(
+        maxits=20000, residual_rtol=1e-8)), Xw) and \
+        again.stats.batch["iterations"] == iters_w
+    del again
+    # the reference: each column solved alone by the single-RHS solver
+    # (the library, on K1; launches outside a path run are not counted)
+    one = TorchCGSolver(Ad, device="cuda")
     single = []
     for j in range(NRHS):
         x1 = one.solve(B[:, j], criteria=StoppingCriteria(
             maxits=20000, residual_rtol=1e-8))
         single.append((one.stats.niterations, x1))
-    del one
+    del one, Ad
     rels = [float(np.linalg.norm(Xw[:, j] - x1) / np.linalg.norm(x1))
             for j, (_, x1) in enumerate(single)]
     say(f"path w: --nrhs {NRHS} classic f64 on {MAIN_SPEC}: per-RHS "
         f"iterations {iters_w}, single solves {[s[0] for s in single]}; "
         f"x vs the single solves, worst column rel {max(rels):.2e} "
-        f"(limit 1e-9); the same bits twice = {same}; launches {c}; "
+        f"(limit 1e-9); the library's batched solve the same bits = "
+        f"{same}; launches {c}; "
         f"batched solver time {t_batched}; path w took "
         f"{time.perf_counter() - t0:.1f} s")
     check(all(abs(a - s[0]) <= 1 for a, s in zip(iters_w, single)),
@@ -1618,11 +1637,222 @@ def batched_paths(torch, K, tmp, base, csr, paths):
     return out
 
 
+# -- phase 3 (z)-(ab): the CA recurrences and the batched multi-part tier --
+
+def sstep_blocks_run(its: int, s: int, maxits: int) -> int:
+    """The s-step blocks a converged solve of ``its`` iterations ran: the
+    stop flag is read once every CHUNK // s blocks, and the frozen blocks
+    of the last read's stretch build their bases too."""
+    from acg_tpu_torch.solvers.cg import CHUNK
+    per = max(1, CHUNK // s)
+    live = -(-its // s)
+    return min(-(-live // per) * per, -(-maxits // s))
+
+
+def _resilience(text: str) -> tuple:
+    """(breakdowns, restarts) from a stats block's resilience: line."""
+    m = re.search(r"resilience: (\d+) breakdowns detected, (\d+) restarts",
+                  text)
+    return (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+
+
+def ca_paths(torch, K, tmp, base, b, csr):
+    """(z)-(aa): the communication-avoiding recurrences at full width.
+    (z) --algorithm sstep:4 and sstep:8 on the flagship f64: iterations
+    within S of path (a)'s, K1 counted exactly ((2S-1) per block run, 1
+    setup, 25 power iterations), no other kernel; sstep:4 with
+    --operator stencil: the same iterations and bits with K7 where K1
+    was; pipelined:2: converged to a true residual <= 1e-7 through its
+    restarts, counted from the resilience: line; sstep:4 and pipelined:2
+    solved again by the library's TorchCGSolver on the CLI's right-hand
+    side: the same bits.  (aa) --nparts 4 --algorithm sstep:4 under
+    --comm dma and xla: the same bits, K6 and batched K1 once per SpMV
+    (counted exactly as in (z))."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
+
+    out = {}
+    mp = base + ["--manufactured-solution", "--residual-rtol", "1e-8"]
+    maxits = 20000
+    mp += ["--max-iterations", str(maxits)]
+    # the CLI's own --manufactured-solution right-hand side, computed as
+    # it computes it, for the library's solves of the same system
+    xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
+    xsol /= np.linalg.norm(xsol)
+    b_cli = synthesize_host_matrix(MAIN_SPEC).dsymv(xsol, epsilon=0.0)
+    Ad = device_matrix_from_csr(csr, dtype=torch.float64, device="cuda")
+
+    def again(algorithm):
+        s = TorchCGSolver(Ad, device="cuda", algorithm=algorithm)
+        x = s.solve(b_cli, criteria=StoppingCriteria(maxits=maxits,
+                                                     residual_rtol=1e-8))
+        return s.stats.niterations, x
+
+    runs = {}
+    for tag, extra in (("z-sstep4", ["--algorithm", "sstep:4"]),
+                       ("z-sstep8", ["--algorithm", "sstep:8"]),
+                       ("z-sstep4-stencil", ["--algorithm", "sstep:4",
+                                             "--operator", "stencil"])):
+        runs[tag] = solve_path(torch, K, tmp, mp + extra, tag, b, csr)
+    for tag, s in (("z-sstep4", 4), ("z-sstep8", 8)):
+        rc, text, c, _, its, x, res = runs[tag]
+        blocks = sstep_blocks_run(its, s, maxits)
+        want = (2 * s - 1) * blocks + 1 + 25
+        say(f"path {tag}: {its} iterations (path a: {ITS['a']}), true "
+            f"relative residual {res:.3e} (limit 1e-7), solver time "
+            f"{stat(text, 'total solver time')}; K1 launches "
+            f"{c['dia_spmv']} ({2 * s - 1} x {blocks} blocks run + setup "
+            f"1 + 25 power iterations = {want}), launches {c}")
+        check(rc == 0 and res <= 1e-7, f"path {tag} converged to 1e-7")
+        check(abs(its - ITS["a"]) <= s,
+              f"path {tag}: iterations within S of path a's")
+        check(c["dia_spmv"] == want and sum(c.values()) == want,
+              f"path {tag}: K1 counted exactly, no other kernel")
+        ITS[tag] = its
+        out[tag] = c
+    x4 = runs["z-sstep4"][5]
+    its, x = again("sstep:4")
+    same = its == ITS["z-sstep4"] and np.array_equal(x, x4)
+    say(f"path z-sstep4 again (the library): {its} iterations, the same "
+        f"bits = {same}")
+    check(same, "path z: sstep:4 gives the same bits twice")
+    rc, _, c, _, its, x, _ = runs["z-sstep4-stencil"]
+    same = its == ITS["z-sstep4"] and np.array_equal(x, x4)
+    k1 = out["z-sstep4"]["dia_spmv"]
+    say(f"path z-sstep4-stencil: {its} iterations, x bitwise equal to "
+        f"path z-sstep4 = {same}; K7 {c['stencil_spmv']} (K1 there: "
+        f"{k1}), K1 {c['dia_spmv']}")
+    check(rc == 0 and same, "path z: --operator stencil sstep:4 is the "
+          "assembled solve, bit for bit")
+    check(c["stencil_spmv"] == k1 and c["dia_spmv"] == 0,
+          "path z: K7 launched where K1 was, and no K1")
+    out["z-sstep4-stencil"] = c
+
+    # p(l): its square-root breakdowns restart from the current iterate
+    rc, text, c, _, its, x, res = solve_path(
+        torch, K, tmp, mp + ["--algorithm", "pipelined:2"], "z-pl2", b, csr)
+    nbd, nrs = _resilience(text)
+    its2, x2 = again("pipelined:2")
+    same = its2 == its and np.array_equal(x2, x)
+    del Ad
+    say(f"path z-pl2: --algorithm pipelined:2 {its} iterations (path a: "
+        f"{ITS['a']}), {nbd} breakdowns, {nrs} restarts, true relative "
+        f"residual {res:.3e} (limit 1e-7), solver time "
+        f"{stat(text, 'total solver time')}, K1 {c['dia_spmv']}; again "
+        f"(the library): the same bits = {same}; launches {c}")
+    check(rc == 0 and res <= 1e-7, "path z-pl2 converged to 1e-7")
+    check(nbd == nrs, "path z-pl2: every breakdown restarted")
+    check(c["dia_spmv"] >= its + 26 and c["pipelined_update"] == 0,
+          "path z-pl2 went through K1 (no K5: p(l) is not GV)")
+    check(same, "path z-pl2: the same bits twice")
+    ITS["z-pl2"] = its
+    out["z-pl2"] = c
+
+    # (aa) 4 stacked parts under each transport
+    q = mp + ["--nparts", str(NPARTS), "--algorithm", "sstep:4"]
+    dist = {comm: solve_path(torch, K, tmp, q + ["--comm", comm],
+                             f"aa-4part-sstep4-{comm}", b, csr)
+            for comm in ("dma", "xla")}
+    rc, text, c, _, its, x, res = dist["dma"]
+    rcx, _, cx, _, itsx, xx, _ = dist["xla"]
+    want = 7 * sstep_blocks_run(its, 4, maxits) + 1 + 25
+    same = its == itsx and np.array_equal(x, xx)
+    say(f"path aa: --nparts {NPARTS} --algorithm sstep:4: {its} "
+        f"iterations, true relative residual {res:.3e} (limit 1e-7), "
+        f"solver time {stat(text, 'total solver time')}; K6 "
+        f"{c['halo_put']} and batched K1 {c['dia_spmv_batched']} (want "
+        f"{want}); --comm xla {itsx} iterations, x bitwise equal = {same}, "
+        f"K6 {cx['halo_put']}, batched K1 {cx['dia_spmv_batched']}")
+    check(rc == 0 and res <= 1e-7, "path aa converged to 1e-7")
+    check(abs(its - ITS["a"]) <= 4, "path aa: within S of path a")
+    check(c["halo_put"] == c["dia_spmv_batched"] == want,
+          "path aa: K6 and batched K1 once per SpMV, counted exactly")
+    check(rcx == 0 and same and cx["halo_put"] == 0
+          and cx["dia_spmv_batched"] == want,
+          "path aa: --comm xla gives the same bits")
+    out["aa"] = {k: c[k] + cx[k] for k in c}
+    return out
+
+
+def dist_batched_paths(torch, K, tmp, base, csr, prob):
+    """(ab): --nparts 4 --nrhs 8 on the flagship f64 (manufactured
+    columns), classic and pipelined: each classic column against the
+    library DistCGSolver's solve of it on the same 4 band parts
+    (iterations within 1, x within 1e-9), the library
+    BatchedDistCGSolver's solve of the same block the same bits as the
+    CLI's, pipelined iterations within 1 % of classic and true residuals
+    <= 1e-6; no kernel launched (the batched multi-part tier is plain
+    PyTorch)."""
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.parallel.dist_batched import BatchedDistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    t0 = time.perf_counter()
+    out = {}
+    n = csr.shape[0]
+    crit = StoppingCriteria(maxits=20000, residual_rtol=1e-8)
+    bat = base + ["--nparts", str(NPARTS), "--nrhs", str(NRHS),
+                  "--manufactured-solution", "--residual-rtol", "1e-8",
+                  "--max-iterations", "20000"]
+    rc, text, c, iters, X = _batched_run(torch, K, tmp, bat, "ab-4part-nrhs")
+    check(rc == 0 and len(iters) == NRHS, "path ab converged")
+    xsol = np.random.default_rng(42).standard_normal((n, NRHS))
+    xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
+    B = csr @ xsol
+    again = BatchedDistCGSolver(prob, device="cuda")
+    same = np.array_equal(again.solve(B, criteria=crit), X) and \
+        again.stats.batch["iterations"] == iters
+    del again
+    one = DistCGSolver(prob, device="cuda")
+    single = []
+    for j in range(NRHS):
+        x1 = one.solve(B[:, j], criteria=crit)
+        single.append((one.stats.niterations, x1))
+    del one
+    rels = [float(np.linalg.norm(X[:, j] - x1) / np.linalg.norm(x1))
+            for j, (_, x1) in enumerate(single)]
+    say(f"path ab: --nparts {NPARTS} --nrhs {NRHS} classic f64: per-RHS "
+        f"iterations {iters}, stacked single solves "
+        f"{[s[0] for s in single]}; x vs them, worst column rel "
+        f"{max(rels):.2e} (limit 1e-9); the library's batched solve the "
+        f"same bits = {same}; "
+        f"solver time {stat(text, 'total solver time')}; launches {c}")
+    check(all(abs(a - s[0]) <= 1 for a, s in zip(iters, single)),
+          "path ab: each column's iterations within 1 of its single solve")
+    check(max(rels) <= 1e-9, "path ab: x within 1e-9 of the single solves")
+    check(same, "path ab: the same bits twice")
+    check(sum(c.values()) == 0,
+          "path ab: no kernel launched on the batched multi-part tier")
+    out["ab"] = c
+    rc, text, c, iters_p, Xp = _batched_run(
+        torch, K, tmp, bat + ["--solver", "acg-pipelined"],
+        "ab-4part-nrhs-pipelined")
+    res = (np.linalg.norm(B - csr @ Xp, axis=0)
+           / np.linalg.norm(B, axis=0)).max()
+    say(f"path ab-pipelined: per-RHS iterations {iters_p}, worst true "
+        f"residual {res:.2e} (limit 1e-6), solver time "
+        f"{stat(text, 'total solver time')}, launches {c}; path ab took "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rc == 0 and all(abs(a - b) <= max(2, b // 100)
+                          for a, b in zip(iters_p, iters)) and res <= 1e-6,
+          "path ab-pipelined: iterations within 1 % of path ab's, true "
+          "residuals <= 1e-6")
+    check(sum(c.values()) == 0, "path ab-pipelined: no kernel launched")
+    out["ab-pipelined"] = c
+    return out
+
+
 # -- phase 4: times --------------------------------------------------------
 
-def rate_runs(s, n: int, nruns: int = 3) -> list:
-    """iters/s of ``nruns`` fixed 1000-iteration solves of solver ``s``
-    on b = ones, after a 50-iteration warm-up solve."""
+def rate_runs(s, n: int, nruns: int = 3, nits: int = 1000,
+              counts: list | None = None) -> list:
+    """iters/s of ``nruns`` fixed ``nits``-iteration solves of solver
+    ``s`` on b = ones, after a 50-iteration warm-up solve.  With a
+    ``counts`` list, each timed solve appends its kernel launches and
+    its restarts (the launch counters only add, so timing is
+    unchanged)."""
+    from acg_tpu_torch.ops import kernels as K
     from acg_tpu_torch.solvers import StoppingCriteria
 
     b = np.ones(n)
@@ -1630,8 +1860,12 @@ def rate_runs(s, n: int, nruns: int = 3) -> list:
     runs = []
     for _ in range(nruns):
         s.stats.tsolve = 0.0
-        s.solve(b, criteria=StoppingCriteria(maxits=1000))
-        runs.append(1000.0 / s.stats.tsolve)
+        K.reset_launches()
+        nrs = s.stats.nrestarts
+        s.solve(b, criteria=StoppingCriteria(maxits=nits))
+        runs.append(nits / s.stats.tsolve)
+        if counts is not None:
+            counts.append((dict(K.launches), s.stats.nrestarts - nrs))
     return runs
 
 
@@ -1709,13 +1943,16 @@ def precision_rates(torch, dev, card):
         A = device_matrix_from_arrays("dia", planes, meta, dtype=dts[kind],
                                       device=dev)
         s = TorchCGSolver(A, device=dev, **kw)
-        runs = rate_runs(s, N)
+        # the compensated dots run at ~1 % of the plain rate: 200
+        # iterations measure it as well as 1000 and keep the script short
+        nits = 200 if kw.get("precise_dots") else 1000
+        runs = rate_runs(s, N, nits=nits)
         med = float(np.median(runs))
         spmvs = (f"; {5 * med:.1f} SpMVs/s (5 an iteration)"
                  if "cheby:4" in name else "")
         say(f"solve rate {name} (kernels={s.kernels}): "
             f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
-            f"{med:.1f}{spmvs}; 1000 iterations after a 50-iteration "
+            f"{med:.1f}{spmvs}; {nits} iterations after a 50-iteration "
             f"warm-up; {card})")
         if "jacobi" in name:
             profile_solve(torch, card, "single part classic f64 --precond "
@@ -1758,6 +1995,104 @@ def batched_rates(torch, dev, card):
         if mode == "batched":
             profile_solve(torch, card, f"--nrhs {NRHS} batched classic "
                           f"f64 (plain PyTorch)", s, N, b=B)
+        del s
+        torch.cuda.empty_cache()
+
+
+CA_ROWS = ("sstep:4", "sstep:8", "pipelined:2")
+
+
+def _ca_steps(name: str, counts: list, k1: str, nits: int = 1000) -> str:
+    """What the timed solves of a CA row ran, from their SpMV launches
+    (kernel ``k1``) and restarts: a solve's attempts each make one setup
+    SpMV; the rest are the loop's SpMVs.  p(l) makes one SpMV a step,
+    its first l steps an attempt advance nothing, and the steps run
+    beyond those and the advances are frozen ones (a breakdown's chunk
+    run out, or past maxits); an s-step block makes 2S - 1."""
+    parts = []
+    for c, nrs in counts:
+        attempts = 1 + nrs
+        loop = c.get(k1, 0) - attempts
+        if name.startswith("pipelined:"):
+            fill = int(name.split(":")[1]) * attempts
+            frozen = loop - nits - fill
+            parts.append(f"{loop} steps for {nits} advances in {attempts} "
+                         f"attempts ({fill} fill, {frozen} frozen: "
+                         f"{frozen / loop:.3f} of the steps)")
+        else:
+            s = int(name.split(":")[1])
+            parts.append(f"{loop} loop SpMVs = {loop / (2 * s - 1):.0f} "
+                         f"blocks for {nits} iterations")
+    return "; ".join(parts)
+
+
+def ca_rates(torch, dev, card, prob):
+    """Fixed-iteration rates of the communication-avoiding recurrences
+    on the flagship f64, beside solve_rates' classic f64 in the same run
+    (rate_runs' protocol; p(l)'s breakdowns restart inside the timed
+    solves and are counted, with the steps each timed solve ran against
+    its advances), one sstep:4 solve under torch.profiler; sstep:4 on
+    the 4 stacked band parts (--comm dma) beside the 4-part classic by
+    the same protocol, and one profile of it; then --nrhs 8 on the 4
+    parts, classic and pipelined, 300 iterations after a 50-iteration
+    warm-up, as column-iterations/s."""
+    from acg_tpu_torch.io.generators import batched_rhs, poisson_dia
+    from acg_tpu_torch.ops.spmv import device_matrix_from_arrays
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.parallel.dist_batched import BatchedDistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
+
+    planes, offsets, N = poisson_dia(FLAGSHIP, 2)
+    A = device_matrix_from_arrays("dia", planes, {
+        "offsets": offsets, "nrows": N, "ncols_padded": N},
+        dtype=torch.float64, device=dev)
+    for name in CA_ROWS:
+        s = TorchCGSolver(A, device=dev, algorithm=name)
+        counts = []
+        runs = rate_runs(s, N, counts=counts)
+        say(f"solve rate {name} f64 (kernels={s.kernels}): "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{np.median(runs):.1f}; 1000 iterations after a 50-iteration "
+            f"warm-up; restarts in the 4 solves {s.stats.nrestarts}; timed "
+            f"solves: {_ca_steps(name, counts, 'dia_spmv')}; {card})")
+        if name == "sstep:4":
+            profile_solve(torch, card, "single part sstep:4 f64 (K1)", s, N)
+        del s
+        torch.cuda.empty_cache()
+    del A
+    for name in ("classic", "sstep:4"):
+        s = DistCGSolver(prob, comm="dma", device=dev, algorithm=name)
+        counts = []
+        runs = rate_runs(s, prob.n, counts=counts)
+        steps = ("" if name == "classic" else "; timed solves: "
+                 + _ca_steps(name, counts, "dia_spmv_batched"))
+        say(f"solve rate {name} f64 {prob.nparts} parts --comm dma "
+            f"(kernels={s.kernels}): "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{np.median(runs):.1f}; 1000 iterations after a 50-iteration "
+            f"warm-up{steps}; {card})")
+        if name == "sstep:4":
+            profile_solve(torch, card, f"{prob.nparts}-part dma sstep:4 f64 "
+                          "(batched K1, K6)", s, prob.n)
+        del s
+        torch.cuda.empty_cache()
+    B = batched_rhs(prob.n, NRHS, seed=42)
+    nits = 300
+    for pipelined in (False, True):
+        s = BatchedDistCGSolver(prob, pipelined=pipelined, device=dev)
+        s.solve(B, criteria=StoppingCriteria(maxits=50))
+        runs = []
+        for _ in range(3):
+            s.stats.tsolve = 0.0
+            s.solve(B, criteria=StoppingCriteria(maxits=nits))
+            runs.append(nits / s.stats.tsolve)
+        med = float(np.median(runs))
+        say(f"solve rate --nparts {prob.nparts} --nrhs {NRHS} "
+            f"{'pipelined' if pipelined else 'batched'} f64: "
+            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
+            f"{med:.1f}: {NRHS * med:.1f} column-iterations/s; {nits} "
+            f"iterations after a 50-iteration warm-up; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card})")
         del s
         torch.cuda.empty_cache()
 
@@ -2287,7 +2622,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="smoke-", dir=_build.BUILD_ROOT)
     try:
         t0 = time.perf_counter()
-        paths = main_path(torch, K, tmp, csr, irr)
+        paths = main_path(torch, K, tmp, csr, irr, prob)
         say(f"phase 3 (main path) passed in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2297,6 +2632,7 @@ def main() -> int:
     precision_rates(torch, dev, card)
     dist_rates(torch, dev, card, prob)
     batched_rates(torch, dev, card)
+    ca_rates(torch, dev, card, prob)
     from acg_tpu_torch.ops.operator import poisson_stencil
     from acg_tpu_torch.parallel.dist import DistCGSolver
     from acg_tpu_torch.solvers import TorchCGSolver

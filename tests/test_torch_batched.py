@@ -289,12 +289,14 @@ def test_cli_refusals_match_jax(flags, capsys):
     assert msgs[0] == msgs[1]
 
 
-def test_cli_refuses_batched_parts_by_name():
+def test_cli_refuses_batched_parts_by_name(capsys):
+    """--nrhs on stacked parts runs the batched multi-part tier
+    (tests/test_torch_dist_batched.py holds it against acg_tpu); block
+    CG on parts stays refused by name, as the reference refuses it."""
     from acg_tpu_torch.cli import main as torch_main
-    with pytest.raises(SystemExit, match=r"parallel/dist_batched\) is not "
-                                         "yet ported"):
-        torch_main(["gen:poisson2d:8", "--device", "cpu", "--nrhs", "2",
-                    "--nparts", "2"])
+    assert torch_main(["gen:poisson2d:8", "--device", "cpu", "--nrhs", "2",
+                       "--nparts", "2", "--warmup", "0", "-q"]) == 0
+    assert "  nrhs: 2" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="--block-cg is a single-device "
                                          "tier"):
         torch_main(["gen:poisson2d:8", "--device", "cpu", "--nrhs", "2",

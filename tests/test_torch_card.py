@@ -631,3 +631,100 @@ def test_batched_b8_on_card_matches_cpu(dev, mode):
         assert all(abs(a - b) <= 1 for a, b in zip(bg["iterations"],
                                                    bc["iterations"]))
     assert np.linalg.norm(xg - xc) <= 1e-9 * np.linalg.norm(xc)
+
+
+@pytest.mark.parametrize("algorithm", ["sstep:4", "sstep:8", "pipelined:2"])
+def test_ca_recurrence_on_card_matches_cpu(dev, algorithm):
+    """The communication-avoiding recurrences on the card (K1 in every
+    basis and window SpMV) against the same solve on the CPU: s-step the
+    same iterations and x within 1e-10, p(l) converged (its restarts
+    depend on rounding) to a true residual below 10 rtol; the same bits
+    twice on the card, and TF32 refused for the f32 Gram products."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.recurrence import _check_no_tf32
+
+    planes, offsets, N = poisson_dia(128, 2)
+    meta = {"offsets": offsets, "nrows": N, "ncols_padded": N}
+    b = np.random.default_rng(5).standard_normal(N)
+    crit = StoppingCriteria(maxits=5000, residual_rtol=1e-9)
+    out = []
+    for d in ("cpu", dev, dev):
+        A = device_matrix_from_arrays("dia", planes, meta,
+                                      dtype=torch.float64, device=d)
+        s = TorchCGSolver(A, device=d, algorithm=algorithm)
+        K.reset_launches()
+        out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                    dict(K.launches)))
+    (xc, kc, _), (xg, kg, lg), (xg2, kg2, _) = out
+    assert np.array_equal(xg, xg2) and kg == kg2
+    assert lg["dia_spmv"] > kg and lg["pipelined_update"] == 0
+    if algorithm.startswith("sstep"):
+        assert kg == kc
+        assert np.linalg.norm(xg - xc) <= 1e-10 * np.linalg.norm(xc)
+    else:
+        csr = synthesize_host_matrix("gen:poisson2d:128").to_csr()
+        assert np.linalg.norm(b - csr @ xg) <= 1e-8 * np.linalg.norm(b)
+    v = torch.zeros((3, 4), dtype=torch.float32, device=dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            _check_no_tf32(v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("comm", ["xla", "dma"])
+def test_dist_sstep_on_card_matches_cpu(dev, comm):
+    """sstep:4 on 3 stacked band parts on the card (batched K1, and K6
+    under dma) against the CPU: the same iterations, x within 1e-10, the
+    same bits twice."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    csr = synthesize_host_matrix("gen:poisson2d:96").to_csr()
+    prob = DistributedProblem.build(csr, partition_rows(
+        csr, 3, method="band"), 3)
+    b = np.random.default_rng(6).standard_normal(csr.shape[0])
+    crit = StoppingCriteria(maxits=5000, residual_rtol=1e-9)
+    out = []
+    for d in ("cpu", dev, dev):
+        s = DistCGSolver(prob, comm=comm, device=d, algorithm="sstep:4")
+        K.reset_launches()
+        out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                    dict(K.launches)))
+    (xc, kc, _), (xg, kg, lg), (xg2, kg2, _) = out
+    assert np.array_equal(xg, xg2) and kg == kg2 == kc
+    assert lg["dia_spmv_batched"] > kg
+    assert (lg["halo_put"] == lg["dia_spmv_batched"]) == (comm == "dma")
+    assert np.linalg.norm(xg - xc) <= 1e-10 * np.linalg.norm(xc)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_dist_batched_on_card_matches_cpu(dev, pipelined):
+    """--nrhs 8 on 3 stacked parts on the card against the CPU: the same
+    per-column iterations within 1, x within 1e-9, the same bits twice,
+    no kernel launched."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.io.generators import batched_rhs
+    from acg_tpu_torch.parallel.dist import DistributedProblem
+    from acg_tpu_torch.parallel.dist_batched import BatchedDistCGSolver
+    from acg_tpu_torch.partition import partition_rows
+
+    csr = synthesize_host_matrix("gen:irregular:20000").to_csr()
+    prob = DistributedProblem.build(csr, partition_rows(
+        csr, 3, method="graph"), 3)
+    B = batched_rhs(csr.shape[0], 8, seed=4)
+    crit = StoppingCriteria(maxits=3000, residual_rtol=1e-9)
+    out = []
+    for d in ("cpu", dev, dev):
+        s = BatchedDistCGSolver(prob, pipelined=pipelined, device=d)
+        K.reset_launches()
+        out.append((s.solve(B, criteria=crit), s.stats.batch,
+                    sum(K.launches.values())))
+    (xc, bc, _), (xg, bg, lg), (xg2, bg2, _) = out
+    assert np.array_equal(xg, xg2) and bg == bg2 and lg == 0
+    assert all(abs(a - b) <= 1 for a, b in zip(bg["iterations"],
+                                               bc["iterations"]))
+    assert np.linalg.norm(xg - xc) <= 1e-9 * np.linalg.norm(xc)

@@ -184,7 +184,58 @@ def test_cli_text_output_uses_numfmt(capsys):
                for v in out[2:])
 
 
-@pytest.mark.parametrize("flag", [["--algorithm", "sstep:2"],
+ALGO = ["gen:poisson2d:32", "--aniso", "0.1", "--max-iterations", "2000",
+        "--residual-rtol", "1e-8", "--warmup", "1", "--comm", "none",
+        "--manufactured-solution"]
+
+
+def _counts(text, key):
+    """The '<n> times <bytes> B' part of an op row."""
+    return _line(text, key).split(" seconds ")[1].split(" GB/s")[0] \
+        .rsplit(" ", 1)[0]
+
+
+@pytest.mark.parametrize("algorithm", ["sstep:4", "pipelined:2"])
+def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
+    """--algorithm through both CLIs on the aniso family.  s-step: the
+    same iterations and op rows, x within 1e-10.  p(l): its restart
+    points depend on rounding, so both blocks carry a resilience: line
+    with its event lines (restarts, not raises), the same stats keys,
+    and the iterations stay within 3x classic CG's."""
+    jx, tx = tmp_path / "jax.bin", tmp_path / "torch.bin"
+    argv = ALGO + ["--algorithm", algorithm]
+    assert jax_main(argv + ["-o", str(jx)]) == 0
+    jerr = capsys.readouterr().err
+    assert torch_main(argv + ["--device", "cpu", "-o", str(tx)]) == 0
+    terr = capsys.readouterr().err
+    # the restart events also go to stderr, each under its program name
+    assert _stats_keys(terr) - {"acg-tpu-torch"} \
+        == _stats_keys(jerr) - {"acg-tpu"}
+    xj = np.asarray(read_mtx(jx, binary=True).vals)
+    xt = np.asarray(read_mtx(tx, binary=True).vals)
+    assert float(_line(terr, "error 2-norm").split(":")[1]) < 1e-5
+    if algorithm.startswith("sstep"):
+        assert _line(terr, "iterations") == _line(jerr, "iterations")
+        for key in ("gemv", "dot", "nrm2", "axpy", "copy", "total flops"):
+            assert _line(terr, key).split(" seconds")[-1] == \
+                _line(jerr, key).split(" seconds")[-1]
+        assert np.linalg.norm(xt - xj) <= 1e-10 * np.linalg.norm(xj)
+        assert "resilience:" not in terr
+        return
+    assert torch_main(ALGO + ["--device", "cpu", "-q"]) == 0
+    classic = int(_line(capsys.readouterr().err, "iterations").split(":")[1]
+                  .replace(",", ""))
+    its = int(_line(terr, "iterations").split(":")[1].replace(",", ""))
+    assert its <= 3 * classic
+    for err in (jerr, terr):
+        res = _line(err, "resilience")
+        n = int(res.split(":")[1].split()[0])
+        assert n >= 1 and res.strip().endswith(
+            f"{n} restarts, 0 fallbacks")
+        assert err.count("from the recomputed true residual\n") == 2 * n
+
+
+@pytest.mark.parametrize("flag", [["--max-restarts", "3"],
                                   ["--convergence-log", "/tmp/x"],
                                   ["--serve"], ["--trace", "/tmp/x"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
@@ -222,6 +273,9 @@ import acg_tpu_torch.precond
 import acg_tpu_torch.ops.precision
 import acg_tpu_torch.solvers.refine
 import acg_tpu_torch.solvers.batched
+import acg_tpu_torch.solvers.resilience
+import acg_tpu_torch.recurrence
+import acg_tpu_torch.parallel.dist_batched
 import acg_tpu_torch.solvers.host_cg
 import acg_tpu_torch.solvers.petsc_cg
 import acg_tpu_torch.vector
@@ -271,7 +325,19 @@ for extra in (["--precond", "cheby:2", "--solver", "acg-pipelined"],
     assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
                  "0", "--kernels", "pallas", "--max-iterations", "600"]
                 + extra) == 0
+for extra in (["--algorithm", "sstep:4"], ["--algorithm", "pipelined:2"],
+              ["--algorithm", "sstep:2", "--nparts", "3", "--comm", "dma"],
+              ["--algorithm", "pipelined:1", "--nparts", "3"],
+              ["--nrhs", "3", "--nparts", "3"],
+              ["--nrhs", "3", "--nparts", "3", "--solver", "acg-pipelined",
+               "--precise-dots"]):
+    assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
+                 "0", "--kernels", "pallas" if "--nrhs" not in extra
+                 else "auto", "--max-iterations", "600"] + extra) == 0
 os.environ["ACG_TPU_GEN_DIRECT_MIN"] = "100"
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
+             "--operator", "stencil", "--algorithm", "sstep:4",
+             "--max-iterations", "300"]) == 0
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--operator", "stencil", "--max-iterations", "300"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None

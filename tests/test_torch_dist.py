@@ -372,7 +372,8 @@ def test_padding_rows_stay_zero(mats, pipelined, comm, kernels):
 # still refuses (on bf16 vectors, the replacement tier's), as the JAX
 # tier does: the message names the option
 _STILL_REFUSED = {"precond": {"replace_every": 4},
-                  "precise_dots": {"replace_every": 4}}
+                  "precise_dots": {"replace_every": 4},
+                  "algorithm": {"pipelined": True}}
 
 
 @pytest.mark.parametrize("option,value", [

@@ -1,0 +1,310 @@
+"""The port's batched multi-part tier (acg_tpu_torch.parallel.dist_batched,
+``--nrhs B`` with ``--nparts N > 1``) against the JAX package's
+``BatchedDistCGSolver`` on its 8-device CPU mesh.
+
+Tolerances, and why: the port sums each column dot per part and then
+over the parts in order, another order than XLA's, so the columns are
+held to the same per-column iterations and x within 1e-12 relative of
+JAX (measured 3.4e-16 on DIA blocks, 1.1e-13 on binned-ELL blocks),
+and within 1e-12 of the port's own single-RHS ``DistCGSolver`` on each
+column (1e-10 for the pipelined recurrence, which amplifies the other
+order: measured 2.8e-12).  The pipelined tier is held to the host oracle
+``host_batched_cg`` (classic, per column): within 2 iterations (its
+convergence test is one iteration stale) and x within 1e-8.  The
+reference's own pipelined test,
+``tests/test_batched.py::test_dist_batched_pipelined_matches_independent``,
+fails on this tree (it claims bitwise equality with single solves and
+gets the iterations but not the bits), so the port is not held to it.
+A batch of one is ``DistCGSolver``, bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from acg_tpu.io.generators import irregular_spd_coo, poisson2d_coo
+from acg_tpu.matrix import SymCsrMatrix as JaxSymCsr
+from acg_tpu.parallel.dist import DistributedProblem as JaxProblem
+from acg_tpu.parallel.dist_batched import BatchedDistCGSolver as JaxBatched
+from acg_tpu.solvers.stats import StoppingCriteria as JCrit
+from acg_tpu_torch.io.generators import batched_rhs
+from acg_tpu_torch.matrix import SymCsrMatrix
+from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+from acg_tpu_torch.parallel.dist_batched import BatchedDistCGSolver
+from acg_tpu_torch.partition import partition_rows
+from acg_tpu_torch.solvers.host_cg import host_batched_cg
+from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+# the suite runs several test processes side by side: keep PyTorch's
+# small CPU ops from claiming every core in each of them
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+CPU = "cpu"
+KW = dict(maxits=500, residual_rtol=1e-10)
+CRIT = StoppingCriteria(**KW)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _system(kind):
+    if kind == "dia":
+        r, c, v, N = poisson2d_coo(16)
+        method = "band"
+    else:
+        r, c, v, N = irregular_spd_coo(600, avg_degree=6.0, seed=0)
+        method = "graph"
+    csr = SymCsrMatrix.from_coo(N, r, c, v).to_csr()
+    jcsr = JaxSymCsr.from_coo(N, r, c, v).to_csr()
+    part = partition_rows(csr, 4, seed=0, method=method)
+    prob = DistributedProblem.build(csr, part, 4, dtype=torch.float64)
+    assert prob.local.format == {"dia": "dia", "bell": "binnedell"}[kind]
+    return {"csr": csr, "prob": prob, "B": batched_rhs(N, 3, seed=0),
+            "jprob": JaxProblem.build(jcsr, part, 4, dtype=jnp.float64)}
+
+
+@pytest.fixture(scope="module")
+def systems():
+    return {k: _system(k) for k in ("dia", "bell")}
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("kind", ["dia", "bell"])
+def test_classic_matches_jax(systems, kind, precise):
+    sy = systems[kind]
+    js = JaxBatched(sy["jprob"], precise_dots=precise)
+    Xj = np.asarray(js.solve(sy["B"], criteria=JCrit(**KW)))
+    ts = BatchedDistCGSolver(sy["prob"], precise_dots=precise, device=CPU)
+    Xt = ts.solve(sy["B"], criteria=CRIT)
+    assert ts.stats.batch["iterations"] == js.stats.batch["iterations"]
+    assert ts.stats.niterations == js.stats.niterations
+    assert ts.stats.converged
+    assert _rel(Xt, Xj) <= 1e-12
+    for op in ("gemv", "dot", "axpy", "allreduce", "halo", "nrm2"):
+        assert (ts.stats.ops[op].n, ts.stats.ops[op].bytes) == (
+            js.stats.ops[op].n, js.stats.ops[op].bytes)
+    assert ts.stats.nflops == js.stats.nflops
+
+
+@pytest.mark.parametrize("kind", ["dia", "bell"])
+def test_pipelined_iterations_match_jax(systems, kind):
+    """The pipelined columns take JAX's per-column iterations (their x
+    is held to the host oracle below)."""
+    sy = systems[kind]
+    js = JaxBatched(sy["jprob"], pipelined=True)
+    js.solve(sy["B"], criteria=JCrit(**KW))
+    ts = BatchedDistCGSolver(sy["prob"], pipelined=True, device=CPU)
+    ts.solve(sy["B"], criteria=CRIT)
+    assert ts.stats.batch["iterations"] == js.stats.batch["iterations"]
+    assert ts.stats.batch["mode"] == "pipelined"
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("kind", ["dia", "bell"])
+def test_columns_match_single_rhs_solver(systems, kind, pipelined):
+    sy = systems[kind]
+    ts = BatchedDistCGSolver(sy["prob"], pipelined=pipelined, device=CPU)
+    X = ts.solve(sy["B"], criteria=CRIT)
+    for j in range(3):
+        s1 = DistCGSolver(sy["prob"], pipelined=pipelined, kernels="xla",
+                          device=CPU)
+        x1 = s1.solve(sy["B"][:, j], criteria=CRIT)
+        assert ts.stats.batch["iterations"][j] == s1.stats.niterations
+        # the pipelined recurrence amplifies the column dots' and the
+        # binned rows' other summation order (measured 2.8e-12)
+        assert _rel(X[:, j], x1) <= (1e-10 if pipelined else 1e-12)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_matches_host_batched_oracle(systems, pipelined):
+    # the reference's bitwise claim for its pipelined columns
+    # (tests/test_batched.py::test_dist_batched_pipelined_matches_
+    # independent) fails on this tree: the oracle is the host CG
+    sy = systems["bell"]
+    ts = BatchedDistCGSolver(sy["prob"], pipelined=pipelined, device=CPU)
+    X = ts.solve(sy["B"], criteria=CRIT)
+    Xh, ih, _ = host_batched_cg(sy["csr"], sy["B"], criteria=CRIT)
+    its = ts.stats.batch["iterations"]
+    if pipelined:
+        assert all(0 <= a - b <= 2 for a, b in zip(its, ih))
+    else:
+        assert its == list(ih)
+    assert _rel(X, Xh) <= 1e-8
+
+
+def test_single_column_is_dist_cg_bitwise(systems):
+    sy = systems["dia"]
+    b = sy["B"][:, 1]
+    ts = BatchedDistCGSolver(sy["prob"], device=CPU)
+    X = ts.solve(b[:, None], criteria=CRIT)
+    s1 = DistCGSolver(sy["prob"], device=CPU)
+    x1 = s1.solve(b, criteria=CRIT)
+    assert X.shape == (b.size, 1) and np.array_equal(X[:, 0], x1)
+    assert ts.stats.batch["nrhs"] == 1
+    assert ts.stats.batch["iterations"] == [s1.stats.niterations]
+
+
+def test_converged_column_freezes(systems):
+    """A column that starts converged (b = 0 beside two live columns)
+    never moves: zero iterations, x exactly x0."""
+    sy = systems["dia"]
+    B = sy["B"].copy()
+    B[:, 1] = 0.0
+    ts = BatchedDistCGSolver(sy["prob"], device=CPU)
+    X = ts.solve(B, criteria=StoppingCriteria(maxits=500,
+                                              residual_atol=1e-12))
+    assert ts.stats.batch["iterations"][1] == 0
+    assert np.all(X[:, 1] == 0.0)
+    assert min(ts.stats.batch["iterations"][::2]) > 0
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_unbounded_runs_exactly_maxits(systems, pipelined):
+    sy = systems["bell"]
+    ts = BatchedDistCGSolver(sy["prob"], pipelined=pipelined, device=CPU)
+    ts.solve(sy["B"], criteria=StoppingCriteria(maxits=17))
+    assert ts.stats.niterations == 17
+    assert ts.stats.batch["iterations"] == [17, 17, 17]
+    assert ts.stats.converged
+
+
+# -- refusals --------------------------------------------------------------
+
+def _msg(fn):
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+def test_refusals_match_jax(systems):
+    sy = systems["dia"]
+    assert _msg(lambda: BatchedDistCGSolver(sy["prob"], precond="jacobi",
+                                            device=CPU)) \
+        == _msg(lambda: JaxBatched(sy["jprob"], precond="jacobi"))
+    from acg_tpu.ops.operator import poisson_stencil as jax_stencil
+    from acg_tpu.parallel.dist import arm_matfree as jax_arm
+    from acg_tpu_torch.ops.operator import poisson_stencil
+    from acg_tpu_torch.parallel.dist import arm_matfree
+    N = sy["prob"].n
+    prob = DistributedProblem.build(sy["csr"], partition_rows(
+        sy["csr"], 4, method="band"), 4, dtype=torch.float64)
+    arm_matfree(prob, poisson_stencil(16, 2, dtype=torch.float64,
+                                      device=CPU))
+    jprob = JaxProblem.build(JaxSymCsr.from_coo(
+        N, *poisson2d_coo(16)[:3]).to_csr(), partition_rows(
+            sy["csr"], 4, method="band"), 4, dtype=jnp.float64)
+    jax_arm(jprob, jax_stencil(16, 2, dtype=jnp.float64))
+    assert _msg(lambda: BatchedDistCGSolver(prob, device=CPU)) \
+        == _msg(lambda: JaxBatched(jprob))
+
+
+@pytest.mark.parametrize("kw,what", [(dict(trace=4), "telemetry.py"),
+                                     (dict(ckpt=object()), "checkpoint.py")])
+def test_unported_hooks_refused_by_name(systems, kw, what):
+    with pytest.raises(ValueError, match=what):
+        BatchedDistCGSolver(systems["dia"]["prob"], device=CPU, **kw)
+
+
+def test_diff_criteria_refused(systems):
+    from acg_tpu_torch.errors import AcgError
+    with pytest.raises(AcgError, match="residual criteria only"):
+        BatchedDistCGSolver(systems["dia"]["prob"], device=CPU).solve(
+            systems["dia"]["B"],
+            criteria=StoppingCriteria(maxits=5, diff_atol=1e-3))
+
+
+# -- the CLI -----------------------------------------------------------------
+
+_TIMED = ("total flop rate:", "total solver time:", "other:")
+
+
+def _untimed(err: str):
+    """The stats block without its timings: each op row from its count
+    on, the lines that are not times, and the timings section's keys."""
+    out = []
+    in_timings = False
+    for ln in err.splitlines():
+        s = ln.strip()
+        if ln.startswith("timings:"):
+            in_timings = True
+            out.append(ln)
+            continue
+        if in_timings and ln.startswith("  "):
+            out.append(s.split(":")[0])
+            continue
+        in_timings = False
+        if s.startswith(_TIMED):
+            continue
+        if " seconds " in s:
+            out.append(s.split(":")[0] + ":" + s.split(" seconds ")[1]
+                       .split(" B ")[0])
+        else:
+            out.append(ln)
+    return out
+
+
+_NORMS = ("right-hand side 2-norm:", "initial residual 2-norm:",
+          "residual 2-norm:", "error 2-norm:", "worst per-RHS error")
+
+
+@pytest.mark.parametrize("extra", [[], ["--solver", "acg-pipelined",
+                                        "--manufactured-solution"],
+                                   ["--precise-dots"]])
+def test_cli_matches_jax_cli(tmp_path, capsys, extra):
+    """``--nrhs 3 --nparts 4`` through both CLIs: the same stats-block
+    lines, timings excepted and the norms to rounding (1e-12), and x
+    within 1e-10."""
+    from acg_tpu.cli import main as jax_main
+    from acg_tpu_torch.cli import main as torch_main
+    from acg_tpu_torch.io.mtxfile import read_mtx
+    argv = ["gen:poisson2d:16", "--nrhs", "3", "--nparts", "4",
+            "--max-iterations", "500", "--residual-rtol", "1e-10",
+            "--warmup", "1", "-q"] + extra
+    jx, tx = tmp_path / "j.mtx", tmp_path / "t.mtx"
+    assert jax_main(argv + ["-o", str(jx)]) == 0
+    jerr = capsys.readouterr().err
+    assert torch_main(argv + ["--device", "cpu", "-o", str(tx)]) == 0
+    terr = capsys.readouterr().err
+    jl, tl = _untimed(jerr), _untimed(terr)
+    assert len(jl) == len(tl) and "batch:" in tl and "  nrhs: 3" in tl
+    for a, b in zip(jl, tl):
+        if a.strip().startswith(_NORMS):
+            va, vb = (float(v.split(":")[1].split()[0]) for v in (a, b))
+            assert vb == pytest.approx(va, rel=1e-12), (a, b)
+        else:
+            assert a == b
+    Xj, Xt = read_mtx(jx, binary=True), read_mtx(tx, binary=True)
+    assert (Xt.nrows, Xt.ncols) == (Xj.nrows, Xj.ncols) == (256, 3)
+    assert _rel(np.asarray(Xt.vals), np.asarray(Xj.vals)) <= 1e-10
+
+
+_CLI_REFUSALS = [
+    ["--nrhs", "3", "--nparts", "4", "--comm", "dma"],
+    ["--nrhs", "8", "--nparts", "4", "--comm", "nvshmem"],
+    ["--nrhs", "3", "--nparts", "4", "--operator", "stencil"],
+]
+
+
+@pytest.mark.parametrize("flags", _CLI_REFUSALS)
+def test_cli_refusals_match_jax(flags):
+    from acg_tpu.cli import main as jax_main
+    from acg_tpu_torch.cli import main as torch_main
+    msgs = []
+    for main, extra, prog in ((jax_main, [], "acg-tpu: "),
+                              (torch_main, ["--device", "cpu"],
+                               "acg-tpu-torch: ")):
+        with pytest.raises(SystemExit) as e:
+            main(["gen:poisson2d:8", "--warmup", "0", "-q"] + flags + extra)
+        msgs.append(str(e.value.code).replace(prog, ""))
+    assert msgs[0] == msgs[1]
+
+
+def test_cli_refuses_block_cg_on_parts():
+    from acg_tpu_torch.cli import main as torch_main
+    with pytest.raises(SystemExit, match="--block-cg is a single-device "
+                                         "tier"):
+        torch_main(["gen:poisson2d:8", "--device", "cpu", "--nrhs", "2",
+                    "--nparts", "2", "--block-cg"])
