@@ -596,17 +596,17 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
             f"(N={N:,} rows) does not support: {', '.join(unsupported)} "
             f"(these need a host-side matrix; use a file or a smaller "
             f"gen: spec)")
-    sharded = [flag for flag, on in [
-        (f"--nparts {args.nparts}", args.nparts > 1),
-        ("--manufactured-solution", args.manufactured_solution),
-        ("--refine", args.refine),
-    ] if on]
-    if sharded:
-        raise SystemExit(
-            f"acg-tpu-torch: {args.A} (N={N:,} rows) with "
-            f"{', '.join(sharded)}: the sharded gen-direct tier "
-            f"(parallel/sharded_dia) is not yet ported; solve on one "
-            f"part with b = ones, or raise ACG_TPU_GEN_DIRECT_MIN above N")
+    # multi-part, manufactured and refined configurations run the
+    # sharded assembly and solve (parallel/sharded_dia), as in acg_tpu
+    if args.nparts > 1 or args.manufactured_solution or args.refine:
+        if args._operator_spec is not None:
+            raise SystemExit(
+                "acg-tpu-torch: --operator does not reach the sharded "
+                "gen-direct tier (parallel/sharded_dia runs stored "
+                "planes); use the host-ingest mesh path (raise "
+                "ACG_TPU_GEN_DIRECT_MIN above N) or a single-part solve")
+        return _solve_generated_sharded(args, dim, n, N, device, dtype,
+                                        vec_dtype)
 
     t0 = time.perf_counter()
     if args._operator_spec is not None:
@@ -616,11 +616,8 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
                    f"{A.identity()}, no host matrix:", t0)
     else:
         planes, offsets, _ = poisson_dia_device(n, dim, dtype=dtype,
-                                                device=device)
-        if args.epsilon:
-            d = offsets.index(0)
-            planes[d] += torch.tensor(args.epsilon, dtype=dtype,
-                                      device=device)
+                                                device=device,
+                                                epsilon=args.epsilon)
         A = DiaMatrix(data=planes, offsets=offsets, nrows=N, ncols_padded=N)
         _log(args, f"gen-direct: {args.A} (N={N}) DIA planes assembled on "
                    f"the device, no host matrix:", t0)
@@ -650,6 +647,116 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     _log(args, "solve:", t0)
     solver.stats.fwrite(sys.stderr)
     _emit_solution(args, x)
+    return 0
+
+
+def _solve_generated_sharded(args, dim, n, N, device, dtype,
+                             vec_dtype) -> int:
+    """The sharded gen-direct tier (``acg_tpu/cli.py:2291-2470``): the
+    planes built on the device and solved over ``--nparts`` row parts
+    (one by default), b = ones or a manufactured b drawn on the device
+    with the analytic spot check, and ``--refine`` as df64 refinement on
+    the device (``parallel/sharded_dia``)."""
+    from acg_tpu_torch.errors import BreakdownError, NotConvergedError
+    from acg_tpu_torch.parallel.sharded_dia import (
+        build_sharded_poisson_solver, spot_check_manufactured)
+    from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+    if (args.refine and args.dtype not in ("f32", "mixed")
+            and not (args.dtype == "bf16" and args.replace_every)):
+        raise SystemExit(
+            "acg-tpu-torch: sharded --refine runs df64 outer residuals "
+            "over f32 inner solves; use --dtype f32/mixed, or --dtype bf16 "
+            "with --replace-every (sound-bf16 inner solves)")
+    if args.kernels == "fused":
+        raise SystemExit(
+            "acg-tpu-torch: the sharded direct-assembly path supports "
+            "--kernels auto/xla (roll formulation) or pallas (per-shard "
+            "clustered kernel + ppermute halo); 'fused' rides the "
+            "single-device and explicit-mesh (--nparts) tiers")
+    if args.replace_every and (args.diff_atol > 0 or args.diff_rtol > 0):
+        raise SystemExit(
+            "acg-tpu-torch: --replace-every supports residual criteria "
+            "only (--diff-atol/--diff-rtol have no meaning across "
+            "replacement segments)")
+    nparts = args.nparts or _default_nparts(device)
+    t0 = time.perf_counter()
+    try:
+        solver = build_sharded_poisson_solver(
+            n, dim, nparts=nparts, dtype=dtype, vector_dtype=vec_dtype,
+            pipelined="pipelined" in args.solver,
+            epsilon=args.epsilon, kernels=args.kernels, device=device,
+            **_solver_options(args))
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    _log(args, f"gen-direct: {args.A} (N={N}) sharded DIA planes assembled "
+               f"on the device ({nparts} parts, {solver.kernels}), no host "
+               f"matrix:", t0)
+    solver.stats.timings["ingest"] = time.perf_counter() - t0
+
+    xsol = None
+    if args.manufactured_solution:
+        t0 = time.perf_counter()
+        if args.refine:
+            # b in double-float: an f32-rounded b would cap the reachable
+            # error at ~1e-7
+            xsol, b = solver.manufactured_df(seed=args.seed)
+        else:
+            xsol, b = solver.manufactured(seed=args.seed)
+        _log(args, "manufactured solution (on the device):", t0)
+        if solver.stencil is not None:
+            # the analytic stencil rows on the host share nothing with the
+            # solve's SpMV; bf16 b is rounded to 8 bits by construction
+            bh = b[0] if isinstance(b, tuple) else b
+            tol = 1e-2 if bh.dtype == torch.bfloat16 else 1e-5
+            dev = spot_check_manufactured(solver, xsol, b)
+            sys.stderr.write(f"manufactured-b spot check (analytic "
+                             f"stencil rows): max rel dev {dev:.3e}\n")
+            if not dev < tol:
+                sys.stderr.write("acg-tpu-torch: manufactured b FAILED the "
+                                 "independent spot check\n")
+                return 1
+    else:
+        b = solver.ones_b()
+    criteria = StoppingCriteria(
+        maxits=args.max_iterations,
+        residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
+        diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
+    t0 = time.perf_counter()
+    xl = None
+    try:
+        if args.refine:
+            x, xl = solver.solve_refined(
+                b, criteria=criteria, inner_rtol=args.refine_rtol,
+                inner_maxits=args.refine_inner_maxits, warmup=args.warmup)
+            _log(args, f"refine: {solver.stats.nrefine} passes, "
+                       f"{solver.stats.niterations} inner iterations")
+        else:
+            x = solver.solve(b, criteria=criteria, warmup=args.warmup,
+                             host_result=False)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    except (NotConvergedError, BreakdownError) as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        solver.stats.fwrite(sys.stderr)
+        return 1
+    _log(args, "solve:", t0)
+    errs = None
+    if xsol is not None:
+        errs = (solver.error_norms_df(x, xl, xsol) if xl is not None
+                else solver.error_norms(x, xsol))
+    solver.stats.fwrite(sys.stderr)
+    if errs is not None:
+        sys.stderr.write(f"initial error 2-norm: {errs[0]:.15g}\n")
+        sys.stderr.write(f"error 2-norm: {errs[1]:.15g}\n")
+    if args.output is not None or not args.quiet:
+        # a refined solution is the df64 pair: its f64 sum carries the
+        # accuracy --refine computed
+        xv = x.to(torch.float32) if x.dtype == torch.bfloat16 else x
+        x_host = xv.cpu().numpy().astype(np.float64)
+        if xl is not None:
+            x_host = x_host + xl.cpu().numpy().astype(np.float64)
+        _emit_solution(args, x_host)
     return 0
 
 

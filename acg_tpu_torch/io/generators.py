@@ -121,12 +121,14 @@ def poisson_dia(n: int, dim: int = 2, dtype=np.float64):
             tuple(int(offsets[i]) for i in order), N)
 
 
-def poisson_dia_device(n: int, dim: int = 2, dtype=None, device=None):
+def poisson_dia_device(n: int, dim: int = 2, dtype=None, device=None,
+                       epsilon: float = 0.0):
     """Poisson DIA planes built on the device: no host matrix and no
     upload.  The same planes as :func:`poisson_dia`, bitwise, as one
     contiguous (2*dim + 1, N) tensor in ascending offset order: each
     plane is a device fill plus one strided zero write of its boundary
-    slice.  ``dtype`` defaults to float32 (``acg_tpu.io.generators.
+    slice; ``epsilon`` is added to the diagonal (``--epsilon``).
+    ``dtype`` defaults to float32 (``acg_tpu.io.generators.
     poisson_dia_device``), ``device`` to the CUDA card.
 
     Returns ``(planes, offsets, N)``."""
@@ -143,6 +145,9 @@ def poisson_dia_device(n: int, dim: int = 2, dtype=None, device=None):
     for d, off in enumerate(offsets):
         if off == 0:
             planes[d].fill_(float(2 * dim))
+            if epsilon:
+                planes[d] += torch.tensor(epsilon, dtype=dtype,
+                                          device=device)
             continue
         planes[d].fill_(-1.0)
         edge = planes[d].view(-1, n, abs(off))

@@ -296,6 +296,20 @@ def dia_mv(planes, offsets, nrows: int, x: torch.Tensor) -> torch.Tensor:
     return dia_mv_acc(planes, offsets, nrows, x).to(x.dtype)
 
 
+def dia_mv_roll(planes, offsets, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for square DIA planes via CYCLIC shifts, ``y = sum_d
+    planes[d] * roll(x, -offsets[d])`` in :func:`acc_dtype`, rounded once
+    (``acg_tpu.ops.spmv.dia_mv_roll``): equal to :func:`dia_mv` when
+    every plane is zero where its column would leave ``[0, n)`` -- true
+    of every DIA build here, so the wrapped values multiply structural
+    zeros.  The sharded gen-direct tier's plain SpMV."""
+    adt = acc_dtype(x.dtype)
+    y = torch.zeros(x.shape, dtype=adt, device=x.device)
+    for plane, off in zip(planes, offsets):
+        y = y + plane.to(adt) * torch.roll(x, -off).to(adt)
+    return y.to(x.dtype)
+
+
 def dia_from_csr(csr, dtype=torch.float64, device=None) -> DiaMatrix:
     """Convert a scipy CSR matrix to DIA planes."""
     nrows, ncols = csr.shape

@@ -151,6 +151,17 @@ class StackedLocalBlock:
                            np.where(pad, 0, tc[idx])))
         return groups
 
+    def planes(self, arrays):
+        """The (ndiags, P, nrows) planes of a DIA block, or the generated
+        planes of every part of a matfree block (``acg_tpu/parallel/
+        dist.py:116-139``)."""
+        if self.format == "dia":
+            return arrays[0]
+        row0, nowned, *tables = arrays
+        return stencil_planes(self.operator.kind, self.operator.grid,
+                              self.offsets, tuple(tables), self.nrows,
+                              self.operator.dtype, row0=row0, nowned=nowned)
+
     def mv(self, arrays, x, use_kernel: bool):
         """y = A_local @ x for all parts at once (``arrays`` from
         :meth:`to`); ``use_kernel`` takes kernel K1 for DIA blocks and
@@ -161,12 +172,7 @@ class StackedLocalBlock:
             row0, nowned, *tables = arrays
             if use_kernel and op.kind == "poisson":
                 return K.stencil_spmv(op, x, row0=row0, nowned=nowned)
-            # the generated planes of every part, then dia_mv
-            # (acg_tpu/parallel/dist.py:116-139)
-            planes = stencil_planes(op.kind, op.grid, self.offsets,
-                                    tuple(tables), self.nrows, op.dtype,
-                                    row0=row0, nowned=nowned)
-            return dia_mv(planes, self.offsets, self.nrows, x)
+            return dia_mv(self.planes(arrays), self.offsets, self.nrows, x)
         if self.format == "dia":
             planes, = arrays
             if use_kernel:
@@ -181,6 +187,33 @@ class StackedLocalBlock:
         for dst, data, cols in arrays:
             y.index_copy_(0, dst, (data.to(adt) * xf[cols].to(adt)).sum(-1))
         return y.view(x.shape).to(x.dtype)
+
+    def rows_mv(self, arrays, x, rows):
+        """The DIA, matfree or ELL SpMV of the rows ``rows`` only (int64
+        ids into the flattened (P * nrows) stack), as a (len(rows),)
+        vector: each row's products and sum in the order of :meth:`mv`'s
+        plain version, so every row is bitwise :meth:`mv`'s
+        (``local_rows_mv``, ``acg_tpu/parallel/dist.py:884-907``)."""
+        adt = acc_dtype(x.dtype)
+        n = self.nrows
+        if self.format == "ell":
+            data, cols = arrays
+            K = data.shape[-1]
+            xs = x.reshape(-1)[cols.reshape(-1, K)[rows]
+                               + (rows // n * n)[:, None]]
+            return (data.reshape(-1, K)[rows].to(adt) * xs.to(adt)).sum(
+                -1).to(x.dtype)
+        planes = self.planes(arrays)
+        L = max(0, -min(self.offsets))
+        R = max(0, max(self.offsets))
+        xp = torch.nn.functional.pad(x, (L, R)).reshape(-1)
+        # row (p, i) reads padded x at p * (L + n + R) + L + i + off
+        base = rows // n * (L + R) + rows + L
+        acc = torch.zeros(rows.shape, dtype=adt, device=x.device)
+        for d, off in enumerate(self.offsets):
+            acc = acc + (planes[d].reshape(-1)[rows].to(adt)
+                         * xp[base + off].to(adt))
+        return acc.to(x.dtype)
 
 
 @dataclasses.dataclass
@@ -525,6 +558,98 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
     return spmv
 
 
+def interior_border_split(prob: DistributedProblem) -> np.ndarray:
+    """``(nparts, imax)`` int32 interior row ids per part, ascending,
+    padded with ``nmax_owned`` (``acg_tpu/parallel/dist.py:813-842``).
+
+    A row is *border* when it couples to ghost values (it has entries in
+    the ghost block: the coupled-row list of :class:`StackedGhostBlock`);
+    every other owned row is *interior*, and its SpMV result needs
+    nothing from the halo exchange (the reference's interior/border
+    graph split, ``graph.c``)."""
+    interiors = []
+    for s in prob.subs:
+        mask = np.ones(s.nowned, dtype=bool)
+        coupled = np.flatnonzero(np.diff(s.A_ghost.indptr))
+        mask[coupled[coupled < s.nowned]] = False
+        interiors.append(np.flatnonzero(mask).astype(np.int32))
+    imax = max((r.size for r in interiors), default=0) or 1
+    out = np.full((prob.nparts, imax), prob.nmax_owned, dtype=np.int32)
+    for p, r in enumerate(interiors):
+        out[p, : r.size] = r
+    return out
+
+
+def make_dist_spmv_overlapped(prob: DistributedProblem, la, ga, halo, scnt,
+                              comm: str, irows, recv=None, side=None):
+    """The interior/border OVERLAPPED distributed SpMV of the fused tier
+    (``make_dist_spmv_overlapped``, ``acg_tpu/parallel/dist.py:845-944``):
+    the same ``spmv(x)`` as :func:`make_dist_spmv`, bitwise, for DIA, ELL
+    and matrix-free local blocks.
+
+    On the card it is aCG's host-initiated stream schedule
+    (``cgcuda.c:855-899``): an event marks x ready on the compute
+    stream; the side stream ``side`` waits for it and runs the halo
+    exchange (pack, K6 or the transpose, unpack) while the compute stream
+    runs the local block over ALL owned rows (K1 batched over parts,
+    stacked K7, or the ELL gathers: the launch of the unsplit tier); the
+    compute stream then waits for the side stream and adds the ghost
+    block's contribution.  The local block is enqueued before the halo
+    chain: the loop is host-bound, and a chain enqueued first ran alone
+    before K1 was launched (none of it hidden).  The unpacked ghost
+    vector is recorded on the compute stream before it is freed, so the
+    allocator cannot hand its memory to the side stream's next exchange
+    early; x and the receive plane ``recv`` (zeroed on the compute
+    stream) are ordered by the stream waits themselves.
+
+    On the CPU it is the reference's per-row form: the interior rows
+    (``irows``, flat ids into the (P * nrows) stack) and the border rows
+    (the ghost block's coupled rows) computed apart, copied into zeros,
+    then the ghost contribution added on the border rows."""
+    local, ghost = prob.local, prob.ghost
+    if local.format not in ("dia", "ell", "matfree"):
+        raise ValueError(f"overlapped SpMV needs DIA, ELL or matrix-free "
+                         f"local blocks (got {local.format!r})")
+    has_ghosts = prob.halo.has_ghosts
+    brows = ga[0]
+
+    def exchange(x):
+        if comm == "dma":
+            return halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
+                                     halo.ghost_valid, scnt, recv)
+        return halo_exchange(x, halo.send_idx, halo.ghost_src)
+
+    def spmv_rows(x):
+        xg = exchange(x) if has_ghosts else None
+        y = torch.zeros(x.numel(), dtype=x.dtype, device=x.device)
+        y.index_copy_(0, irows, local.rows_mv(la, x, irows))
+        y.index_copy_(0, brows, local.rows_mv(la, x, brows))
+        y = y.view(x.shape)
+        if xg is not None:
+            ghost.add_to(ga, y, xg)
+        return y
+
+    if side is not None:
+        ready, done = torch.cuda.Event(), torch.cuda.Event()
+
+    def spmv_streams(x):
+        if not has_ghosts:
+            return local.mv(la, x, True)
+        main = torch.cuda.current_stream(x.device)
+        ready.record(main)
+        y = local.mv(la, x, True)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            xg = exchange(x)
+            done.record(side)
+        main.wait_event(done)
+        xg.record_stream(main)
+        ghost.add_to(ga, y, xg)
+        return y
+
+    return spmv_rows if side is None else spmv_streams
+
+
 # options of acg_tpu's DistCGSolver that the port does not carry yet,
 # each refused by name: (keyword, value that means "off")
 _REFUSED = (("health", None), ("ckpt", None), ("recovery", None),
@@ -561,9 +686,18 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     square-root breakdown; the Chebyshev interval comes from the power
     iteration over the stacked SpMV.
 
+    ``kernels="fused"`` runs the classic and pipelined loops of
+    :mod:`acg_tpu_torch.solvers.cg` over the interior/border overlapped
+    SpMV (:func:`make_dist_spmv_overlapped`): on CUDA the halo exchange
+    runs on a side stream of its own while K1 batched over parts (or
+    stacked K7, or the ELL gathers) computes every owned row, and the
+    pipelined update is K5; on the CPU (``"fused-plain"``) the interior
+    and border rows are computed apart.  DIA, ELL and matrix-free local
+    blocks, any dtype, residual criteria; it refuses precise_dots,
+    precond, replace_every and algorithm.
+
     Not carried yet, each refused with a ValueError naming it:
-    ``health``, ``ckpt``, ``recovery``, ``trace``/``progress`` and
-    ``kernels="fused"`` (the overlapped interior/border tier).
+    ``health``, ``ckpt``, ``recovery`` and ``trace``/``progress``.
     """
 
     _what = "dist-cg"
@@ -603,10 +737,18 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             has_kernel = problem.local.format == "dia"
             kernel_ok = (problem.dtype, problem.vdtype) in K.DIA_SPMV_TYPES
         if kernels == "fused":
-            raise ValueError("kernels='fused' (the overlapped interior/"
-                             "border tier) is not ported to the multi-part "
-                             "tier yet; use kernels='auto'/'xla'/'pallas'")
-        if kernels == "auto":
+            # the fused tier (acg_tpu/parallel/dist.py:1109-1129): the
+            # classic and pipelined loops over the interior/border
+            # overlapped SpMV, which needs a per-row gather form of the
+            # local block
+            if problem.local.format not in ("dia", "ell", "matfree"):
+                raise ValueError(
+                    "kernels='fused' needs DIA, ELL or matrix-free "
+                    f"local blocks (this problem stacked "
+                    f"{problem.local.format!r}, which has no per-row "
+                    f"gather form); use kernels='auto'")
+            kernels = "fused" if on_cuda else "fused-plain"
+        elif kernels == "auto":
             kernels = ("pallas" if on_cuda and has_kernel and kernel_ok
                        else "xla")
         elif kernels == "pallas":
@@ -616,7 +758,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                                  f"with {problem.vdtype} vectors")
             if not on_cuda:
                 kernels = "pallas-plain"
-        if kernels not in ("xla", "pallas", "pallas-plain"):
+        if kernels not in ("xla", "pallas", "pallas-plain", "fused",
+                           "fused-plain"):
             raise ValueError(f"unknown kernels choice {kernels!r}")
         self.kernels = kernels
         self.precise_dots = bool(precise_dots)
@@ -671,6 +814,27 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                     f"tiers")
             if self.algo.kind == "pl":
                 self.max_restarts = rec.PL_RESTART_BUDGET
+        if kernels.startswith("fused"):
+            # the reference's fused base program threads none of these
+            # (dist.py:1253-1289); the rest are refused by _REFUSED
+            for on, what in (
+                    (self.replace_every,
+                     "replace_every (the replacement segments "
+                     "restructure the loop)"),
+                    (self.precise_dots,
+                     "precise_dots (the fused tier accumulates its "
+                     "dots in the plain scalar dtype)"),
+                    (self.precond_spec is not None,
+                     "precond (no preconditioner hook in the fused "
+                     "base program)"),
+                    (self.algo is not None,
+                     f"--algorithm {self.algo} (the CA recurrences "
+                     f"keep the unsplit SpMV; fused covers "
+                     f"classic/pipelined)")):
+                if on:
+                    raise ValueError(
+                        f"kernels='fused' (dist) does not compose with "
+                        f"{what}; use kernels='auto'/'xla'/'pallas'")
         self._mstate = None
         self.stats = SolverStats(unknowns=problem.n)
         # the matrix, halo plan and counts move to the device once
@@ -683,16 +847,31 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         self._scnt = _put(scnt, dev, torch.int32)
         if mstate is not None:
             self._mstate = state_from_numpy(self.precond_spec, mstate, dev)
+        self._irows = self._side = None
+        if kernels == "fused":
+            # the halo exchange's own stream, made once
+            self._side = torch.cuda.Stream(device=dev)
+        elif kernels == "fused-plain":
+            # the interior rows of the per-row form, uploaded once
+            split = interior_border_split(problem)
+            p, i = np.nonzero(split < problem.nmax_owned)
+            self._irows = _put(p * problem.nmax_owned + split[p, i], dev,
+                               torch.int64)
 
     def _spmv(self):
         """This solve's distributed SpMV, with a fresh zeroed receive
-        plane for the dma transport."""
+        plane for the dma transport: under ``kernels="fused"`` the
+        interior/border overlapped SpMV."""
         prob = self.problem
         recv = None
         if self.comm == "dma":
             h = prob.halo
             recv = torch.zeros((h.nparts, h.nparts, max(h.maxcnt, 1)),
                                dtype=prob.vdtype, device=self.device)
+        if self.kernels.startswith("fused"):
+            return make_dist_spmv_overlapped(
+                prob, self._la, self._ga, self._halo, self._scnt, self.comm,
+                self._irows, recv, self._side)
         return make_dist_spmv(prob, self._la, self._ga, self._halo,
                               self._scnt, self.comm,
                               self.kernels != "xla", recv)
@@ -788,6 +967,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         SpMV (a fresh zeroed receive plane each run) and psum'd dots."""
         if self.algo is not None:
             return self._ca_program(crit)
+        if self.kernels.startswith("fused") and crit.needs_diff:
+            raise ValueError("kernels='fused' supports residual "
+                             "criteria only")
         sdt = acc_dtype(self.problem.vdtype)
         ldot = make_ldot(sdt)
         pdot = make_pdot(psum, ldot, sdt, self.precise_dots)

@@ -1,0 +1,304 @@
+"""The sharded gen-direct tier: Poisson DIA planes built on the device,
+CG over parts, manufactured solutions and df64 refinement.
+
+The counterpart of ``acg_tpu/parallel/sharded_dia.py``, the route of
+the ``gen:`` specs too large for a host matrix under ``--nparts``,
+``--manufactured-solution`` or ``--refine``.  The JAX package shards
+every vector over a device mesh and lets the SPMD partitioner derive
+the halo from the cyclic-shift SpMV; the port keeps the vectors whole on
+one device, as ``(N,)`` tensors, so the dots, updates and kernels are
+the single-device tier's:
+
+* the counterpart of ``PallasRollSpmv`` is kernel K1 on the whole
+  planes, for every ``nparts``: on one device the parts share one
+  memory, and K1 over all rows gives the bits of K1 over each part's
+  halo'd window without copying the windows;
+* the roll SpMV (:func:`acg_tpu_torch.ops.spmv.dia_mv_roll`) is the
+  plain version, and the CPU's;
+* the df64 residual (:func:`dia_mv_roll_df`) makes the refinement's
+  outer residual f64-class over f32 arrays.
+
+The manufactured solution is drawn on the device from a seeded
+``torch.Generator``, so a ``--seed`` gives another x than the JAX
+package's ``jax.random`` draw; the solvers take an explicit x for
+parity runs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from acg_tpu_torch.errors import NotConvergedError
+from acg_tpu_torch.io.generators import poisson_dia_device
+from acg_tpu_torch.ops.precision import df_add, two_prod, two_sum
+from acg_tpu_torch.ops.spmv import DiaMatrix, acc_dtype, dia_mv_roll
+from acg_tpu_torch.parallel.dist import _REFUSED
+from acg_tpu_torch.solvers.cg import TorchCGSolver, _spmv_fn
+from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+
+def dia_mv_roll_df(planes, offsets, xh, xl):
+    """``y = A x`` in double-float (df64) arithmetic over the roll
+    formulation (``acg_tpu/parallel/sharded_dia.py:43-66``): x rides as
+    an (hi, lo) f32 pair, every product is Dekker's two-product and every
+    sum Knuth's two-sum, so ``(yh, yl)`` carries ~48 mantissa bits while
+    every tensor stays f32.  The Poisson plane values (-1, 2d) are exact
+    in f32 and bf16, so promoting the planes loses nothing."""
+    sdt = torch.float32
+    yh = torch.zeros(xh.shape, dtype=sdt, device=xh.device)
+    yl = torch.zeros_like(yh)
+    for plane, off in zip(planes, offsets):
+        v = plane.to(sdt)
+        ph, pe = two_prod(v, torch.roll(xh, -off).to(sdt))
+        pe = pe + v * torch.roll(xl, -off).to(sdt)
+        yh, yl = df_add((yh, yl), (ph, pe))
+    return yh, yl
+
+
+def _roll_spmv(A, x):
+    return dia_mv_roll(A.data, A.offsets, x)
+
+
+class ShardedDiaCGSolver(TorchCGSolver):
+    """CG over square DIA planes on ``nparts`` row parts
+    (``acg_tpu.parallel.sharded_dia.ShardedDiaCGSolver``): the
+    single-device solver's programs over K1 on the whole planes
+    (``kernels="auto"`` on CUDA, or ``"pallas-roll"``: its plain version
+    for CPU tensors) or over the roll SpMV (``"auto"`` on the CPU, or
+    ``"xla-roll"``).  ``precond``,
+    ``replace_every`` and ``algorithm`` ride those programs as on one
+    device.  ``stencil`` = ``(n, dim)`` of the generating Poisson grid
+    arms :func:`spot_check_manufactured`.  Not carried yet, each refused
+    with a ValueError naming it: ``health``, ``ckpt``, ``recovery`` and
+    ``trace``/``progress``."""
+
+    def __init__(self, A: DiaMatrix, nparts: int = 1,
+                 pipelined: bool = False, precise_dots: bool = False,
+                 vector_dtype=None, stencil=None, replace_every: int = 0,
+                 replace_restart: bool = True, precond=None, algorithm=None,
+                 kernels: str = "auto", device=None, **options):
+        if kernels not in ("auto", "xla-roll", "pallas-roll"):
+            raise ValueError(f"unknown sharded kernels choice {kernels!r} "
+                             f"(auto, xla-roll or pallas-roll)")
+        for name, off in _REFUSED:
+            if options.pop(name, off) not in (off,):
+                raise ValueError(f"ShardedDiaCGSolver: {name} is not "
+                                 f"ported to the sharded tier yet")
+        if options:
+            raise TypeError(f"ShardedDiaCGSolver: unexpected options "
+                            f"{sorted(options)}")
+        if A.ncols_padded != A.nrows:
+            raise ValueError("sharded DIA solve needs a square matrix")
+        super().__init__(A, pipelined=pipelined, kernels="xla",
+                         vector_dtype=vector_dtype, device=device,
+                         precise_dots=precise_dots,
+                         replace_every=replace_every,
+                         replace_restart=replace_restart, precond=precond,
+                         algorithm=algorithm)
+        on_cuda = self.device.type == "cuda"
+        if kernels == "auto":
+            kernels = "pallas-roll" if on_cuda else "xla-roll"
+        elif kernels == "pallas-roll" and not on_cuda:
+            kernels = "pallas-roll-plain"
+        self.kernels = kernels
+        self.nparts = int(nparts)
+        self.stencil = stencil
+
+    def _spmv_of(self):
+        if self.kernels == "xla-roll":
+            return _roll_spmv
+        return _spmv_fn("pallas")
+
+    def _manufactured_x(self, seed: int, dtype, xsol):
+        if xsol is not None:
+            if not isinstance(xsol, torch.Tensor):
+                xsol = torch.from_numpy(np.array(xsol))
+            return xsol.to(self.device, dtype)
+        sdt = acc_dtype(dtype)
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        x = torch.randn(self.A.nrows, generator=g, dtype=sdt,
+                        device=self.device)
+        return (x / torch.linalg.norm(x)).to(dtype)
+
+    def ones_b(self, dtype=None) -> torch.Tensor:
+        """The all-ones right-hand side (the CLI default b)."""
+        return torch.ones(self.A.nrows, dtype=dtype or self._vector_dtype(),
+                          device=self.device)
+
+    def manufactured(self, seed: int = 42, xsol=None):
+        """``(xsol, b)`` on the device: a random unit-norm solution drawn
+        from a generator seeded with ``seed`` (or ``xsol`` as it is) and
+        ``b = A xsol`` through the roll SpMV (``sharded_dia.py:418-449``).
+        The replacement tier's b is f32, as its outer iteration is."""
+        dtype = torch.float32 if self.replace_every else \
+            self._vector_dtype()
+        x = self._manufactured_x(seed, dtype, xsol)
+        return x, dia_mv_roll(self.A.data, self.A.offsets, x)
+
+    def manufactured_df(self, seed: int = 42, xsol=None):
+        """``(xsol, (bh, bl))``: an f32 manufactured solution with b in
+        double-float, the right-hand side of f64-grade refinement targets
+        (an f32-rounded b caps the reachable error at ~1e-7)."""
+        x = self._manufactured_x(seed, torch.float32, xsol)
+        return x, dia_mv_roll_df(self.A.data, self.A.offsets, x,
+                                 torch.zeros_like(x))
+
+    def error_norms(self, x, xsol):
+        """``(err0, err)``: the initial and final solution error 2-norms."""
+        sdt = acc_dtype(x.dtype)
+        return (float(torch.linalg.norm(xsol.to(sdt))),
+                float(torch.linalg.norm((x - xsol).to(sdt))))
+
+    def error_norms_df(self, xh, xl, xsol):
+        """The error norms of a df64 iterate against an f32 xsol, without
+        leaving df precision: ``|| (xh - xsol) + xl ||``."""
+        dh, dl = two_sum(xh, -xsol)
+        return (float(torch.linalg.norm(xsol)),
+                float(torch.linalg.norm(dh + (dl + xl))))
+
+    def solve_refined(self, b, criteria=None, inner_rtol: float = 1e-5,
+                      warmup: int = 0, max_passes: int = 40,
+                      inner_maxits: int | None = None):
+        """Iterative refinement on the device (``sharded_dia.py:
+        473-601``): a df64 outer residual through :func:`dia_mv_roll_df`
+        over the whole planes, inner solves of this solver's programs,
+        and a df64 solution accumulator.  ``b`` is an f32 tensor or a
+        ``(bh, bl)`` df64 pair (:meth:`manufactured_df`).  Returns the
+        ``(hi, lo)`` solution pair."""
+        crit = criteria or StoppingCriteria()
+        bh, bl = b if isinstance(b, tuple) else (b.to(torch.float32), None)
+        bl = torch.zeros_like(bh) if bl is None else bl
+        planes, offsets = self.A.data, self.A.offsets
+
+        def residual(xh, xl):
+            ah, al = dia_mv_roll_df(planes, offsets, xh, xl)
+            rh, rl = df_add((bh, bl), (-ah, -al))
+            return rh, rl, float(torch.linalg.norm(rh))
+
+        st = self.stats
+        st.criteria = crit
+        t0 = time.perf_counter()
+        xh, xl = torch.zeros_like(bh), torch.zeros_like(bh)
+        rh, rl, r0nrm = residual(xh, xl)
+        st.r0nrm2 = r0nrm
+        st.bnrm2 = r0nrm   # x0 = 0: r0 == b
+        st.x0nrm2 = 0.0
+        res_tol = max(crit.residual_atol, crit.residual_rtol * r0nrm)
+        unbounded = res_tol <= 0
+        total_inner = npasses = 0
+        rnrm = r0nrm
+        stalled = False
+        converged = (not unbounded) and rnrm < res_tol
+        while (not converged and not stalled and npasses < max_passes
+               and total_inner < crit.maxits):
+            budget = crit.maxits - total_inner
+            inner_crit = StoppingCriteria(
+                maxits=min(inner_maxits or budget, budget),
+                residual_rtol=inner_rtol)
+            self.stats = type(st)(unknowns=st.unknowns)
+            try:
+                d = super().solve(rh, criteria=inner_crit,
+                                  raise_on_divergence=False, warmup=warmup,
+                                  host_result=False)
+            finally:
+                inner_iters = self.stats.niterations
+                self.stats = st
+            warmup = 0
+            xh_new, xl_new = df_add((xh, xl), (d.to(torch.float32),
+                                               torch.zeros_like(xh)))
+            rh2, rl2, rnrm_new = residual(xh_new, xl_new)
+            npasses += 1
+            total_inner += inner_iters
+            # `not (new < old)`: a NaN residual (a diverged inner solve)
+            # keeps the better iterate and stops too
+            if not rnrm_new < rnrm:
+                stalled = True
+            else:
+                xh, xl, rh, rl = xh_new, xl_new, rh2, rl2
+                if rnrm_new >= 0.5 * rnrm:
+                    stalled = True   # the inner accuracy is exhausted
+                rnrm = rnrm_new
+            converged = (not unbounded) and rnrm < res_tol
+        if unbounded:
+            converged = True
+        st.tsolve += time.perf_counter() - t0
+        st.nsolves += 1
+        st.nrefine = npasses
+        st.niterations = total_inner
+        st.ntotaliterations += total_inner
+        st.rnrm2 = rnrm
+        st.dxnrm2 = float("inf")
+        st.converged = bool(converged)
+        st.fexcept_arrays = [np.asarray([0.0])]
+        if not converged:
+            raise NotConvergedError(
+                f"sharded refinement stalled after {npasses} passes "
+                f"({total_inner} inner iterations), residual {rnrm:.3e}")
+        return xh, xl
+
+
+def spot_check_manufactured(solver, xsol, b, nsample: int = 64,
+                            seed: int = 0) -> float:
+    """An independent check of a manufactured right-hand side
+    (``sharded_dia.py:604-651``): sample rows, recompute each b_i on the
+    host in f64 from the analytic stencil (2d x_i minus the in-bounds axis
+    neighbours) and return the largest deviation from the device b,
+    relative to max |b|.  Nothing is shared with the device SpMV; only
+    the sampled entries leave the device."""
+    n, dim = solver.stencil
+    N = solver.A.nrows
+    rng = np.random.default_rng(seed)
+    rows = np.unique(rng.integers(0, N, size=nsample))
+    offs = [s for a in range(dim) for s in (-(n ** a), n ** a)]
+    need = [rows]
+    valid = {}
+    for off in offs:
+        coord = (rows // abs(off)) % n
+        ok = coord > 0 if off < 0 else coord < n - 1
+        valid[off] = ok
+        need.append(np.where(ok, rows + off, rows))
+    need_idx = np.unique(np.concatenate(need))
+    bh = b[0] if isinstance(b, tuple) else b
+    dev = xsol.device
+    xv = xsol[torch.from_numpy(need_idx).to(dev)].double().cpu().numpy()
+    bv = bh[torch.from_numpy(rows).to(dev)].double().cpu().numpy()
+    lut = {int(g): k for k, g in enumerate(need_idx)}
+    expect = 2.0 * dim * xv[[lut[int(i)] for i in rows]]
+    for off in offs:
+        expect = expect - np.array([xv[lut[int(i + off)]] if ok else 0.0
+                                    for i, ok in zip(rows, valid[off])])
+    scale = float(np.max(np.abs(bv)) or 1.0)
+    return float(np.max(np.abs(bv - expect)) / scale)
+
+
+def build_sharded_poisson_solver(n: int, dim: int, nparts: int = 1,
+                                 dtype=torch.float32, vector_dtype=None,
+                                 pipelined: bool = False,
+                                 precise_dots: bool = False,
+                                 epsilon: float = 0.0,
+                                 replace_every: int = 0,
+                                 replace_restart: bool = True,
+                                 kernels: str = "auto", precond=None,
+                                 algorithm=None, device=None, **options):
+    """The planes of ``gen:poisson{dim}d:{n}`` on the device and their
+    sharded solver (``sharded_dia.py:654-702``).  ``kernels``: ``"auto"``
+    takes K1 on the whole planes on CUDA, for any ``nparts``, and the
+    roll SpMV on the CPU; ``"pallas"`` (``"pallas-roll"``) K1 (its plain
+    version on the CPU); ``"xla"`` (``"xla-roll"``) the roll SpMV.  K1
+    refuses a dtype pair it has no kernel for.  ``epsilon`` shifts the
+    diagonal and drops the analytic spot check (its stencil is
+    unshifted)."""
+    kernels = {"xla": "xla-roll", "pallas": "pallas-roll"}.get(kernels,
+                                                              kernels)
+    planes, offsets, N = poisson_dia_device(n, dim, dtype=dtype,
+                                            device=device, epsilon=epsilon)
+    A = DiaMatrix(data=planes, offsets=offsets, nrows=N, ncols_padded=N)
+    return ShardedDiaCGSolver(
+        A, nparts=nparts, pipelined=pipelined, precise_dots=precise_dots,
+        vector_dtype=vector_dtype, stencil=None if epsilon else (n, dim),
+        replace_every=replace_every, replace_restart=replace_restart,
+        precond=precond, algorithm=algorithm, kernels=kernels,
+        device=device, **options)

@@ -152,7 +152,11 @@ def _spmv_fn(kernels: str):
     DIA kernel K1 for square DIA matrices and the stencil kernel K7 for
     constant-coefficient Poisson operators (plain versions for CPU
     tensors), the plain PyTorch formulation otherwise (other operators:
-    their own apply, ``acg_tpu/ops/pallas_kernels.py:798-800``)."""
+    their own apply, ``acg_tpu/ops/pallas_kernels.py:798-800``).  A
+    callable ``kernels`` is the SpMV ``f(A, x)`` itself (the sharded
+    tier's windowed or roll SpMV)."""
+    if callable(kernels):
+        return kernels
     if kernels == "xla":
         return spmv
 
@@ -814,6 +818,10 @@ class TorchCGSolver(ChunkedCGSolver):
             self._spmv_flops_cache = spmv_flops(self.A)
         return self._spmv_flops_cache
 
+    def _spmv_of(self):
+        """The SpMV ``f(A, x)`` of this solver's programs."""
+        return _spmv_fn(self.kernels)
+
     def _vector_dtype(self):
         """The vector storage dtype: the matrix dtype unless
         ``vector_dtype`` overrides it."""
@@ -837,7 +845,7 @@ class TorchCGSolver(ChunkedCGSolver):
         if self.precond_spec is None or self._mstate is not None:
             return self._mstate
         self._mstate = setup_single(self.precond_spec, self.A,
-                                    _spmv_fn(self.kernels),
+                                    self._spmv_of(),
                                     acc_dtype(self._solve_dtype()))
         return self._mstate
 
@@ -849,7 +857,7 @@ class TorchCGSolver(ChunkedCGSolver):
         if self._lam is None:
             from acg_tpu_torch.recurrence import estimate_lam
             if self.algo is not None and self.algo.needs_lam:
-                spmv_ = _spmv_fn(self.kernels)
+                spmv_ = self._spmv_of()
                 self._lam = estimate_lam(
                     lambda v: spmv_(self.A, v), self.A.nrows,
                     acc_dtype(self._solve_dtype()), self.device)
@@ -868,7 +876,7 @@ class TorchCGSolver(ChunkedCGSolver):
                     f"||dx|| scalar)")
             lam = self._ensure_lam()
             dot, sdt = _scalar_setup(self._solve_dtype())
-            ops = rec.single_ops(A, kernels, dot, sdt)
+            ops = rec.single_ops(A, self._spmv_of(), dot, sdt)
             algo = self.algo
             if algo.kind == "sstep":
                 return lambda b, x0: rec._cg_sstep_program(
@@ -880,7 +888,7 @@ class TorchCGSolver(ChunkedCGSolver):
                 raise ValueError("kernels='fused' supports residual "
                                  "criteria only")
             return lambda b, x0: _cg_fused_program(A, b, x0, crit, kernels)
-        spmv_ = _spmv_fn(kernels)
+        spmv_ = self._spmv_of()
 
         def spmv(x):
             return spmv_(A, x)
@@ -907,7 +915,8 @@ class TorchCGSolver(ChunkedCGSolver):
                 spmv, dot, _dotk(dot), b, x0, crit, papply)
         if self.pipelined:
             return lambda b, x0: _cg_pipelined_program(
-                spmv, dot, _dotk(dot), b, x0, crit, kernels != "xla")
+                spmv, dot, _dotk(dot), b, x0, crit,
+                not kernels.startswith("xla"))
         return lambda b, x0: _cg_program(spmv, dot, b, x0, crit, papply,
                                          _dotk(dot))
 

@@ -93,7 +93,22 @@ checkout it sits in.  Phases, each of which raises on failure:
    dma and xla (the same bits; K6 and batched K1 once per SpMV, counted
    exactly); (ab) --nparts 4 --nrhs 8 classic (each column against the
    stacked single solve, the library's batched solve the same bits, no
-   kernel) and pipelined;
+   kernel) and pipelined; then the overlapped and sharded tiers: (ac)
+   --nparts 4 --kernels fused (the halo exchange on a side stream beside
+   batched K1) classic f64 under dma through the CLI, and under dma
+   again and xla through DistCGSolver on the same parts and right-hand
+   side (path (e)'s iterations and bits each, batched K1 and K6 once per
+   SpMV), pipelined under dma against (g) (K5), --operator stencil
+   against (k) (stacked K7), ELL local blocks on gen:poisson2d:512
+   --partition-method graph against the unsplit tier, and path (h)'s
+   binned ELL refused by name; (ad) gen:poisson3d:512 --nparts 4, 300
+   iterations on the sharded tier (K1 on the whole planes, 301
+   launches), x bitwise-equal to (l)'s; (ae) the north star,
+   gen:poisson3d:512 --dtype f32 --manufactured-solution --refine
+   --residual-rtol 1e-9 (the analytic spot check under 1e-5, converged,
+   K1 alone at least once per inner iteration and pass, the df64 error
+   norm under 1e-9, passes and inner iterations; beside it the same
+   refine of an f32-rounded b, whose error the 1e-9 limit rejects);
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -122,7 +137,13 @@ checkout it sits in.  Phases, each of which raises on failure:
    the timed solves against their iterations), a profile of sstep:4,
    sstep:4 on the 4 parts (--comm dma) beside the 4-part classic with a
    profile, and --nparts 4 --nrhs 8 classic and pipelined as
-   column-iterations/s.  K1, K3, K4, K6 and K7 are also timed with L2
+   column-iterations/s; the 4-part classic f64 rates with --kernels
+   fused beside the unsplit ones on each transport, in turns, and a
+   trace of the fused dma solve by stream (the streams of K1 and K6, the
+   halo chain's device time and the share of it under K1); the sharded
+   512^3 rate on 4 parts beside the single part's.  The
+   --nrhs 8 rates take one timed solve each.  K1, K3, K4, K6 and K7 are
+   also timed with L2
    flushed by reading (clean_l2_ms), K4 and K7 beside a copy of their
    bytes (copy_ms).
 
@@ -956,6 +977,8 @@ def main_path(torch, K, tmp, csr, irr, prob):
     paths.update(batched_paths(torch, K, tmp, base, csr, paths))
     paths.update(ca_paths(torch, K, tmp, base, b, csr))
     paths.update(dist_batched_paths(torch, K, tmp, base, csr, prob))
+    paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
+    paths.update(north_star_path(torch, K, tmp))
     return paths
 
 
@@ -1226,8 +1249,31 @@ def gen_direct_paths(torch, K, tmp):
     same = np.array_equal(xs[0], xs[1])
     say(f"path l: operator x bitwise equal to assembled x = {same}")
     check(same, "path l: operator == assembled, bitwise")
+    # (ad) the sharded tier: the same solve over 4 parts, K1 on the whole
+    # planes; the vectors and dots are the single part's, so x is path
+    # (l)'s, bitwise
+    x_out = os.path.join(tmp, "ad.bin")
+    torch.cuda.reset_peak_memory_stats()
+    rc, text, c = run_cli(torch, K, argv + ["--nparts", str(NPARTS), "-o",
+                                            x_out], "ad-sharded-4part")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    direct = [ln for ln in text.splitlines() if "gen-direct" in ln]
+    x = read_x(x_out)
+    os.remove(x_out)
+    same = np.array_equal(x, xs[0])
+    say(f"path ad: {stat(text, 'iterations')} iterations, solver time "
+        f"{stat(text, 'total solver time')}, K1 launches "
+        f"{c['dia_spmv']}, peak device memory {peak:.2f} GiB, x "
+        f"bitwise equal to path l = {same}; "
+        f"{direct[0] if direct else 'no gen-direct line'}")
+    check(rc == 0 and direct and "sharded" in direct[0]
+          and "pallas-roll" in direct[0],
+          "path ad took the sharded tier's K1")
+    check(c["dia_spmv"] == 301 and sum(c.values()) == 301,
+          "path ad: 301 launches of K1 and no other kernel")
+    check(same, "path ad == path l, bitwise")
     return {"l": {k: counts["l-assembled"][k] + counts["l-operator"][k]
-                  for k in counts["l-assembled"]}}
+                  for k in counts["l-assembled"]}, "ad": c}
 
 
 def reproducible_gather_paths(torch, K, tmp, irr):
@@ -1317,6 +1363,7 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
         "--comm", "dma", "--solver", "acg-pipelined", "-o", out],
         "g-4part-dma-pipelined-f64")
     its = int(stat(text, "iterations").replace(",", ""))
+    ITS["g"] = its
     res = true_rel_residual(csr, b, read_x(out))
     say(f"path g: {its} iterations, true relative residual {res:.3e} "
         f"(limit 1e-6), solver time {stat(text, 'total solver time')}")
@@ -1843,6 +1890,211 @@ def dist_batched_paths(torch, K, tmp, base, csr, prob):
     return out
 
 
+# -- phase 3 (ac)-(ae): the fused multi-part tier and the sharded tier ------
+
+def fused_dist_paths(torch, K, tmp, base, csr, prob, irr):
+    """(ac): --nparts 4 --kernels fused, the classic and pipelined loops
+    over the interior/border overlapped SpMV (the halo
+    exchange on a side stream beside K1): classic f64 under dma through
+    the CLI, then through DistCGSolver on the same band parts and
+    right-hand side under dma again and under xla, each with path (e)'s
+    iterations and bits, batched K1 and (dma) K6 once per SpMV;
+    pipelined under dma against (g); --operator stencil against (k) with
+    stacked K7; ELL local blocks on a graph partition against the
+    unsplit tier; and path (h)'s binned-ELL blocks refused by name."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+    from acg_tpu_torch.solvers.cg import CHUNK
+
+    mp = base + ["--nparts", str(NPARTS), "--manufactured-solution",
+                 "--residual-rtol", "1e-8", "--max-iterations", "20000",
+                 "--kernels", "fused"]
+    x_e = read_x(os.path.join(tmp, "e.bin"))
+    out = {}
+
+    def per_spmv(c, name, nspmv):
+        return nspmv <= c[name] <= nspmv + CHUNK
+
+    def api(tag, comm, pipelined=False):
+        """One solve of the CLI's right-hand side through DistCGSolver,
+        the launch counters reset just before and read just after."""
+        s = DistCGSolver(prob, comm=comm, kernels="fused",
+                         pipelined=pipelined, device=torch.device("cuda"))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        x = s.solve(b_cli, criteria=StoppingCriteria(maxits=20000,
+                                                     residual_rtol=1e-8))
+        torch.cuda.synchronize()
+        c = dict(K.launches)
+        say(f"path {tag}: DistCGSolver(comm={comm!r}, kernels='fused', "
+            f"pipelined={pipelined}) wall {time.perf_counter() - t0:.1f} s, "
+            f"launches {c}")
+        return s.stats.niterations, x, c
+
+    # the CLI's --manufactured-solution right-hand side, as it makes it
+    xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
+    xsol /= np.linalg.norm(xsol)
+    b_cli = synthesize_host_matrix(MAIN_SPEC).dsymv(xsol)
+    x_out = os.path.join(tmp, "ac-dma.bin")
+    rc, text, c = run_cli(torch, K, mp + ["--comm", "dma", "-o", x_out],
+                          "ac-dma")
+    runs = {"ac-dma": (rc, int(stat(text, "iterations").replace(",", "")),
+                       read_x(x_out), c)}
+    for tag, comm in (("ac-dma-again", "dma"), ("ac-xla", "xla")):
+        its, x, c = api(tag, comm)
+        runs[tag] = (0, its, x, c)
+    for tag, (rc, its, x, c) in runs.items():
+        same = np.array_equal(x, x_e)
+        say(f"path {tag}: {its} iterations (path e: {ITS['e']}), x bitwise "
+            f"equal to path e = {same}")
+        check(rc == 0 and its == ITS["e"] and same,
+              f"path {tag} == path e: iterations and bits")
+        k6 = its + 1 if "dma" in tag else 0
+        check(per_spmv(c, "dia_spmv_batched", its + 1)
+              and (per_spmv(c, "halo_put", k6) if k6 else
+                   c["halo_put"] == 0)
+              and c["pipelined_update"] == 0,
+              f"path {tag}: batched K1 once per SpMV, K6 "
+              f"{'once per SpMV' if k6 else 'never'}")
+        out[tag] = c
+    check(np.array_equal(runs["ac-dma"][2], runs["ac-dma-again"][2]),
+          "path ac: the same bits twice")
+
+    # pipelined on the one-sided transport, against path (g)
+    its, xp, c = api("ac-pipelined", "dma", pipelined=True)
+    xg = read_x(os.path.join(tmp, "g.bin"))
+    rel = float(np.linalg.norm(xp - xg) / np.linalg.norm(xg))
+    say(f"path ac-pipelined: {its} iterations (path g: {ITS['g']}), x vs "
+        f"path g rel {rel:.3e} (limit 1e-10; bitwise equal = "
+        f"{np.array_equal(xp, xg)}), K5 {c['pipelined_update']}, K6 "
+        f"{c['halo_put']}, batched K1 {c['dia_spmv_batched']}")
+    check(its == ITS["g"] and rel <= 1e-10,
+          "path ac-pipelined: path g's iterations, x within 1e-10")
+    check(c["pipelined_update"] >= its and per_spmv(c, "halo_put", its + 2)
+          and per_spmv(c, "dia_spmv_batched", its + 2),
+          "path ac-pipelined went through K5, K6 and batched K1")
+    out["ac-pipelined"] = c
+
+    # matrix-free local blocks: stacked K7 in place of K1, against (k)
+    x_out = os.path.join(tmp, "ac-stencil.bin")
+    rc, text, c = run_cli(torch, K, mp + ["--comm", "dma", "--operator",
+                                          "stencil", "-o", x_out],
+                          "ac-stencil-dma")
+    its = int(stat(text, "iterations").replace(",", ""))
+    same = np.array_equal(read_x(x_out), read_x(os.path.join(tmp, "k.bin")))
+    say(f"path ac-stencil: {its} iterations, x bitwise equal to path k = "
+        f"{same}; stacked K7 {c['stencil_spmv_batched']}, K6 "
+        f"{c['halo_put']}, batched K1 {c['dia_spmv_batched']}")
+    check(rc == 0 and its == ITS["e"] and same,
+          "path ac-stencil == path k: iterations and bits")
+    check(per_spmv(c, "stencil_spmv_batched", its + 1)
+          and per_spmv(c, "halo_put", its + 1)
+          and c["dia_spmv_batched"] == 0,
+          "path ac-stencil: stacked K7 and K6 once per SpMV, no K1")
+    out["ac-stencil"] = c
+
+    # ELL local blocks on a graph partition (no K1: the gathers run on
+    # the compute stream), against the unsplit tier
+    argv = [HOST_SPEC, "--warmup", "0", "-q", "--nparts", str(NPARTS),
+            "--partition-method", "graph", "--comm", "dma",
+            "--manufactured-solution", "--residual-rtol", "1e-8",
+            "--max-iterations", "20000"]
+    runs = {}
+    for tag, kern in (("ac-ell-fused", "fused"), ("ac-ell-auto", "auto")):
+        x_out = os.path.join(tmp, f"{tag}.bin")
+        rc, text, c = run_cli(torch, K, argv + ["--kernels", kern, "-o",
+                                                x_out], tag)
+        check(rc == 0, f"path {tag} converged")
+        runs[tag] = (int(stat(text, "iterations").replace(",", "")),
+                     read_x(x_out), c)
+    (i1, x1, c1), (i2, x2, _) = runs["ac-ell-fused"], runs["ac-ell-auto"]
+    same = i1 == i2 and np.array_equal(x1, x2)
+    say(f"path ac-ell: {HOST_SPEC} graph partition, fused {i1} / unsplit "
+        f"{i2} iterations, x bitwise equal = {same}; K6 {c1['halo_put']}, "
+        f"batched K1 {c1['dia_spmv_batched']}")
+    check(same and per_spmv(c1, "halo_put", i1 + 1)
+          and c1["dia_spmv_batched"] == 0,
+          "path ac-ell: ELL blocks, the unsplit bits, K6 once per SpMV")
+    out["ac-ell"] = c1
+
+    # path (h)'s binned-ELL local blocks have no per-row form: refused
+    _, iprob = irr
+    try:
+        DistCGSolver(iprob, comm="dma", kernels="fused",
+                     device=torch.device("cuda"))
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    say(f"path ac-h: {iprob.local.format} local blocks with --kernels "
+        f"fused: {msg}")
+    check(iprob.local.format == "binnedell" and msg is not None
+          and "kernels='fused' needs DIA, ELL or matrix-free" in msg,
+          "path ac-h: binned ELL refused by name")
+    return out
+
+
+def north_star_path(torch, K, tmp):
+    """(ae): the north star, gen:poisson3d:512 --dtype f32
+    --manufactured-solution --refine --residual-rtol 1e-9 on the sharded
+    gen-direct tier: the analytic spot check of the device-drawn b under
+    1e-5, converged, K1 alone at least once per inner iteration and
+    pass, the df64 error norm under 1e-9, passes and inner iterations.
+    Beside it the same refine through the API of the same x with an
+    f32-rounded b (``manufactured``, not ``manufactured_df``): its error
+    must lie above the limit, so the limit tells a df64 b from an f32
+    one."""
+    from acg_tpu_torch.parallel.sharded_dia import \
+        build_sharded_poisson_solver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    spec = f"gen:poisson3d:{DIRECT_N}"
+    limit = 1e-9
+    torch.cuda.reset_peak_memory_stats()
+    rc, text, c = run_cli(torch, K, [
+        spec, "--dtype", "f32", "--manufactured-solution", "--refine",
+        "--residual-rtol", "1e-9", "--max-iterations", "20000",
+        "--warmup", "0", "-q", "-v"], "ae-north-star")
+    dev = float(text.split("max rel dev ")[1].split()[0])
+    err = [ln for ln in text.splitlines() if ln.startswith("error 2-norm:")]
+    passes = [ln for ln in text.splitlines() if ln.startswith("refine:")]
+    say(f"path ae: {spec} f32 --refine: spot check max rel dev {dev:.3e} "
+        f"(limit 1e-5); {passes[0] if passes else 'no refine line'}; "
+        f"{err[0] if err else 'no error line'}; solver time "
+        f"{stat(text, 'total solver time')}; residual "
+        f"{stat(text, 'residual 2-norm')} of "
+        f"{stat(text, 'initial residual 2-norm')}; K1 {c['dia_spmv']}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(dev < 1e-5, "path ae: the spot check")
+    check(rc == 0 and bool(err) and bool(passes), "path ae converged")
+    words = passes[0].split()
+    npass, inner = int(words[1]), int(words[3])
+    check(c["dia_spmv"] >= inner + npass
+          and sum(c.values()) == c["dia_spmv"],
+          f"path ae: K1 ({c['dia_spmv']}) at least once per inner "
+          f"iteration and pass ({inner} + {npass}), no other kernel")
+    e = float(err[0].split(":")[1])
+    check(np.isfinite(e) and e < limit,
+          f"path ae: the df64 error norm under {limit:g}")
+    s = build_sharded_poisson_solver(DIRECT_N, 3, dtype=torch.float32,
+                                     device=torch.device("cuda"))
+    xsol, b = s.manufactured(seed=42)
+    t0 = time.perf_counter()
+    xh, xl = s.solve_refined(b, criteria=StoppingCriteria(
+        maxits=20000, residual_rtol=1e-9))
+    e32 = s.error_norms_df(xh, xl, xsol)[1]
+    say(f"path ae-f32b: the same x with an f32-rounded b: "
+        f"{s.stats.nrefine} passes, {s.stats.niterations} inner "
+        f"iterations, {time.perf_counter() - t0:.2f} s, error 2-norm "
+        f"{e32:.4g} against {e:.4g} with the df64 b (limit {limit:g})")
+    check(e32 > limit, f"path ae-f32b: an f32-rounded b's error above "
+                       f"{limit:g}")
+    del s, xsol, b, xh, xl
+    torch.cuda.empty_cache()
+    return {"ae": c}
+
+
 # -- phase 4: times --------------------------------------------------------
 
 def rate_runs(s, n: int, nruns: int = 3, nits: int = 1000,
@@ -1964,7 +2216,7 @@ def precision_rates(torch, dev, card):
 def batched_rates(torch, dev, card):
     """Fixed-iteration rates of --nrhs 8 on the flagship, f64: the
     batched classic and pipelined modes and block CG, 300 iterations
-    after a 50-iteration warm-up, three timed solves each, as loop
+    after a 50-iteration warm-up, BATCHED_RUNS timed solves each, as loop
     iterations/s and column-iterations/s (x 8); then one batched classic
     solve under torch.profiler."""
     from acg_tpu_torch.io.generators import batched_rhs, poisson_dia
@@ -1982,7 +2234,7 @@ def batched_rates(torch, dev, card):
         s = BatchedCGSolver(A, mode=mode, device=dev)
         s.solve(B, criteria=StoppingCriteria(maxits=50))
         runs = []
-        for _ in range(3):
+        for _ in range(BATCHED_RUNS):
             s.stats.tsolve = 0.0
             s.solve(B, criteria=StoppingCriteria(maxits=nits))
             runs.append(nits / s.stats.tsolve)
@@ -1998,6 +2250,10 @@ def batched_rates(torch, dev, card):
         del s
         torch.cuda.empty_cache()
 
+
+# timed solves of each --nrhs 8 rate: one, since the three of each row
+# agreed to 0.1 % in every run that recorded them (PERF.md)
+BATCHED_RUNS = 1
 
 CA_ROWS = ("sstep:4", "sstep:8", "pipelined:2")
 
@@ -2082,7 +2338,7 @@ def ca_rates(torch, dev, card, prob):
         s = BatchedDistCGSolver(prob, pipelined=pipelined, device=dev)
         s.solve(B, criteria=StoppingCriteria(maxits=50))
         runs = []
-        for _ in range(3):
+        for _ in range(BATCHED_RUNS):
             s.stats.tsolve = 0.0
             s.solve(B, criteria=StoppingCriteria(maxits=nits))
             runs.append(nits / s.stats.tsolve)
@@ -2099,21 +2355,27 @@ def ca_rates(torch, dev, card, prob):
 
 def direct_rates(torch, dev, card, nits: int = 100):
     """Classic f64 at 512^3 (the gen-direct size): the device-built
-    assembled planes (K1) against the operator (K7), ``nits`` fixed
-    iterations after a 10-iteration warm-up, three timed solves each,
-    in turns."""
+    assembled planes (K1) against the operator (K7) and the sharded tier
+    on 4 parts (path (ad): K1 on the whole planes), ``nits`` fixed
+    iterations after a 10-iteration warm-up, three timed solves each, in
+    turns."""
     from acg_tpu_torch.io.generators import poisson_dia_device
     from acg_tpu_torch.ops.operator import poisson_stencil
     from acg_tpu_torch.ops.spmv import DiaMatrix
+    from acg_tpu_torch.parallel.sharded_dia import \
+        build_sharded_poisson_solver
     from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
 
     planes, offs, N = poisson_dia_device(DIRECT_N, 3, dtype=torch.float64,
                                          device=dev)
+    sharded = build_sharded_poisson_solver(DIRECT_N, 3, nparts=NPARTS,
+                                           dtype=torch.float64, device=dev)
     solvers = {"assembled (K1)": TorchCGSolver(DiaMatrix(planes, offs, N, N),
                                                device=dev),
                "--operator stencil (K7)": TorchCGSolver(poisson_stencil(
                    DIRECT_N, 3, dtype=torch.float64, device=dev),
-                   device=dev)}
+                   device=dev),
+               f"--nparts {NPARTS} sharded ({sharded.kernels})": sharded}
     b = torch.ones(N, dtype=torch.float64, device=dev)
     runs = {k: [] for k in solvers}
     for s in solvers.values():
@@ -2129,35 +2391,132 @@ def direct_rates(torch, dev, card, nits: int = 100):
             f"{', '.join(f'{v:.2f}' for v in r)} iters/s (median "
             f"{np.median(r):.2f}; {nits} iterations after a 10-iteration "
             f"warm-up, in turns; {card})")
-    del solvers, planes, b
+    del solvers, sharded, planes, b
     torch.cuda.empty_cache()
 
 
 def dist_rates(torch, dev, card, prob):
     """Rates of the 4-part stacked classic f64 solve on each transport,
-    with the protocol of solve_rates."""
+    unsplit (paths (e)/(f)) and fused (path (ac): the halo on its own
+    stream), with the protocol of solve_rates, in turns."""
     from acg_tpu_torch.parallel.dist import DistCGSolver
     from acg_tpu_torch.solvers import StoppingCriteria
 
-    rates = {}
     b = np.ones(prob.n)
-    for comm in ("dma", "xla"):
-        s = DistCGSolver(prob, comm=comm, device=dev)
+    rows = {(comm, kern): DistCGSolver(prob, comm=comm, kernels=kern,
+                                       device=dev)
+            for comm in ("dma", "xla") for kern in ("auto", "fused")}
+    runs = {k: [] for k in rows}
+    for s in rows.values():
         s.solve(b, criteria=StoppingCriteria(maxits=50))
-        runs = []
-        for _ in range(3):
+    for _ in range(3):
+        for k, s in rows.items():
             s.stats.tsolve = 0.0
             s.solve(b, criteria=StoppingCriteria(maxits=1000))
-            runs.append(1000.0 / s.stats.tsolve)
-        rates[comm] = runs
+            runs[k].append(1000.0 / s.stats.tsolve)
+    for (comm, kern), r in runs.items():
         say(f"solve rate classic f64 {prob.nparts} parts --comm {comm} "
-            f"(kernels={s.kernels}): "
-            f"{', '.join(f'{r:.1f}' for r in runs)} iters/s (median "
-            f"{np.median(runs):.1f}; 1000 iterations after a 50-iteration "
-            f"warm-up; {card})")
-        del s
-        torch.cuda.empty_cache()
-    return rates
+            f"(kernels={rows[comm, kern].kernels}): "
+            f"{', '.join(f'{v:.1f}' for v in r)} iters/s (median "
+            f"{np.median(r):.1f}; 1000 iterations after a 50-iteration "
+            f"warm-up, in turns; {card})")
+    fused = rows["dma", "fused"]
+    del rows
+    torch.cuda.empty_cache()
+    return fused
+
+
+def _intervals_ms(events):
+    """Sorted, merged (start, end) intervals of trace events, in us."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    out = []
+    for a, z in spans:
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], z))
+        else:
+            out.append((a, z))
+    return out
+
+
+def _overlap_us(spans, cover) -> float:
+    """Time of ``spans`` that lies under the merged intervals ``cover``."""
+    tot = 0.0
+    for a, z in spans:
+        for c0, c1 in cover:
+            if c1 <= a:
+                continue
+            if c0 >= z:
+                break
+            tot += min(z, c1) - max(a, c0)
+    return tot
+
+
+def profile_streams(torch, card, label, s, n, nits: int = 100):
+    """The fused solve's streams: torch.profiler's trace of ``nits``
+    iterations (after a warm-up), each device event by stream.  Prints
+    the device's busy share, the streams K1 and K6 ran on, the device
+    time of the halo chain (every event on K6's stream: pack, K6,
+    unpack) and how much of it lies under K1.  A trace with no K1 or no
+    K6 on a stream of its own fails the check: it is the card's proof of
+    the overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    b = np.ones(n)
+    s.solve(b, criteria=StoppingCriteria(maxits=50))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.solve(b, criteria=StoppingCriteria(maxits=nits))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    except (RuntimeError, OSError, ValueError) as e:
+        say(f"profile {label}: the trace could not be read ({e})")
+        trace = {}
+    finally:
+        os.remove(path)
+    dev_ev = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in (
+                  "kernel", "gpu_memcpy", "gpu_memset")
+              and "stream" in e.get("args", {})]
+    check(bool(dev_ev), f"profile {label}: device events in the trace")
+    by_stream = {}
+    for e in dev_ev:
+        by_stream.setdefault(e["args"]["stream"], []).append(e)
+    k1 = [e for e in dev_ev if "dia_spmv_kernel" in e["name"]
+          or "stencil_spmv_kernel" in e["name"]]
+    k6 = [e for e in dev_ev if "halo_put_kernel" in e["name"]]
+    k1_streams = sorted({e["args"]["stream"] for e in k1})
+    k6_streams = sorted({e["args"]["stream"] for e in k6})
+    busy = sum(z - a for a, z in _intervals_ms(dev_ev))
+    say(f"profile {label}, {nits} iterations: wall {wall * 1e6 / nits:.1f} "
+        f"us/iteration, device busy {busy / nits:.1f} us/iteration "
+        f"({busy / (wall * 1e6):.1%} of the wall); streams (device "
+        f"us/iteration, events): "
+        + ", ".join(f"{st}: {sum(e['dur'] for e in ev) / nits:.1f}, "
+                    f"{len(ev)}" for st, ev in sorted(by_stream.items()))
+        + f"; K1/K7 on streams {k1_streams}, K6 on {k6_streams}; {card}")
+    check(bool(k1_streams) and bool(k6_streams),
+          f"profile {label}: K1/K7 and K6 in the trace")
+    check(set(k6_streams).isdisjoint(k1_streams),
+          f"profile {label}: K6 on another stream than K1")
+    halo = [e for e in dev_ev if e["args"]["stream"] in k6_streams]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in halo]
+    under = _overlap_us(spans, _intervals_ms(k1))
+    chain = sum(z - a for a, z in spans)
+    names = sorted({e["name"][:40] for e in halo})
+    say(f"  halo chain on stream(s) {k6_streams}: {chain / nits:.2f} "
+        f"us/iteration in {len(halo) / nits:.1f} events/iteration "
+        f"({names}); {under / nits:.2f} us/iteration of it under K1 "
+        f"({under / chain:.1%} hidden)")
 
 
 def irregular_spmv_times(torch, dev, card, irr):
@@ -2630,7 +2989,7 @@ def main() -> int:
     t0 = time.perf_counter()
     solve_rates(torch, dev, card)
     precision_rates(torch, dev, card)
-    dist_rates(torch, dev, card, prob)
+    fused = dist_rates(torch, dev, card, prob)
     batched_rates(torch, dev, card)
     ca_rates(torch, dev, card, prob)
     from acg_tpu_torch.ops.operator import poisson_stencil
@@ -2639,6 +2998,9 @@ def main() -> int:
 
     profile_solve(torch, card, f"{prob.nparts}-part dma classic f64",
                   DistCGSolver(prob, comm="dma", device=dev), prob.n)
+    profile_streams(torch, card, f"{prob.nparts}-part dma classic f64 "
+                    f"--kernels fused", fused, prob.n)
+    del fused
     for kind, dt in (("f64", torch.float64), ("f32", torch.float32)):
         profile_solve(torch, card, f"single part classic {kind} --operator "
                       "stencil (K7)", TorchCGSolver(poisson_stencil(

@@ -728,3 +728,75 @@ def test_dist_batched_on_card_matches_cpu(dev, pipelined):
     assert all(abs(a - b) <= 1 for a, b in zip(bg["iterations"],
                                                bc["iterations"]))
     assert np.linalg.norm(xg - xc) <= 1e-9 * np.linalg.norm(xc)
+
+
+@pytest.mark.parametrize("comm", ["xla", "dma"])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_dist_fused_on_card_matches_unsplit(dev, comm, pipelined):
+    """--kernels fused on 3 stacked band parts on the card (the halo on
+    a side stream under batched K1; K5 for the pipelined update): the
+    unsplit card solve's iterations and bits, the same bits twice, x
+    within 1e-10 of the CPU's per-row form."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+
+    csr = synthesize_host_matrix("gen:poisson2d:96").to_csr()
+    prob = DistributedProblem.build(csr, partition_rows(
+        csr, 3, method="band"), 3)
+    b = np.random.default_rng(8).standard_normal(csr.shape[0])
+    crit = StoppingCriteria(maxits=5000, residual_rtol=1e-9)
+    out = []
+    for d, kern in (("cpu", "fused"), (dev, "auto"), (dev, "fused"),
+                    (dev, "fused")):
+        s = DistCGSolver(prob, comm=comm, device=d, kernels=kern,
+                         pipelined=pipelined)
+        K.reset_launches()
+        out.append((s.solve(b, criteria=crit), s.stats.niterations,
+                    dict(K.launches)))
+    (xc, kc, _), (xu, ku, _), (xf, kf, lf), (xf2, kf2, _) = out
+    assert kf == kf2 == ku == kc
+    assert np.array_equal(xf, xu) and np.array_equal(xf, xf2)
+    assert np.linalg.norm(xf - xc) <= 1e-10 * np.linalg.norm(xc)
+    assert lf["dia_spmv_batched"] > kf
+    assert (lf["halo_put"] == lf["dia_spmv_batched"]) == (comm == "dma")
+    assert (lf["pipelined_update"] >= kf) == pipelined
+
+
+def test_sharded_solve_on_card(dev):
+    """The sharded tier on the card: auto takes K1 on the whole planes for
+    any part count, those that do not divide N included, bitwise the
+    single-device solve and within 1e-10 of the CPU's roll SpMV; the f32
+    refine reaches df64-class error."""
+    from acg_tpu_torch.io.generators import poisson_dia_device
+    from acg_tpu_torch.ops.spmv import DiaMatrix
+    from acg_tpu_torch.parallel.sharded_dia import \
+        build_sharded_poisson_solver
+
+    crit = StoppingCriteria(maxits=2000, residual_rtol=1e-10)
+    planes, offs, N = poisson_dia_device(40, 3, dtype=torch.float64,
+                                         device=dev)
+    ref = TorchCGSolver(DiaMatrix(planes, offs, N, N), device=dev)
+    x1 = ref.solve(torch.ones(N, dtype=torch.float64, device=dev),
+                   criteria=crit, host_result=False)
+    for nparts in (7, 4):
+        assert N % 7 and not N % 4
+        s = build_sharded_poisson_solver(40, 3, nparts=nparts,
+                                         dtype=torch.float64, device=dev)
+        assert s.kernels == "pallas-roll"
+        K.reset_launches()
+        x = s.solve(s.ones_b(), criteria=crit, host_result=False)
+        assert K.launches["dia_spmv"] > s.stats.niterations
+        assert K.launches["dia_spmv_batched"] == 0
+        assert torch.equal(x, x1)
+    c = build_sharded_poisson_solver(40, 3, nparts=4, dtype=torch.float64,
+                                     device="cpu")
+    xc = c.solve(c.ones_b(), criteria=crit, host_result=False)
+    assert c.stats.niterations == s.stats.niterations
+    assert float(torch.linalg.norm(x.cpu() - xc)) <= 1e-10 * float(
+        torch.linalg.norm(xc))
+    f = build_sharded_poisson_solver(24, 3, nparts=4, device=dev)
+    xsol, b = f.manufactured_df(seed=0)
+    xh, xl = f.solve_refined(b, criteria=StoppingCriteria(
+        maxits=20000, residual_rtol=1e-11))
+    assert f.error_norms_df(xh, xl, xsol)[1] < 1e-8

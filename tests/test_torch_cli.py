@@ -249,12 +249,14 @@ def test_cli_refuses_flags_of_other_tiers(flag, capsys):
                                   ["--manufactured-solution"]])
 def test_cli_refuses_gen_direct_sizes(flag):
     """Above 2^24 rows a gen: spec takes the gen-direct tier; its sharded
-    branch (parts, manufactured solutions) is refused by name before any
-    device work."""
-    with pytest.raises(SystemExit, match="the sharded gen-direct tier "
-                                         r"\(parallel/sharded_dia\) is not "
-                                         "yet ported"):
-        torch_main(["gen:poisson3d:300", "--device", "cpu"] + flag)
+    branch (parts, manufactured solutions) refuses what it cannot serve,
+    here --kernels fused, with the reference's message before any device
+    work."""
+    with pytest.raises(SystemExit, match="the sharded direct-assembly "
+                                         "path supports --kernels "
+                                         "auto/xla"):
+        torch_main(["gen:poisson3d:300", "--device", "cpu", "--kernels",
+                    "fused"] + flag)
 
 
 _NO_JAX = """
@@ -276,6 +278,7 @@ import acg_tpu_torch.solvers.batched
 import acg_tpu_torch.solvers.resilience
 import acg_tpu_torch.recurrence
 import acg_tpu_torch.parallel.dist_batched
+import acg_tpu_torch.parallel.sharded_dia
 import acg_tpu_torch.solvers.host_cg
 import acg_tpu_torch.solvers.petsc_cg
 import acg_tpu_torch.vector
@@ -340,6 +343,15 @@ assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--max-iterations", "300"]) == 0
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--operator", "stencil", "--max-iterations", "300"]) == 0
+for extra in (["--nparts", "3", "--kernels", "pallas"],
+              ["--refine", "--dtype", "f32", "--manufactured-solution",
+               "--residual-rtol", "1e-11"]):
+    assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
+                 "0", "--max-iterations", "600"] + extra) == 0
+os.environ["ACG_TPU_GEN_DIRECT_MIN"] = str(2 ** 24)
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
+             "--nparts", "3", "--kernels", "fused", "--comm", "dma",
+             "--solver", "acg-pipelined", "--max-iterations", "600"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded

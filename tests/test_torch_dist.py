@@ -373,7 +373,8 @@ def test_padding_rows_stay_zero(mats, pipelined, comm, kernels):
 # tier does: the message names the option
 _STILL_REFUSED = {"precond": {"replace_every": 4},
                   "precise_dots": {"replace_every": 4},
-                  "algorithm": {"pipelined": True}}
+                  "algorithm": {"pipelined": True},
+                  "kernels": {"precise_dots": True}}
 
 
 @pytest.mark.parametrize("option,value", [

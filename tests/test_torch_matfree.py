@@ -399,13 +399,15 @@ def test_gen_direct_operator_and_planes_agree(monkeypatch, tmp_path,
     (["--manufactured-solution"], "--manufactured-solution")])
 def test_gen_direct_sharded_branch_is_refused_by_name(monkeypatch, extra,
                                                       flag):
+    """Each flag takes the sharded branch of the gen-direct tier, which
+    runs stored planes: an armed operator is refused by name there."""
     monkeypatch.setenv("ACG_TPU_GEN_DIRECT_MIN", "100")
     with pytest.raises(SystemExit) as e:
-        torch_main(["gen:poisson3d:8", "--device", "cpu"] + extra)
+        torch_main(["gen:poisson3d:8", "--device", "cpu", "--operator",
+                    "stencil"] + extra)
     msg = str(e.value.code)
-    assert flag in msg
-    assert ("the sharded gen-direct tier (parallel/sharded_dia) is not "
-            "yet ported") in msg
+    assert ("--operator does not reach the sharded gen-direct tier"
+            in msg), (flag, msg)
 
 
 def test_gen_direct_device_planes_bitwise_to_host_build(monkeypatch):

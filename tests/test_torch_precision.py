@@ -507,5 +507,8 @@ def test_cli_replace_refusals_match_jax(capsys, extra, msg):
 
 
 def test_cli_refine_refused_at_gen_direct_sizes():
-    with pytest.raises(SystemExit, match=r"--refine: the sharded gen-direct"):
+    """At gen-direct sizes --refine takes the sharded tier's df64
+    refinement, which refuses f64 storage with the reference's message."""
+    with pytest.raises(SystemExit, match=r"sharded --refine runs df64 outer "
+                                         r"residuals over f32 inner solves"):
         torch_main(["gen:poisson3d:300", "--device", "cpu", "--refine"])
