@@ -27,9 +27,14 @@ for block CG; on ``--nparts N > 1`` the stacked
 ``--solver host|host-native|petsc`` runs a host oracle
 (:mod:`acg_tpu_torch.solvers.host_cg`, ``petsc_cg``).  A matrix file
 with a ``.perm.mtx`` sidecar (``mtx2bin --partition``) is solved with b,
-x0 and x in the original row order.  Flag names and defaults follow the
-JAX package's CLI; flags of tiers the port does not have yet
-(``--serve``, ``--trace``, ...) are not accepted.
+x0 and x in the original row order.  ``--multihost`` (with
+``--coordinator``, ``--num-processes``, ``--process-id``) runs one
+process per card: each holds its own parts, the stage boundaries are
+agreed across processes, and process 0 alone prints; ``--distributed-
+read`` range-reads each process's rows of a binary file and writes its
+rows of ``--output``.  Flag names and defaults follow the JAX package's
+CLI; flags of tiers the port does not have yet (``--serve``,
+``--trace``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU (the host oracles
@@ -97,9 +102,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "mpi/nccl alias xla, nvshmem aliases dma; none = "
                         "one part")
     p.add_argument("--nparts", type=int, default=0,
-                   help="number of parts, all stacked on the one device "
-                        "(default: the CUDA device count, 1 on the CPU; "
-                        "0 with --comm none means 1)")
+                   help="number of parts, stacked on the device (default: "
+                        "1; under --multihost one part per process, the "
+                        "parts of a process stacked on its card)")
     p.add_argument("--partition", metavar="FILE", default=None,
                    help="read the row partition vector from FILE")
     p.add_argument("--partition-method", default="auto",
@@ -122,6 +127,15 @@ def make_parser() -> argparse.ArgumentParser:
                    dest="gzip",
                    help="accepted for drop-in compatibility; gzip input is "
                         "auto-detected from the magic bytes regardless")
+    # default=False: these register before their store_true partners,
+    # and argparse keeps the FIRST registered default for a shared dest
+    # (acg_tpu/cli.py:105-112)
+    p.add_argument("--no-manufactured-solution",
+                   dest="manufactured_solution", action="store_false",
+                   default=False, help=argparse.SUPPRESS)
+    p.add_argument("--no-output-comm-matrix",
+                   dest="output_comm_matrix", action="store_false",
+                   default=False, help=argparse.SUPPRESS)
     p.add_argument("--max-iterations", type=int, default=100, metavar="N",
                    help="maximum number of iterations (default: 100)")
     p.add_argument("--residual-atol", type=float, default=0.0, metavar="TOL",
@@ -236,6 +250,40 @@ def make_parser() -> argparse.ArgumentParser:
                         "generated matrices")
     p.add_argument("--numfmt", default="%.17g", metavar="FMT",
                    help="printf-style format for numeric output")
+    p.add_argument("--multihost", action="store_true",
+                   help="run as one process of a multi-process solve (the "
+                        "MPI_Init stage): one process per card, each "
+                        "holding its parts; pass --coordinator/"
+                        "--num-processes/--process-id")
+    p.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                   help="multi-process coordinator address: process 0 "
+                        "serves the run's store there (implies "
+                        "--multihost)")
+    p.add_argument("--num-processes", type=int, default=None, metavar="N",
+                   help="total processes (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None, metavar="I",
+                   help="this process's index (with --coordinator)")
+    p.add_argument("--distributed-read", action="store_true",
+                   help="each process range-reads only its own rows from "
+                        "a row-sorted full-storage binary file (mtx2bin "
+                        "--expand output; requires --binary) and builds "
+                        "only its own subdomains: I/O, host memory and "
+                        "preprocessing are O(local nnz); with --output "
+                        "each process writes its own rows of the "
+                        "solution file")
+    p.add_argument("--err-timeout", type=float, default=120.0,
+                   metavar="SECONDS",
+                   help="multi-process error-agreement watchdog: how long "
+                        "to wait at a stage boundary for the peers before "
+                        "concluding one died and aborting with exit 97 "
+                        "(default: 120).  Must exceed the worst arrival "
+                        "skew between processes at any boundary")
+    p.add_argument("--heartbeat", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="multi-process dead-peer detection during the "
+                        "solve: each process bumps a store key from a "
+                        "daemon thread and declares a peer dead after "
+                        "SECONDS of silence, exiting 97 (0 = off)")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="do not write the solution vector to stdout")
     p.add_argument("-o", "--output", metavar="FILE", default=None,
@@ -361,14 +409,17 @@ def synthesize_host_matrix(spec_str: str, aniso=None, seed: int = 42):
     (``aniso``: the stretched-grid 2D family)."""
     from acg_tpu_torch.io.generators import (aniso_poisson2d_coo,
                                              irregular_spd_coo,
-                                             poisson2d_coo, poisson3d_coo)
+                                             poisson_packed_upper)
     from acg_tpu_torch.matrix import SymCsrMatrix
 
     kind, dim, n, N, avg = _parse_gen_spec(spec_str)
     if kind == "poisson" and aniso is not None:
         r, c, v, N = aniso_poisson2d_coo(n, aniso)
     elif kind == "poisson":
-        r, c, v, N = (poisson2d_coo if dim == 2 else poisson3d_coo)(n)
+        # the packed upper CSR assembling poisson{2,3}d_coo would give,
+        # without sorting its triplets
+        pr, pc, pa, N = poisson_packed_upper(n, dim)
+        return SymCsrMatrix(nrows=N, prowptr=pr, pcolidx=pc, pa=pa)
     else:
         r, c, v, N = irregular_spd_coo(n, avg_degree=avg, seed=seed)
     return SymCsrMatrix.from_coo(N, r, c, v)
@@ -404,6 +455,9 @@ def _validate_operator(args) -> None:
             ("--epsilon (the stencil computes the UNshifted system; a "
              "shifted solve needs the assembled path)",
              bool(args.epsilon)),
+            ("--multihost/--coordinator (single-controller tier)",
+             args.multihost or args.coordinator is not None),
+            ("--distributed-read", args.distributed_read),
         ] if on]
         if unsupported:
             raise SystemExit(
@@ -451,6 +505,9 @@ def _validate_batched(args) -> None:
              "all_to_all transport)", args.comm in ("dma", "nvshmem")),
             ("--diff-atol/--diff-rtol (residual criteria only)",
              args.diff_atol > 0 or args.diff_rtol > 0),
+            ("--multihost/--coordinator (single-controller tier)",
+             args.multihost or args.coordinator is not None),
+            ("--distributed-read", args.distributed_read),
             ("--output-comm-matrix", args.output_comm_matrix),
         ] if on]
         if unsupported:
@@ -598,7 +655,8 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
             f"gen: spec)")
     # multi-part, manufactured and refined configurations run the
     # sharded assembly and solve (parallel/sharded_dia), as in acg_tpu
-    if args.nparts > 1 or args.manufactured_solution or args.refine:
+    if (args.nparts > 1 or args.manufactured_solution or args.refine
+            or _multi(args)):
         if args._operator_spec is not None:
             raise SystemExit(
                 "acg-tpu-torch: --operator does not reach the sharded "
@@ -654,9 +712,10 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
                              vec_dtype) -> int:
     """The sharded gen-direct tier (``acg_tpu/cli.py:2291-2470``): the
     planes built on the device and solved over ``--nparts`` row parts
-    (one by default), b = ones or a manufactured b drawn on the device
-    with the analytic spot check, and ``--refine`` as df64 refinement on
-    the device (``parallel/sharded_dia``)."""
+    (one by default; one per process under ``--multihost``, each process
+    building and holding its own rows), b = ones or a manufactured b
+    drawn on the device with the analytic spot check, and ``--refine`` as
+    df64 refinement on the device (``parallel/sharded_dia``)."""
     from acg_tpu_torch.errors import BreakdownError, NotConvergedError
     from acg_tpu_torch.parallel.sharded_dia import (
         build_sharded_poisson_solver, spot_check_manufactured)
@@ -679,7 +738,7 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
             "acg-tpu-torch: --replace-every supports residual criteria "
             "only (--diff-atol/--diff-rtol have no meaning across "
             "replacement segments)")
-    nparts = args.nparts or _default_nparts(device)
+    nparts = args.nparts or _default_nparts(device, args)
     t0 = time.perf_counter()
     try:
         solver = build_sharded_poisson_solver(
@@ -715,6 +774,7 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
             if not dev < tol:
                 sys.stderr.write("acg-tpu-torch: manufactured b FAILED the "
                                  "independent spot check\n")
+                _stage_sync(args, "solve", 1)
                 return 1
     else:
         b = solver.ones_b()
@@ -738,25 +798,407 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
-        solver.stats.fwrite(sys.stderr)
+        if _is_primary():
+            solver.stats.fwrite(sys.stderr)
+        _stage_sync(args, "solve", 1)
         return 1
     _log(args, "solve:", t0)
+    rc = _stage_sync(args, "solve", 0)
+    if rc:
+        sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                         "failed during the solve\n")
+        return rc
+    # the collective steps (error norms, the solution gather) run on every
+    # process before the primary-only output
     errs = None
     if xsol is not None:
         errs = (solver.error_norms_df(x, xl, xsol) if xl is not None
                 else solver.error_norms(x, xsol))
+    x_host = None
+    if args.output is not None or not args.quiet:
+        # a refined solution is the df64 pair: its f64 sum carries the
+        # accuracy --refine computed
+        x_host = solver.gather_x(x)
+        if xl is not None:
+            x_host = x_host + solver.gather_x(xl)
+    if not _is_primary():
+        return 0
     solver.stats.fwrite(sys.stderr)
     if errs is not None:
         sys.stderr.write(f"initial error 2-norm: {errs[0]:.15g}\n")
         sys.stderr.write(f"error 2-norm: {errs[1]:.15g}\n")
-    if args.output is not None or not args.quiet:
-        # a refined solution is the df64 pair: its f64 sum carries the
-        # accuracy --refine computed
-        xv = x.to(torch.float32) if x.dtype == torch.bfloat16 else x
-        x_host = xv.cpu().numpy().astype(np.float64)
-        if xl is not None:
-            x_host = x_host + xl.cpu().numpy().astype(np.float64)
+    if x_host is not None:
         _emit_solution(args, x_host)
+    return 0
+
+
+def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
+    """The ``--distributed-read`` pipeline (``acg_tpu/cli.py:
+    1736-2013``): each process range-reads its own rows of a row-sorted
+    full-storage binary file, builds only its own subdomains, agrees the
+    stacked shapes with the other processes, and solves on the
+    multi-process tier; b/x0 files are window-read (through the
+    ``.perm.mtx`` sidecar for a partition-permuted matrix) and
+    ``--output`` is written rootless (:func:`_distributed_write`)."""
+    import os
+
+    from acg_tpu_torch.errors import (AcgError, BreakdownError,
+                                      NotConvergedError)
+    from acg_tpu_torch.io.mtxfile import read_mtx
+    from acg_tpu_torch.parallel import multihost
+    from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+    from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+    unsupported = [flag for flag, on in [
+        ("a gen: spec (use the sharded direct path)",
+         args.A.startswith("gen:")),
+        ("text input (needs --binary; see mtx2bin --expand)",
+         not args.binary),
+        (f"--solver {args.solver}",
+         args.solver in ("host", "host-native", "petsc")),
+        ("b/x0 files with --manufactured-solution",
+         args.manufactured_solution and bool(args.b or args.x0)),
+        ("--kernels fused (needs the full-information build; the "
+         "local-read flow holds other controllers' coupled-row lists "
+         "as stubs)", args.kernels == "fused"),
+        ("--diff-* criteria with --replace-every or --refine",
+         (args.replace_every > 0 or args.refine)
+         and (args.diff_atol > 0 or args.diff_rtol > 0)),
+        ("--comm dma", args.comm in ("dma", "nvshmem")),
+    ] if on]
+    if unsupported:
+        raise SystemExit(
+            f"acg-tpu-torch: --distributed-read does not support: "
+            f"{', '.join(unsupported)}")
+
+    # partition bounds: arbitrary partitions arrive PRE-APPLIED by
+    # mtx2bin --expand --partition as a bounds sidecar (text by
+    # construction; binary sniffed as a fallback for hand-made ones)
+    bounds = None
+    bounds_path = args.partition
+    if bounds_path is None and os.path.exists(args.A + ".bounds.mtx"):
+        bounds_path = args.A + ".bounds.mtx"
+    if bounds_path is not None:
+        try:
+            bmtx = read_mtx(bounds_path, binary=False)
+        except (AcgError, ValueError):
+            try:
+                bmtx = read_mtx(bounds_path, binary=True)
+            except AcgError as e:
+                raise SystemExit(f"acg-tpu-torch: {bounds_path}: {e}")
+        bounds = np.asarray(bmtx.vals).reshape(-1).astype(np.int64)
+        try:
+            from acg_tpu_torch.io.mtxfile import read_mtx_sizes
+            n_check = read_mtx_sizes(args.A)[0]
+        except (AcgError, OSError):
+            n_check = None   # the matrix read reports its own error
+        if (bounds.size < 2 or bounds[0] != 0 or (np.diff(bounds) < 0).any()
+                or (n_check is not None and bounds[-1] != n_check)):
+            raise SystemExit(
+                f"acg-tpu-torch: {bounds_path} is not a part-bounds "
+                f"sidecar (nparts+1 ascending boundaries from 0 to "
+                f"nrows).  For --distributed-read, apply the partition "
+                f"VECTOR offline with: mtx2bin IN OUT --expand "
+                f"--partition VECFILE, then pass OUT here (its "
+                f".bounds.mtx is found automatically)")
+        if args.nparts and args.nparts != bounds.size - 1:
+            raise SystemExit(
+                f"acg-tpu-torch: --nparts {args.nparts} != "
+                f"{bounds.size - 1} parts in {bounds_path}")
+    nparts = (bounds.size - 1 if bounds is not None
+              else args.nparts or multihost.process_count())
+    # two-phase ingest: the range reads (phase 1) can fail on one
+    # process alone, so they are agreed BEFORE the shape agreement of
+    # phase 2 (a failed peer must not leave the others in a collective)
+    ingest_rc, state = 0, None
+    t0 = time.perf_counter()
+    try:
+        state = DistributedProblem.read_local_subdomains(args.A, nparts,
+                                                         bounds=bounds)
+        _log(args, f"range-read + local build ({len(state[3])} of "
+                   f"{nparts} parts on this process):", t0)
+    except (AcgError, OSError, ValueError) as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        ingest_rc = 1
+    rc = _stage_sync(args, "ingest", ingest_rc)
+    if rc:
+        if not ingest_rc:
+            sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                             "failed during ingest\n")
+        return rc
+    subs, bounds, n_rows, owned = state
+    t_part = time.perf_counter()
+    prob = DistributedProblem.assemble_local(subs, bounds, n_rows, nparts,
+                                             owned, dtype=dtype,
+                                             vector_dtype=vec_dtype)
+    phases = {"ingest": t_part - t0,
+              "partition": time.perf_counter() - t_part}
+
+    comm_mtx = None
+    if args.output_comm_matrix:
+        # this process's rows of the volume matrix are exact from its
+        # plans; the sum over processes fills the rest
+        from acg_tpu_torch.graph import comm_matrix
+        M = comm_matrix([prob.subs[p] for p in prob.owned_parts], nparts)
+        comm_mtx = multihost.allgather_array(M).sum(axis=0).astype(np.int64)
+
+    n = prob.n
+    rng = np.random.default_rng(args.seed)
+    xsol = None
+    x0 = None
+    if args.manufactured_solution:
+        # the same seed on every process; b = A xsol from the local
+        # blocks only, each process its own rows
+        xsol = rng.standard_normal(n)
+        xsol /= np.linalg.norm(xsol)
+        b = np.zeros(n)
+        _owned_spmv_windows(prob, xsol, b)
+    elif args.b:
+        b = None
+    else:
+        b = np.ones(n)
+    if args.b or args.x0:
+        rhs_rc = 0
+        perm_path = (args.A + ".perm.mtx"
+                     if os.path.exists(args.A + ".perm.mtx") else None)
+        try:
+            if args.b:
+                b = _read_vector_windows(args.b, prob, perm_path)
+            if args.x0:
+                x0 = _read_vector_windows(args.x0, prob, perm_path)
+        except (AcgError, OSError) as e:
+            sys.stderr.write(f"acg-tpu-torch: {e}\n")
+            rhs_rc = 1
+        rc = _stage_sync(args, "rhs", rhs_rc)
+        if rc:
+            if not rhs_rc:
+                sys.stderr.write("acg-tpu-torch: aborting: a peer "
+                                 "controller failed reading b/x0\n")
+            return rc
+
+    criteria = StoppingCriteria(
+        maxits=args.max_iterations,
+        residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
+        diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
+    try:
+        solver = DistCGSolver(prob, pipelined="pipelined" in args.solver,
+                              kernels=args.kernels, device=device,
+                              **_solver_options(args))
+    except ValueError as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _stage_sync(args, "solve", 1)
+        return 1
+    if args.refine:
+        # f64 outer residuals from this process's host blocks only; the
+        # outer iteration needs the same b (and x0) on every process
+        from acg_tpu_torch.solvers.refine import RefinedSolver
+        if args.manufactured_solution or args.b:
+            b = _allgather_sum(b, prob)
+        if x0 is not None:
+            x0 = _allgather_sum(x0, prob)
+        solver = RefinedSolver(solver, _dist_host_matvec(prob), n=n,
+                               nnz=prob.nnz_total,
+                               inner_rtol=args.refine_rtol,
+                               inner_maxits=args.refine_inner_maxits)
+    solver.stats.timings.update(phases)
+    t0 = time.perf_counter()
+    try:
+        if args.refine:
+            x = solver.solve(b, x0=x0, criteria=criteria,
+                             warmup=args.warmup)
+        else:
+            x = solver.solve(b, x0=x0, criteria=criteria,
+                             warmup=args.warmup,
+                             host_result=not args.output)
+    except (NotConvergedError, BreakdownError) as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _fold_inner_timings(solver)
+        if _is_primary():
+            solver.stats.fwrite(sys.stderr)
+        _stage_sync(args, "solve", 1)
+        _close(solver)
+        return 1
+    except (AcgError, ValueError) as e:
+        sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _stage_sync(args, "solve", 1)
+        _close(solver)
+        return 1
+    _fold_inner_timings(solver)
+    _log(args, "solve:", t0)
+    rc = _stage_sync(args, "solve", 0)
+    _close(solver)
+    if rc:
+        sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                         "failed during the solve\n")
+        return rc
+    if comm_mtx is not None and _is_primary():
+        _write_comm_matrix(comm_mtx, nparts)
+    if args.output:
+        return _distributed_write(args, solver, x, xsol, n)
+    if not _is_primary():
+        return 0
+    solver.stats.fwrite(sys.stderr)
+    if xsol is not None:
+        sys.stderr.write(f"initial error 2-norm: "
+                         f"{np.linalg.norm(xsol):.15g}\n")
+        sys.stderr.write(f"error 2-norm: "
+                         f"{np.linalg.norm(x - xsol):.15g}\n")
+    # a partition-permuted matrix solves in permuted row order; the
+    # solution goes out in the input's order through the sidecar
+    _emit_solution(args, x, _load_perm_sidecar(args.A, n))
+    return 0
+
+
+def _owned_spmv_windows(prob, x: np.ndarray, out: np.ndarray) -> None:
+    """``out[lo:hi] = (A @ x)[lo:hi]`` for every part this process owns,
+    from its host blocks in f64 (``acg_tpu/cli.py:2030-2042``)."""
+    for p in prob.owned_parts:
+        s = prob.subs[p]
+        lo, hi = prob.band_bounds[p], prob.band_bounds[p + 1]
+        yp = s.A_local @ x[lo:hi]
+        if s.nghost:
+            yp = yp + s.A_ghost @ x[s.global_ids[s.nowned:]]
+        out[lo:hi] = yp
+
+
+def _allgather_sum(y: np.ndarray, prob) -> np.ndarray:
+    """The processes' owned-window vectors (zero elsewhere) summed into
+    the global vector; only each process's span of rows moves
+    (``acg_tpu/cli.py:2045-2077``)."""
+    from acg_tpu_torch.parallel import multihost
+
+    if multihost.process_count() == 1:
+        return y
+    y = np.asarray(y, dtype=np.float64)
+    lo = min(int(prob.band_bounds[p]) for p in prob.owned_parts)
+    hi = max(int(prob.band_bounds[p + 1]) for p in prob.owned_parts)
+    meta = multihost.allgather_array(np.asarray([lo, hi], np.int64))
+    span = int((meta[:, 1] - meta[:, 0]).max())
+    buf = np.zeros(span)
+    buf[: hi - lo] = y[lo:hi]
+    data = multihost.allgather_array(buf)
+    out = np.zeros_like(y)
+    for (plo, phi), row in zip(meta, data):
+        out[plo:phi] += row[: phi - plo]
+    return out
+
+
+def _dist_host_matvec(prob):
+    """``matvec(x) -> A @ x`` in f64 from this process's host blocks:
+    the owned windows, summed over the processes."""
+    def mv(x):
+        y = np.zeros(prob.n)
+        _owned_spmv_windows(prob, x, y)
+        return _allgather_sum(y, prob)
+    return mv
+
+
+def _read_vector_windows(path, prob, perm_path=None) -> np.ndarray:
+    """A global-length vector holding only this process's owned windows
+    of a binary array vector file, read by window; for a
+    partition-permuted matrix each permuted window maps through the perm
+    sidecar (itself window-read) to scattered original rows
+    (``acg_tpu/cli.py:2095-2143``)."""
+    from acg_tpu_torch.errors import AcgError, ErrorCode
+    from acg_tpu_torch.io.mtxfile import read_vector_rows, read_vector_window
+
+    v = np.zeros(prob.n)
+    for p in prob.owned_parts:
+        lo, hi = int(prob.band_bounds[p]), int(prob.band_bounds[p + 1])
+        if perm_path is None:
+            v[lo:hi] = read_vector_window(path, lo, hi, expect_nrows=prob.n)
+            continue
+        try:
+            orig = read_vector_window(perm_path, lo, hi,
+                                      expect_nrows=prob.n)
+        except AcgError as e:
+            raise AcgError(
+                e.code,
+                f"{perm_path}: not a readable perm sidecar -- mtx2bin "
+                f"--partition writes it as a BINARY integer array of "
+                f"1-based original row numbers, one per permuted row "
+                f"({e})")
+        orig = orig.astype(np.int64) - 1
+        if orig.size and (orig.min() < 0 or orig.max() >= prob.n):
+            oob = (int(orig.min() + 1) if orig.min() < 0
+                   else int(orig.max() + 1))
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                f"{perm_path}: sidecar entry {oob} outside the 1-based "
+                f"row range [1, {prob.n}] -- stale or hand-made sidecar?")
+        v[lo:hi] = read_vector_rows(path, orig, expect_nrows=prob.n)
+    return v
+
+
+def _distributed_write(args, solver, x_st, xsol, n: int) -> int:
+    """Rootless solution output (``mtxfile_fwrite_mpi_double``'s role,
+    ``acg_tpu/cli.py:2146-2240``): each process range-writes the owned
+    windows of its own stacked solution into the shared file, the
+    primary writes the header; no process gathers the whole vector."""
+    import os
+    import shutil
+
+    from acg_tpu_torch.io.mtxfile import (finalize_vector_file,
+                                          write_vector_window)
+    from acg_tpu_torch.parallel import multihost
+
+    prob = getattr(solver, "problem", None)
+    if prob is None:
+        prob = solver.inner.problem   # RefinedSolver (--refine)
+    bounds = prob.band_bounds
+    windows = []
+    wrc = 0
+    try:
+        if isinstance(x_st, np.ndarray):
+            # refined: the outer iteration returned the global f64 x
+            for p in prob.owned_parts:
+                lo, hi = int(bounds[p]), int(bounds[p + 1])
+                windows.append((lo, np.asarray(x_st[lo:hi], np.float64)))
+        else:
+            xs = x_st.to(torch.float32) if x_st.dtype == torch.bfloat16 \
+                else x_st
+            xs = xs.cpu().numpy()
+            for j, p in enumerate(prob.owned_parts):
+                lo, hi = int(bounds[p]), int(bounds[p + 1])
+                windows.append((lo, xs[j, : hi - lo].astype(np.float64)))
+        t0 = time.perf_counter()
+        for lo, vals in windows:
+            write_vector_window(args.output, n, lo, vals)
+        _log(args, f"range-write {len(windows)} owned windows:", t0)
+    except OSError as e:
+        sys.stderr.write(f"acg-tpu-torch: {args.output}: {e}\n")
+        wrc = 1
+    rc = _stage_sync(args, "write", wrc)
+    if rc:
+        if not wrc:
+            sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                             "failed during the solution write\n")
+        return rc
+    # manufactured error norms without a gather: partial sums of squares
+    # over the owned windows, summed over the processes
+    err = None
+    if xsol is not None:
+        part_sq = sum(float(np.sum((vals - xsol[lo:lo + vals.size]) ** 2))
+                      for lo, vals in windows)
+        err = float(np.sqrt(multihost.allgather_array(
+            np.asarray([part_sq])).sum()))
+    if not _is_primary():
+        return 0
+    finalize_vector_file(args.output, n)
+    perm_path = args.A + ".perm.mtx"
+    if os.path.exists(perm_path):
+        # the windows keep the matrix's permuted row order: say so and
+        # ship the map beside the file
+        shutil.copyfile(perm_path, args.output + ".perm.mtx")
+        sys.stderr.write(
+            f"acg-tpu-torch: note: {args.output} is in the matrix's "
+            f"permuted row ordering; {args.output}.perm.mtx (copied) maps "
+            f"rows back to the original numbering\n")
+    solver.stats.fwrite(sys.stderr)
+    if err is not None:
+        sys.stderr.write(f"initial error 2-norm: "
+                         f"{np.linalg.norm(xsol):.15g}\n")
+        sys.stderr.write(f"error 2-norm: {err:.15g}\n")
     return 0
 
 
@@ -830,18 +1272,95 @@ def main(argv=None) -> int:
     from acg_tpu_torch.errors import AcgError
 
     try:
-        return _main(args)
+        rc = _main(args)
+        _report_run(args)
+        return rc
     except (OSError, AcgError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         return 1
+    finally:
+        if _multi(args):
+            from acg_tpu_torch.parallel import multihost
+            multihost.shutdown(timeout=args.err_timeout)
+
+
+def _report_run(args) -> None:
+    """Under ``-vv``, every process logs its kernel launches (a JSON
+    object of ``ops.kernels.launches``) and, on the card, its device
+    memory peak: what a run spread over processes shows of its path."""
+    if args.verbose < 2:
+        return
+    import json
+
+    from acg_tpu_torch.ops import kernels as K
+    _log(args, f"kernel launches: {json.dumps(K.launches)}")
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _log(args, f"device memory peak: {peak:.3f} GiB")
+
+
+def _multi(args) -> bool:
+    """A multi-process run (``--multihost`` or ``--coordinator``)."""
+    return bool(args.multihost or args.coordinator is not None)
+
+
+def _stage_sync(args, stage: str, code: int = 0) -> int:
+    """The cross-process stage sync (``acg_tpu/cli.py:1390-1402``): every
+    process learns the worst status at a pipeline stage boundary, so all
+    exit together, and a dead peer trips the watchdog (exit 97) instead
+    of wedging the others in the next collective.  Single-process it
+    returns ``code``."""
+    if not _multi(args):
+        return int(code)
+    from acg_tpu_torch.parallel.erragree import agree_status
+    return agree_status(code, what=stage, timeout=args.err_timeout)
+
+
+def _is_primary() -> bool:
+    from acg_tpu_torch.parallel.multihost import is_primary
+    return is_primary()
+
+
+def _close(solver) -> None:
+    """Release the solver's peer mappings (collective on the
+    multi-process tier)."""
+    inner = getattr(solver, "inner", solver)
+    close = getattr(inner, "close", None)
+    if close is not None:
+        close()
+
+
+def _start_processes(args):
+    """The device of this process: under ``--multihost`` join the run
+    (``acg_tpu/cli.py:3201-3222``), print the ``multihost:`` line (the
+    backend and why) and arm ``--heartbeat``; else resolve ``--device``."""
+    from acg_tpu_torch._device import resolve_device
+
+    if not _multi(args):
+        if args.heartbeat > 0:
+            sys.stderr.write("acg-tpu-torch: warning: --heartbeat is "
+                             "multi-process dead-peer detection; no-op "
+                             "without --multihost/--coordinator\n")
+        return resolve_device(args.device)
+    from acg_tpu_torch.parallel import multihost
+    try:
+        w = multihost.initialize(args.coordinator, args.num_processes,
+                                 args.process_id, device=args.device,
+                                 timeout=args.err_timeout + 60.0)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    sys.stderr.write(multihost.describe() + "\n")
+    if args.heartbeat > 0:
+        from acg_tpu_torch.parallel.erragree import DeadlineHeartbeat
+        args._heartbeat = DeadlineHeartbeat(
+            period=max(args.heartbeat / 6.0, 0.5),
+            deadline=args.heartbeat).start()
+    return w.device
 
 
 def _main(args) -> int:
-    from acg_tpu_torch._device import resolve_device
     from acg_tpu_torch.errors import (AcgError, BreakdownError,
                                       NotConvergedError)
-    from acg_tpu_torch.io.mtxfile import read_mtx
-    from acg_tpu_torch.matrix import SymCsrMatrix
     from acg_tpu_torch.ops.spmv import device_matrix_from_csr
     from acg_tpu_torch.solvers.cg import TorchCGSolver
     from acg_tpu_torch.solvers.stats import StoppingCriteria
@@ -853,15 +1372,13 @@ def _main(args) -> int:
     _validate_batched(args)
     _validate_operator(args)
     try:
-        device = resolve_device(args.device)
+        device = _start_processes(args)
     except AcgError as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         return 1
     dtype, vec_dtype = DTYPES[args.dtype]
-    phases = {}
-
-    # stage 1: read (or synthesize) the matrix
-    t_ingest = time.perf_counter()
+    if args.distributed_read:
+        return _solve_distributed_read(args, device, dtype, vec_dtype)
     if args.A.startswith("gen:"):
         kind, dim, n, N, _ = _parse_gen_spec(args.A)
         if (kind == "poisson" and N > _gen_direct_min()
@@ -870,84 +1387,29 @@ def _main(args) -> int:
             # aniso family keeps the host route, as in acg_tpu)
             return _solve_generated_direct(args, dim, n, N, device, dtype,
                                            vec_dtype)
-        t0 = time.perf_counter()
-        _log(args, f"synthesizing {args.A} (N={N})")
-        A = synthesize_host_matrix(args.A, aniso=args.aniso, seed=args.seed)
-        _log(args, "synthesize matrix:", t0)
-    else:
-        t0 = time.perf_counter()
-        _log(args, f"reading matrix from {args.A}")
-        try:
-            A = SymCsrMatrix.from_mtx(read_mtx(args.A, binary=args.binary))
-        except AcgError as e:
-            raise SystemExit(f"acg-tpu-torch: {args.A}: {e}")
-        _log(args, "read matrix:", t0)
 
-    # stage 2: assemble symmetric CSR
-    t0 = time.perf_counter()
-    csr = A.to_csr(epsilon=args.epsilon)
-    _log(args, "assemble symmetric CSR:", t0)
-    phases["ingest"] = time.perf_counter() - t_ingest
-    n = A.nrows
-    # partition-permuted input (mtx2bin --partition): the matrix on disk
-    # is P A P^T, but b, x0 and the printed solution stay in the
-    # original row order
-    perm = (None if args.A.startswith("gen:")
-            else _load_perm_sidecar(args.A, n))
-
-    # stage 3: partition rows (cli.py:3348-3382)
+    # stages 1-4 under the ingest agreement: the host-local stages where
+    # one process can fail alone
+    phases = {}
+    ingest_rc, state = 0, None
+    try:
+        state = _ingest(args, device, phases)
+    except (AcgError, OSError, SystemExit) as e:
+        if not _multi(args):
+            raise
+        msg = str(e)
+        sys.stderr.write(msg if msg.startswith("acg-tpu-torch:")
+                         else f"acg-tpu-torch: {msg}")
+        sys.stderr.write("\n")
+        ingest_rc = 1
+    rc = _stage_sync(args, "ingest", ingest_rc)
+    if rc:
+        if not ingest_rc:
+            sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                             "failed during ingest\n")
+        return rc
+    A, csr, n, perm, nparts, part, b, x0, xsol = state
     comm = args.comm
-    nparts = args.nparts or _default_nparts(device)
-    t0 = time.perf_counter()
-    part = _partition(args, csr, n, nparts)
-    if args.partition:
-        nparts = max(nparts, int(part.max()) + 1)
-    _log(args, f"partition rows into {nparts} parts:", t0)
-    phases["partition"] = time.perf_counter() - t0
-
-    # stage 4: right-hand side and initial guess
-    rng = np.random.default_rng(args.seed)
-    xsol = None
-    x0 = None
-    if args._batched:
-        # one column per system: an n x B dense array file, a
-        # manufactured block, or B seeded random unit columns
-        from acg_tpu_torch.io.generators import batched_rhs
-        from acg_tpu_torch.io.mtxfile import vector_columns
-        if args.manufactured_solution:
-            xsol = rng.standard_normal((n, args.nrhs))
-            xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
-            # one multi-column product through the shifted CSR: each
-            # column is A.dsymv's, bit for bit
-            b = csr @ xsol
-        elif args.b:
-            b = vector_columns(read_mtx(args.b, binary=args.binary), n,
-                               args.nrhs)
-            if perm is not None:
-                b = b[perm]
-        else:
-            b = batched_rhs(n, args.nrhs, seed=args.seed)
-        if args.x0:
-            x0 = vector_columns(read_mtx(args.x0, binary=args.binary), n,
-                                args.nrhs)
-            if perm is not None:
-                x0 = x0[perm]
-    else:
-        if args.manufactured_solution:
-            # random unit-norm solution; b = A*xsol via the host SpMV
-            xsol = rng.standard_normal(n)
-            xsol /= np.linalg.norm(xsol)
-            b = A.dsymv(xsol, epsilon=args.epsilon)
-        elif args.b:
-            b = _read_vector(args.b, args.binary, n, "b")
-            if perm is not None:
-                b = b[perm]
-        else:
-            b = np.ones(n)
-        if args.x0:
-            x0 = _read_vector(args.x0, args.binary, n, "x0")
-            if perm is not None:
-                x0 = x0[perm]
     criteria = StoppingCriteria(
         maxits=args.max_iterations,
         residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
@@ -1041,11 +1503,22 @@ def _main(args) -> int:
                                                  DistributedProblem,
                                                  resolve_comm)
 
-        subs = partition_matrix(csr, part, nparts)
+        # multi-process: each process assembles the blocks of its own
+        # parts only (acg_tpu/cli.py:3650-3669)
+        owned = None
+        if _multi(args):
+            from acg_tpu_torch.parallel import mesh, multihost
+            try:
+                owned = mesh.owned_parts(nparts, multihost.process_index(),
+                                         multihost.process_count())
+            except ValueError as e:
+                raise SystemExit(f"acg-tpu-torch: {e}")
+        subs = partition_matrix(csr, part, nparts, owned_parts=owned)
         if args.output_comm_matrix:
             comm_mtx = comm_matrix(subs, nparts)
         prob = DistributedProblem.build(csr, part, nparts, dtype=dtype,
-                                        subs=subs, vector_dtype=vec_dtype)
+                                        subs=subs, vector_dtype=vec_dtype,
+                                        owned_parts=owned)
         if args._operator_spec is not None:
             # matrix-free on the stacked parts: generated local planes
             # behind the same halo plan and ghost block
@@ -1073,10 +1546,23 @@ def _main(args) -> int:
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         _fold_inner_timings(solver)
-        solver.stats.fwrite(sys.stderr)
+        if _is_primary():   # the stats block from rank 0 only
+            solver.stats.fwrite(sys.stderr)
+        _stage_sync(args, "solve", 1)
+        _close(solver)
         return 1
     _fold_inner_timings(solver)
     _log(args, "solve:", t0)
+    rc = _stage_sync(args, "solve", 0)
+    _close(solver)
+    if rc:
+        sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
+                         "failed during the solve\n")
+        return rc
+    # every process solves; only rank 0 speaks (the reference's
+    # mtxfile_fwrite_mpi_double root-rank output)
+    if not _is_primary():
+        return 0
     if solver.stats.batch:
         _log(args, f"batch: per-RHS iterations "
                    f"{solver.stats.batch['iterations']}")
@@ -1100,6 +1586,97 @@ def _main(args) -> int:
         _write_comm_matrix(comm_mtx, nparts)
     _emit_solution(args, x, perm)
     return 0
+
+
+def _ingest(args, device, phases: dict):
+    """Stages 1-4 (``acg_tpu/cli.py:3300-3460``): read or synthesize the
+    matrix, assemble the symmetric CSR, partition the rows, build b and
+    x0.  Returns ``(A, csr, n, perm, nparts, part, b, x0, xsol)``."""
+    from acg_tpu_torch.errors import AcgError
+    from acg_tpu_torch.io.mtxfile import read_mtx
+    from acg_tpu_torch.matrix import SymCsrMatrix
+
+    # stage 1: read (or synthesize) the matrix
+    t_ingest = time.perf_counter()
+    t0 = time.perf_counter()
+    if args.A.startswith("gen:"):
+        _, _, _, N, _ = _parse_gen_spec(args.A)
+        _log(args, f"synthesizing {args.A} (N={N})")
+        A = synthesize_host_matrix(args.A, aniso=args.aniso, seed=args.seed)
+        _log(args, "synthesize matrix:", t0)
+    else:
+        _log(args, f"reading matrix from {args.A}")
+        try:
+            A = SymCsrMatrix.from_mtx(read_mtx(args.A, binary=args.binary))
+        except AcgError as e:
+            raise SystemExit(f"acg-tpu-torch: {args.A}: {e}")
+        _log(args, "read matrix:", t0)
+
+    # stage 2: assemble symmetric CSR
+    t0 = time.perf_counter()
+    csr = A.to_csr(epsilon=args.epsilon)
+    _log(args, "assemble symmetric CSR:", t0)
+    phases["ingest"] = time.perf_counter() - t_ingest
+    n = A.nrows
+    # partition-permuted input (mtx2bin --partition): the matrix on disk
+    # is P A P^T, but b, x0 and the printed solution stay in the
+    # original row order
+    perm = (None if args.A.startswith("gen:")
+            else _load_perm_sidecar(args.A, n))
+
+    # stage 3: partition rows (cli.py:3348-3382)
+    nparts = args.nparts or _default_nparts(device, args)
+    t0 = time.perf_counter()
+    part = _partition(args, csr, n, nparts)
+    if args.partition:
+        nparts = max(nparts, int(part.max()) + 1)
+    _log(args, f"partition rows into {nparts} parts:", t0)
+    phases["partition"] = time.perf_counter() - t0
+
+    # stage 4: right-hand side and initial guess
+    rng = np.random.default_rng(args.seed)
+    xsol = None
+    x0 = None
+    if args._batched:
+        # one column per system: an n x B dense array file, a
+        # manufactured block, or B seeded random unit columns
+        from acg_tpu_torch.io.generators import batched_rhs
+        from acg_tpu_torch.io.mtxfile import vector_columns
+        if args.manufactured_solution:
+            xsol = rng.standard_normal((n, args.nrhs))
+            xsol /= np.linalg.norm(xsol, axis=0, keepdims=True)
+            # one multi-column product through the shifted CSR: each
+            # column is A.dsymv's, bit for bit
+            b = csr @ xsol
+        elif args.b:
+            b = vector_columns(read_mtx(args.b, binary=args.binary), n,
+                               args.nrhs)
+            if perm is not None:
+                b = b[perm]
+        else:
+            b = batched_rhs(n, args.nrhs, seed=args.seed)
+        if args.x0:
+            x0 = vector_columns(read_mtx(args.x0, binary=args.binary), n,
+                                args.nrhs)
+            if perm is not None:
+                x0 = x0[perm]
+    else:
+        if args.manufactured_solution:
+            # random unit-norm solution; b = A*xsol via the host SpMV
+            xsol = rng.standard_normal(n)
+            xsol /= np.linalg.norm(xsol)
+            b = A.dsymv(xsol, epsilon=args.epsilon)
+        elif args.b:
+            b = _read_vector(args.b, args.binary, n, "b")
+            if perm is not None:
+                b = b[perm]
+        else:
+            b = np.ones(n)
+        if args.x0:
+            x0 = _read_vector(args.x0, args.binary, n, "x0")
+            if perm is not None:
+                x0 = x0[perm]
+    return A, csr, n, perm, nparts, part, b, x0, xsol
 
 
 def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
@@ -1134,13 +1711,16 @@ def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
     return HostCGSolver(csr, precond=args._precond)
 
 
-def _default_nparts(device: torch.device) -> int:
-    """The part count when ``--nparts`` is not given: 1, whatever the
-    device and however many cards the host has.  ``acg_tpu`` takes one
-    part per device (``cli.py:3348-3352``) and places each part on its
-    own; the port stacks every part on ``device``, where k stacked parts
-    only run slower than one, so it keeps one part until each part can
-    have a card of its own."""
+def _default_nparts(device, args=None) -> int:
+    """The part count when ``--nparts`` is not given: under
+    ``--multihost`` one part per process (``acg_tpu`` takes one part per
+    device, ``cli.py:3348-3352``, and here each process has a card), else
+    1, whatever the device and however many cards the host has: the port
+    stacks a process's parts on its card, where k stacked parts only run
+    slower than one.  ``--comm none`` is one part."""
+    if args is not None and args.comm != "none" and _multi(args):
+        from acg_tpu_torch.parallel import multihost
+        return multihost.process_count()
     return 1
 
 

@@ -99,6 +99,24 @@ class BreakdownError(AcgError):
         super().__init__(ErrorCode.BREAKDOWN, detail)
 
 
+class ExitCode(enum.IntEnum):
+    """The process exit-code contract, with the JAX package's values
+    (``acg_tpu/errors.py:110-130``): the CLI, the error agreement's
+    watchdog and the heartbeat return these."""
+
+    OK = 0
+    FAILURE = 1                  # solve/config failure, agreed abort
+    NOTHING_COMPARABLE = 2       # bench_diff: no case in common
+    BACKEND_UNAVAILABLE = 3      # bounded backend probe failed
+    DRIFT = 7                    # --fail-on-drift: EWMA latency drift
+    SLO_BREACH = 8               # --fail-on-slo: declared objective
+    PEER_DEAD_INJECTED = 86      # peer:dead fault fired on this rank
+    CRASH_INJECTED = 94          # crash:exit fault fired (resumable)
+    RELAUNCH_BUDGET = 95         # supervisor: relaunch budget spent
+    WRONG_ANSWER = 96            # chaos: converged to a wrong answer
+    PEER_LOST = 97               # erragree watchdog/heartbeat teardown
+
+
 def fexcept_str(*arrays) -> str:
     """Report floating-point exceptions observable in computed arrays:
     NaN / Inf in the arrays produced by the solve (no trap flags are

@@ -220,17 +220,26 @@ def _partition_graph_nodes_numpy(full_csr, part, nparts) -> list[Subdomain]:
 
 
 def partition_matrix(full_csr: sp.csr_matrix, part: np.ndarray,
-                     nparts: int) -> list[Subdomain]:
+                     nparts: int, owned_parts=None) -> list[Subdomain]:
     """Build subdomains with their owned x owned and owned x ghost CSR
     blocks in local indices (the ``f*``/``o*`` split of
     ``symcsrmatrix.c:760-862``), so the distributed SpMV is ``y = A_local
-    x_owned + A_ghost x_ghost`` with the ghosts from the halo exchange."""
+    x_owned + A_ghost x_ghost`` with the ghosts from the halo exchange.
+
+    ``owned_parts`` (multi-process): build the matrix blocks only for
+    the listed parts; the others keep ``A_local is None``.  The node sets
+    and halo plans are still built for every part (every process needs
+    the global plan), as in ``acg_tpu/graph.py:252-296``."""
     subs = partition_graph_nodes(full_csr, part, nparts)
     n = full_csr.shape[0]
     coo = full_csr.tocoo()
     part = np.asarray(part)
     rp = part[coo.row]
+    owned_set = (None if owned_parts is None
+                 else {int(p) for p in owned_parts})
     for s in subs:
+        if owned_set is not None and s.part not in owned_set:
+            continue
         g2l = np.full(n, -1, dtype=IDX_DTYPE)
         g2l[s.global_ids] = np.arange(s.global_ids.size, dtype=IDX_DTYPE)
         mine = rp == s.part
@@ -249,6 +258,110 @@ def partition_matrix(full_csr: sp.csr_matrix, part: np.ndarray,
         s.A_local.sort_indices()
         s.A_ghost.sort_indices()
     return subs
+
+
+def subdomain_from_row_slice(rowidx, colidx, vals, bounds,
+                             part: int) -> Subdomain:
+    """Build ONE part's subdomain from ONLY its own rows.
+
+    Inputs are the FULL-STORAGE entries of rows ``[bounds[part],
+    bounds[part+1])`` of a structurally symmetric matrix under a
+    contiguous band partition (``bounds``: nparts+1 ascending row
+    boundaries) -- exactly what :func:`acg_tpu_torch.io.mtxfile.
+    read_mtx_row_range` returns for an ``mtx2bin --expand`` file.
+
+    This restores the reference's only-local-data-per-rank property
+    (``acggraph_partition`` per-rank construction + ``acggraph_scatter``,
+    ``graph.c:813-1897``) without any root rank: structural symmetry
+    makes the send side locally derivable (my row i couples ghost j of
+    part q  <=>  q's row j couples my i, so "q will ask for i" is
+    visible from my own rows).  Layout matches what
+    ``partition_graph_nodes`` + ``reorder_owned_natural`` produce for
+    the same band partition: owned rows ascending (natural), ghosts
+    grouped by owner ascending by global id, send windows sorted by
+    global id.
+    """
+    bounds = np.asarray(bounds, dtype=np.int64)
+    lo, hi = int(bounds[part]), int(bounds[part + 1])
+    nowned = hi - lo
+    rowidx = np.asarray(rowidx)
+    colidx = np.asarray(colidx)
+    vals = np.asarray(vals)
+    if rowidx.size and (rowidx.min() < lo or rowidx.max() >= hi):
+        raise AcgError(ErrorCode.INVALID_PARTITION,
+                       "row slice contains rows outside the band")
+
+    outside = (colidx < lo) | (colidx >= hi)
+    # ghosts ascending by global id; for band partitions owner order ==
+    # id order, so this is also grouped-by-owner ascending
+    ghosts = np.unique(colidx[outside]).astype(IDX_DTYPE)
+    ghost_owner = (np.searchsorted(bounds, ghosts, side="right") - 1
+                   ).astype(np.int32)
+    nghost = ghosts.size
+
+    # send plan: (q, i) pairs deduped, grouped by q, ascending i
+    s_i = rowidx[outside]
+    s_q = (np.searchsorted(bounds, colidx[outside], side="right") - 1)
+    key = np.unique(s_q.astype(np.int64) * (bounds[-1] + 1) + s_i)
+    send_q = (key // (bounds[-1] + 1)).astype(np.int32)
+    send_i = (key % (bounds[-1] + 1)).astype(IDX_DTYPE)
+    send_parts, send_counts = np.unique(send_q, return_counts=True)
+    send_ptr = np.concatenate([[0], np.cumsum(send_counts)]).astype(IDX_DTYPE)
+    recv_parts, recv_counts = np.unique(ghost_owner, return_counts=True)
+    recv_ptr = np.concatenate([[0], np.cumsum(recv_counts)]).astype(IDX_DTYPE)
+    halo = HaloPlan(send_parts=send_parts.astype(np.int32),
+                    send_counts=send_counts.astype(IDX_DTYPE),
+                    send_ptr=send_ptr,
+                    send_idx=(send_i - lo).astype(IDX_DTYPE),
+                    recv_parts=recv_parts.astype(np.int32),
+                    recv_counts=recv_counts.astype(IDX_DTYPE),
+                    recv_ptr=recv_ptr,
+                    recv_idx=np.arange(nowned, nowned + nghost,
+                                       dtype=IDX_DTYPE))
+
+    # matrix blocks in local indices (owned rows natural ascending)
+    lr = (rowidx - lo).astype(IDX_DTYPE)
+    inside = ~outside
+    A_local = sp.coo_matrix(
+        (vals[inside], (lr[inside], (colidx[inside] - lo))),
+        shape=(nowned, nowned)).tocsr()
+    gcol = np.searchsorted(ghosts, colidx[outside])
+    A_ghost = sp.coo_matrix(
+        (vals[outside], (lr[outside], gcol)),
+        shape=(nowned, max(nghost, 1))).tocsr()
+    A_local.sort_indices()
+    A_ghost.sort_indices()
+
+    border = np.zeros(nowned, dtype=bool)
+    border[lr[outside]] = True
+    nborder = int(border.sum())
+    global_ids = np.concatenate([np.arange(lo, hi, dtype=IDX_DTYPE), ghosts])
+    return Subdomain(part=part, ninterior=nowned - nborder,
+                     nborder=nborder, nghost=nghost,
+                     global_ids=global_ids, ghost_owner=ghost_owner,
+                     halo=halo, A_local=A_local, A_ghost=A_ghost,
+                     owned_order="natural")
+
+
+@dataclasses.dataclass
+class BandStub:
+    """Placeholder for a part whose data lives on ANOTHER controller in
+    the local-read flow: carries only the analytically-known structure
+    (band size); the matrix blocks and halo plan are None and every
+    consumer that needs them fills that part's device shards on its
+    owning controller instead."""
+
+    part: int
+    nowned_: int
+    A_local = None
+    A_ghost = None
+    halo = None
+    nghost = 0
+    owned_order = "natural"
+
+    @property
+    def nowned(self) -> int:
+        return self.nowned_
 
 
 def reorder_owned_natural(subs: list[Subdomain]) -> list[Subdomain]:

@@ -1,12 +1,14 @@
 """Matrix Market I/O (host numpy).
 
-A copy of ``acg_tpu/io/mtxfile.py`` (``acg/mtxfile.c``) without the
-window and range readers of the multi-process ingest: :func:`read_mtx`
+A copy of ``acg_tpu/io/mtxfile.py`` (``acg/mtxfile.c``): :func:`read_mtx`
 (text, gzipped text, raw binary), :func:`write_mtx`, the offline tools'
 full-storage expansion and partition permutation
-(:func:`expand_to_rowsorted_full`, :func:`apply_partition_rowsorted`)
-and the multi-column vectors of ``--nrhs`` (:func:`multi_vector_mtx`,
-:func:`vector_columns`).  The binary data section is the concatenation
+(:func:`expand_to_rowsorted_full`, :func:`apply_partition_rowsorted`),
+the multi-column vectors of ``--nrhs`` (:func:`multi_vector_mtx`,
+:func:`vector_columns`), and the range reads and writes of the
+multi-process ingest and output (:func:`read_mtx_row_range`,
+:func:`read_vector_window`, :func:`read_vector_rows`,
+:func:`write_vector_window`, :func:`finalize_vector_file`).  The binary data section is the concatenation
 of the row-index array, the column-index array and the value array
 (int64, 1-based indices, ``mtxfile.c:1492-1497``), record-compatible
 with the JAX package's files.
@@ -335,6 +337,115 @@ def apply_partition_rowsorted(mtx: MtxFile, part: np.ndarray):
     return permuted, bounds, perm
 
 
+def read_mtx_sizes(path) -> tuple[int, int, int]:
+    """(nrows, ncols, nnz) from a Matrix Market header without reading
+    the data section (O(1) I/O; used to derive band bounds before a
+    range read)."""
+    with _open_maybe_gzip(path, "rb") as f:
+        _, _, _, _, _, nrows, ncols, nnz = _read_header_meta(f)
+        return nrows, ncols, nnz
+
+
+def read_mtx_row_range(path, row_lo: int, row_hi: int) -> MtxFile:
+    """Read ONLY the entries with ``row_lo <= row < row_hi`` from a
+    row-sorted BINARY coordinate file (``mtx2bin --expand`` output).
+
+    The pod-scale ingest primitive (the role of the reference's
+    root-read + ``acgmtxfile_scatterv``, ``mtxfile.h:997-1087``, without
+    the root): the row span is located by BISECTION over the on-disk
+    rowidx array (O(log nnz) 8-byte seeks), then exactly the three
+    slices are read -- I/O and memory are O(local nnz), not O(nnz).
+    Returns an :class:`MtxFile` with global ``nrows/ncols`` and the
+    local ``nnz``; monotonicity of the slice is verified.
+    """
+    if not (0 <= row_lo <= row_hi):
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"bad row range [{row_lo}, {row_hi})")
+    with open(path, "rb") as f:
+        obj, fmt, field, sym, comments, nrows, ncols, nnz = \
+            _read_header_meta(f)
+        if fmt != "coordinate":
+            raise AcgError(ErrorCode.INVALID_FORMAT,
+                           "row-range reads need a coordinate file")
+        data_off = f.tell()
+
+        idx_sz = np.dtype(IDX_DTYPE).itemsize
+
+        # probe that the data section IS binary before bisecting over it
+        # (read_mtx takes an explicit ``binary`` flag; this reader has no
+        # flag, and frombuffer over an ASCII data section would otherwise
+        # fail with a misleading "not row-sorted" error, or worse, pass):
+        # the binary layout's size is fully determined by the header
+        # (rowidx, colidx, vals as consecutive raw arrays), and entry 0's
+        # 1-based rowidx must be a plausible row number.
+        val_sz = 0 if field == "pattern" else \
+            (8 if field == "real" else 4)
+        f.seek(0, os.SEEK_END)
+        if f.tell() != data_off + nnz * (2 * idx_sz + val_sz):
+            raise AcgError(ErrorCode.INVALID_FORMAT,
+                           f"{path}: data section size does not match the "
+                           f"binary layout for {nnz} entries -- not a "
+                           f"binary file? (convert with mtx2bin --expand)")
+        if nnz:
+            f.seek(data_off)
+            first = int(np.frombuffer(f.read(idx_sz), dtype=IDX_DTYPE)[0])
+            if not (1 <= first <= nrows):
+                raise AcgError(ErrorCode.INVALID_FORMAT,
+                               f"{path}: first rowidx {first} out of range "
+                               f"-- not a binary coordinate file?")
+
+        def row_at(k: int) -> int:
+            f.seek(data_off + idx_sz * k)
+            buf = f.read(idx_sz)
+            if len(buf) != idx_sz:
+                raise AcgError(ErrorCode.EOF, "binary rowidx truncated")
+            return int(np.frombuffer(buf, dtype=IDX_DTYPE)[0]) - 1
+
+        def lower_bound(row: int) -> int:
+            """First k with rowidx[k] >= row (file is row-sorted)."""
+            lo, hi = 0, nnz
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if row_at(mid) < row:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            return lo
+
+        k0 = lower_bound(row_lo)
+        k1 = lower_bound(row_hi)
+        cnt = k1 - k0
+
+        def read_block(block: int, dtype, item: int) -> np.ndarray:
+            f.seek(data_off + block + item * k0)
+            buf = f.read(item * cnt)
+            if len(buf) != item * cnt:
+                raise AcgError(ErrorCode.EOF, "binary data truncated")
+            return np.frombuffer(buf, dtype=dtype).copy()
+
+        rowidx = read_block(0, IDX_DTYPE, idx_sz) - 1
+        colidx = read_block(idx_sz * nnz, IDX_DTYPE, idx_sz) - 1
+        vals = None
+        if field != "pattern":
+            vdt = np.float64 if field == "real" else np.int32
+            vals = read_block(2 * idx_sz * nnz, vdt, np.dtype(vdt).itemsize)
+        if cnt:
+            if (np.diff(rowidx) < 0).any():
+                raise AcgError(ErrorCode.INVALID_FORMAT,
+                               "file is not row-sorted; regenerate with "
+                               "mtx2bin --expand")
+            if rowidx[0] < row_lo or rowidx[-1] >= row_hi:
+                raise AcgError(ErrorCode.INVALID_FORMAT,
+                               "row-range bisection failed (unsorted file?)")
+            if colidx.min() < 0 or colidx.max() >= ncols:
+                raise AcgError(ErrorCode.INDEX_OUT_OF_BOUNDS,
+                               "mtx indices out of range")
+    return MtxFile(object=obj, format=fmt, field=field,
+                   symmetry=sym, nrows=nrows, ncols=ncols, nnz=cnt,
+                   rowidx=rowidx, colidx=colidx, vals=vals,
+                   comments=comments)
+
+
 def write_mtx(path, mtx: MtxFile, binary: bool = False, numfmt: str = "%.17g") -> None:
     """Write a Matrix Market file (text or raw binary).
 
@@ -413,6 +524,182 @@ def _write_mtx_stream(f, mtx: MtxFile, binary: bool, numfmt: str) -> None:
                 except _native.NativeParseError:
                     pass
             f.write(("\n".join(numfmt % v for v in vals) + "\n").encode())
+
+
+def vector_binary_header(n: int) -> bytes:
+    """The exact header bytes of a binary array double vector file of
+    length ``n`` -- deterministic from ``n`` alone, which is what makes
+    rootless range WRITES possible: every controller computes the same
+    data offset with no coordination."""
+    return f"%%MatrixMarket matrix array double general\n{n} 1\n".encode()
+
+
+def write_vector_window(path, n: int, row_lo: int,
+                        values: np.ndarray) -> None:
+    """Range-WRITE ``values`` (float64) into rows ``[row_lo, row_lo +
+    len(values))`` of a binary array vector file of global length ``n``
+    -- the output mirror of :func:`read_mtx_row_range` and the rootless
+    restatement of the reference's rank-ordered distributed solution
+    output (``mtxfile_fwrite_mpi_double``, ``mtxfile.h:1087``): each
+    controller writes exactly its owned windows, I/O is O(local rows),
+    and no full vector is ever gathered anywhere.
+
+    Creates the file if needed (sparse until every window lands); call
+    :func:`finalize_vector_file` from ONE process to write the header
+    and pin the exact length.
+    """
+    values = np.ascontiguousarray(values, dtype=np.float64)
+    if not (0 <= row_lo and row_lo + values.size <= n):
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"window [{row_lo}, {row_lo + values.size}) outside "
+                       f"[0, {n})")
+    fd = os.open(os.fspath(path), os.O_CREAT | os.O_WRONLY, 0o644)
+    try:
+        os.lseek(fd, len(vector_binary_header(n)) + 8 * row_lo, os.SEEK_SET)
+        os.write(fd, values.tobytes())
+    finally:
+        os.close(fd)
+
+
+def finalize_vector_file(path, n: int) -> None:
+    """Write the deterministic header of a range-written vector file and
+    truncate it to its exact size (one process -- the primary -- calls
+    this; the reference's root writes the header the same way)."""
+    hdr = vector_binary_header(n)
+    fd = os.open(os.fspath(path), os.O_CREAT | os.O_WRONLY, 0o644)
+    try:
+        os.write(fd, hdr)
+        os.ftruncate(fd, len(hdr) + 8 * n)
+    finally:
+        os.close(fd)
+
+
+def _open_vector_binary(f, path, expect_nrows):
+    """Validate an open binary array-vector stream and return
+    ``(nrows, data_off, vdt)`` -- the shared header step of the window
+    and gather readers (parsed ONCE per open; the gather reader issues
+    many seek+reads against the same handle)."""
+    if f.read(2) == b"\x1f\x8b":
+        raise AcgError(ErrorCode.NOT_SUPPORTED,
+                       f"{path}: gzipped vector files are not "
+                       f"seekable for window reads; decompress to a "
+                       f"raw binary array file first")
+    f.seek(0)
+    _, fmt, field, _, _, nrows, ncols, _ = _read_header_meta(f)
+    if expect_nrows is not None and nrows != expect_nrows:
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"{path}: vector has {nrows} rows, "
+                       f"need {expect_nrows}")
+    if fmt != "array" or ncols != 1:
+        raise AcgError(ErrorCode.INVALID_FORMAT,
+                       f"{path}: vector window reads need a dense "
+                       f"array vector file ({fmt} {ncols} cols)")
+    if field == "real":
+        vdt = np.dtype(np.float64)
+    elif field == "integer":
+        # the binary layout of integer array vectors (int32, same as
+        # read_mtx binary=True) -- window reads of the perm/bounds
+        # sidecars ride this
+        vdt = np.dtype(np.int32)
+    else:
+        raise AcgError(ErrorCode.NOT_SUPPORTED,
+                       f"{path}: vector windows read 'real'/'double'"
+                       f"/'integer' fields (got {field!r})")
+    data_off = f.tell()
+    f.seek(0, os.SEEK_END)
+    if f.tell() != data_off + vdt.itemsize * nrows:
+        raise AcgError(ErrorCode.INVALID_FORMAT,
+                       f"{path}: data section size does not match "
+                       f"the binary array layout for {nrows} rows "
+                       f"-- not a binary file?")
+    return nrows, data_off, vdt
+
+
+def _read_window_at(f, path, nrows, data_off, vdt, row_lo, row_hi):
+    if not (0 <= row_lo <= row_hi):
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"bad row range [{row_lo}, {row_hi})")
+    if row_hi > nrows:
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"window [{row_lo}, {row_hi}) outside "
+                       f"[0, {nrows})")
+    f.seek(data_off + vdt.itemsize * row_lo)
+    buf = f.read(vdt.itemsize * (row_hi - row_lo))
+    if len(buf) != vdt.itemsize * (row_hi - row_lo):
+        raise AcgError(ErrorCode.EOF, "binary vector truncated")
+    return np.frombuffer(buf, dtype=vdt).copy()
+
+
+def read_vector_window(path, row_lo: int, row_hi: int,
+                       expect_nrows: int | None = None) -> np.ndarray:
+    """Read rows ``[row_lo, row_hi)`` of a BINARY array (dense vector)
+    file -- the input mirror of :func:`write_vector_window`: one seek +
+    one read of exactly the window, so per-controller right-hand-side
+    ingest is O(local rows) (the b/x0 half of the reference's
+    distributed file I/O, ``mtxfile.h:997-1087``).
+
+    ``expect_nrows`` pins the file's global length: window reads only
+    touch their slice, so without this check a wrong-sized vector
+    (wrong problem) would be silently accepted wherever the windows
+    happen to fit."""
+    with open(path, "rb") as f:
+        nrows, data_off, vdt = _open_vector_binary(f, path, expect_nrows)
+        return _read_window_at(f, path, nrows, data_off, vdt,
+                               row_lo, row_hi)
+
+
+# gaps up to this many rows between requested indices are read over in
+# one request rather than split into separate seeks (8 B rows: 64 rows
+# = 512 B -- far below the cost of an extra syscall + disk round trip)
+_GATHER_GAP_ROWS = 64
+
+
+def read_vector_rows(path, rows: np.ndarray,
+                     expect_nrows: int | None = None) -> np.ndarray:
+    """Gather arbitrary ``rows`` (0-based, any order, duplicates OK) of
+    a binary array vector file, as float64 in the requested order.
+
+    The scattered-row mirror of :func:`read_vector_window` for
+    partition-PERMUTED matrices under ``--distributed-read``: a
+    controller's owned window of permuted rows maps through the perm
+    sidecar to non-contiguous rows of the original-ordering b/x0 file
+    (the reference reads these through its rowwise partitioned
+    ``mtxfile`` gather, ``mtxfile.h:997-1087``).  I/O is coalesced:
+    sorted unique indices are grouped into runs whose internal gaps are
+    below ``_GATHER_GAP_ROWS``, one seek+read per run -- O(local rows)
+    for the band-dominated permutations METIS produces, never worse
+    than one syscall per ``_GATHER_GAP_ROWS``-spaced index."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if rows.size == 0:
+        return np.zeros(0, dtype=np.float64)
+    uniq, inverse = np.unique(rows, return_inverse=True)
+    if uniq[0] < 0 or (expect_nrows is not None
+                       and uniq[-1] >= expect_nrows):
+        raise AcgError(ErrorCode.INVALID_VALUE,
+                       f"gather rows outside [0, {expect_nrows})")
+    # run boundaries: where the gap to the previous index exceeds the
+    # coalescing threshold
+    cuts = np.flatnonzero(np.diff(uniq) > _GATHER_GAP_ROWS) + 1
+    starts = np.concatenate([[0], cuts])
+    ends = np.concatenate([cuts, [uniq.size]])
+    vals = np.empty(uniq.size, dtype=np.float64)
+    # ONE open + header parse for the whole gather: a scattered perm can
+    # produce O(local rows / gap) runs, and per-run re-validation
+    # (open + parse + seek-to-end) would multiply the syscall count
+    with open(path, "rb") as f:
+        nrows, data_off, vdt = _open_vector_binary(f, path, expect_nrows)
+        # validate against the PARSED row count too (expect_nrows is
+        # optional): an out-of-range gather row is named directly here
+        # instead of surfacing as a window-range error mid-read
+        if uniq[-1] >= nrows:
+            raise AcgError(ErrorCode.INVALID_VALUE,
+                           f"{path}: gather row {int(uniq[-1])} outside "
+                           f"the file's [0, {nrows}) rows")
+        for s, e in zip(starts, ends):
+            lo, hi = int(uniq[s]), int(uniq[e - 1]) + 1
+            chunk = _read_window_at(f, path, nrows, data_off, vdt, lo, hi)
+            vals[s:e] = chunk[uniq[s:e] - lo]
+    return vals[inverse]
 
 
 def vector_mtx(x: np.ndarray, field: str = "real") -> MtxFile:

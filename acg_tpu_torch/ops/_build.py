@@ -37,8 +37,11 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_uint
 _LP = ctypes.POINTER(ctypes.c_longlong)   # a host int64 array
-# argtypes of every exported function; each returns cudaGetLastError()
+_PP = ctypes.POINTER(ctypes.c_void_p)     # a host pointer slot
+# argtypes of every exported function; each returns a cudaError_t (the
+# launches cudaGetLastError())
 _SIGNATURES = {
     "acg_dia_spmv": (_I, _I, _P, _LP, _I, _L, _P, _P, _P, _P, _P),
     "acg_cg_phase_a": (_I, _I, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P,
@@ -48,7 +51,20 @@ _SIGNATURES = {
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P),
     "acg_halo_put": (_I, _P, _P, _I, _L, _I, _P, _P),
+    "acg_halo_put_peer": (_I, _P, _P, _I, _I, _I, _L, _I, _P, _I, _U, _P,
+                          _P),
+    "acg_halo_wait_peer": (_P, _I, _I, _I, _I, _P, _P, _P, _U, _L, _P, _P),
+    "acg_ipc_alloc": (_I, _L, _PP),
+    "acg_ipc_handle": (_P, _P),
+    "acg_ipc_open": (_I, _P, _PP),
+    "acg_ipc_close": (_P,),
+    "acg_ipc_free": (_P,),
+    "acg_ipc_host_word": (_PP, _PP),
+    "acg_ipc_host_free": (_P,),
+    "acg_ipc_handle_size": (),
     "acg_stencil_spmv": (_I, _I, _L, _I, _L, _P, _P, _P, _P, _P),
+    "acg_part_dot": (_I, _I, _L, _L, _P, _L, _P, _L, _P, _P, _P, _P),
+    "acg_part_dot_blocks": (_L,),
 }
 
 _lock = threading.Lock()

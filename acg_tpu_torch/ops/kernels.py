@@ -19,9 +19,16 @@ wrapper                CUDA source                 replaces (TPU kernel)
                                                    update`` (K5)
 :func:`halo_put`       ``csrc/halo_put.cu``        ``_exchange_kernel``
                                                    (K6, halo_dma.py)
+:func:`halo_put_peer`  ``csrc/halo_put.cu``        the same, its cross-
+                                                   process form (K6
+                                                   across ranks)
 :func:`stencil_spmv`   ``csrc/stencil_spmv.cu``    ``_stencil_poisson_
                                                    call`` (K7, also
                                                    stacked over parts)
+:func:`part_dot`       ``csrc/part_dot.cu``        no TPU kernel: the
+                                                   per-part dots of the
+                                                   multi-part tiers (an
+                                                   XLA dot there)
 =====================  ==========================  =======================
 
 A wrapper takes the plain version for tensors on the CPU -- and only
@@ -51,7 +58,8 @@ from acg_tpu_torch.ops.spmv import MAX_DIAGS, acc_dtype, dia_mv, dia_mv_acc
 # kernel launches per wrapper since the last reset_launches()
 launches = {"dia_spmv": 0, "dia_spmv_batched": 0, "cg_phase_a": 0,
             "cg_phase_b": 0, "pipelined_update": 0, "halo_put": 0,
-            "stencil_spmv": 0, "stencil_spmv_batched": 0}
+            "halo_put_peer": 0, "stencil_spmv": 0,
+            "stencil_spmv_batched": 0, "part_dot": 0}
 
 # K1's launches of the same period by (planes, x) dtype pair, e.g.
 # "bf16/f32" for the mixed product
@@ -458,6 +466,147 @@ def halo_put(send, send_counts, recv, *, gate_by_counts: bool = True):
     _build.check("halo_put", err)
     launches["halo_put"] += 1
     return recv
+
+
+# -- K6 across processes: puts into peer ranks' receive planes ----------
+
+def halo_put_peer_plain(send, send_counts, recv, ranges, rank: int,
+                        gate_by_counts: bool = True):
+    """The cross-process K6 on CPU tensors: rank ``rank`` owns parts
+    ``ranges[rank] = (lo, hi)``; ``send`` (nlocal, nparts, maxcnt) is its
+    send plane and ``recv`` (nlocal, nparts, maxcnt) its receive plane.
+    For every pair ``q != p`` with p one of this rank's parts -- with
+    ``gate_by_counts`` only where ``send_counts[q, p] > 0`` -- it writes
+    ``recv[p - lo, q] = send_q[p]`` IN PLACE through one
+    ``torch.distributed.all_to_all_single`` of the planes' bytes (the
+    collective gloo provides; :func:`acg_tpu_torch.parallel.halo.
+    transpose_ranks`); other rows keep their values.  Returns
+    ``recv``."""
+    from acg_tpu_torch.parallel.halo import transpose_ranks
+
+    lo, hi = ranges[rank]
+    P = send.shape[1]
+    got = transpose_ranks(send, ranges, rank)
+    mask = (torch.arange(lo, hi)[:, None] != torch.arange(P)[None, :])
+    if gate_by_counts:
+        mask = mask & (send_counts.T[lo:hi] > 0)
+    recv.copy_(torch.where(mask[..., None], got, recv))
+    return recv
+
+
+def halo_put_peer(send, send_counts, recv, ranges, rank: int, *,
+                  peer=None, gate_by_counts: bool = True):
+    """The transport of ``--comm dma`` across ranks: what
+    :func:`halo_put_peer_plain` writes, into this rank's receive plane.
+    CPU tensors take the plain version into ``recv``.  On the card
+    ``peer`` (:class:`~acg_tpu_torch.parallel.halo_dma.PeerPlanes`, whose
+    counts and gate were fixed when it was made) holds the receive
+    planes every rank maps; one call launches the put of the next
+    exchange and its wait, counts once, and returns the receive plane of
+    that exchange (``recv`` is not used).  A wait that timed out in an
+    earlier exchange raises here."""
+    if send.device.type == "cpu":
+        return halo_put_peer_plain(send, send_counts, recv, ranges, rank,
+                                   gate_by_counts)
+    if peer is None or peer.gate != bool(gate_by_counts):
+        raise ValueError("halo_put_peer: CUDA tensors need the peer "
+                         "planes (parallel.halo_dma.PeerPlanes) made with "
+                         "this gate")
+    lo, hi = ranges[rank]
+    shape = (hi - lo, peer.nparts, peer.maxcnt)
+    if (send.device != peer.device or tuple(send.shape) != shape
+            or send.dtype != peer.dtype or not send.is_contiguous()):
+        raise ValueError(f"halo_put_peer: send must be a contiguous "
+                         f"{shape} {peer.dtype} plane on {peer.device}, "
+                         f"got {send.dtype} {tuple(send.shape)} on "
+                         f"{send.device}")
+    peer.check()
+    seq = peer.seq + 1
+    lib = _build.lib()
+    err = lib.acg_halo_put_peer(
+        send.element_size(), send.data_ptr(), peer.counts.data_ptr(),
+        peer.nparts, lo, hi - lo, peer.maxcnt, int(peer.gate),
+        peer.tab.data_ptr(), seq % 2, seq, peer.done.data_ptr(), _stream())
+    _build.check("halo_put_peer", err)
+    err = lib.acg_halo_wait_peer(
+        peer.counts.data_ptr(), peer.nparts, lo, hi - lo, int(peer.gate),
+        peer.tab.data_ptr(), peer.flags_ptr, peer.acks_ptr, seq,
+        int(peer.timeout * 1e9), peer.err_dev, _stream())
+    _build.check("halo_wait_peer", err)
+    peer.seq = seq
+    launches["halo_put_peer"] += 1
+    return peer.plane(seq % 2)
+
+
+# -- the per-part dots of stacked vectors -------------------------------
+
+# elements a plain per-part dot row is padded to (512 bytes of f64, 256
+# of f32): every row of the product starts past any vector width the
+# reductions load with, as a fresh allocation does
+_ROW_ALIGN = 64
+
+# each stream's per-row tickets of csrc/part_dot.cu (zero between
+# launches), by (device index, stream)
+_dot_tickets: dict = {}
+
+
+def part_dot_plain(a, c, sdt):
+    """Per-part dots of stacked vectors in the scalar dtype ``sdt``:
+    (P, n) x 2 -> (P,), ``(a.to(sdt) * c.to(sdt)).sum()`` row by row.
+
+    One reduction per part row, each row starting on a 512-byte
+    boundary: a reduction over the last axis of a (P, n) tensor picks its
+    split of the rows by P (on the CPU one row alone is split over the
+    threads), and vectorizes by its data's alignment, so a part's dot
+    would depend on how many parts the tensor stacks and where its row
+    sits.  Row by row, from aligned rows, a part's dot has the same bits
+    whatever stacks it."""
+    P, n = a.shape[0], a.shape[-1]
+    pitch = -(-n // _ROW_ALIGN) * _ROW_ALIGN
+    prod = torch.empty((P, pitch), dtype=sdt, device=a.device)[:, :n]
+    torch.mul(a.to(sdt), c.to(sdt), out=prod)
+    return torch.stack([prod[p].sum() for p in range(P)])
+
+
+def part_dot(a, c, sdt):
+    """What :func:`part_dot_plain` computes, in one launch of
+    ``csrc/part_dot.cu`` on the card: each row summed in an order fixed
+    by n alone, so a part's dot has the same bits whatever stacks it and
+    wherever its row starts.  CPU tensors take the plain version.  Both
+    operands have one dtype and unit-stride rows."""
+    if a.device.type == "cpu":
+        return part_dot_plain(a, c, sdt)
+    codes = _build.DTYPE_CODES
+    if (a.dim() != 2 or tuple(c.shape) != tuple(a.shape)
+            or c.device != a.device or a.stride(-1) != 1
+            or c.stride(-1) != 1 or a.dtype not in codes
+            or c.dtype != a.dtype
+            or sdt not in (torch.float64, torch.float32)
+            or not 0 < a.shape[0] <= 65535):
+        raise ValueError(f"part_dot: expected two (P, n) CUDA tensors of "
+                         f"one of f64/f32/bf16 with unit-stride rows (P <= "
+                         f"65535) and an f64 or f32 scalar dtype, got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device}, "
+                         f"{c.dtype} {tuple(c.shape)} on {c.device}, {sdt}")
+    P, n = a.shape
+    out = torch.empty(P, dtype=sdt, device=a.device)
+    lib = _build.lib()
+    nb = lib.acg_part_dot_blocks(n)
+    part = torch.empty(P * nb, dtype=sdt, device=a.device)
+    stream = _stream()
+    key = (a.device.index, stream)
+    ticket = _dot_tickets.get(key)
+    if ticket is None or ticket.numel() < P:
+        ticket = torch.zeros(max(P, 64), dtype=torch.int32,
+                             device=a.device)
+        _dot_tickets[key] = ticket
+    err = lib.acg_part_dot(codes[a.dtype], codes[sdt], P, n,
+                           a.data_ptr(), a.stride(0), c.data_ptr(),
+                           c.stride(0), part.data_ptr(), ticket.data_ptr(),
+                           out.data_ptr(), stream)
+    _build.check("part_dot", err)
+    launches["part_dot"] += 1
+    return out
 
 
 # -- K7: the matrix-free Poisson stencil SpMV ----------------------------

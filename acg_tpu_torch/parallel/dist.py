@@ -28,6 +28,15 @@ The classic and pipelined programs are the single-device ones of
 :mod:`acg_tpu_torch.solvers.cg` (device scalars, one flag read per
 chunk, frozen state at convergence) over this tier's SpMV and psum'd
 dots, as the JAX tier reuses ``jax_cg._iterate``.
+
+Across processes (:mod:`.multihost`, one rank per card) each rank holds
+the ``(nlocal, ...)`` rows of its own parts -- contiguous and
+process-major (:mod:`.mesh`) -- of every stacked array; a problem built
+with ``owned_parts`` assembles only those blocks, and the local-read
+flow (:meth:`DistributedProblem.build_local_read`) reads only their
+rows.  The psum gathers every rank's per-part partials and folds them in
+part order, and the halo crosses ranks by ``all_to_all_single`` or K6's
+peer puts, so a rank's solve has the bits of one process's.
 """
 
 from __future__ import annotations
@@ -47,11 +56,14 @@ from acg_tpu_torch.ops.operator import StencilOperator, stencil_planes
 from acg_tpu_torch.ops.spmv import (BELL_WIDTHS, acc_dtype, csr_diag_offsets,
                                     dia_mv, dia_planes_fixed,
                                     ell_planes_from_csr, padded_rows)
+from acg_tpu_torch.parallel import mesh, multihost
 from acg_tpu_torch.parallel.halo import (DeviceHaloPlan, build_device_halo,
-                                         halo_exchange)
-from acg_tpu_torch.parallel.halo_dma import halo_exchange_dma
+                                         halo_exchange, halo_exchange_ranks)
+from acg_tpu_torch.parallel.halo_dma import (PeerPlanes, halo_exchange_dma,
+                                             halo_exchange_peer)
 from acg_tpu_torch.parallel.reductions import (make_ldot, make_pdot,
-                                               make_pdotk, psum)
+                                               make_pdotk, make_rank_psum,
+                                               psum)
 from acg_tpu_torch.precond import (CHEBY_RATIO, CHEBY_SAFETY, POWER_ITERS,
                                    make_apply, parse_precond,
                                    stacked_bjacobi_state,
@@ -110,6 +122,20 @@ class StackedLocalBlock:
     nrows: int
     bin_ks: tuple = ()   # binnedell only: K_b per bin
     operator: object = None  # matfree only: the StencilOperator template
+
+    def take(self, lo: int, hi: int) -> "StackedLocalBlock":
+        """The blocks of parts ``lo .. hi - 1`` (a rank's parts)."""
+        a = self.arrays
+        if self.format == "dia":
+            arrays = (a[0][:, lo:hi],)
+        elif self.format == "binnedell":
+            arrays = (tuple(r[lo:hi] for r in a[0]),
+                      tuple(d[lo:hi] for d in a[1]),
+                      tuple(c[lo:hi] for c in a[2]),
+                      a[3][lo:hi], a[4][lo:hi], a[5][lo:hi])
+        else:
+            arrays = tuple(x[lo:hi] for x in a)
+        return dataclasses.replace(self, arrays=arrays)
 
     def to(self, device, dtype) -> tuple:
         """Device tensors for :meth:`mv`: values in ``dtype``, indices
@@ -229,6 +255,12 @@ class StackedGhostBlock:
     nrows: int
     bmax: int
 
+    def take(self, lo: int, hi: int) -> "StackedGhostBlock":
+        """The blocks of parts ``lo .. hi - 1`` (a rank's parts)."""
+        return dataclasses.replace(self, rows=self.rows[lo:hi],
+                                   data=self.data[lo:hi],
+                                   cols=self.cols[lo:hi])
+
     def to(self, device, dtype, ghost_width: int) -> tuple:
         """Device tensors for :meth:`add_to` over the real coupled rows
         only: ``dst`` (m,) into the flattened (P * nrows) stack, ``data``
@@ -289,6 +321,8 @@ def _stack_bell_blocks(blocks, nrows_pad: int, bin_ms,
     t_cols = np.zeros((P, T), np.int32)
     t_vals = np.zeros((P, T))
     for p, blk in enumerate(blocks):
+        if blk is None:
+            continue
         indptr = np.asarray(blk.indptr)
         vals = np.asarray(blk.data)
         colidx = np.asarray(blk.indices)
@@ -324,29 +358,64 @@ def _stack_bell_blocks(blocks, nrows_pad: int, bin_ms,
 
 def _stack_local_blocks(subs, nmax_owned: int, max_diags: int = 80,
                         dia_waste_limit: float = 3.0,
-                        ell_waste_limit: float = 3.0) -> StackedLocalBlock:
+                        ell_waste_limit: float = 3.0, global_csr=None,
+                        uniform: "UniformShapes | None" = None
+                        ) -> StackedLocalBlock:
     """The local blocks of every part in the fastest eligible stacked
     format: DIA over the union offset set when the blocks are banded
     (``max_diags`` keeps headroom over the single-device limit: the union
     of per-part offset sets can exceed any one part's count), else
     length-binned ELL when plain-ELL padding waste passes
-    ``ell_waste_limit``, else ELL."""
+    ``ell_waste_limit``, else ELL.
+
+    Parts whose block is None (another process owns them) stay zero.
+    With such restricted builds the shape and format decisions must be
+    the same on every process (``acg_tpu/parallel/dist.py:378-470``):
+    from ``global_csr`` (DIA over the global offsets only when every
+    part's owned rows are one contiguous natural-order range, else ELL;
+    no binned ELL) or from the agreed ``uniform`` shapes of the
+    local-read flow, which bins by the LOCAL-block nnz."""
     blocks = [s.A_local for s in subs]
-    offs = np.unique(np.concatenate(
-        [csr_diag_offsets(b) for b in blocks] or [np.zeros(1, np.int64)]))
-    nnz = sum(int(b.nnz) for b in blocks)
-    Kl = max((int(np.diff(b.indptr).max(initial=0)) for b in blocks),
-             default=0)
+    built = [b for b in blocks if b is not None]
+    if uniform is not None:
+        if uniform.offsets is not None:
+            offs = np.asarray(uniform.offsets, dtype=np.int64)
+            nnz = uniform.nnz_total
+        else:
+            if uniform.bell_ms is not None:
+                return _stack_bell_blocks(blocks, nmax_owned,
+                                          uniform.bell_ms, uniform.bell_tail)
+            offs = np.zeros(0, np.int64)
+            nnz = 0   # the ELL path
+        Kl = uniform.Kl
+    elif global_csr is not None:
+        contiguous = all(
+            s.owned_order == "natural" and (s.nowned == 0 or (
+                int(s.global_ids[s.nowned - 1]) - int(s.global_ids[0]) + 1
+                == s.nowned))
+            for s in subs)
+        offs = (csr_diag_offsets(global_csr) if contiguous
+                else np.zeros(0, np.int64))
+        nnz = int(global_csr.nnz) if contiguous else 0
+        Kl = int(np.diff(global_csr.indptr).max(initial=0))
+    else:
+        offs = np.unique(np.concatenate(
+            [csr_diag_offsets(b) for b in built] or [np.zeros(1, np.int64)]))
+        nnz = sum(int(b.nnz) for b in built)
+        Kl = max((int(np.diff(b.indptr).max(initial=0)) for b in built),
+                 default=0)
     if (nnz and offs.size <= max_diags
             and offs.size * nmax_owned * len(blocks) <= dia_waste_limit * nnz):
         planes = np.zeros((offs.size, len(blocks), nmax_owned))
         for p, b in enumerate(blocks):
-            planes[:, p, :] = dia_planes_fixed(b, offs, nmax_owned)
+            if b is not None:
+                planes[:, p, :] = dia_planes_fixed(b, offs, nmax_owned)
         return StackedLocalBlock(format="dia", arrays=(planes,),
                                  offsets=tuple(int(o) for o in offs),
                                  nrows=nmax_owned)
-    if nnz and Kl * nmax_owned * len(blocks) > ell_waste_limit * nnz:
-        bell = _bell_histogram(blocks)
+    if (uniform is None and global_csr is None and nnz
+            and Kl * nmax_owned * len(blocks) > ell_waste_limit * nnz):
+        bell = _bell_histogram(built)
         return _stack_bell_blocks(blocks, nmax_owned,
                                   tuple(int(m) for m in bell[:-1]),
                                   int(bell[-1]))
@@ -354,24 +423,40 @@ def _stack_local_blocks(subs, nmax_owned: int, max_diags: int = 80,
     ld = np.zeros((len(blocks), nmax_owned, Kl))
     lc = np.zeros((len(blocks), nmax_owned, Kl), dtype=np.int32)
     for p, b in enumerate(blocks):
+        if b is None:
+            continue
         ld[p], lc[p] = ell_planes_from_csr(b.indptr, b.indices, b.data,
                                            nmax_owned, pad_k=Kl)
     return StackedLocalBlock(format="ell", arrays=(ld, lc), offsets=(),
                              nrows=nmax_owned)
 
 
-def _stack_ghost_blocks(subs, nmax_owned: int) -> StackedGhostBlock:
-    """The ghost blocks of every part, compressed to coupled rows."""
-    coupled = [np.flatnonzero(np.diff(s.A_ghost.indptr)) for s in subs]
-    bmax = max((r.size for r in coupled), default=0) or 1
-    Kg = max((int(np.diff(s.A_ghost.indptr).max(initial=0)) for s in subs),
-             default=0) or 1
+def _stack_ghost_blocks(subs, nmax_owned: int, global_csr=None,
+                        uniform: "UniformShapes | None" = None
+                        ) -> StackedGhostBlock:
+    """The ghost blocks of every part, compressed to coupled rows; with
+    restricted builds the uniform bounds come from the global structure
+    (every part's border count, the global row width) or the agreed
+    ``uniform`` shapes, and absent blocks stay zero."""
+    coupled = [None if s.A_ghost is None
+               else np.flatnonzero(np.diff(s.A_ghost.indptr)) for s in subs]
+    if uniform is not None:
+        bmax = uniform.bmax or 1
+        Kg = uniform.Kg or 1
+    elif global_csr is not None:
+        bmax = max((s.nborder for s in subs), default=0) or 1
+        Kg = int(np.diff(global_csr.indptr).max(initial=0)) or 1
+    else:
+        bmax = max((r.size for r in coupled if r is not None),
+                   default=0) or 1
+        Kg = max((int(np.diff(s.A_ghost.indptr).max(initial=0))
+                  for s in subs if s.A_ghost is not None), default=0) or 1
     P = len(subs)
     rows = np.full((P, bmax), nmax_owned, dtype=np.int32)  # pad = dropped
     data = np.zeros((P, bmax, Kg))
     cols = np.zeros((P, bmax, Kg), dtype=np.int32)
     for p, (s, ri) in enumerate(zip(subs, coupled)):
-        if ri.size == 0:
+        if ri is None or ri.size == 0:
             continue
         sub = s.A_ghost[ri]
         d, c = ell_planes_from_csr(sub.indptr, sub.indices, sub.data,
@@ -383,16 +468,109 @@ def _stack_ghost_blocks(subs, nmax_owned: int) -> StackedGhostBlock:
                              nrows=nmax_owned, bmax=bmax)
 
 
+@dataclasses.dataclass(frozen=True)
+class UniformShapes:
+    """The stacked shapes every process of the local-read flow agrees on
+    (each sees only its own parts): the union DIA offsets (None = ELL),
+    padded widths and halo maxima -- the reference's max-allreduce
+    buffer sizing (``halo.c:883-887``), from one small allgather
+    (``acg_tpu/parallel/dist.py:185-206``)."""
+
+    offsets: tuple | None
+    Kl: int
+    bmax: int
+    Kg: int
+    maxcnt: int
+    nmax_ghost: int
+    nnz_total: int
+    halo_send_total: int = 0
+    bell_ms: tuple | None = None
+    bell_tail: int = 0
+
+
+def _agree_uniform_shapes(subs_owned, nparts: int, max_diags: int = 80,
+                          dia_waste_limit: float = 3.0,
+                          ell_waste_limit: float = 3.0,
+                          nmax_owned: int = 0) -> UniformShapes:
+    """This process's block statistics, gathered from every process
+    over the process group and max-/union-/sum-reduced, so every process
+    derives the same shapes (``acg_tpu/parallel/dist.py:209-295``).
+    Binned ELL is chosen by the LOCAL-block nnz here, as in the JAX
+    package's flow (its full-information flow bins on the same count)."""
+    from acg_tpu_torch.parallel import multihost
+
+    offs = np.unique(np.concatenate(
+        [csr_diag_offsets(s.A_local) for s in subs_owned]
+        or [np.zeros(0, np.int64)]))
+    Kl = max((int(np.diff(s.A_local.indptr).max(initial=0))
+              for s in subs_owned), default=0)
+    bmax = max((int(np.count_nonzero(np.diff(s.A_ghost.indptr)))
+                for s in subs_owned), default=0)
+    Kg = max((int(np.diff(s.A_ghost.indptr).max(initial=0))
+              for s in subs_owned), default=0)
+    maxcnt = max((int(c) for s in subs_owned for c in s.halo.send_counts),
+                 default=0)
+    nmax_ghost = max((s.nghost for s in subs_owned), default=0)
+    nnz = sum(int(s.A_local.nnz + s.A_ghost.nnz) for s in subs_owned)
+    nnz_local = sum(int(s.A_local.nnz) for s in subs_owned)
+    send_total = sum(int(s.halo.total_send) for s in subs_owned)
+    nbins = len(BELL_WIDTHS)
+    bell = _bell_histogram([s.A_local for s in subs_owned])
+    cap = 2 * max_diags
+    too_many = offs.size > cap
+    empty = np.iinfo(np.int64).min
+    payload = np.full(cap + 9 + nbins + 1, empty, dtype=np.int64)
+    payload[:min(offs.size, cap)] = offs[:cap]
+    payload[cap:cap + 9] = (offs.size if not too_many else cap + 1,
+                            Kl, bmax, Kg, maxcnt, nmax_ghost, nnz,
+                            send_total, nnz_local)
+    payload[cap + 9:] = bell
+    gathered = multihost.allgather_array(payload)
+    all_offs = np.unique(np.concatenate(
+        [g[:cap][g[:cap] != empty] for g in gathered]
+        or [np.zeros(0, np.int64)]))
+    counts = gathered[:, cap]
+    Kl = int(gathered[:, cap + 1].max())
+    bmax = int(gathered[:, cap + 2].max())
+    Kg = int(gathered[:, cap + 3].max())
+    maxcnt = int(gathered[:, cap + 4].max())
+    nmax_ghost = int(gathered[:, cap + 5].max())
+    nnz_total = int(gathered[:, cap + 6].sum())
+    halo_send_total = int(gathered[:, cap + 7].sum())
+    nnz_local_total = int(gathered[:, cap + 8].sum())
+    bell_all = gathered[:, cap + 9:].max(axis=0)
+    dia_ok = bool(not (counts > cap).any() and all_offs.size <= max_diags
+                  and nnz_total
+                  and (all_offs.size * nmax_owned * nparts
+                       <= dia_waste_limit * nnz_total))
+    bell_ok = bool(not dia_ok and nnz_local_total
+                   and Kl * nmax_owned * nparts
+                   > ell_waste_limit * nnz_local_total)
+    return UniformShapes(
+        offsets=tuple(int(o) for o in all_offs) if dia_ok else None,
+        Kl=Kl, bmax=bmax, Kg=Kg, maxcnt=maxcnt, nmax_ghost=nmax_ghost,
+        nnz_total=nnz_total, halo_send_total=halo_send_total,
+        bell_ms=(tuple(int(m) for m in bell_all[:nbins]) if bell_ok
+                 else None),
+        bell_tail=int(bell_all[nbins]) if bell_ok else 0)
+
+
 @dataclasses.dataclass
 class DistributedProblem:
     """Host-side compilation of a partitioned matrix into stacked arrays
     (the role of ``acgsolvercuda_init``, ``cgcuda.c:143-332``).  ``dtype``
     is the matrix blocks' torch dtype, ``vector_dtype`` the vectors' (None
-    = the same; bf16 blocks with f32 vectors is ``--dtype mixed``)."""
+    = the same; bf16 blocks with f32 vectors is ``--dtype mixed``).
+
+    ``owned_parts`` (multi-process): the parts whose blocks this process
+    built (None = all); the other parts' rows of every stacked array stay
+    zero and are never read here.  ``band_bounds`` (the local-read flow):
+    the parts' contiguous row ranges, from which :meth:`gather` and
+    :meth:`scatter` take global ids where the other parts are stubs."""
 
     nparts: int
     n: int
-    subs: list[Subdomain]
+    subs: list
     nmax_owned: int
     halo: DeviceHaloPlan
     local: StackedLocalBlock
@@ -401,6 +579,9 @@ class DistributedProblem:
     dtype: torch.dtype
     vector_dtype: torch.dtype | None = None
     operator: object = None   # the armed stencil (arm_matfree), if any
+    owned_parts: tuple | None = None
+    band_bounds: tuple | None = None
+    halo_send_total: int | None = None
 
     @property
     def vdtype(self):
@@ -409,36 +590,139 @@ class DistributedProblem:
     @classmethod
     def build(cls, full_csr, part, nparts: int, dtype=torch.float64,
               subs: list[Subdomain] | None = None,
-              vector_dtype=None) -> "DistributedProblem":
+              vector_dtype=None, owned_parts=None) -> "DistributedProblem":
         """Stack the parts of ``part``; ``subs`` are this partition's
         subdomains when the caller built them already.  Each part's
         owned rows are re-sorted by global id (in place in ``subs``), so
-        contiguous partitions of banded matrices keep DIA local
-        blocks."""
-        if subs is None:
-            subs = partition_matrix(full_csr, part, nparts)
+        contiguous partitions of banded matrices keep DIA local blocks.
+
+        ``owned_parts`` (multi-process): assemble blocks only for the
+        listed parts; the shape and format decisions then come from the
+        global matrix, so every process stacks the same shapes
+        (``acg_tpu/parallel/dist.py:554-587``)."""
+        restricted = owned_parts is not None
+        if subs is None or (not restricted and subs[0].A_local is None):
+            subs = partition_matrix(full_csr, part, nparts,
+                                    owned_parts=owned_parts)
         reorder_owned_natural(subs)
         nmax_owned = max(s.nowned for s in subs)
+        gcsr = full_csr if restricted else None
         return cls(nparts=nparts, n=full_csr.shape[0], subs=subs,
                    nmax_owned=nmax_owned, halo=build_device_halo(subs),
-                   local=_stack_local_blocks(subs, nmax_owned),
-                   ghost=_stack_ghost_blocks(subs, nmax_owned),
+                   local=_stack_local_blocks(subs, nmax_owned,
+                                             global_csr=gcsr),
+                   ghost=_stack_ghost_blocks(subs, nmax_owned,
+                                             global_csr=gcsr),
                    nnz_total=int(full_csr.nnz), dtype=dtype,
-                   vector_dtype=vector_dtype)
+                   vector_dtype=vector_dtype,
+                   owned_parts=(None if owned_parts is None
+                                else tuple(int(p) for p in owned_parts)))
+
+    @staticmethod
+    def read_local_subdomains(path, nparts: int, bounds=None, owned=None):
+        """Phase 1 of the local-read flow, with no collective: the
+        header, this process's range reads and its subdomains
+        (``acg_tpu/parallel/dist.py:589-627``).  ``bounds`` are the
+        nparts + 1 band boundaries (equal rows by default), ``owned``
+        the parts this process reads (default: this rank's parts).
+        Returns ``(subs, bounds, n, owned)``; the other parts are stubs
+        (:class:`~acg_tpu_torch.graph.BandStub`)."""
+        from acg_tpu_torch.graph import BandStub, subdomain_from_row_slice
+        from acg_tpu_torch.io.mtxfile import (read_mtx_row_range,
+                                              read_mtx_sizes)
+        from acg_tpu_torch.parallel import mesh, multihost
+
+        n, _, _ = read_mtx_sizes(path)
+        if bounds is None:
+            bounds = np.linspace(0, n, nparts + 1).astype(np.int64)
+        bounds = np.asarray(bounds, dtype=np.int64)
+        if owned is None:
+            owned = mesh.owned_parts(nparts, multihost.process_index(),
+                                     multihost.process_count())
+        owned = tuple(int(p) for p in owned)
+        subs: list = [None] * nparts
+        for p in range(nparts):
+            if p in owned:
+                sl = read_mtx_row_range(path, int(bounds[p]),
+                                        int(bounds[p + 1]))
+                if sl.symmetry != "general":
+                    raise AcgError(
+                        ErrorCode.NOT_SUPPORTED,
+                        f"{path}: range reads need FULL storage "
+                        f"(symmetry 'general'); this file declares "
+                        f"{sl.symmetry!r} -- regenerate with "
+                        f"mtx2bin --expand")
+                r, c, v = sl.to_coo()
+                subs[p] = subdomain_from_row_slice(r, c, v, bounds, p)
+            else:
+                subs[p] = BandStub(part=p,
+                                   nowned_=int(bounds[p + 1] - bounds[p]))
+        return subs, bounds, n, owned
+
+    @classmethod
+    def assemble_local(cls, subs, bounds, n: int, nparts: int, owned,
+                       dtype=torch.float64,
+                       vector_dtype=None) -> "DistributedProblem":
+        """Phase 2 of the local-read flow: the collective shape
+        agreement (:func:`_agree_uniform_shapes`) and the stacking.  Call
+        it only once every process passed phase 1."""
+        bounds = np.asarray(bounds, dtype=np.int64)
+        nmax_owned = int(np.max(np.diff(bounds)))
+        uniform = _agree_uniform_shapes([subs[p] for p in owned], nparts,
+                                        nmax_owned=nmax_owned)
+        return cls(nparts=nparts, n=n, subs=subs, nmax_owned=nmax_owned,
+                   halo=build_device_halo(subs, maxcnt=uniform.maxcnt,
+                                          nmax_ghost=uniform.nmax_ghost),
+                   local=_stack_local_blocks(subs, nmax_owned,
+                                             uniform=uniform),
+                   ghost=_stack_ghost_blocks(subs, nmax_owned,
+                                             uniform=uniform),
+                   nnz_total=uniform.nnz_total, dtype=dtype,
+                   vector_dtype=vector_dtype,
+                   owned_parts=tuple(int(p) for p in owned),
+                   band_bounds=tuple(int(b) for b in bounds),
+                   halo_send_total=uniform.halo_send_total)
+
+    @classmethod
+    def build_local_read(cls, path, nparts: int, dtype=torch.float64,
+                         vector_dtype=None, bounds=None,
+                         owned=None) -> "DistributedProblem":
+        """Each process range-reads only its own rows of a row-sorted
+        full-storage binary file (``mtx2bin --expand``) and builds only
+        its own subdomains (``acg_tpu/parallel/dist.py:652-679``): I/O,
+        host memory and preprocessing are O(local nnz).  Multi-process
+        callers that want agreed one-sided failures run
+        :meth:`read_local_subdomains`, agree, then
+        :meth:`assemble_local` (the CLI does)."""
+        subs, bounds, n, owned = cls.read_local_subdomains(
+            path, nparts, bounds=bounds, owned=owned)
+        return cls.assemble_local(subs, bounds, n, nparts, owned,
+                                  dtype=dtype, vector_dtype=vector_dtype)
+
+    def _owned(self):
+        return (range(self.nparts) if self.owned_parts is None
+                else self.owned_parts)
 
     def scatter(self, x_global: np.ndarray) -> np.ndarray:
         """A global vector as stacked (nparts, nmax_owned) owned rows,
-        zero padding."""
+        zero padding; only this process's parts are filled."""
         x_global = np.asarray(x_global)
         out = np.zeros((self.nparts, self.nmax_owned), dtype=x_global.dtype)
-        for p, s in enumerate(self.subs):
+        for p in self._owned():
+            s = self.subs[p]
             out[p, : s.nowned] = x_global[s.global_ids[: s.nowned]]
         return out
 
     def gather(self, stacked) -> np.ndarray:
-        """Inverse of :meth:`scatter`: owned rows back to global order."""
+        """Inverse of :meth:`scatter`: owned rows back to global order
+        (every part's rows of ``stacked``)."""
         stacked = np.asarray(stacked)
         out = np.zeros(self.n, dtype=stacked.dtype)
+        if self.band_bounds is not None:
+            for p in range(self.nparts):
+                lo, hi = self.band_bounds[p], self.band_bounds[p + 1]
+                out[lo:hi] = stacked[p, : hi - lo]
+            return out
         for p, s in enumerate(self.subs):
             out[s.global_ids[: s.nowned]] = stacked[p, : s.nowned]
         return out
@@ -448,23 +732,54 @@ class DistributedProblem:
         ``send_counts[p, q]`` = entries p sends to q.  Gates the puts of
         the one-sided transport.  ``recv_counts`` is filled from the
         receive windows and must be the transpose (every receiver expects
-        exactly what its senders put); a plan where it is not raises."""
+        exactly what its senders put); a full build where it is not
+        raises.  In the local-read flow only this process's parts carry
+        plans, so only their rows are filled (``acg_tpu/parallel/
+        dist.py:693-718``)."""
         scnt = np.zeros((self.nparts, self.nparts), dtype=np.int32)
         rcnt = np.zeros((self.nparts, self.nparts), dtype=np.int32)
         for p, s in enumerate(self.subs):
             h = s.halo
+            if h is None:
+                continue
             for q, cnt in zip(h.send_parts, h.send_counts):
                 scnt[p, int(q)] = int(cnt)
             for q, cnt in zip(h.recv_parts, h.recv_counts):
                 rcnt[p, int(q)] = int(cnt)
-        if not np.array_equal(rcnt, scnt.T):
+        if self.owned_parts is None and not np.array_equal(rcnt, scnt.T):
             raise ValueError("halo plan mismatch: a part's receive window "
                              "differs from its sender's send window")
         return scnt, rcnt
 
     def part_rows(self) -> list:
         """Owned row count per part, in part order."""
+        if self.band_bounds is not None:
+            return [int(self.band_bounds[p + 1] - self.band_bounds[p])
+                    for p in range(self.nparts)]
         return [int(s.nowned) for s in self.subs]
+
+    def row_permutation(self) -> np.ndarray | None:
+        """The global row ids in stacked slot order (part 0's owned
+        rows, then part 1's, ...), or None where this process cannot
+        derive them (a restricted build whose other parts are stubs
+        without band bounds), ``acg_tpu/parallel/dist.py:728-746``."""
+        if self.band_bounds is not None:
+            b = self.band_bounds
+            return np.concatenate(
+                [np.arange(b[p], b[p + 1], dtype=np.int64)
+                 for p in range(self.nparts)] or [np.zeros(0, np.int64)])
+        if self.owned_parts is not None:
+            return None
+        return np.concatenate(
+            [np.asarray(s.global_ids[: s.nowned], dtype=np.int64)
+             for s in self.subs] or [np.zeros(0, np.int64)])
+
+    def halo_total(self) -> int:
+        """Entries every part sends per exchange, summed."""
+        if self.halo_send_total is not None:
+            return int(self.halo_send_total)
+        return sum(int(s.halo.total_send) for s in self.subs
+                   if s.halo is not None)
 
 
 def arm_matfree(prob: DistributedProblem, op) -> DistributedProblem:
@@ -544,15 +859,24 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
                                          dtype=x.dtype, device=x.device)
         return recvs[x.dtype]
 
+    def exchange(x):
+        if comm == "dma":
+            return halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
+                                     halo.ghost_valid, scnt, recv_for(x))
+        return halo_exchange(x, halo.send_idx, halo.ghost_src)
+
+    return make_block_spmv(local, ghost, la, ga, has_ghosts, exchange,
+                           use_kernel)
+
+
+def make_block_spmv(local, ghost, la, ga, has_ghosts: bool, exchange,
+                    use_kernel: bool):
+    """``spmv(x)`` over stacked local and ghost blocks (all parts, or a
+    rank's parts) with the ghost vectors from ``exchange(x)``."""
     def spmv(x):
         y = local.mv(la, x, use_kernel)
         if has_ghosts:
-            if comm == "dma":
-                xg = halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
-                                       halo.ghost_valid, scnt, recv_for(x))
-            else:
-                xg = halo_exchange(x, halo.send_idx, halo.ghost_src)
-            ghost.add_to(ga, y, xg)
+            ghost.add_to(ga, y, exchange(x))
         return y
 
     return spmv
@@ -696,6 +1020,17 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     blocks, any dtype, residual criteria; it refuses precise_dots,
     precond, replace_every and algorithm.
 
+    In a multi-process run (:func:`~acg_tpu_torch.parallel.multihost.
+    initialize`) the solver runs this rank's parts: their blocks, plan
+    rows and vectors on its card, the psum over every rank's partials
+    (:func:`~acg_tpu_torch.parallel.reductions.make_rank_psum`), the halo
+    by ``all_to_all_single`` (``"xla"``) or K6's cross-process form
+    (``"dma"``: :class:`~acg_tpu_torch.parallel.halo_dma.PeerPlanes`
+    made at the first exchange, released by :meth:`close`; its plain
+    version on the CPU).  Host results are gathered to every rank.
+    ``kernels="fused"``, ``precond`` and a CA ``algorithm`` are refused
+    there.
+
     Not carried yet, each refused with a ValueError naming it:
     ``health``, ``ckpt``, ``recovery`` and ``trace``/``progress``.
     """
@@ -718,6 +1053,39 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             raise ValueError(f"unknown halo transport {comm!r}")
         self.device = resolve_device(device)
         self.problem = problem
+        # the multi-process tier: this rank's parts of every array
+        self._ranks = None
+        w = multihost.world()
+        if w is not None and w.size > 1:
+            ranges = mesh.part_ranges(problem.nparts, w.size)
+            lo, hi = ranges[w.rank]
+            if (problem.owned_parts is not None
+                    and tuple(problem.owned_parts) != tuple(range(lo, hi))):
+                raise ValueError(
+                    f"rank {w.rank} owns parts {lo}..{hi - 1}; this "
+                    f"problem was built for parts {problem.owned_parts}")
+            self._ranks = (ranges, w.rank)
+            if kernels == "fused":
+                raise ValueError(
+                    "kernels='fused' needs the full-information build: "
+                    "restricted multi-controller builds hold other "
+                    "controllers' coupled-row lists as stubs, so the "
+                    "interior/border split is not derivable")
+            for on, what in ((precond is not None, "precond"),
+                             (algorithm is not None
+                              and rec.parse_algorithm(algorithm)
+                              .communication_avoiding, "algorithm")):
+                if on:
+                    raise ValueError(f"DistCGSolver: {what} is not ported "
+                                     f"to the multi-process tier yet")
+            if comm == "dma" and self.device.type == "cuda" \
+                    and not w.same_host:
+                # K6's peer puts need the peers' planes mapped: raise
+                # rather than quietly take the plain exchange
+                raise ValueError(
+                    "comm='dma' across processes needs every rank on one "
+                    "host: CUDA IPC maps peer memory within one host "
+                    "only; use comm='xla'")
         self.algo = rec.parse_algorithm(algorithm)
         if self.algo is not None and not self.algo.communication_avoiding:
             pipelined = self.algo.kind == "pipelined"
@@ -837,13 +1205,27 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                         f"{what}; use kernels='auto'/'xla'/'pallas'")
         self._mstate = None
         self.stats = SolverStats(unknowns=problem.n)
-        # the matrix, halo plan and counts move to the device once
+        # the matrix, halo plan and counts move to the device once (on
+        # the multi-process tier this rank's parts only)
         dev, dt = self.device, problem.dtype
-        self._la = problem.local.to(dev, dt)
-        self._ga = problem.ghost.to(dev, dt,
-                                    max(problem.halo.nmax_ghost, 1))
-        self._halo = problem.halo.to(dev)
-        scnt, _ = problem.neighbor_counts()
+        local, ghost, halo = problem.local, problem.ghost, problem.halo
+        scnt, rcnt = problem.neighbor_counts()
+        self._psum = psum
+        self._peers: dict = {}
+        if self._ranks is not None:
+            ranges, rank = self._ranks
+            lo, hi = ranges[rank]
+            local, ghost, halo = (local.take(lo, hi), ghost.take(lo, hi),
+                                  halo.take(lo, hi))
+            # the counts gating this rank's puts (its rows) and waits
+            # (its columns, from its own receive windows)
+            scnt = scnt.copy()
+            scnt[:, lo:hi] = rcnt[lo:hi].T
+            self._psum = make_rank_psum([b - a for a, b in ranges])
+        self._local, self._ghost = local, ghost
+        self._la = local.to(dev, dt)
+        self._ga = ghost.to(dev, dt, max(problem.halo.nmax_ghost, 1))
+        self._halo = halo.to(dev)
         self._scnt = _put(scnt, dev, torch.int32)
         if mstate is not None:
             self._mstate = state_from_numpy(self.precond_spec, mstate, dev)
@@ -863,6 +1245,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         plane for the dma transport: under ``kernels="fused"`` the
         interior/border overlapped SpMV."""
         prob = self.problem
+        if self._ranks is not None:
+            return self._rank_spmv()
         recv = None
         if self.comm == "dma":
             h = prob.halo
@@ -876,6 +1260,61 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                               self._scnt, self.comm,
                               self.kernels != "xla", recv)
 
+    def _rank_spmv(self):
+        """The SpMV of the multi-process tier: this rank's parts, the
+        halo across ranks -- ``all_to_all_single`` for ``comm="xla"``,
+        K6's peer puts for ``"dma"`` (its plain version, over
+        ``torch.distributed.all_to_all``, on the CPU into a fresh zeroed
+        receive plane)."""
+        ranges, rank = self._ranks
+        h, prob = self._halo, self.problem
+        nlocal = h.send_idx.shape[0]
+        recvs: dict = {}
+
+        def exchange(x):
+            if self.comm == "xla":
+                return halo_exchange_ranks(x, h.send_idx, h.ghost_src,
+                                           ranges, rank)
+            peer = None
+            if x.device.type == "cuda":
+                peer = self._peer(x.dtype)
+            elif x.dtype not in recvs:
+                recvs[x.dtype] = torch.zeros(
+                    (nlocal, prob.nparts, max(prob.halo.maxcnt, 1)),
+                    dtype=x.dtype, device=x.device)
+            return halo_exchange_peer(x, h.send_idx, h.ghost_src,
+                                      h.ghost_valid, self._scnt,
+                                      recvs.get(x.dtype), ranges, rank,
+                                      peer=peer)
+
+        return make_block_spmv(self._local, self._ghost, self._la, self._ga,
+                               prob.halo.has_ghosts, exchange,
+                               self.kernels != "xla")
+
+    def _peer(self, dtype) -> PeerPlanes:
+        """The mapped receive planes of ``dtype`` vectors, made at the
+        first exchange (collectively: the ranks' SpMVs run in
+        lockstep)."""
+        if dtype not in self._peers:
+            ranges, rank = self._ranks
+            self._peers[dtype] = PeerPlanes(
+                self.problem.nparts, ranges, rank, self.problem.halo.maxcnt,
+                dtype, self._scnt.cpu().numpy(), self.device)
+        return self._peers[dtype]
+
+    def solve(self, b, x0=None, criteria=None, **kw):
+        x = super().solve(b, x0=x0, criteria=criteria, **kw)
+        for peer in self._peers.values():
+            peer.check()
+        return x
+
+    def close(self) -> None:
+        """Unmap and free K6's peer planes (collective on the
+        multi-process tier; a no-op elsewhere)."""
+        for peer in self._peers.values():
+            peer.close()
+        self._peers = {}
+
     def _solve_dtype(self):
         """The dtype b and x0 scatter to: the vector dtype, except f32
         for the replacement program, whose outer iteration owns them."""
@@ -886,9 +1325,15 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         in the solve dtype on the solver's device."""
         prob = self.problem
         dev, vdt = self.device, self._solve_dtype()
-        b = _put(prob.scatter(np.asarray(b_global, np.float64)), dev, vdt)
-        x0 = (torch.zeros_like(b) if x0 is None else
-              _put(prob.scatter(np.asarray(x0, np.float64)), dev, vdt))
+
+        def put(v):
+            s = prob.scatter(np.asarray(v, np.float64))
+            if self._ranks is not None:
+                return multihost.put_global(s, prob.nparts, dev, vdt)
+            return _put(s, dev, vdt)
+
+        b = put(b_global)
+        x0 = torch.zeros_like(b) if x0 is None else put(x0)
         return b, x0
 
     def _power_lmax(self, iters: int = POWER_ITERS) -> float:
@@ -903,9 +1348,10 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             prob.n)), self.device, prob.vdtype)
         for _ in range(iters):
             w = spmv(v)
-            v = (w.to(sdt) / torch.sqrt(psum(ldot(w, w)))).to(v.dtype)
+            v = (w.to(sdt) / torch.sqrt(self._psum(ldot(w, w)))).to(
+                v.dtype)
         w = spmv(v)
-        return float(psum(ldot(v, w)) / psum(ldot(v, v)))
+        return float(self._psum(ldot(v, w)) / self._psum(ldot(v, v)))
 
     def _ensure_precond_state(self):
         """The stacked preconditioner state, built once: jacobi and
@@ -947,12 +1393,13 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             raise ValueError(f"{self.algo} supports residual criteria "
                              f"only")
         sdt = acc_dtype(self.problem.vdtype)
-        pdot = make_pdot(psum, make_ldot(sdt), sdt, False)
+        pdot = make_pdot(self._psum, make_ldot(sdt), sdt, False)
         lam = self._ensure_lam()
         algo = self.algo
 
         def run(b, x0):
-            ops = rec.TierOps(spmv=self._spmv(), dot=pdot, psum_stack=psum,
+            ops = rec.TierOps(spmv=self._spmv(), dot=pdot,
+                              psum_stack=self._psum,
                               sdt=sdt)
             if algo.kind == "sstep":
                 return rec._cg_sstep_program(ops, b, x0, crit, algo.param,
@@ -972,8 +1419,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                              "criteria only")
         sdt = acc_dtype(self.problem.vdtype)
         ldot = make_ldot(sdt)
-        pdot = make_pdot(psum, ldot, sdt, self.precise_dots)
-        pdotk = make_pdotk(psum, ldot, sdt, self.precise_dots)
+        pdot = make_pdot(self._psum, ldot, sdt, self.precise_dots)
+        pdotk = make_pdotk(self._psum, ldot, sdt, self.precise_dots)
         use_kernel = self.kernels != "xla"
         if self.replace_every:
             if crit.needs_diff:
@@ -1007,6 +1454,10 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         return run
 
     def _host_x(self, x: np.ndarray) -> np.ndarray:
+        if self._ranks is not None:
+            # every rank's parts, gathered to every rank
+            x = multihost.get_global(torch.from_numpy(x).to(self.device),
+                                     self.problem.nparts)
         return self.problem.gather(x)
 
     def _account_ops(self, st, niter: int) -> None:
@@ -1049,7 +1500,7 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         else:
             nred = 1 if self.pipelined else 2
             st.ops["allreduce"].add(nred * niter, 0.0, 8 * nred * niter)
-        halo_total = sum(int(s.halo.total_send) for s in prob.subs)
+        halo_total = prob.halo_total()
         st.ops["halo"].add(ngemv, 0.0, halo_total * dbl * ngemv)
         if self.precond_spec is not None:
             _cg._account_precond(

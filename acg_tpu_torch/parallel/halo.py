@@ -14,6 +14,9 @@ package -- so the exchange is:
 * unpack: one gather from part p's receive rows into its ghost slots
   (``ghost_src``, ``halo.cu:94-107``).
 
+Across processes each rank holds its own parts' rows of every plan
+(:meth:`DeviceHaloPlan.take`), and :func:`halo_exchange_ranks` moves the
+send planes with one ``all_to_all_single`` (:func:`transpose_ranks`).
 The one-sided transport (``--comm dma``, kernel K6) is in
 :mod:`acg_tpu_torch.parallel.halo_dma`.
 """
@@ -55,6 +58,14 @@ class DeviceHaloPlan:
     def has_ghosts(self) -> bool:
         return self.nmax_ghost > 0 and self.maxcnt > 0
 
+    def take(self, lo: int, hi: int) -> "DeviceHaloPlan":
+        """The rows of parts ``lo .. hi - 1`` (a rank's parts); the
+        receive width stays ``nparts``."""
+        return dataclasses.replace(
+            self, send_idx=self.send_idx[lo:hi],
+            ghost_src=self.ghost_src[lo:hi],
+            ghost_valid=self.ghost_valid[lo:hi])
+
     def to(self, device) -> "DeviceHaloPlan":
         """The same plan with its arrays as tensors on ``device``."""
         def put(a, dtype):
@@ -66,18 +77,26 @@ class DeviceHaloPlan:
             ghost_valid=put(self.ghost_valid, torch.bool))
 
 
-def build_device_halo(subs: list[Subdomain]) -> DeviceHaloPlan:
+def build_device_halo(subs: list[Subdomain], maxcnt: int | None = None,
+                      nmax_ghost: int | None = None) -> DeviceHaloPlan:
     """Compile host halo plans into padded index arrays, every window
     padded to the largest per-neighbour count (the reference's max-size
-    symmetric buffers, ``halo.c:883-887``)."""
+    symmetric buffers, ``halo.c:883-887``).  ``maxcnt``/``nmax_ghost``
+    override the maxima where this process holds only its own parts'
+    plans (the local-read flow: parts with ``halo is None`` are skipped,
+    their rows stay zero)."""
     nparts = len(subs)
-    maxcnt = max((int(c) for s in subs for c in s.halo.send_counts),
-                 default=0)
-    nmax_ghost = max((s.nghost for s in subs), default=0)
+    if maxcnt is None:
+        maxcnt = max((int(c) for s in subs if s.halo is not None
+                      for c in s.halo.send_counts), default=0)
+    if nmax_ghost is None:
+        nmax_ghost = max((s.nghost for s in subs), default=0)
     send_idx = np.zeros((nparts, nparts, max(maxcnt, 1)), dtype=np.int32)
     ghost_src = np.zeros((nparts, max(nmax_ghost, 1)), dtype=np.int32)
     ghost_valid = np.zeros((nparts, max(nmax_ghost, 1)), dtype=bool)
     for p, s in enumerate(subs):
+        if s.halo is None:
+            continue
         ghost_valid[p, : s.nghost] = True
         h = s.halo
         for j, q in enumerate(h.send_parts):
@@ -113,3 +132,35 @@ def halo_exchange(x: torch.Tensor, send_idx: torch.Tensor,
     The transport is the transpose of the send plane, the all_to_all of
     the JAX package's ``--comm xla``."""
     return unpack(pack(x, send_idx).transpose(0, 1), ghost_src)
+
+
+def transpose_ranks(send: torch.Tensor, ranges, rank: int) -> torch.Tensor:
+    """The all_to_all of the send planes across ranks: rank ``rank``'s
+    receive plane ``recv[p - lo, q] = send_q[p]`` (nlocal, nparts,
+    maxcnt) from its send plane (nlocal, nparts, maxcnt) -- on stacked
+    parts the transpose.  One ``all_to_all_single`` of raw bytes: rank r
+    gets ``send[:, parts of r]`` transposed.  Under gloo the payload is
+    staged through pinned host copies, since gloo moves only CPU
+    tensors (one device sync an exchange)."""
+    from acg_tpu_torch.parallel import multihost
+    lo, hi = ranges[rank]
+    nl, _, m = send.shape
+    isz = send.element_size()
+    pieces = [send[:, a:b].transpose(0, 1).contiguous().view(torch.uint8)
+              .reshape(-1) for a, b in ranges]
+    out = multihost.all_to_all_bytes(
+        torch.cat(pieces), [p.numel() for p in pieces],
+        [nl * (b - a) * m * isz for a, b in ranges])
+    blocks = torch.split(out, [nl * (b - a) * m * isz for a, b in ranges])
+    return torch.cat([blk.view(send.dtype).view(nl, b - a, m)
+                      for blk, (a, b) in zip(blocks, ranges)], dim=1)
+
+
+def halo_exchange_ranks(x: torch.Tensor, send_idx: torch.Tensor,
+                        ghost_src: torch.Tensor, ranges,
+                        rank: int) -> torch.Tensor:
+    """:func:`halo_exchange` across ranks (``--comm xla`` on the
+    multi-process tier): this rank's stacked owned vectors ``x`` (nlocal,
+    nmax_owned) and its rows of the plan -> its ghost vectors."""
+    return unpack(transpose_ranks(pack(x, send_idx), ranges, rank),
+                  ghost_src)

@@ -5,8 +5,12 @@ dot is a per-part dot (``ldot``: the (nparts,) local dots of stacked
 vectors) followed by ``psum``, which on stacked parts is a sum over the
 parts axis.  :func:`psum` folds the parts one after another in part
 order, so the result does not depend on how a reduction kernel would
-split the axis.  :func:`make_pdotk` fuses k dots into one ``psum`` --
-the single fused allreduce of pipelined CG.
+split the axis.  Across processes, :func:`make_rank_psum` first gathers
+every rank's per-part partials into the (nparts, ...) stack, in part
+order, and folds it the same way -- not ``all_reduce``, whose order
+differs -- so a dot over ranks has the bits of the stacked tier's.
+:func:`make_pdotk` fuses k dots into one ``psum`` -- the single fused
+allreduce of pipelined CG.
 
 The column variants :func:`make_pdot_cols` and :func:`make_pdotk_cols`
 serve the batched tier: every per-RHS dot of a ``(nparts, n, B)`` block
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from acg_tpu_torch.ops import kernels as K
 from acg_tpu_torch.ops.precision import dot_compensated
 
 
@@ -35,10 +40,26 @@ def psum(v: torch.Tensor) -> torch.Tensor:
 
 def make_ldot(sdt):
     """Per-part dots of stacked vectors, in the scalar dtype ``sdt``
-    (bf16 storage is widened first): (nparts, n) x 2 -> (nparts,)."""
+    (bf16 storage is widened first): (nparts, n) x 2 -> (nparts,), each
+    part's dot with the same bits whatever else the stack holds
+    (:func:`acg_tpu_torch.ops.kernels.part_dot`) -- a rank of the
+    multi-process tier stacks fewer parts than one process does."""
     def ldot(a, c):
-        return (a.to(sdt) * c.to(sdt)).sum(-1)
+        return K.part_dot(a, c, sdt)
     return ldot
+
+
+def make_rank_psum(counts):
+    """``psum`` across ranks: this rank's (nlocal, ...) per-part
+    partials gathered with every rank's into (nparts, ...) (``counts``:
+    each rank's part count, in rank order), then :func:`psum`.  Every
+    rank folds the same values in the same order, so every rank holds
+    the same bits."""
+    from acg_tpu_torch.parallel import multihost
+
+    def rank_psum(v):
+        return psum(multihost.gather_parts(v, counts))
+    return rank_psum
 
 
 def make_pdot(psum, ldot, sdt, precise: bool):

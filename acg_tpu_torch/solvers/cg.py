@@ -822,6 +822,11 @@ class TorchCGSolver(ChunkedCGSolver):
         """The SpMV ``f(A, x)`` of this solver's programs."""
         return _spmv_fn(self.kernels)
 
+    def _dot_setup(self, dtype, precise: bool = False):
+        """``(dot, sdt)`` of this solver's programs (:func:`_scalar_setup`;
+        the multi-process sharded tier folds the ranks' partials)."""
+        return _scalar_setup(dtype, precise)
+
     def _vector_dtype(self):
         """The vector storage dtype: the matrix dtype unless
         ``vector_dtype`` overrides it."""
@@ -875,7 +880,7 @@ class TorchCGSolver(ChunkedCGSolver):
                     f"coefficient-space/pipelined updates carry no "
                     f"||dx|| scalar)")
             lam = self._ensure_lam()
-            dot, sdt = _scalar_setup(self._solve_dtype())
+            dot, sdt = self._dot_setup(self._solve_dtype())
             ops = rec.single_ops(A, self._spmv_of(), dot, sdt)
             algo = self.algo
             if algo.kind == "sstep":
@@ -898,11 +903,11 @@ class TorchCGSolver(ChunkedCGSolver):
                 raise ValueError("replace_every supports residual "
                                  "criteria only (the diff criterion has "
                                  "no meaning across replacement segments)")
-            dot, _ = _scalar_setup(torch.bfloat16)
+            dot, _ = self._dot_setup(torch.bfloat16)
             return lambda b, x0: _cg_replaced_program(
                 spmv, dot, b, x0, crit, self.replace_every,
                 self.replace_restart)
-        dot, _ = _scalar_setup(self._solve_dtype(), self.precise_dots)
+        dot, _ = self._dot_setup(self._solve_dtype(), self.precise_dots)
         papply = None
         if self.precond_spec is not None:
             mstate = self._ensure_precond_state()

@@ -34,7 +34,10 @@ checkout it sits in.  Phases, each of which raises on failure:
    device-built planes and a band of 2.1e9 plane values (64-bit
    indices); K6 on a 16-part plane of gated and ungated
    pairs, windows of a byte length off 16 and a 5-part plane of 7-value
-   windows, into receive planes of random values;
+   windows, into receive planes of random values; the per-part dot
+   (part_dot) on the flagship's 4-part stack in f64, f32 and bf16,
+   within the dot tolerance of its plain version and a part's bits the
+   same in stacks of 4, 2 and 1, from a row off 16 bytes and twice;
 3. the paths through acg_tpu_torch.cli.main, with the kernels' launch
    counters reset before and read after each run: on gen:poisson2d:2048
    (a) classic f64 --kernels auto, (b) pipelined f64, (c) --kernels
@@ -109,6 +112,25 @@ checkout it sits in.  Phases, each of which raises on failure:
    K1 alone at least once per inner iteration and pass, the df64 error
    norm under 1e-9, passes and inner iterations; beside it the same
    refine of an f32-rounded b, whose error the 1e-9 limit rejects);
+   then the multi-process tier, two child processes of
+   ``python -m acg_tpu_torch`` (--coordinator 127.0.0.1:PORT
+   --num-processes 2 --process-id I) sharing the one card, gloo for the
+   host-side collectives and CUDA IPC for K6's peer puts, each child
+   timed out and failing the smoke if it fails: (af) --nparts 4
+   classic f64 under dma and xla (path (e)'s iterations and bits,
+   halo_put_peer and batched K1 once per SpMV on each rank, rank 0
+   alone printing stats) and pipelined under dma
+   (path (g)'s bits); (ag) --distributed-read of the flagship expanded
+   by mtx2bin's reader with (e)'s band bounds and b, --output written
+   rootless (af)'s x, byte for byte; (ah) gen:poisson3d:512 --nparts 2,
+   300 iterations on the sharded tier (K1 on each rank's halo'd window,
+   301 launches a rank, each rank's device memory peak, x within 1e-12
+   of (l)'s) and the manufactured draw timed, of all 134M normals and
+   of one rank's window; and K6's
+   peer form on two processes (a child mode of this script) on path
+   (h)'s irregular plan and the flagship's band plan in f64, f32 and
+   bf16: bitwise its plain version and the stacked halo_put, twice the
+   same bits, ungated rows untouched, 50 lockstep exchanges timed;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -146,6 +168,10 @@ checkout it sits in.  Phases, each of which raises on failure:
    also timed with L2
    flushed by reading (clean_l2_ms), K4 and K7 beside a copy of their
    bytes (copy_ms).
+
+The children print their launch counts (``-vv``), which the
+``kernels`` line adds to the paths' counts; ``halo_put_peer`` appears
+there with its lockstep median, bound, plain and library times.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -545,6 +571,7 @@ def dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs):
         P, x = P64.to(pdt).contiguous(), x64.to(xdt)
         k1_check(torch, K, "batched flagship parts", kind, P, offs, x, errs)
         inputs[("dia_b", kind)] = (P, offs, x)
+    part_dot_checks(torch, K, dev, g, x64, inputs, errs)
     halo = prob.halo.to(dev)
     scnt = torch.from_numpy(prob.neighbor_counts()[0]).to(dev)
     c8 = torch.full((8, 8), 4096, dtype=torch.int32, device=dev)
@@ -620,6 +647,41 @@ def dist_kernel_checks(torch, K, dev, prob, irr, inputs, errs):
             errs[("halo_put", kind)] = max(errs[("halo_put", kind)],
                                            max_abs(got, want))
         inputs[("halo_irr", kind)] = (send, icnt)
+
+
+def part_dot_checks(torch, K, dev, g, x64, inputs, errs):
+    """The per-part dot at the flagship's (4, nmax_owned) stack in each
+    vector dtype: within DOT_REL of sum |a c| of its plain version
+    (another summation order), and a part's bits the same in the stack
+    of 4, of 2 (a rank's), alone, from a row off a 16-byte boundary, and
+    twice."""
+    P, n = x64.shape
+    y64 = torch.randn((P, n), generator=g, dtype=torch.float64, device=dev)
+    for kind in ("f64", "f32", "bf16"):
+        vdt = kinds(torch)[kind][1]
+        sdt = K.acc_dtype(vdt)
+        a, c = x64.to(vdt), y64.to(vdt)
+        got = K.part_dot(a, c, sdt)
+        want = K.part_dot_plain(a, c, sdt)
+        scale = (a.double() * c.double()).abs().sum(-1)
+        rel = float(((got.double() - want.double()).abs() / scale).max())
+        buf = torch.empty(2 * n + 1, dtype=vdt, device=dev)
+        off = buf[1:].view(2, n)
+        off.copy_(torch.stack([a[3], c[3]]))
+        same = (torch.equal(K.part_dot(a, c, sdt), got)
+                and torch.equal(K.part_dot(a[:2], c[:2], sdt), got[:2])
+                and torch.equal(K.part_dot(a[2:], c[2:], sdt), got[2:])
+                and all(torch.equal(K.part_dot(a[p:p + 1], c[p:p + 1], sdt),
+                                    got[p:p + 1]) for p in range(P))
+                and torch.equal(K.part_dot(off[:1], off[1:], sdt), got[3:]))
+        torch.cuda.synchronize()
+        say(f"part_dot {P}x{n} {kind}: max rel dev from plain {rel:.3e} of "
+            f"sum |a c| (limit {DOT_REL[kind]:g}); a part's bits the same "
+            f"in stacks of 4, 2, 1, off 16 bytes and twice = {same}")
+        check(rel <= DOT_REL[kind], f"part_dot {kind} within {DOT_REL[kind]}")
+        check(same, f"part_dot {kind}: bits independent of the stack")
+        errs[("part_dot", kind)] = max_abs(got, want)
+        inputs[("dot", kind)] = (a, c, sdt)
 
 
 def armed_parts(torch, prob):
@@ -979,6 +1041,7 @@ def main_path(torch, K, tmp, csr, irr, prob):
     paths.update(dist_batched_paths(torch, K, tmp, base, csr, prob))
     paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
     paths.update(north_star_path(torch, K, tmp))
+    paths.update(multiprocess_paths(torch, K, tmp, base, csr))
     return paths
 
 
@@ -1241,7 +1304,11 @@ def gen_direct_paths(torch, K, tmp):
         check(c[kern] == 301 and sum(c.values()) == 301,
               f"path {tag}: 301 launches of {kern} and no other kernel")
         x = read_x(x_out)
-        os.remove(x_out)
+        if tag == "l-assembled":
+            # path (ah) holds its two-process x against this one
+            os.replace(x_out, os.path.join(tmp, "l.bin"))
+        else:
+            os.remove(x_out)
         check(x.shape == (DIRECT_N ** 3,) and bool(np.isfinite(x).all()),
               f"path {tag}: a finite x of N rows")
         xs.append(x)
@@ -2095,6 +2162,406 @@ def north_star_path(torch, K, tmp):
     return {"ae": c}
 
 
+# -- phase 3 (af)-(ah) and K6 across processes: two processes on the card --
+
+NPROC = 2          # processes of the multi-process paths, on the one card
+MP_TIMEOUT = 420   # seconds a pair of child processes may take
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_pair(args_of, tag, timeout=MP_TIMEOUT, env=None):
+    """NPROC child processes, each ``python`` + ``args_of(rank, port)``
+    from the checkout's root, started together; all are killed when one
+    pair outlives ``timeout``, and that fails the smoke.  Returns [(rc,
+    stdout, stderr), ...] in rank order."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable] + args_of(r, port), cwd=HERE,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(NPROC)]
+    outs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"chip_smoke: {tag}: a child process ran past "
+                             f"{timeout} s; both were killed")
+    res = [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+    for r, (rc, o, e) in enumerate(res):
+        LOG.append(f"--- {tag} rank {r}: rc={rc}\n{e}")
+    return res
+
+
+def cli_pair(argv, tag, timeout=MP_TIMEOUT):
+    """``python -m acg_tpu_torch ARGV -vv --coordinator ...`` as NPROC
+    processes sharing the card; each must exit 0.  Returns (results,
+    launch counts summed over the ranks, the ranks' counts)."""
+    t0 = time.perf_counter()
+    res = run_pair(lambda r, port: [
+        "-m", "acg_tpu_torch", *argv, "-vv", "--coordinator",
+        f"127.0.0.1:{port}", "--num-processes", str(NPROC),
+        "--process-id", str(r)], tag, timeout)
+    per = []
+    for r, (rc, _, err) in enumerate(res):
+        check(rc == 0, f"path {tag}: rank {r} exit 0 (rc {rc}; its stderr "
+                       f"ends: {err[-600:]!r})")
+        line = [ln for ln in err.splitlines()
+                if ln.startswith("kernel launches: ")]
+        check(bool(line), f"path {tag}: rank {r} printed its launches")
+        per.append(json.loads(line[-1].split(": ", 1)[1]))
+        mh = [ln for ln in err.splitlines() if ln.startswith("multihost:")]
+        check(bool(mh) and "backend" in mh[0],
+              f"path {tag}: rank {r} named its backend")
+    total = {k: sum(c.get(k, 0) for c in per) for k in per[0]}
+    mh0 = [ln for ln in res[0][2].splitlines()
+           if ln.startswith("multihost:")][0]
+    say(f"path {tag}: {NPROC} processes on the card, wall "
+        f"{time.perf_counter() - t0:.1f} s; {mh0}; launches by rank {per}")
+    return res, total, per
+
+
+def _rank0_only(res, tag):
+    """Rank 0 alone prints the stats block and writes the solution."""
+    (rc0, so0, se0), (rc1, so1, se1) = res[0], res[1]
+    check("total solver time" in se0, f"path {tag}: rank 0 printed stats")
+    check("total solver time" not in se1 and "%%MatrixMarket" not in so1
+          and "error 2-norm" not in se1,
+          f"path {tag}: rank 1 printed nothing of the stats or solution")
+
+
+def _peak_gib(err: str) -> float:
+    line = [ln for ln in err.splitlines()
+            if ln.startswith("device memory peak: ")]
+    return float(line[-1].split()[3]) if line else float("nan")
+
+
+def multiprocess_paths(torch, K, tmp, base, csr):
+    """(af)-(ah): the multi-process tier, NPROC processes sharing the one
+    card (gloo for the host-side collectives, CUDA IPC for K6's peer
+    puts: one card, NPROC contexts time-slicing it, not a cross-card
+    measurement).  (af) --nparts 4 classic f64 on --comm dma and xla: the
+    iterations and bits of (e), K6's peer form once per SpMV on each rank;
+    pipelined on dma: (g)'s bits; (ag) --distributed-read of the
+    flagship's expanded binary file with (e)'s band bounds and right-hand
+    side, written rootless with --output: (af)'s x and bytes; (ah)
+    gen:poisson3d:512 --nparts 2, 300 iterations on the sharded tier (K1
+    on each rank's halo'd window), x beside (l)'s, each rank's device
+    memory peak, and the manufactured-solution draw timed once."""
+    from acg_tpu_torch.solvers.cg import CHUNK
+
+    # the children allocate on the card too: hand back this process's
+    # cached blocks first
+    torch.cuda.empty_cache()
+    paths = {}
+    mp = base + ["--nparts", str(NPARTS), "--manufactured-solution",
+                 "--residual-rtol", "1e-8", "--max-iterations", "20000"]
+    for tag, extra, ref, its_ref, extra_spmv in (
+            ("af-dma", ["--comm", "dma"], "e.bin", ITS["e"], 1),
+            ("af-xla", ["--comm", "xla"], "e.bin", ITS["e"], 1),
+            ("af-pipelined", ["--comm", "dma", "--solver", "acg-pipelined"],
+             "g.bin", ITS["g"], 2)):
+        out = os.path.join(tmp, f"{tag}.bin")
+        res, total, per = cli_pair(mp + extra + ["-o", out], tag)
+        _rank0_only(res, tag)
+        its = int(stat(res[0][2], "iterations").replace(",", ""))
+        same = np.array_equal(read_x(out), read_x(os.path.join(tmp, ref)))
+        say(f"path {tag}: {its} iterations ({ref[0]}: {its_ref}), x bitwise "
+            f"equal to path {ref[0]} = {same}, solver time "
+            f"{stat(res[0][2], 'total solver time')}")
+        check(its == its_ref and same,
+              f"path {tag}: path {ref[0]}'s iterations and bits")
+        nspmv = its + extra_spmv
+        for r, c in enumerate(per):
+            if "dma" in extra:
+                check(nspmv <= c["halo_put_peer"] <= nspmv + CHUNK
+                      and c["halo_put"] == 0,
+                      f"path {tag}: rank {r} ran K6's peer form once per "
+                      f"SpMV ({c['halo_put_peer']} for {nspmv})")
+            else:
+                check(c["halo_put_peer"] == 0 and c["halo_put"] == 0,
+                      f"path {tag}: rank {r}: no K6 on the xla transport")
+            check(nspmv <= c["dia_spmv_batched"] <= nspmv + CHUNK,
+                  f"path {tag}: rank {r} ran batched K1 once per SpMV")
+        paths[tag] = total
+    paths.update(distributed_read_path(torch, K, tmp, base, csr))
+    paths.update(sharded_multiprocess_path(torch, K, tmp))
+    return paths
+
+
+def distributed_read_path(torch, K, tmp, base, csr):
+    """(ag): --distributed-read of the flagship as mtx2bin --expand writes
+    it, with path (e)'s band bounds as the .bounds.mtx sidecar and the
+    CLI's manufactured right-hand side as a b file; --output written
+    rootless (each rank its windows, rank 0 the header)."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.io.mtxfile import (expand_to_rowsorted_full, read_mtx,
+                                          vector_mtx, write_mtx)
+    from acg_tpu_torch.partition import partition_rows
+
+    t0 = time.perf_counter()
+    A = os.path.join(tmp, "ag-A.bin.mtx")
+    write_mtx(A, expand_to_rowsorted_full(read_mtx(
+        os.path.join(tmp, "u-A.bin.mtx"), binary=True)), binary=True)
+    part = partition_rows(csr, NPARTS, seed=42, method="band")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(part))])
+    check(bool((np.diff(part) >= 0).all()), "path ag: a band partition")
+    write_mtx(A + ".bounds.mtx", vector_mtx(bounds.astype(np.int64),
+                                            field="integer"))
+    xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
+    xsol /= np.linalg.norm(xsol)
+    bfile = os.path.join(tmp, "ag-b.bin")
+    write_mtx(bfile, vector_mtx(synthesize_host_matrix(MAIN_SPEC).dsymv(
+        xsol)), binary=True)
+    prep = time.perf_counter() - t0
+    out = os.path.join(tmp, "ag.bin")
+    res, total, per = cli_pair([A, bfile, "--binary", "--distributed-read",
+                                "--warmup", "0", "-q", "--residual-rtol",
+                                "1e-8", "--max-iterations", "20000", "-o",
+                                out], "ag-distributed-read")
+    _rank0_only(res, "ag")
+    its = int(stat(res[0][2], "iterations").replace(",", ""))
+    with open(out, "rb") as f1, open(os.path.join(tmp, "af-xla.bin"),
+                                     "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    same = np.array_equal(read_x(out), read_x(os.path.join(tmp,
+                                                           "af-xla.bin")))
+    say(f"path ag: the expanded file, bounds and b written in {prep:.1f} s; "
+        f"{its} iterations (e: {ITS['e']}), x bitwise (af)'s = {same}, the "
+        f"rootless file byte-identical to (af)'s one-process write = "
+        f"{same_bytes}, solver time {stat(res[0][2], 'total solver time')}")
+    check(its == ITS["e"] and same and same_bytes,
+          "path ag: (af)'s x, written byte for byte")
+    for f in (A, A + ".bounds.mtx", bfile, out):
+        os.remove(f)
+    return {"ag": total}
+
+
+def sharded_multiprocess_path(torch, K, tmp):
+    """(ah): gen:poisson3d:512 --nparts 2 on two processes, classic f64,
+    300 iterations: K1 on each rank's halo'd window, each rank's device
+    memory peak; x beside path (l)'s one-part solve (the dots are two
+    ranks' partials folded, not one reduction over N, so the bits may
+    differ: the check is 1e-12), and the manufactured-solution draw timed
+    once for all 134M rows and once for rank 0's window (its rows and
+    the band's reach past them: what a rank draws)."""
+    from acg_tpu_torch import prng
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = prng.normal(42, DIRECT_N ** 3, torch.float64, dev)
+    torch.cuda.synchronize()
+    draw = time.perf_counter() - t0
+    check(bool(torch.isfinite(x).all()) and 0.99 < float(x.std()) < 1.01,
+          "path ah: the manufactured draw is a finite unit normal")
+    win = (0, DIRECT_N ** 3 // NPROC + DIRECT_N ** 2)
+    t0 = time.perf_counter()
+    xw = prng.normal(42, DIRECT_N ** 3, torch.float64, dev, rows=win)
+    torch.cuda.synchronize()
+    draw_win = time.perf_counter() - t0
+    check(torch.equal(xw, x[win[0]:win[1]]),
+          "path ah: a rank's window is the whole draw's slice, bitwise")
+    del x, xw
+    torch.cuda.empty_cache()
+    spec = f"gen:poisson3d:{DIRECT_N}"
+    out = os.path.join(tmp, "ah.bin")
+    res, total, per = cli_pair([spec, "--nparts", str(NPROC), "--warmup",
+                                "0", "--max-iterations", "300",
+                                "--residual-rtol", "0", "-o", out],
+                               "ah-sharded-2proc")
+    _rank0_only(res, "ah")
+    x, xl = read_x(out), read_x(os.path.join(tmp, "l.bin"))
+    rel = float(np.linalg.norm(x - xl) / np.linalg.norm(xl))
+    peaks = [_peak_gib(e) for _, _, e in res]
+    say(f"path ah: {stat(res[0][2], 'iterations')} iterations, x vs path "
+        f"l's rel {rel:.3e} (limit 1e-12; bitwise = "
+        f"{np.array_equal(x, xl)}), K1 by rank "
+        f"{[c['dia_spmv'] for c in per]}, device memory peak by rank "
+        f"{peaks} GiB, solver time {stat(res[0][2], 'total solver time')}; "
+        f"the manufactured draw of {DIRECT_N ** 3} f64 normals on the card "
+        f"{draw:.3f} s, of rank 0's window of {win[1] - win[0]} "
+        f"{draw_win:.3f} s")
+    check(rel <= 1e-12, "path ah: x within 1e-12 of path l's")
+    check(all(c["dia_spmv"] == 301 and sum(c.values()) == 301 for c in per),
+          "path ah: each rank ran K1 on its window once per SpMV, no other "
+          "kernel")
+    os.remove(out)
+    return {"ah": total}
+
+
+def k6_peer_checks(torch, K, tmp, inputs):
+    """K6's cross-process form on the card, NPROC processes: on path
+    (h)'s irregular plan and the flagship's band plan, in f64, f32 and
+    bf16, each rank's receive plane against the plain version (gloo
+    all_to_all of host copies) and the stacked halo_put, bitwise; twice
+    to the same bits; nothing written outside the gated rows; then the
+    median of 50 lockstep exchanges beside the plain version and one
+    all_to_all_single of the plane (the library call).  Returns rank 0's
+    results by (plan, kind)."""
+    arrays = {}
+    for plan in ("halo", "halo_irr"):
+        for kind in ("f64", "f32", "bf16"):
+            send, cnt = inputs[(plan, kind)]
+            raw = send.contiguous().view(
+                {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                    send.element_size()])
+            arrays[f"{plan}-{kind}-send"] = raw.cpu().numpy()
+            arrays[f"{plan}-{kind}-counts"] = cnt.cpu().numpy()
+    npz = os.path.join(tmp, "k6peer.npz")
+    np.savez(npz, **arrays)
+    t0 = time.perf_counter()
+    res = run_pair(lambda r, port: [os.path.join(HERE, "chip_smoke.py"),
+                                    "--k6-peer-child", npz, str(port),
+                                    str(r)], "k6-peer")
+    for r, (rc, out, err) in enumerate(res):
+        check(rc == 0, f"K6 peer child {r} exit 0 (its stderr ends: "
+                       f"{err[-800:]!r})")
+    got = json.loads(res[0][1].strip().splitlines()[-1])["k6_peer"]
+    for key, v in got.items():
+        say(f"K6 halo_put_peer {key} on {NPROC} processes: bitwise plain / "
+            f"stacked / twice / ungated rows untouched = {v['checks']}; "
+            f"median {v['ms']:.4f} ms a lockstep exchange (plain "
+            f"{v['plain_ms']:.4f} ms, all_to_all_single "
+            f"{v['library_ms']:.4f} ms), {v['gated']} gated pairs of "
+            f"{v['maxcnt']}; one card, {NPROC} contexts")
+        check(all(v["checks"].values()), f"K6 peer {key}")
+    os.remove(npz)
+    say(f"K6 peer checks passed in {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def k6_peer_entry(k6peer, paths, card):
+    """The ``kernels`` line's entry of K6's cross-process form: rank 0's
+    median lockstep exchange on the flagship's band plan in f64 (one
+    card, NPROC contexts), its bound (every gated window read once and
+    written once at the HBM rate), the plain version (gloo all_to_all of
+    host copies) and one all_to_all_single of the plane; launches from
+    the multi-process paths' children."""
+    v = k6peer["halo-f64"]
+    nbytes = 2 * v["gated"] * v["maxcnt"] * v["itemsize"]
+    bms, by = bound_ms(nbytes, 0, "f64")
+    launches = sum(p.get("halo_put_peer", 0) for p in paths.values())
+    say(f"time halo_put_peer f64 band plan on {NPROC} processes: kernel "
+        f"{v['ms']:.4f} ms a lockstep exchange, bound {bms:.4f} ms ({by}), "
+        f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms; "
+        f"launches on the paths {launches}; one card, {NPROC} contexts "
+        f"time-slicing it; {card}")
+    return {"name": "halo_put_peer", "route": "cuda",
+            "source": "acg_tpu_torch/csrc/halo_put.cu",
+            "replaces": "acg_tpu/parallel/halo_dma.py:248", "dtype": "f64",
+            "launches": launches,
+            "launches_by_path": {k: p["halo_put_peer"]
+                                 for k, p in paths.items()
+                                 if p.get("halo_put_peer")},
+            "check": "pass: receive planes bitwise-equal to the plain "
+                     "version and to the stacked halo_put",
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": v["library_ms"],
+            "contexts": f"{NPROC} processes on one card"}
+
+
+def k6_peer_child(npz: str, port: int, rank: int) -> int:
+    """One rank of :func:`k6_peer_checks`; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from acg_tpu_torch.ops import kernels as K
+    from acg_tpu_torch.parallel import mesh, multihost
+    from acg_tpu_torch.parallel.halo_dma import PeerPlanes
+
+    multihost.initialize(f"127.0.0.1:{port}", NPROC, rank, device="cuda")
+    dev = multihost.world().device
+    data = np.load(npz)
+    dts = {"f64": torch.float64, "f32": torch.float32,
+           "bf16": torch.bfloat16}
+    out = {}
+    for plan in ("halo", "halo_irr"):
+        for kind, dt in dts.items():
+            full = torch.from_numpy(data[f"{plan}-{kind}-send"]).to(
+                dev).view(dt)
+            cnt = torch.from_numpy(data[f"{plan}-{kind}-counts"]).to(dev)
+            P, _, m = full.shape
+            ranges = mesh.part_ranges(P, NPROC)
+            lo, hi = ranges[rank]
+            send = full[lo:hi].contiguous()
+            stacked = K.halo_put(full, cnt, torch.zeros_like(full))[lo:hi]
+            plain = K.halo_put_peer_plain(
+                send.cpu(), cnt.cpu(), torch.zeros((hi - lo, P, m), dtype=dt),
+                ranges, rank)
+            peer = PeerPlanes(P, ranges, rank, m, dt, cnt.cpu().numpy(), dev)
+            first = K.halo_put_peer(send, cnt, None, ranges, rank,
+                                    peer=peer).clone()
+            again = K.halo_put_peer(send, cnt, None, ranges, rank,
+                                    peer=peer).clone()
+            # exchange 2 wrote the other plane: each plane holds one
+            # exchange, and the rows no put writes are still zero
+            torch.cuda.synchronize()
+            q = torch.arange(P, device=dev)
+            gated = ((torch.arange(lo, hi, device=dev)[:, None] != q)
+                     & (cnt.T[lo:hi] > 0))
+            untouched = all(bool((pl[~gated] == 0).all())
+                            for pl in (peer.plane(0), peer.plane(1)))
+            checks = {"plain": torch.equal(first.cpu(), plain),
+                      "stacked": torch.equal(first, stacked),
+                      "twice": torch.equal(first, again),
+                      "untouched": untouched}
+            peer.check()
+            # 50 lockstep exchanges, each timed by CUDA events
+            times = []
+            for i in range(55):
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+                K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+                b.record()
+                b.synchronize()
+                if i >= 5:
+                    times.append(a.elapsed_time(b))
+            peer.check()
+            ptimes, ltimes = [], []
+            scpu, rcpu = send.cpu(), torch.zeros((hi - lo, P, m), dtype=dt)
+            flat = send.reshape(-1).view(torch.uint8)
+            splits = [(b_ - a_) * (hi - lo) * m * send.element_size()
+                      for a_, b_ in ranges]
+            for i in range(13):
+                t0 = time.perf_counter()
+                K.halo_put_peer_plain(scpu, cnt.cpu(), rcpu, ranges, rank)
+                t1 = time.perf_counter()
+                multihost.all_to_all_bytes(flat, splits, splits)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if i >= 3:
+                    ptimes.append((t1 - t0) * 1e3)
+                    ltimes.append((t2 - t1) * 1e3)
+            peer.close()
+            c = cnt.cpu().numpy()
+            out[f"{plan}-{kind}"] = {
+                "checks": checks, "ms": float(np.median(times)),
+                "plain_ms": float(np.median(ptimes)),
+                "library_ms": float(np.median(ltimes)),
+                "gated": int(((c > 0) & ~np.eye(P, dtype=bool)).sum()),
+                "maxcnt": int(m), "itemsize": send.element_size(),
+                "max_abs_err": float((first.cpu().float()
+                                      - plain.float()).abs().max())}
+    dist.barrier()
+    print(json.dumps({"k6_peer": out}))
+    multihost.shutdown()
+    return 0
+
+
 # -- phase 4: times --------------------------------------------------------
 
 def rate_runs(s, n: int, nruns: int = 3, nits: int = 1000,
@@ -2614,9 +3081,9 @@ def kernel_times(torch, K, inputs, errs, paths, csr, card, prob, mf):
         bms, by = bound_ms(nbytes, nops, kind)
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "dtype": kind,
-             "launches": sum(p[name] for p in paths.values()),
+             "launches": sum(p.get(name, 0) for p in paths.values()),
              "launches_by_path": {k: p[name] for k, p in paths.items()
-                                  if p[name]},
+                                  if p.get(name)},
              "check": "pass: vectors bitwise-equal to the plain version",
              "max_abs_err": errs[(name, kind)], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -2916,6 +3383,23 @@ def dist_kernel_times(torch, K, inputs, prob, entry, item):
             if plan == "halo":
                 k6[kind] = e
     out.append(k6["f64"])
+    dots = {}
+    for kind in ("f64", "f32", "bf16"):
+        a, c, sdt = inputs[("dot", kind)]
+        P, n = a.shape
+        ms = median_ms(torch, lambda: K.part_dot(a, c, sdt))
+        plain = median_ms(torch, lambda: K.part_dot_plain(a, c, sdt))
+        lib = (median_ms(torch, lambda: torch.linalg.vecdot(a, c))
+               if a.dtype == sdt else None)   # bf16 in, f32 out: no one call
+        sb = 8 if sdt == torch.float64 else 4
+        dots[kind] = entry(
+            "part_dot", "acg_tpu_torch/csrc/part_dot.cu",
+            "acg_tpu/parallel/dist.py:1413 (an XLA dot; no pallas_call)",
+            kind, ms, plain, 2 * P * n * item[kind] + P * sb, 2 * P * n,
+            lib, shape=f"{P}x{n}",
+            check=f"pass: within {DOT_REL[kind]:g} of sum |a c| of the "
+                  f"plain version; a part's bits independent of the stack")
+    out.append(dots["f64"])
     return out
 
 
@@ -2947,7 +3431,8 @@ def main() -> int:
         LOG.append(f"ptxas -v of {src}:")
         LOG.extend(lines)
     groups = {src: ptxas.get(src, []) for src in (
-        "dia_spmv.cu", "halo_put.cu", "stencil_spmv.cu", "cg_fused.cu")}
+        "dia_spmv.cu", "halo_put.cu", "stencil_spmv.cu", "cg_fused.cu",
+        "part_dot.cu")}
     groups["cg_fused.cu K4"] = [ln for e in ptxas_entries(
         ptxas.get("cg_fused.cu", [])) if "cg_phase_b_kernel" in e[0]
         for ln in e]
@@ -2983,6 +3468,7 @@ def main() -> int:
         t0 = time.perf_counter()
         paths = main_path(torch, K, tmp, csr, irr, prob)
         say(f"phase 3 (main path) passed in {time.perf_counter() - t0:.1f} s")
+        k6peer = k6_peer_checks(torch, K, tmp, inputs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3022,6 +3508,7 @@ def main() -> int:
     direct_rates(torch, dev, card)
     kernels = kernel_times(torch, K, inputs, errs, paths, csr, card, prob,
                            mf)
+    kernels.append(k6_peer_entry(k6peer, paths, card))
     say(f"clocks after the kernel times (sm, max sm, draw, limit): "
         f"{clocks_line()}")
     say(f"phase 4 (times) done in {time.perf_counter() - t0:.1f} s")
@@ -3039,4 +3526,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--k6-peer-child":
+        sys.exit(k6_peer_child(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4])))
     sys.exit(main())

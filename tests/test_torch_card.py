@@ -193,6 +193,37 @@ def test_batched_k1_and_k6_match_plain_on_card(dev):
         K.dia_spmv(planes[:, :2], offs, x)
 
 
+def test_part_dot_matches_plain_and_ignores_the_stack_on_card(dev):
+    """The per-part dot kernel within summation-order rounding of its
+    plain version (1e-13 of sum |a c| in f64, 1e-5 in f32), the same bits
+    for a part in a stack of 4, of 2, alone, from a row off a 16-byte
+    boundary, and twice; a launch per call."""
+    g = torch.Generator().manual_seed(5)
+    for vdt, sdt, rel in ((torch.float64, torch.float64, 1e-13),
+                          (torch.float32, torch.float32, 1e-5),
+                          (torch.bfloat16, torch.float32, 1e-5)):
+        for n in (1, 1000, 300007):
+            a = torch.randn((4, n), generator=g,
+                            dtype=torch.float64).to(dev, vdt)
+            c = torch.randn((4, n), generator=g,
+                            dtype=torch.float64).to(dev, vdt)
+            before = K.launches["part_dot"]
+            whole = K.part_dot(a, c, sdt)
+            assert K.launches["part_dot"] == before + 1
+            want = K.part_dot_plain(a, c, sdt)
+            scale = (a.double() * c.double()).abs().sum(-1)
+            assert bool(((whole.double() - want.double()).abs()
+                         <= rel * scale).all())
+            assert torch.equal(K.part_dot(a, c, sdt), whole)
+            assert torch.equal(K.part_dot(a[1:3], c[1:3], sdt), whole[1:3])
+            assert torch.equal(K.part_dot(a[2:3], c[2:3], sdt), whole[2:3])
+            buf = torch.empty(2 * n + 1, dtype=vdt, device=dev)
+            off = buf[1:].view(2, n)
+            off.copy_(torch.stack([a[3], c[3]]))
+            assert torch.equal(K.part_dot(off[:1], off[1:], sdt),
+                               whole[3:4])
+
+
 @pytest.mark.parametrize("pipelined", [False, True])
 def test_dma_solve_on_card_goes_through_k6(dev, pipelined):
     """A --comm dma solve on the card launches K6 and batched K1 once per
@@ -800,3 +831,128 @@ def test_sharded_solve_on_card(dev):
     xh, xl = f.solve_refined(b, criteria=StoppingCriteria(
         maxits=20000, residual_rtol=1e-11))
     assert f.error_norms_df(xh, xl, xsol)[1] < 1e-8
+
+
+_K6_PEER_CHILD = """
+import sys
+import torch
+from acg_tpu_torch.ops import kernels as K
+from acg_tpu_torch.parallel import mesh, multihost
+from acg_tpu_torch.parallel.halo_dma import PeerPlanes
+port, rank, kind = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda")
+dev = multihost.world().device
+dt = {"f64": torch.float64, "f32": torch.float32,
+      "bf16": torch.bfloat16}[kind]
+g = torch.Generator().manual_seed(5)
+P, m = 5, 1003
+full = torch.randn((P, P, m), generator=g, dtype=torch.float64).to(dt).to(dev)
+# zero counts gate some pairs one way only: the acks must still order
+# each plane's reuse
+cnt = torch.randint(0, 3, (P, P), generator=g, dtype=torch.int32).to(dev)
+ranges = mesh.part_ranges(P, 2)
+lo, hi = ranges[rank]
+send = full[lo:hi].contiguous()
+stacked = K.halo_put(full, cnt, torch.zeros_like(full))[lo:hi]
+plain = K.halo_put_peer_plain(send.cpu(), cnt.cpu(),
+                              torch.zeros((hi - lo, P, m), dtype=dt),
+                              ranges, rank)
+peer = PeerPlanes(P, ranges, rank, m, dt, cnt.cpu().numpy(), dev)
+K.reset_launches()
+outs = [K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer).clone()
+        for _ in range(4)]
+torch.cuda.synchronize()
+peer.check()
+assert all(torch.equal(o, stacked) for o in outs)
+assert torch.equal(outs[0].cpu(), plain)
+assert K.launches["halo_put_peer"] == 4
+peer.close()
+multihost.shutdown()
+print("K6-PEER-OK")
+"""
+
+
+def _two_processes(code_or_argv, timeout=120):
+    """Two child processes (ranks 0 and 1) on this card, each given a
+    fresh port and its rank; both killed on timeout."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable] + code_or_argv(r, port),
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        return [(p, *p.communicate(timeout=timeout)) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
+@pytest.mark.parametrize("kind", ["f64", "f32", "bf16"])
+def test_k6_peer_two_processes_match_plain_and_stacked(dev, kind):
+    """K6's cross-process form on two processes sharing the card: each
+    rank's receive plane bitwise the plain version (gloo all_to_all) and
+    the stacked halo_put, four exchanges in a row (both planes reused
+    under gating that is one-way for some pairs)."""
+    outs = _two_processes(lambda r, port: ["-c", _K6_PEER_CHILD, str(port),
+                                           str(r), kind])
+    for p, out, err in outs:
+        assert p.returncode == 0, err
+        assert "K6-PEER-OK" in out
+
+
+def test_ipc_lifecycle_refuses_own_handle(dev):
+    """One process: the planes map, the rank refuses to open its own
+    IPC handle (CUDA refuses it too), and close frees the memory."""
+    import ctypes
+
+    from acg_tpu_torch.ops import _build
+    from acg_tpu_torch.parallel.halo_dma import PeerPlanes
+
+    cnt = np.ones((3, 3), dtype=np.int32)
+    peer = PeerPlanes(3, [(0, 3)], 0, 17, torch.float64, cnt, dev)
+    assert peer.plane(0).shape == (3, 3, 17)
+    assert not bool(peer.plane(1).any())
+    with pytest.raises(ValueError, match="never opens its own"):
+        peer.open(peer._handle)
+    ptr = ctypes.c_void_p()
+    assert _build.lib().acg_ipc_open(dev.index or 0, peer._handle,
+                                     ctypes.byref(ptr)) != 0
+    peer.close()
+    assert peer._own is None
+
+
+def test_multihost_cli_on_card_matches_stacked(dev, tmp_path):
+    """Two processes sharing the card: --nparts 4 --comm dma classic f64
+    writes the one-process stacked solve's bytes; rank 1 prints no stats;
+    the peer K6 ran on each rank."""
+    import subprocess
+    import sys
+
+    common = ["-m", "acg_tpu_torch", "gen:poisson2d:64", "--nparts", "4",
+              "--comm", "dma", "--manufactured-solution", "--warmup", "0",
+              "--max-iterations", "2000", "-q", "-vv"]
+    one = tmp_path / "one.bin"
+    res = subprocess.run([sys.executable] + common + ["-o", str(one)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    two = tmp_path / "two.bin"
+    outs = _two_processes(lambda r, port: common + [
+        "-o", str(two), "--coordinator", f"127.0.0.1:{port}",
+        "--num-processes", "2", "--process-id", str(r)])
+    for p, _, err in outs:
+        assert p.returncode == 0, err
+        assert "kernel launches:" in err
+        assert '"halo_put_peer": 0' not in err
+    assert "total solver time" in outs[0][2]
+    assert "total solver time" not in outs[1][2]
+    assert two.read_bytes() == one.read_bytes()

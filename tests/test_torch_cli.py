@@ -283,6 +283,10 @@ import acg_tpu_torch.solvers.host_cg
 import acg_tpu_torch.solvers.petsc_cg
 import acg_tpu_torch.vector
 import acg_tpu_torch._native
+import acg_tpu_torch.prng
+import acg_tpu_torch.parallel.erragree
+import acg_tpu_torch.parallel.mesh
+import acg_tpu_torch.parallel.multihost
 from acg_tpu_torch.cli import main
 import tempfile
 from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition
@@ -348,10 +352,18 @@ for extra in (["--nparts", "3", "--kernels", "pallas"],
                "--residual-rtol", "1e-11"]):
     assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup",
                  "0", "--max-iterations", "600"] + extra) == 0
+assert main(["gen:poisson3d:6", "--device", "cpu", "-q", "--warmup", "0",
+             "--nparts", "2", "--manufactured-solution",
+             "--max-iterations", "600"]) == 0
 os.environ["ACG_TPU_GEN_DIRECT_MIN"] = str(2 ** 24)
 assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "0",
              "--nparts", "3", "--kernels", "fused", "--comm", "dma",
              "--solver", "acg-pipelined", "--max-iterations", "600"]) == 0
+assert mtx2bin.main(["--expand", A, A + ".e"]) == 0
+assert main([A + ".e", "--binary", "--distributed-read", "--nparts", "3",
+             "--device", "cpu", "-q", "--warmup", "0",
+             "--manufactured-solution", "--max-iterations", "300",
+             "-o", os.path.join(d, "x.bin")]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded
@@ -406,3 +418,74 @@ def test_cli_part_count_with_four_cards(monkeypatch, capsys, extra, nparts):
                        "--warmup", "0", "--max-iterations", "300"]
                       + extra) == 0
     assert f"partition rows into {nparts} parts" in capsys.readouterr().err
+
+
+def test_cli_compat_flags(tmp_path, capsys):
+    """tests/test_cli.py::test_cli_compat_flags's cases on the port: the
+    gzip flags, the --binary-partition alias and the --no-* negations,
+    registered before their partners so the default stays False."""
+    import gzip
+
+    from acg_tpu.io.generators import poisson_mtx
+    from acg_tpu.io.mtxfile import write_mtx
+
+    mtx = tmp_path / "p.mtx"
+    write_mtx(mtx, poisson_mtx(12, dim=2))
+    gz = tmp_path / "p.mtx.gz"
+    gz.write_bytes(gzip.compress(mtx.read_bytes()))
+    assert torch_main([str(gz), "--gzip", "--comm", "none", "--device",
+                       "cpu", "--max-iterations", "300", "--residual-rtol",
+                       "1e-8", "--manufactured-solution",
+                       "--no-manufactured-solution", "--warmup", "0",
+                       "--quiet"]) == 0
+    assert "error 2-norm" not in capsys.readouterr().err
+    assert torch_main([str(mtx), "--binary-partition", "--ungzip",
+                       "--comm", "none", "--device", "cpu",
+                       "--max-iterations", "10", "--residual-rtol", "0",
+                       "--warmup", "0", "--quiet"]) == 0
+    assert torch_main([str(mtx), "--nparts", "2", "--device", "cpu",
+                       "--output-comm-matrix", "--no-output-comm-matrix",
+                       "--max-iterations", "300", "--warmup", "0",
+                       "--quiet"]) == 0
+    assert "%%MatrixMarket" not in capsys.readouterr().out
+
+
+def test_parser_flags_match_jax_parser():
+    """Every flag the port's parser takes has the reference parser's
+    dest, default, choices, nargs and type -- the multi-process flags and
+    the hidden --no-* negations included."""
+    from acg_tpu.cli import make_parser as jax_parser
+    from acg_tpu_torch.cli import make_parser
+
+    ref = {s: a for a in jax_parser()._actions for s in a.option_strings}
+    port_only = {"--device", "--buildinfo"}
+    for action in make_parser()._actions:
+        for s in action.option_strings:
+            if s in port_only or s in ("-h", "--help", "--version"):
+                continue
+            assert s in ref, s
+            r = ref[s]
+            for attr in ("dest", "default", "choices", "nargs", "type"):
+                assert getattr(action, attr) == getattr(r, attr), (s, attr)
+    for s in ("--multihost", "--coordinator", "--num-processes",
+              "--process-id", "--distributed-read", "--err-timeout",
+              "--heartbeat", "--no-manufactured-solution",
+              "--no-output-comm-matrix"):
+        assert s in {o for a in make_parser()._actions
+                     for o in a.option_strings}, s
+
+
+@pytest.mark.parametrize("spec", ["gen:poisson2d:1", "gen:poisson2d:7",
+                                  "gen:poisson2d:16", "gen:poisson3d:2",
+                                  "gen:poisson3d:9"])
+def test_synthesized_poisson_is_the_references(spec):
+    """gen:poisson specs are built straight in packed upper CSR: the
+    arrays the reference assembles from its COO triplets, bitwise."""
+    from acg_tpu.cli import synthesize_host_matrix as jax_synth
+    from acg_tpu_torch.cli import synthesize_host_matrix
+
+    t, j = synthesize_host_matrix(spec), jax_synth(spec)
+    assert t.nrows == j.nrows
+    for name in ("prowptr", "pcolidx", "pa"):
+        a, b = getattr(t, name), np.asarray(getattr(j, name))
+        assert a.dtype == b.dtype and np.array_equal(a, b), name

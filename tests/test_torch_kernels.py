@@ -467,7 +467,8 @@ def test_kernel_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
         log = (lib.parent / "build.log").read_text()
         srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
         assert srcs == ["cg_fused.cu", "dia_spmv.cu", "halo_put.cu",
-                        "pipelined_update.cu", "stencil_spmv.cu"]
+                        "part_dot.cu", "pipelined_update.cu",
+                        "stencil_spmv.cu"]
         assert all(f"-c {_build.CSRC / s}" in log for s in srcs)
         assert "sm_90a" in log and "--fmad=false" in log
     else:
@@ -557,3 +558,61 @@ def test_dia_spmv_edge_shapes_match_dia_mv(offsets, n, nparts):
                           jnp.asarray(x[p]))
         np.testing.assert_allclose(got[p], np.asarray(want), rtol=1e-12,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("vdt,sdt,rel", [
+    (torch.float64, torch.float64, 1e-13),
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 1e-5),
+])
+def test_part_dot_plain_matches_jax_dot(vdt, sdt, rel):
+    """The per-part dots against the JAX tier's ``jnp.dot(a, c,
+    preferred_element_type=sdt)`` of each part (another summation
+    order: within ``rel`` of the f64 sum of |a c|)."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((3, 5001))).to(vdt)
+    c = torch.from_numpy(rng.standard_normal((3, 5001))).to(vdt)
+    got = K.part_dot(a, c, sdt)
+    assert got.dtype == sdt and got.shape == (3,)
+    jdt = {torch.float64: jnp.float64, torch.float32: jnp.float32}[sdt]
+    for p in range(3):
+        ja, jc = (jnp.asarray(v[p].to(sdt).numpy()) for v in (a, c))
+        want = float(jnp.dot(ja, jc, preferred_element_type=jdt))
+        scale = float((a[p].double() * c[p].double()).abs().sum())
+        assert abs(float(got[p]) - want) <= rel * scale
+
+
+def test_part_dot_bits_do_not_depend_on_the_stack():
+    """A part's dot has the same bits in a stack of 4, of 2, alone, and
+    from a row that starts off a 16-byte boundary -- the property that
+    makes a rank's dots (fewer parts stacked) the one-process tier's."""
+    rng = np.random.default_rng(4)
+    for dt in (torch.float64, torch.float32):
+        a = torch.from_numpy(rng.standard_normal((4, 30011))).to(dt)
+        c = torch.from_numpy(rng.standard_normal((4, 30011))).to(dt)
+        whole = K.part_dot(a, c, dt)
+        assert torch.equal(K.part_dot(a[1:3], c[1:3], dt), whole[1:3])
+        for p in range(4):
+            assert torch.equal(K.part_dot(a[p:p + 1], c[p:p + 1], dt),
+                               whole[p:p + 1])
+        buf = torch.empty(2 * 30011 + 1, dtype=dt)
+        off = buf[1:].view(2, 30011)
+        off.copy_(torch.stack([a[2], c[2]]))
+        assert torch.equal(K.part_dot(off[:1], off[1:], dt), whole[2:3])
+
+
+@pytest.mark.parametrize("shape_a,shape_c,dt,sdt", [
+    ((4, 10, 2), (4, 10, 2), torch.float64, torch.float64),   # not 2-D
+    ((4, 10), (4, 11), torch.float64, torch.float64),         # shapes differ
+    ((4, 10), (4, 10), torch.float16, torch.float32),         # no f16 kernel
+    ((4, 10), (4, 10), torch.float32, torch.bfloat16),        # bf16 sums
+    ((4, 10), (4, 10), None, torch.float32),                  # two dtypes
+])
+def test_part_dot_refuses_what_the_kernel_does_not_take(shape_a, shape_c,
+                                                        dt, sdt):
+    """Off the CPU the wrapper checks its operands before it builds or
+    launches anything (meta tensors stand in for the card's)."""
+    a = torch.empty(shape_a, dtype=dt or torch.float32, device="meta")
+    c = torch.empty(shape_c, dtype=dt or torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="part_dot"):
+        K.part_dot(a, c, sdt)
