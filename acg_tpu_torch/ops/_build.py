@@ -51,16 +51,16 @@ _SIGNATURES = {
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P),
     "acg_halo_put": (_I, _P, _P, _I, _L, _I, _P, _P),
-    "acg_halo_put_peer": (_I, _P, _P, _I, _I, _I, _L, _I, _P, _I, _U, _P,
-                          _P),
-    "acg_halo_wait_peer": (_P, _I, _I, _I, _I, _P, _P, _P, _U, _L, _P, _P),
+    "acg_halo_put_peer": (_I, _P, _P, _I, _I, _I, _L, _I, _P, _I, _P),
+    "acg_memops_init": (_I, ctypes.POINTER(ctypes.c_int)),
+    "acg_memops": (_I, _P, _P, _P, _U, _I, _P),
+    "acg_stream_create": (_PP,),
+    "acg_stream_destroy": (_P,),
     "acg_ipc_alloc": (_I, _L, _PP),
     "acg_ipc_handle": (_P, _P),
     "acg_ipc_open": (_I, _P, _PP),
     "acg_ipc_close": (_P,),
     "acg_ipc_free": (_P,),
-    "acg_ipc_host_word": (_PP, _PP),
-    "acg_ipc_host_free": (_P,),
     "acg_ipc_handle_size": (),
     "acg_stencil_spmv": (_I, _I, _L, _I, _L, _P, _P, _P, _P, _P),
     "acg_part_dot": (_I, _I, _L, _L, _P, _L, _P, _L, _P, _P, _P, _P),

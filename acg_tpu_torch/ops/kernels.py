@@ -495,15 +495,22 @@ def halo_put_peer_plain(send, send_counts, recv, ranges, rank: int,
 
 
 def halo_put_peer(send, send_counts, recv, ranges, rank: int, *,
-                  peer=None, gate_by_counts: bool = True):
+                  peer=None, gate_by_counts: bool = True, wait: bool = True,
+                  marks: list | None = None):
     """The transport of ``--comm dma`` across ranks: what
     :func:`halo_put_peer_plain` writes, into this rank's receive plane.
     CPU tensors take the plain version into ``recv``.  On the card
     ``peer`` (:class:`~acg_tpu_torch.parallel.halo_dma.PeerPlanes`, whose
     counts and gate were fixed when it was made) holds the receive
-    planes every rank maps; one call launches the put of the next
-    exchange and its wait, counts once, and returns the receive plane of
-    that exchange (``recv`` is not used).  A wait that timed out in an
+    planes every rank maps; one call enqueues the next exchange on the
+    current stream -- the acks and their waits, the put kernel (counted
+    once), the flags and their waits; all but the put are stream memory
+    operations (:func:`~acg_tpu_torch.parallel.halo_dma.peer_schedule`)
+    -- and returns that exchange's receive plane (``recv`` is not
+    used).  ``wait=False`` stops before the flag waits, which
+    ``peer.wait()`` enqueues before the next exchange; ``marks``, a
+    list, gets a timing event after the acks, the put, the flags and
+    (with ``wait``) the waits.  A wait the watchdog had to release in an
     earlier exchange raises here."""
     if send.device.type == "cpu":
         return halo_put_peer_plain(send, send_counts, recv, ranges, rank,
@@ -521,20 +528,35 @@ def halo_put_peer(send, send_counts, recv, ranges, rank: int, *,
                          f"got {send.dtype} {tuple(send.shape)} on "
                          f"{send.device}")
     peer.check()
+    if peer.unwaited:
+        raise RuntimeError(f"halo_put_peer: exchange {peer.seq} was put "
+                           f"with wait=False and never waited")
+
+    cur = torch.cuda.current_stream()
+    stream = cur.cuda_stream
+
+    def mark():
+        if marks is not None:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(cur)
+            marks.append(e)
+
     seq = peer.seq + 1
-    lib = _build.lib()
-    err = lib.acg_halo_put_peer(
+    pre, signal, _ = peer.ops(seq)
+    peer.enqueue(pre, seq, stream)
+    mark()
+    err = _build.lib().acg_halo_put_peer(
         send.element_size(), send.data_ptr(), peer.counts.data_ptr(),
         peer.nparts, lo, hi - lo, peer.maxcnt, int(peer.gate),
-        peer.tab.data_ptr(), seq % 2, seq, peer.done.data_ptr(), _stream())
+        peer.tab.data_ptr(), seq % 2, stream)
     _build.check("halo_put_peer", err)
-    err = lib.acg_halo_wait_peer(
-        peer.counts.data_ptr(), peer.nparts, lo, hi - lo, int(peer.gate),
-        peer.tab.data_ptr(), peer.flags_ptr, peer.acks_ptr, seq,
-        int(peer.timeout * 1e9), peer.err_dev, _stream())
-    _build.check("halo_wait_peer", err)
-    peer.seq = seq
     launches["halo_put_peer"] += 1
+    mark()
+    peer.enqueue(signal, seq, stream)
+    mark()
+    peer.seq, peer.unwaited = seq, True
+    if wait:
+        peer.wait(marks, cur)
     return peer.plane(seq % 2)
 
 

@@ -130,7 +130,11 @@ checkout it sits in.  Phases, each of which raises on failure:
    peer form on two processes (a child mode of this script) on path
    (h)'s irregular plan and the flagship's band plan in f64, f32 and
    bf16: bitwise its plain version and the stacked halo_put, twice the
-   same bits, ungated rows untouched, 50 lockstep exchanges timed;
+   same bits, ungated rows untouched, 50 lockstep exchanges timed with
+   their acks, put and flag waits apart, 20 pre-signalled exchanges
+   (the peer put first and went idle), the one-flag ping-pong floor
+   between the two contexts, and a peer that stops after one exchange,
+   whose flag rank 0 must give up on, raising, within its 2 s timeout;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -2166,6 +2170,7 @@ def north_star_path(torch, K, tmp):
 
 NPROC = 2          # processes of the multi-process paths, on the one card
 MP_TIMEOUT = 420   # seconds a pair of child processes may take
+STOP_TIMEOUT_S = 2.0   # K6 peer's wait timeout in the stopped-peer check
 
 
 def free_port() -> int:
@@ -2407,9 +2412,13 @@ def k6_peer_checks(torch, K, tmp, inputs):
     bf16, each rank's receive plane against the plain version (gloo
     all_to_all of host copies) and the stacked halo_put, bitwise; twice
     to the same bits; nothing written outside the gated rows; then the
-    median of 50 lockstep exchanges beside the plain version and one
-    all_to_all_single of the plane (the library call).  Returns rank 0's
-    results by (plan, kind)."""
+    median of 50 lockstep exchanges with their stages apart (acks, put,
+    flag waits), of 20 pre-signalled exchanges (every other rank has put
+    and gone idle) beside the plain version and one all_to_all_single of
+    the plane (the library call); once, the one-flag ping-pong floor
+    between the contexts, and a stopped peer, which must make rank 0
+    raise within its timeout.  Returns rank 0's results by (plan, kind),
+    the floor on the band plan's f64 entry."""
     arrays = {}
     for plan in ("halo", "halo_irr"):
         for kind in ("f64", "f32", "bf16"):
@@ -2428,15 +2437,31 @@ def k6_peer_checks(torch, K, tmp, inputs):
     for r, (rc, out, err) in enumerate(res):
         check(rc == 0, f"K6 peer child {r} exit 0 (its stderr ends: "
                        f"{err[-800:]!r})")
-    got = json.loads(res[0][1].strip().splitlines()[-1])["k6_peer"]
+    doc = json.loads(res[0][1].strip().splitlines()[-1])
+    got = doc["k6_peer"]
     for key, v in got.items():
         say(f"K6 halo_put_peer {key} on {NPROC} processes: bitwise plain / "
             f"stacked / twice / ungated rows untouched = {v['checks']}; "
-            f"median {v['ms']:.4f} ms a lockstep exchange (plain "
+            f"median {v['ms']:.4f} ms a lockstep exchange (acks "
+            f"{v['ack_ms']:.4f}, put {v['put_ms']:.4f}, flag waits "
+            f"{v['wait_ms']:.4f}; pre-signalled {v['presignalled_ms']:.4f} "
+            f"ms, its acks / put / flags / flag waits "
+            f"{' / '.join(f'{x:.4f}' for x in v['presignalled_stages_ms'])}"
+            f", {v['presignalled_host_ms']:.4f} ms to enqueue on the host; "
+            f"remote-write flush {v['can_flush']}; plain "
             f"{v['plain_ms']:.4f} ms, all_to_all_single "
             f"{v['library_ms']:.4f} ms), {v['gated']} gated pairs of "
             f"{v['maxcnt']}; one card, {NPROC} contexts")
         check(all(v["checks"].values()), f"K6 peer {key}")
+    got["halo-f64"]["floor_ms"] = doc["floor_ms"]
+    say(f"K6 peer one-flag ping-pong between the {NPROC} contexts (stream "
+        f"memory operations): {doc['floor_ms']:.4f} ms a round")
+    st = doc["stopped"]
+    say(f"K6 peer with a stopped peer: rank 0 raised after {st['s']:.3f} s "
+        f"(timeout {STOP_TIMEOUT_S} s): {st['message']!r}")
+    check("a sender's flag" in st["message"]
+          and STOP_TIMEOUT_S <= st["s"] < STOP_TIMEOUT_S + 4,
+          "K6 peer: a stopped peer makes rank 0 raise within its timeout")
     os.remove(npz)
     say(f"K6 peer checks passed in {time.perf_counter() - t0:.1f} s")
     return got
@@ -2454,7 +2479,10 @@ def k6_peer_entry(k6peer, paths, card):
     bms, by = bound_ms(nbytes, 0, "f64")
     launches = sum(p.get("halo_put_peer", 0) for p in paths.values())
     say(f"time halo_put_peer f64 band plan on {NPROC} processes: kernel "
-        f"{v['ms']:.4f} ms a lockstep exchange, bound {bms:.4f} ms ({by}), "
+        f"{v['ms']:.4f} ms a lockstep exchange (put {v['put_ms']:.4f}, "
+        f"flag waits {v['wait_ms']:.4f}, pre-signalled "
+        f"{v['presignalled_ms']:.4f}, ping-pong floor {v['floor_ms']:.4f}), "
+        f"bound {bms:.4f} ms ({by}), "
         f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms; "
         f"launches on the paths {launches}; one card, {NPROC} contexts "
         f"time-slicing it; {card}")
@@ -2468,6 +2496,9 @@ def k6_peer_entry(k6peer, paths, card):
             "check": "pass: receive planes bitwise-equal to the plain "
                      "version and to the stacked halo_put",
             "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "put_ms": v["put_ms"], "wait_ms": v["wait_ms"],
+            "presignalled_ms": v["presignalled_ms"],
+            "floor_ms": v["floor_ms"],
             "plain_ms": v["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": v["library_ms"],
             "contexts": f"{NPROC} processes on one card"}
@@ -2519,17 +2550,24 @@ def k6_peer_child(npz: str, port: int, rank: int) -> int:
                       "twice": torch.equal(first, again),
                       "untouched": untouched}
             peer.check()
-            # 50 lockstep exchanges, each timed by CUDA events
-            times = []
+            # 50 lockstep exchanges, each timed by CUDA events, with its
+            # stages apart: a | acks | put | flags | their waits
+            times, stages = [], []
             for i in range(55):
-                a, b = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
+                a = torch.cuda.Event(enable_timing=True)
                 a.record()
-                K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
-                b.record()
-                b.synchronize()
+                marks = [a]
+                K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer,
+                                marks=marks)
+                marks[-1].synchronize()
                 if i >= 5:
-                    times.append(a.elapsed_time(b))
+                    times.append(a.elapsed_time(marks[-1]))
+                    stages.append([marks[j].elapsed_time(marks[j + 1])
+                                   for j in range(4)])
+            pres = _presignalled(torch, dist, K, send, cnt, ranges, rank,
+                                 peer) or [None] * 6
+            if plan == "halo" and kind == "f64":
+                floor = _pingpong(torch, dist, peer, rank)
             peer.check()
             ptimes, ltimes = [], []
             scpu, rcpu = send.cpu(), torch.zeros((hi - lo, P, m), dtype=dt)
@@ -2548,18 +2586,118 @@ def k6_peer_child(npz: str, port: int, rank: int) -> int:
                     ltimes.append((t2 - t1) * 1e3)
             peer.close()
             c = cnt.cpu().numpy()
+            ack_ms, put_ms, _, wait_ms = np.median(stages, axis=0)
             out[f"{plan}-{kind}"] = {
                 "checks": checks, "ms": float(np.median(times)),
+                "put_ms": float(put_ms), "wait_ms": float(wait_ms),
+                "ack_ms": float(ack_ms), "presignalled_ms": pres[0],
+                "presignalled_stages_ms": pres[1:5],
+                "presignalled_host_ms": pres[5],
+                "can_flush": peer.can_flush,
                 "plain_ms": float(np.median(ptimes)),
                 "library_ms": float(np.median(ltimes)),
                 "gated": int(((c > 0) & ~np.eye(P, dtype=bool)).sum()),
                 "maxcnt": int(m), "itemsize": send.element_size(),
                 "max_abs_err": float((first.cpu().float()
                                       - plain.float()).abs().max())}
+    stopped = _stopped_peer(torch, dist, K, dev, rank)
     dist.barrier()
-    print(json.dumps({"k6_peer": out}))
+    print(json.dumps({"k6_peer": out, "floor_ms": floor,
+                      "stopped": stopped}))
     multihost.shutdown()
     return 0
+
+
+def _presignalled(torch, dist, K, send, cnt, ranges, rank, peer,
+                  n: int = 20) -> list | None:
+    """Rank 0's exchange after every other rank has put, flagged and
+    finished (its context idle): the exchange without the context
+    switch.  The medians of the whole exchange, of its stages (acks,
+    put, flags, flag waits) and of the host's time to enqueue it, on
+    rank 0; None on the other ranks."""
+    times = []
+    for i in range(n + 3):
+        if rank != 0:
+            K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer,
+                            wait=False)
+            torch.cuda.synchronize()
+        dist.barrier()
+        if rank == 0:
+            marks = [torch.cuda.Event(enable_timing=True)]
+            marks[0].record()
+            t0 = time.perf_counter()
+            K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer,
+                            marks=marks)
+            host = (time.perf_counter() - t0) * 1e3
+            marks[-1].synchronize()
+            if i >= 3:
+                times.append([marks[0].elapsed_time(marks[-1])] + [
+                    marks[j].elapsed_time(marks[j + 1]) for j in range(4)]
+                    + [host])
+        else:
+            peer.wait()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return np.median(times, axis=0).tolist() if times else None
+
+
+def _pingpong(torch, dist, peer, rank, n: int = 50) -> float:
+    """The one-flag ping-pong between the ranks' contexts: each round a
+    rank writes the round's number into the next rank's word and waits
+    for its own, both by stream memory operations (the diagonal flag
+    words, which no exchange uses).  The median round: the least a
+    lockstep exchange on this card can take."""
+    nxt = peer.ranges[(rank + 1) % NPROC][0]
+    lo = peer.ranges[rank][0]
+    mine = peer.arrays([("write", ("flag", nxt, nxt), 0)], 0)
+    theirs = peer.arrays([("wait", ("flag", lo, lo), 0)], 0)
+    dist.barrier()
+    times = []
+    for k in range(1, n + 6):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        peer.enqueue(mine, k)
+        peer.enqueue(theirs, k)
+        b.record()
+        b.synchronize()
+        if k > 5:
+            times.append(a.elapsed_time(b))
+    dist.barrier()
+    return float(np.median(times))
+
+
+def _stopped_peer(torch, dist, K, dev, rank) -> dict | None:
+    """Every rank but 0 stops after its first exchange; rank 0's second
+    exchange waits for flags that never come.  Its watchdog must release
+    the wait after STOP_TIMEOUT_S and the next exchange raise.  Returns
+    rank 0's outcome (None elsewhere); every rank closes after."""
+    from acg_tpu_torch.parallel import mesh
+    from acg_tpu_torch.parallel.halo_dma import PeerPlanes
+
+    P, m = 2 * NPROC, 257
+    cnt = torch.ones((P, P), dtype=torch.int32)
+    ranges = mesh.part_ranges(P, NPROC)
+    lo, hi = ranges[rank]
+    send = torch.ones((hi - lo, P, m), dtype=torch.float64, device=dev)
+    peer = PeerPlanes(P, ranges, rank, m, torch.float64, cnt.numpy(), dev,
+                      timeout=STOP_TIMEOUT_S)
+    K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+    torch.cuda.synchronize()
+    res = None
+    if rank == 0:
+        t0 = time.monotonic()
+        K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+        torch.cuda.synchronize()
+        try:
+            K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+            msg = ""
+        except RuntimeError as e:
+            msg = str(e)
+        res = {"s": time.monotonic() - t0, "message": msg}
+    dist.barrier()
+    peer.close()
+    return res
 
 
 # -- phase 4: times --------------------------------------------------------

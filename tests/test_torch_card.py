@@ -910,6 +910,61 @@ def test_k6_peer_two_processes_match_plain_and_stacked(dev, kind):
         assert "K6-PEER-OK" in out
 
 
+_K6_PEER_STOPPED_CHILD = """
+import sys
+import time
+import torch
+import torch.distributed as dist
+from acg_tpu_torch.ops import kernels as K
+from acg_tpu_torch.parallel import mesh, multihost
+from acg_tpu_torch.parallel.halo_dma import PeerPlanes
+port, rank = int(sys.argv[1]), int(sys.argv[2])
+multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda")
+dev = multihost.world().device
+P, m = 4, 257
+cnt = torch.ones((P, P), dtype=torch.int32)
+ranges = mesh.part_ranges(P, 2)
+lo, hi = ranges[rank]
+send = torch.randn((hi - lo, P, m), dtype=torch.float64).to(dev)
+peer = PeerPlanes(P, ranges, rank, m, torch.float64, cnt.numpy(), dev,
+                  timeout=2.0)
+K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+torch.cuda.synchronize()
+if rank == 0:
+    t0 = time.monotonic()
+    K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+    torch.cuda.synchronize()      # returns once the watchdog releases
+    try:
+        K.halo_put_peer(send, cnt, None, ranges, rank, peer=peer)
+        raise SystemExit("no error after the peer stopped")
+    except RuntimeError as e:
+        msg = str(e)
+    took = time.monotonic() - t0
+    assert "a sender's flag" in msg and "within 2 s" in msg, msg
+    assert 2.0 <= took < 6.0, took
+    print(f"STOPPED-PEER-RAISED {took:.3f} s: {msg}")
+# rank 1 stopped after its first exchange: it only meets rank 0 here
+dist.barrier()
+peer.close()
+multihost.shutdown()
+print("K6-PEER-STOPPED-OK")
+"""
+
+
+def test_k6_peer_stopped_peer_raises_within_timeout(dev):
+    """Two processes on the card; rank 1 stops after its first
+    exchange.  Rank 0's second exchange waits for a flag that never
+    comes: the watchdog releases the stream wait after the PeerPlanes
+    timeout (2 s here), the next exchange raises the flag error, and both
+    ranks close and exit -- nothing hangs, nothing falls back."""
+    outs = _two_processes(lambda r, port: ["-c", _K6_PEER_STOPPED_CHILD,
+                                           str(port), str(r)], timeout=90)
+    for p, out, err in outs:
+        assert p.returncode == 0, err
+        assert "K6-PEER-STOPPED-OK" in out
+    assert "STOPPED-PEER-RAISED" in outs[0][1]
+
+
 def test_ipc_lifecycle_refuses_own_handle(dev):
     """One process: the planes map, the rank refuses to open its own
     IPC handle (CUDA refuses it too), and close frees the memory."""
