@@ -32,9 +32,15 @@ x0 and x in the original row order.  ``--multihost`` (with
 process per card: each holds its own parts, the stage boundaries are
 agreed across processes, and process 0 alone prints; ``--distributed-
 read`` range-reads each process's rows of a binary file and writes its
-rows of ``--output``.  Flag names and defaults follow the JAX package's
-CLI; flags of tiers the port does not have yet (``--serve``,
-``--trace``, ...) are not accepted.
+rows of ``--output``.  The observability tier (``--convergence-log``,
+``--progress``, ``--stats-json``, ``--metrics-file``/``--metrics-port``,
+``--status-file``/``--status-port``, ``--history``, ``--slo``/
+``--fail-on-slo``, ``--profile-ops``, ``--trace``, ``--timeline``)
+records the solve through :mod:`acg_tpu_torch.telemetry`,
+:mod:`~acg_tpu_torch.metrics`, :mod:`~acg_tpu_torch.observatory` and
+:mod:`~acg_tpu_torch.tracing`.  Flag names and defaults follow the JAX
+package's CLI; flags of tiers the port does not have yet (``--serve``,
+``--soak``, ``--ckpt``, ...) are not accepted.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU (the host oracles
@@ -284,6 +290,99 @@ def make_parser() -> argparse.ArgumentParser:
                         "solve: each process bumps a store key from a "
                         "daemon thread and declares a peer dead after "
                         "SECONDS of silence, exiting 97 (0 = off)")
+    p.add_argument("--convergence-log", metavar="FILE", default=None,
+                   help="record per-iteration (rnrm2, alpha, beta, pAp) "
+                        "in a device-side ring buffer written by the "
+                        "solve loop (fetched once with the result) and "
+                        "write it to FILE as JSONL: one meta line "
+                        "(wrap/truncation marked), one record per "
+                        "surviving iteration.  Window size: "
+                        "--telemetry-window.  Render with "
+                        "scripts/plot_convergence.py")
+    p.add_argument("--telemetry-window", type=int, default=512,
+                   metavar="N",
+                   help="ring-buffer capacity (iterations) for "
+                        "--convergence-log (default: 512; the trailing "
+                        "N iterations survive a longer solve)")
+    p.add_argument("--progress", type=int, default=0, metavar="K",
+                   help="heartbeat: print the residual 2-norm to stderr "
+                        "every K iterations, recorded on the device and "
+                        "printed where the loop reads its convergence "
+                        "flag (default: off)")
+    p.add_argument("--stats-json", metavar="FILE", default=None,
+                   help="write a schema-versioned machine-readable twin "
+                        "of the stats block to FILE: run manifest "
+                        "(backend, card, torch/CUDA versions, kernel "
+                        "tier, comm transport, matrix id, partition/"
+                        "halo sizes), per-op counters, phase timings, "
+                        "timestamped events, the convergence trace, and "
+                        "on multi-process runs the cross-rank "
+                        "min/median/max + imbalance aggregation")
+    p.add_argument("--metrics-file", metavar="FILE", default=None,
+                   help="write the service-metrics registry (solve/"
+                        "iteration counters, latency + phase "
+                        "histograms, RSS/device-memory gauges) to FILE "
+                        "in Prometheus text format -- atomic rename, "
+                        "flushed on exit and on SIGTERM")
+    p.add_argument("--metrics-port", type=int, default=0, metavar="PORT",
+                   help="serve GET /metrics (Prometheus text format) "
+                        "on PORT from a daemon thread for the "
+                        "process's lifetime (default: off)")
+    p.add_argument("--status-port", type=int, default=0, metavar="PORT",
+                   help="live in-flight status: serve GET /status (an "
+                        "acg-tpu-status/1 JSON document: phase, "
+                        "iteration, residual trail, iterations/sec, "
+                        "ETA, per-part imbalance, last events) on PORT "
+                        "from a daemon thread; the same port also "
+                        "answers /metrics (default: off)")
+    p.add_argument("--status-file", metavar="FILE", default=None,
+                   help="write the acg-tpu-status/1 document to FILE "
+                        "(atomic rename), refreshed on every status "
+                        "update at most every 0.2 s and finalised on "
+                        "exit")
+    p.add_argument("--history", metavar="DIR", default=None,
+                   help="run-history ledger: append this solve's "
+                        "--stats-json document to a date-partitioned "
+                        "JSONL ledger under DIR (one acg-tpu-history/1 "
+                        "index line per solve carrying the full "
+                        "document); render with "
+                        "scripts/history_report.py")
+    p.add_argument("--slo", metavar="SPEC", default=None,
+                   help="declare per-solve service-level objectives as "
+                        "latency=SECONDS,iters=N (any subset): targets "
+                        "land on the metrics registry, every completed "
+                        "solve is judged (breaches bump "
+                        "acg_slo_breaches_total and emit slo-breach "
+                        "events) and the verdict lands in an 'slo:' "
+                        "stats section")
+    p.add_argument("--fail-on-slo", action="store_true",
+                   help="with --slo: exit 8 when any declared "
+                        "objective breached during the run")
+    p.add_argument("--profile-ops", nargs="?", const=10, type=int,
+                   default=None, metavar="REPS",
+                   help="fill the stats block's per-op seconds/GB/s by "
+                        "replaying each op class standalone on the "
+                        "solver's own kernels (best of REPS timings, "
+                        "default 10; CUDA events on the card) -- the "
+                        "reference's ACG_ENABLE_PROFILING tier")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="capture the solve with torch.profiler (CPU "
+                        "activity, plus CUDA on the card) into "
+                        "DIR/<process>.trace.json.gz.  The capture is "
+                        "analysed after the solve: measured per-op-class "
+                        "device seconds inside the acg:solve windows, "
+                        "overlap efficiency and straggler attribution "
+                        "land in the 'tracing:' stats section, and "
+                        "measured seconds replace the --profile-ops "
+                        "replay estimates where the capture resolves "
+                        "an op class")
+    p.add_argument("--timeline", metavar="FILE", default=None,
+                   help="write a cross-rank span timeline of this run "
+                        "as Chrome trace-event JSON (one pid per part; "
+                        "load in Perfetto / chrome://tracing): the "
+                        "pipeline phases and telemetry events, gathered "
+                        "across processes with barrier-timestamp clock "
+                        "alignment")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="do not write the solution vector to stdout")
     p.add_argument("-o", "--output", metavar="FILE", default=None,
@@ -310,6 +409,7 @@ def _buildinfo(out) -> int:
     from acg_tpu_torch import __version__, _native
     from acg_tpu_torch.ops import _build
     from acg_tpu_torch.partition import metis_available
+    from acg_tpu_torch.telemetry import CONVERGENCE_SCHEMA, STATS_SCHEMA
 
     card = "unavailable"
     if torch.cuda.is_available():
@@ -340,6 +440,24 @@ def _buildinfo(out) -> int:
         ("libmetis", "yes" if metis_available() else
          "no (built-in bisection fallback)"),
         ("float64", "native on CUDA"),
+        ("telemetry", f"--convergence-log (device ring, "
+         f"{CONVERGENCE_SCHEMA}), --progress (heartbeat at the chunk "
+         f"reads), --stats-json ({STATS_SCHEMA}, phase timings + "
+         f"cross-rank aggregation)"),
+        ("profiling", "--profile-ops (per-op replay on the solver's "
+         "kernels, CUDA-event timed; chain_overhead and dispatch), "
+         "--trace (torch.profiler capture, acg:* phase annotations)"),
+        ("timeline tracing", "--timeline FILE (cross-rank span "
+         "timeline, Chrome trace-event JSON, one pid per part), --trace "
+         "capture analysis (measured per-op-class seconds of the port's "
+         "kernels, overlap efficiency, straggler attribution); "
+         "'tracing' section + acg_trace_* metrics"),
+        ("service metrics", "--metrics-file (Prometheus textfile, "
+         "atomic rename, flushed on exit/SIGTERM), --metrics-port "
+         "(stdlib /metrics endpoint)"),
+        ("live observatory", "--status-port PORT / --status-file FILE "
+         "(acg-tpu-status/1), --history DIR (acg-tpu-history/1 run "
+         "ledger), --slo latency=S,iters=N + --fail-on-slo (exit 8)"),
     ]
     for k, v in rows:
         out.write(f"{k}: {v}\n")
@@ -509,6 +627,11 @@ def _validate_batched(args) -> None:
              args.multihost or args.coordinator is not None),
             ("--distributed-read", args.distributed_read),
             ("--output-comm-matrix", args.output_comm_matrix),
+            ("--convergence-log (the per-RHS residual ring is not "
+             "ported yet)", bool(args.convergence_log)),
+            ("--progress (no batched heartbeat hook yet)",
+             args.progress > 0),
+            ("--profile-ops", args.profile_ops is not None),
         ] if on]
         if unsupported:
             raise SystemExit(
@@ -550,6 +673,11 @@ def _validate_algorithm(args) -> None:
             ("--kernels fused", args.kernels == "fused"),
             ("--diff-atol/--diff-rtol (residual criteria only)",
              args.diff_atol > 0 or args.diff_rtol > 0),
+            ("--convergence-log/--progress (the CA recurrences' ring "
+             "and heartbeat are not ported yet)",
+             bool(args.convergence_log) or args.progress > 0),
+            ("--profile-ops (the replay census has no CA op map)",
+             args.profile_ops is not None),
         ] if on]
         if unsupported:
             raise SystemExit(
@@ -583,22 +711,12 @@ def _validate_precision(args) -> None:
 
 
 def _solver_options(args) -> dict:
-    """The precision, preconditioning and recurrence keywords both
-    solver tiers take."""
+    """The precision, preconditioning, recurrence and in-loop telemetry
+    keywords both solver tiers take."""
     return dict(precise_dots=args.precise_dots,
                 replace_every=args.replace_every, precond=args._precond,
-                algorithm=args._algorithm)
-
-
-def _fold_inner_timings(solver) -> None:
-    """Under ``--refine`` the wrapper's statistics are the ones printed:
-    they take the device solver's phase timings."""
-    inner = getattr(solver, "inner", None)
-    if inner is None:
-        return
-    for k, v in inner.stats.timings.items():
-        solver.stats.timings[k] = solver.stats.timings.get(k, 0.0) + v
-    inner.stats.timings.clear()
+                algorithm=args._algorithm, trace=args._trace,
+                progress=args.progress)
 
 
 def _build_cli_operator(args, n: int, dtype, device):
@@ -686,7 +804,7 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
                                device=device, **_solver_options(args))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
-    solver.stats.timings["ingest"] = ingest
+    args._phases.add("ingest", ingest)
     b = torch.ones(N, dtype=vec_dtype, device=device)
     criteria = StoppingCriteria(
         maxits=args.max_iterations,
@@ -694,17 +812,24 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
         diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
     t0 = time.perf_counter()
     try:
-        x = solver.solve(b, criteria=criteria, warmup=args.warmup,
-                         host_result=bool(not args.quiet or args.output))
+        x = _run_solve(args, solver, criteria, lambda: solver.solve(
+            b, criteria=criteria, warmup=args.warmup,
+            host_result=bool(not args.quiet or args.output)))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _fold_phases(args, solver)
         solver.stats.fwrite(sys.stderr)
+        _emit_telemetry(args, solver, matrix_id=args.A, collective=False)
         return 1
     _log(args, "solve:", t0)
+    _after_solve(args, solver, b)
     solver.stats.fwrite(sys.stderr)
+    t_wb = time.perf_counter()
     _emit_solution(args, x)
+    args._phases.add("writeback", time.perf_counter() - t_wb)
+    _emit_telemetry(args, solver, matrix_id=args.A)
     return 0
 
 
@@ -727,6 +852,11 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
             "acg-tpu-torch: sharded --refine runs df64 outer residuals "
             "over f32 inner solves; use --dtype f32/mixed, or --dtype bf16 "
             "with --replace-every (sound-bf16 inner solves)")
+    if args.profile_ops is not None:
+        raise SystemExit(
+            "acg-tpu-torch: --profile-ops is not available on the sharded "
+            "direct-assembly path (single-part: drop --nparts/"
+            "--manufactured-solution)")
     if args.kernels == "fused":
         raise SystemExit(
             "acg-tpu-torch: the sharded direct-assembly path supports "
@@ -751,7 +881,7 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
     _log(args, f"gen-direct: {args.A} (N={N}) sharded DIA planes assembled "
                f"on the device ({nparts} parts, {solver.kernels}), no host "
                f"matrix:", t0)
-    solver.stats.timings["ingest"] = time.perf_counter() - t0
+    args._phases.add("ingest", time.perf_counter() - t0)
 
     xsol = None
     if args.manufactured_solution:
@@ -786,20 +916,27 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
     xl = None
     try:
         if args.refine:
-            x, xl = solver.solve_refined(
-                b, criteria=criteria, inner_rtol=args.refine_rtol,
-                inner_maxits=args.refine_inner_maxits, warmup=args.warmup)
+            x, xl = _run_solve(args, solver, criteria,
+                               lambda: solver.solve_refined(
+                                   b, criteria=criteria,
+                                   inner_rtol=args.refine_rtol,
+                                   inner_maxits=args.refine_inner_maxits,
+                                   warmup=args.warmup), nparts=nparts)
             _log(args, f"refine: {solver.stats.nrefine} passes, "
                        f"{solver.stats.niterations} inner iterations")
         else:
-            x = solver.solve(b, criteria=criteria, warmup=args.warmup,
-                             host_result=False)
+            x = _run_solve(args, solver, criteria, lambda: solver.solve(
+                b, criteria=criteria, warmup=args.warmup,
+                host_result=False), nparts=nparts)
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _fold_phases(args, solver)
         if _is_primary():
             solver.stats.fwrite(sys.stderr)
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                        collective=False)
         _stage_sync(args, "solve", 1)
         return 1
     _log(args, "solve:", t0)
@@ -808,6 +945,7 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
         sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
                          "failed during the solve\n")
         return rc
+    _after_solve(args, solver, b)
     # the collective steps (error norms, the solution gather) run on every
     # process before the primary-only output
     errs = None
@@ -822,13 +960,17 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
         if xl is not None:
             x_host = x_host + solver.gather_x(xl)
     if not _is_primary():
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts)
         return 0
     solver.stats.fwrite(sys.stderr)
     if errs is not None:
         sys.stderr.write(f"initial error 2-norm: {errs[0]:.15g}\n")
         sys.stderr.write(f"error 2-norm: {errs[1]:.15g}\n")
     if x_host is not None:
+        t_wb = time.perf_counter()
         _emit_solution(args, x_host)
+        args._phases.add("writeback", time.perf_counter() - t_wb)
+    _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts)
     return 0
 
 
@@ -865,6 +1007,7 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
          (args.replace_every > 0 or args.refine)
          and (args.diff_atol > 0 or args.diff_rtol > 0)),
         ("--comm dma", args.comm in ("dma", "nvshmem")),
+        ("--profile-ops", args.profile_ops is not None),
     ] if on]
     if unsupported:
         raise SystemExit(
@@ -928,11 +1071,11 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
         return rc
     subs, bounds, n_rows, owned = state
     t_part = time.perf_counter()
+    args._phases.add("ingest", t_part - t0)
     prob = DistributedProblem.assemble_local(subs, bounds, n_rows, nparts,
                                              owned, dtype=dtype,
                                              vector_dtype=vec_dtype)
-    phases = {"ingest": t_part - t0,
-              "partition": time.perf_counter() - t_part}
+    args._phases.add("partition", time.perf_counter() - t_part)
 
     comm_mtx = None
     if args.output_comm_matrix:
@@ -1000,21 +1143,19 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
                                nnz=prob.nnz_total,
                                inner_rtol=args.refine_rtol,
                                inner_maxits=args.refine_inner_maxits)
-    solver.stats.timings.update(phases)
     t0 = time.perf_counter()
+    solve_kw = {} if args.refine else {"host_result": not args.output}
     try:
-        if args.refine:
-            x = solver.solve(b, x0=x0, criteria=criteria,
-                             warmup=args.warmup)
-        else:
-            x = solver.solve(b, x0=x0, criteria=criteria,
-                             warmup=args.warmup,
-                             host_result=not args.output)
+        x = _run_solve(args, solver, criteria, lambda: solver.solve(
+            b, x0=x0, criteria=criteria, warmup=args.warmup, **solve_kw),
+            nparts=nparts)
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
-        _fold_inner_timings(solver)
+        _fold_phases(args, solver)
         if _is_primary():
             solver.stats.fwrite(sys.stderr)
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                        comm=args.comm, collective=False)
         _stage_sync(args, "solve", 1)
         _close(solver)
         return 1
@@ -1023,7 +1164,6 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
         _stage_sync(args, "solve", 1)
         _close(solver)
         return 1
-    _fold_inner_timings(solver)
     _log(args, "solve:", t0)
     rc = _stage_sync(args, "solve", 0)
     _close(solver)
@@ -1031,11 +1171,18 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
         sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
                          "failed during the solve\n")
         return rc
+    _after_solve(args, solver, b)
     if comm_mtx is not None and _is_primary():
         _write_comm_matrix(comm_mtx, nparts)
     if args.output:
-        return _distributed_write(args, solver, x, xsol, n)
+        rc = _distributed_write(args, solver, x, xsol, n)
+        if rc == 0:
+            _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                            comm=args.comm)
+        return rc
     if not _is_primary():
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                        comm=args.comm)
         return 0
     solver.stats.fwrite(sys.stderr)
     if xsol is not None:
@@ -1045,7 +1192,11 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
                          f"{np.linalg.norm(x - xsol):.15g}\n")
     # a partition-permuted matrix solves in permuted row order; the
     # solution goes out in the input's order through the sidecar
+    t_wb = time.perf_counter()
     _emit_solution(args, x, _load_perm_sidecar(args.A, n))
+    args._phases.add("writeback", time.perf_counter() - t_wb)
+    _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                    comm=args.comm)
     return 0
 
 
@@ -1262,6 +1413,370 @@ def _read_vector(path, binary, n, what):
     return v
 
 
+# -- the observability tier ----------------------------------------------
+
+def _arm_observability(args) -> None:
+    """Validate the observability flags and arm their recorders before
+    anything records (``acg_tpu/cli.py:2570-2580, 2679-2682,
+    3026-3101``): the phase timer, the ``--timeline`` span recorder, the
+    metrics registry and its sinks, the status recorder and its sinks,
+    the ``--slo`` objectives, and the ring size the solvers take
+    (``args._trace``: armed only when ``--convergence-log`` will read
+    it)."""
+    import os
+
+    from acg_tpu_torch import metrics, observatory, tracing
+    from acg_tpu_torch.telemetry import PhaseTimer
+
+    args._phases = PhaseTimer()
+    if args.telemetry_window <= 0:
+        raise SystemExit("acg-tpu-torch: --telemetry-window must be "
+                         "positive")
+    if args.progress < 0:
+        raise SystemExit("acg-tpu-torch: --progress must be >= 0")
+    if args.metrics_port < 0 or args.metrics_port > 65535:
+        raise SystemExit("acg-tpu-torch: --metrics-port must be 0-65535")
+    if args.status_port < 0 or args.status_port > 65535:
+        raise SystemExit("acg-tpu-torch: --status-port must be 0-65535")
+    args._slo = None
+    if args.slo is not None:
+        try:
+            args._slo = observatory.parse_slo(args.slo)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
+    if args.fail_on_slo and args._slo is None:
+        raise SystemExit("acg-tpu-torch: --fail-on-slo needs --slo SPEC "
+                         "(a gate with no declared objectives could "
+                         "never trip)")
+    if args._slo is not None and args._slo.gap is not None:
+        raise SystemExit("acg-tpu-torch: --slo gap=G judges the audit "
+                         "gaps of --audit-every, which the port does not "
+                         "have yet (the objective could never be "
+                         "observed)")
+    if args.history is not None and os.path.isfile(args.history):
+        raise SystemExit(f"acg-tpu-torch: --history {args.history} is a "
+                         f"file; the ledger needs a directory")
+    if args.timeline:
+        tracing.arm()
+        args._timeline_written = False
+    if args.metrics_file or args.metrics_port or args._slo is not None:
+        metrics.arm()
+        args._metrics_armed = True
+        if args.metrics_file:
+            metrics.install_flush_handlers(args.metrics_file)
+        if args.metrics_port and args.metrics_port != args.status_port:
+            # an equal --status-port serves /metrics itself
+            srv = metrics.serve(args.metrics_port)
+            _log(args, f"metrics: serving /metrics on port "
+                       f"{srv.server_address[1]}")
+    if (args.status_port or args.status_file or args.history
+            or args._slo is not None):
+        observatory.arm()
+        args._observatory_armed = True
+        if args._slo is not None:
+            observatory.install_slo(args._slo)
+        if args.status_file:
+            observatory.set_status_file(args.status_file)
+        if args.status_port:
+            ssrv = observatory.serve_status(args.status_port)
+            _log(args, f"status: serving /status (and /metrics) on port "
+                       f"{ssrv.server_address[1]}")
+    # the ring arms only when the JSONL sink will read it (--stats-json
+    # alone stays compatible with every solver tier)
+    args._trace = args.telemetry_window if args.convergence_log else 0
+    if ((args.convergence_log or args.progress)
+            and args.solver in ("host-native", "petsc")):
+        sys.stderr.write(
+            f"acg-tpu-torch: warning: --convergence-log/--progress have "
+            f"no in-loop hooks in --solver {args.solver} (the external "
+            f"oracles); --stats-json still works\n")
+
+
+def _finish_observability(args) -> None:
+    """``main``'s ``finally``: the last ``--metrics-file`` flush (only
+    when ``_main`` armed the registry: a run that died in validation
+    must not clobber the last healthy scrape), then the span and status
+    recorders disarmed and cleared, scoped to this invocation."""
+    if args.metrics_file and getattr(args, "_metrics_armed", False):
+        from acg_tpu_torch import metrics
+        try:
+            metrics.write_textfile(args.metrics_file)
+        except OSError as e:
+            sys.stderr.write(f"acg-tpu-torch: --metrics-file "
+                             f"{args.metrics_file}: {e}\n")
+    if args.timeline:
+        from acg_tpu_torch import tracing
+        tracing.disarm()
+    if getattr(args, "_observatory_armed", False):
+        from acg_tpu_torch import observatory
+        observatory.shutdown()
+
+
+def _inner_solver(solver):
+    """Unwrap ``--refine``'s RefinedSolver down to the device solver that
+    carries the telemetry (trace, timings, problem layout)."""
+    while hasattr(solver, "inner"):
+        solver = solver.inner
+    return solver
+
+
+def _run_solve(args, solver, criteria, call, nparts: int = 1):
+    """One CLI solve, ``call()``, under the observability tier
+    (``acg_tpu/cli.py:1290-1345``): the status header and per-part
+    imbalance, the ``--trace`` capture around the solve, and the
+    ``--slo`` verdict (judged on a failed solve too)."""
+    from acg_tpu_torch import observatory, tracing
+
+    prob = getattr(_inner_solver(solver), "problem", None)
+    observatory.begin_solve(
+        args.solver, criteria.maxits, rtol=args.residual_rtol,
+        atol=args.residual_atol, matrix=args.A,
+        nparts=int(getattr(prob, "nparts", 0) or nparts or 1))
+    observatory.note_solver(solver)
+    with tracing.profiler_trace(args.trace):
+        try:
+            return call()
+        finally:
+            _observe_slo(args, solver)
+
+
+def _observe_slo(args, solver) -> None:
+    """Judge a completed solve against the declared ``--slo`` objectives
+    and attach the verdict to the stats block."""
+    from acg_tpu_torch import observatory
+    if observatory.installed_slo() is None:
+        return
+    st = solver.stats
+    observatory.slo_observe(st, latency=st.timings.get("solve", st.tsolve),
+                            iterations=int(st.niterations))
+    observatory.attach_slo(st)
+
+
+def _after_solve(args, solver, b) -> None:
+    """After a solve's last collective: the ``--profile-ops`` replay, the
+    ``--trace`` analysis (measured seconds supersede the replay's), and
+    the phase fold (``acg_tpu/cli.py:1255-1270``)."""
+    if args.profile_ops is not None:
+        from acg_tpu_torch.solvers.profile import profile_ops
+        per_call = profile_ops(solver, b, reps=max(args.profile_ops, 1))
+        _report_replay(per_call)
+    _attach_trace_analysis(args, solver)
+    _fold_phases(args, solver)
+
+
+def _report_replay(per_call: dict) -> None:
+    """The ``--profile-ops`` replay's per-call seconds and its two
+    correction terms, next to the stats block they qualify."""
+    if not per_call:
+        return
+    ops = {k: v for k, v in per_call.items()
+           if k not in ("chain_overhead", "dispatch")}
+    sys.stderr.write("per-op replay (seconds a call): "
+                     + ", ".join(f"{k} {v:.3e}" for k, v in ops.items())
+                     + "\n")
+    co = per_call.get("chain_overhead")
+    if co is not None:
+        sys.stderr.write(
+            f"per-op replay: chain_overhead {co:.3e} s/call -- "
+            f"scalar-result chains (dot/nrm2/allreduce/halo) are upper "
+            f"bounds by ~this\n")
+    d = per_call.get("dispatch")
+    if d is not None:
+        sys.stderr.write(
+            f"per-op replay: dispatch {d:.3e} s/launch -- the host's "
+            f"cost to issue one launch; an op near it measured its "
+            f"launch, not its work\n")
+
+
+def _attach_trace_analysis(args, solver) -> None:
+    """Parse the ``--trace`` capture into the ``tracing:`` section;
+    an unusable capture degrades to a self-describing section and a
+    warning (a solve that succeeded never dies for its
+    observability)."""
+    if not args.trace or solver is None:
+        return
+    from acg_tpu_torch import tracing
+
+    an = tracing.analyze_trace(args.trace)
+    tracing.attach(solver.stats, an)
+    if not an.get("available"):
+        sys.stderr.write(f"acg-tpu-torch: --trace: capture analysis "
+                         f"unavailable ({an.get('why', '?')})\n")
+
+
+def _fold_phases(args, solver) -> None:
+    """Fold the CLI's phase timer (and under ``--refine`` the device
+    solver's own phases and trace) into the stats about to be printed;
+    idempotent, since the timer consumes on merge."""
+    st = solver.stats
+    inner = _inner_solver(solver)
+    if inner is not solver:
+        for k, v in inner.stats.timings.items():
+            st.timings[k] = st.timings.get(k, 0.0) + v
+        inner.stats.timings.clear()
+        if st.trace is None and inner.stats.trace is not None:
+            st.trace = inner.stats.trace
+    timer = getattr(args, "_phases", None)
+    if timer is not None:
+        timer.merge_into(st.timings)
+
+
+def _timeline_parts(solver, nparts: int) -> list:
+    """The part ids this process's spans describe: its owned parts, or
+    every part (one process runs them all)."""
+    prob = getattr(_inner_solver(solver), "problem", None)
+    owned = getattr(prob, "owned_parts", None) if prob is not None else None
+    if owned is not None:
+        return [int(p) for p in owned]
+    from acg_tpu_torch.parallel import mesh, multihost
+    n = max(int(nparts), 1)
+    if multihost.process_count() > 1:
+        lo, hi = mesh.part_range(n, multihost.process_index(),
+                                 multihost.process_count())
+        return list(range(lo, hi))
+    return list(range(n))
+
+
+def _emit_timeline(args, solver, nparts=1, collective=True) -> None:
+    """Gather every process's spans (clock-aligned) and write the
+    ``--timeline``: every process gathers, process 0 writes."""
+    if not args.timeline or getattr(args, "_timeline_written", False):
+        return
+    from acg_tpu_torch import tracing
+
+    payloads, clock = tracing.gather_timeline(
+        parts=_timeline_parts(solver, nparts), timeout=args.err_timeout,
+        collective=collective)
+    # set on every rank right after the gather, so a second call skips
+    # the collective everywhere at once
+    args._timeline_written = True
+    if not _is_primary():
+        return
+    try:
+        summary = tracing.export_chrome_trace(
+            args.timeline, payloads, nparts=max(int(nparts), 1),
+            clock=clock)
+    except OSError as e:
+        sys.stderr.write(f"acg-tpu-torch: --timeline {args.timeline}: "
+                         f"{e}\n")
+        return
+    tracing.attach(solver.stats, None, timeline=summary)
+    sys.stderr.write(f"acg-tpu-torch: timeline: {summary['nspans']} spans "
+                     f"over {summary['nparts']} part(s) from "
+                     f"{summary['nranks']} rank(s) -> {args.timeline}\n")
+
+
+def _emit_telemetry(args, solver, *, matrix_id, nparts=1, comm=None,
+                    collective=True) -> None:
+    """The telemetry sinks (``acg_tpu/cli.py:1581-1733``): the
+    ``--convergence-log`` JSONL, the timeline, the cross-rank
+    aggregation, the ``--stats-json`` document and the ``--history``
+    ledger.  The gathers are collective (every process calls this at the
+    same point: argv, and so the gating flags, are the same on every
+    process); the file writes are process 0's.  Error paths pass
+    ``collective=False``: a one-sided failure must not enter a gather
+    its peers may never reach."""
+    if not (args.convergence_log or args.stats_json or args.timeline
+            or args.history):
+        return
+    from acg_tpu_torch import telemetry
+    from acg_tpu_torch.parallel import multihost
+
+    _fold_phases(args, solver)
+    _emit_timeline(args, solver, nparts=nparts, collective=collective)
+    inner = _inner_solver(solver)
+    st = solver.stats
+    trace = st.trace if st.trace is not None else inner.stats.trace
+    if args.convergence_log and _is_primary():
+        try:
+            if trace is not None:
+                trace.meta_extra["calibration"] = "uncalibrated"
+                trace.write_jsonl(args.convergence_log)
+            else:
+                sys.stderr.write(
+                    f"acg-tpu-torch: --convergence-log: no convergence "
+                    f"trace was recorded (--solver {args.solver} has no "
+                    f"in-loop telemetry hooks)\n")
+        except OSError as e:
+            sys.stderr.write(f"acg-tpu-torch: {args.convergence_log}: "
+                             f"{e}\n")
+    if not (args.stats_json or args.history):
+        return
+    ranks = payloads = None
+    try:
+        payload = telemetry.rank_payload(inner)
+    except (AttributeError, TypeError, ValueError) as e:
+        # a stub keeps the gather below symmetric across processes
+        sys.stderr.write(f"acg-tpu-torch: rank stats payload failed "
+                         f"({type(e).__name__})\n")
+        payload = {"process": multihost.process_index(),
+                   "error": type(e).__name__}
+    if collective:
+        payloads = telemetry.gather_rank_stats(payload,
+                                               timeout=args.err_timeout)
+    elif multihost.process_count() == 1:
+        payloads = [payload]
+    if payloads is not None:
+        agg = telemetry.aggregate_ranks(payloads)
+        ranks = {"per_rank": payloads, "aggregate": agg}
+        if _is_primary() and len(payloads) > 1:
+            sys.stderr.write("acg-tpu-torch: "
+                             + telemetry.format_rank_report(agg) + "\n")
+    if not _is_primary():
+        return
+    extra = {"matrix": str(matrix_id), "solver": args.solver,
+             "comm": comm, "nparts": int(nparts), "dtype": args.dtype,
+             # the reference's commbench calibration id: the port has no
+             # calibrations, and the sentinel keeps the case key
+             "calibration": "uncalibrated",
+             "argv": list(sys.argv[1:])}
+    if args._precond is not None:
+        extra["precond"] = str(args._precond)
+    if args._batched:
+        extra["nrhs"] = int(args.nrhs)
+        if args.block_cg:
+            extra["block_cg"] = True
+    if args._operator_spec is not None:
+        extra["operator"] = str(args._operator_spec)
+    if args.aniso is not None:
+        extra["aniso"] = float(args.aniso)
+    kern = getattr(inner, "kernels", None)
+    extra["kernels"] = kern if isinstance(kern, str) else args.kernels
+    prob = getattr(inner, "problem", None)
+    if prob is not None:
+        extra["mesh"] = {"parts": int(prob.nparts)}
+        extra["partition"] = {
+            "nparts": int(prob.nparts),
+            "nmax_owned": int(prob.nmax_owned),
+            "local_format": prob.local.format,
+            "nnz_total": int(prob.nnz_total),
+            "halo_send_total": int(prob.halo_total()),
+            "nmax_ghost": int(prob.halo.nmax_ghost),
+        }
+    doc = None
+    if args.stats_json:
+        try:
+            doc = telemetry.write_stats_json(
+                args.stats_json, st,
+                manifest=telemetry.run_manifest(**extra), ranks=ranks)
+        except OSError as e:
+            sys.stderr.write(f"acg-tpu-torch: {args.stats_json}: {e}\n")
+    if args.history and not getattr(args, "_history_written", False):
+        # error paths append too: a failed run is history evidence
+        args._history_written = True
+        from acg_tpu_torch import observatory
+        if doc is None:
+            doc = telemetry.stats_document(
+                st, manifest=telemetry.run_manifest(**extra), ranks=ranks)
+        try:
+            path = observatory.history_append(args.history, doc)
+            sys.stderr.write(f"acg-tpu-torch: history: appended to "
+                             f"{path}\n")
+        except OSError as e:
+            sys.stderr.write(f"acg-tpu-torch: --history {args.history}: "
+                             f"{e}\n")
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -1274,11 +1789,16 @@ def main(argv=None) -> int:
     try:
         rc = _main(args)
         _report_run(args)
+        if rc == 0 and args.fail_on_slo:
+            # a clean run that breached a declared objective exits 8
+            from acg_tpu_torch import observatory
+            rc = observatory.slo_exit_code(True)
         return rc
     except (OSError, AcgError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         return 1
     finally:
+        _finish_observability(args)
         if _multi(args):
             from acg_tpu_torch.parallel import multihost
             multihost.shutdown(timeout=args.err_timeout)
@@ -1371,6 +1891,7 @@ def _main(args) -> int:
     _validate_algorithm(args)
     _validate_batched(args)
     _validate_operator(args)
+    _arm_observability(args)
     try:
         device = _start_processes(args)
     except AcgError as e:
@@ -1390,10 +1911,9 @@ def _main(args) -> int:
 
     # stages 1-4 under the ingest agreement: the host-local stages where
     # one process can fail alone
-    phases = {}
     ingest_rc, state = 0, None
     try:
-        state = _ingest(args, device, phases)
+        state = _ingest(args, device, args._phases)
     except (AcgError, OSError, SystemExit) as e:
         if not _multi(args):
             raise
@@ -1536,32 +2056,40 @@ def _main(args) -> int:
         from acg_tpu_torch.solvers.refine import RefinedSolver
         solver = RefinedSolver(solver, csr, inner_rtol=args.refine_rtol,
                                inner_maxits=args.refine_inner_maxits)
-    solver.stats.timings.update(phases)
     # the host oracles run once: no warm-up solves
     solve_kw = {} if host else {"warmup": args.warmup}
     try:
-        x = solver.solve(b, x0=x0, criteria=criteria, **solve_kw)
+        x = _run_solve(args, solver, criteria, lambda: solver.solve(
+            b, x0=x0, criteria=criteria, **solve_kw), nparts=nparts)
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
-        _fold_inner_timings(solver)
+        _fold_phases(args, solver)
         if _is_primary():   # the stats block from rank 0 only
             solver.stats.fwrite(sys.stderr)
+        # the convergence log matters most on a failed solve; no
+        # collective gather on this path
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                        comm=comm, collective=False)
         _stage_sync(args, "solve", 1)
         _close(solver)
         return 1
-    _fold_inner_timings(solver)
     _log(args, "solve:", t0)
     rc = _stage_sync(args, "solve", 0)
-    _close(solver)
     if rc:
+        _close(solver)
         sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
                          "failed during the solve\n")
         return rc
+    _after_solve(args, solver, b)
+    _close(solver)
     # every process solves; only rank 0 speaks (the reference's
-    # mtxfile_fwrite_mpi_double root-rank output)
+    # mtxfile_fwrite_mpi_double root-rank output), but every process
+    # contributes to the telemetry gathers
     if not _is_primary():
+        _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                        comm=comm)
         return 0
     if solver.stats.batch:
         _log(args, f"batch: per-RHS iterations "
@@ -1584,11 +2112,16 @@ def _main(args) -> int:
     # stage 10: communication matrix and solution output
     if comm_mtx is not None:
         _write_comm_matrix(comm_mtx, nparts)
+    t_wb = time.perf_counter()
     _emit_solution(args, x, perm)
+    args._phases.add("writeback", time.perf_counter() - t_wb)
+    # the structured sinks last, so they carry the writeback phase
+    _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
+                    comm=comm)
     return 0
 
 
-def _ingest(args, device, phases: dict):
+def _ingest(args, device, phases):
     """Stages 1-4 (``acg_tpu/cli.py:3300-3460``): read or synthesize the
     matrix, assemble the symmetric CSR, partition the rows, build b and
     x0.  Returns ``(A, csr, n, perm, nparts, part, b, x0, xsol)``."""
@@ -1616,7 +2149,7 @@ def _ingest(args, device, phases: dict):
     t0 = time.perf_counter()
     csr = A.to_csr(epsilon=args.epsilon)
     _log(args, "assemble symmetric CSR:", t0)
-    phases["ingest"] = time.perf_counter() - t_ingest
+    phases.add("ingest", time.perf_counter() - t_ingest)
     n = A.nrows
     # partition-permuted input (mtx2bin --partition): the matrix on disk
     # is P A P^T, but b, x0 and the printed solution stay in the
@@ -1631,7 +2164,7 @@ def _ingest(args, device, phases: dict):
     if args.partition:
         nparts = max(nparts, int(part.max()) + 1)
     _log(args, f"partition rows into {nparts} parts:", t0)
-    phases["partition"] = time.perf_counter() - t0
+    phases.add("partition", time.perf_counter() - t0)
 
     # stage 4: right-hand side and initial guess
     rng = np.random.default_rng(args.seed)
@@ -1706,9 +2239,15 @@ def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
                 ErrorCode.INVALID_VALUE,
                 "--precond has no hooks in the multi-part host solver; "
                 "use --nparts 1 or the device solvers")
+        if args._trace or args.progress:
+            sys.stderr.write(
+                "acg-tpu-torch: warning: --convergence-log/--progress "
+                "have no hooks in the multi-part host solver; use "
+                "--nparts 1 or the device solvers\n")
         return HostDistCGSolver(partition_matrix(csr, part, nparts))
     from acg_tpu_torch.solvers.host_cg import HostCGSolver
-    return HostCGSolver(csr, precond=args._precond)
+    return HostCGSolver(csr, precond=args._precond, trace=args._trace,
+                        progress=args.progress)
 
 
 def _default_nparts(device, args=None) -> int:

@@ -390,13 +390,16 @@ extern "C" int acg_ipc_handle(void* ptr, void* out) {
   return static_cast<int>(e);
 }
 
-// map a PEER's handle (never this process's own: CUDA refuses it)
+// map a PEER's handle (never this process's own: CUDA refuses it).  A
+// refused open is returned, and cleared from the runtime's last error:
+// left there, the next kernel launch's check would report it
 extern "C" int acg_ipc_open(int device, const void* handle, void** ptr) {
   cudaIpcMemHandle_t h;
   memcpy(&h, handle, sizeof(h));
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess)
     e = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  if (e != cudaSuccess) cudaGetLastError();
   return static_cast<int>(e);
 }
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from acg_tpu_torch import recurrence as rec
+from acg_tpu_torch import tracing
 from acg_tpu_torch._device import resolve_device
 from acg_tpu_torch.errors import AcgError, ErrorCode
 from acg_tpu_torch.graph import (Subdomain, partition_matrix,
@@ -976,8 +977,7 @@ def make_dist_spmv_overlapped(prob: DistributedProblem, la, ga, halo, scnt,
 
 # options of acg_tpu's DistCGSolver that the port does not carry yet,
 # each refused by name: (keyword, value that means "off")
-_REFUSED = (("health", None), ("ckpt", None), ("recovery", None),
-            ("trace", 0), ("progress", 0))
+_REFUSED = (("health", None), ("ckpt", None), ("recovery", None))
 
 
 class DistCGSolver(_cg.ChunkedCGSolver):
@@ -1031,17 +1031,26 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     ``kernels="fused"``, ``precond`` and a CA ``algorithm`` are refused
     there.
 
+    ``trace``/``progress`` arm the in-loop ring and heartbeat of the
+    classic and pipelined loops (:mod:`acg_tpu_torch.telemetry`), on the
+    stacked tier and in rank mode: the ring records the psum'd scalars,
+    and the heartbeat prints once per run (from process 0 in rank
+    mode).  The replacement program refuses them at solve time, the CA
+    recurrences at construction.
+
     Not carried yet, each refused with a ValueError naming it:
-    ``health``, ``ckpt``, ``recovery`` and ``trace``/``progress``.
+    ``health``, ``ckpt`` and ``recovery``.
     """
 
     _what = "dist-cg"
+    _beat_name = "dist-cg"
 
     def __init__(self, problem: DistributedProblem, pipelined: bool = False,
                  comm: str = "xla", kernels: str = "auto", device=None,
                  precise_dots: bool = False, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, mstate=None,
-                 algorithm=None, **options):
+                 algorithm=None, trace: int = 0, progress: int = 0,
+                 **options):
         for name, off in _REFUSED:
             if options.pop(name, off) not in (off,):
                 raise ValueError(f"DistCGSolver: {name} is not ported to "
@@ -1198,12 +1207,20 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                     (self.algo is not None,
                      f"--algorithm {self.algo} (the CA recurrences "
                      f"keep the unsplit SpMV; fused covers "
-                     f"classic/pipelined)")):
+                     f"classic/pipelined)"),
+                    (bool(trace or progress),
+                     "convergence telemetry (trace/progress)")):
                 if on:
                     raise ValueError(
                         f"kernels='fused' (dist) does not compose with "
                         f"{what}; use kernels='auto'/'xla'/'pallas'")
         self._mstate = None
+        self._check_telemetry(trace, progress)
+        if self.replace_every and (self.trace or self.progress):
+            raise ValueError(
+                "convergence telemetry (trace/progress) does not reach "
+                "the replacement-segment program (replace_every); use "
+                "the direct classic/pipelined programs")
         self.stats = SolverStats(unknowns=problem.n)
         # the matrix, halo plan and counts move to the device once (on
         # the multi-process tier this rank's parts only)
@@ -1262,16 +1279,32 @@ class DistCGSolver(_cg.ChunkedCGSolver):
 
     def _rank_spmv(self):
         """The SpMV of the multi-process tier: this rank's parts, the
-        halo across ranks -- ``all_to_all_single`` for ``comm="xla"``,
-        K6's peer puts for ``"dma"`` (its plain version, over
-        ``torch.distributed.all_to_all``, on the CPU into a fresh zeroed
-        receive plane)."""
+        halo across ranks (:meth:`_rank_exchange`)."""
+        prob = self.problem
+        return make_block_spmv(self._local, self._ghost, self._la, self._ga,
+                               prob.halo.has_ghosts, self._rank_exchange(),
+                               self.kernels != "xla")
+
+    def _rank_exchange(self):
+        """The halo exchange across ranks -- ``all_to_all_single`` for
+        ``comm="xla"``, K6's peer puts for ``"dma"`` (its plain version,
+        over ``torch.distributed.all_to_all``, on the CPU into a fresh
+        zeroed receive plane)."""
         ranges, rank = self._ranks
         h, prob = self._halo, self.problem
         nlocal = h.send_idx.shape[0]
         recvs: dict = {}
 
         def exchange(x):
+            # a host transport (gloo, or the CPU) leaves no device event:
+            # a capture sees it as a "halo_exchange" span
+            with tracing.host_span(
+                    "halo_exchange", x.device.type != "cuda"
+                    or (self.comm == "xla"
+                        and multihost.host_collectives())):
+                return transport(x)
+
+        def transport(x):
             if self.comm == "xla":
                 return halo_exchange_ranks(x, h.send_idx, h.ghost_src,
                                            ranges, rank)
@@ -1287,9 +1320,7 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                                       recvs.get(x.dtype), ranges, rank,
                                       peer=peer)
 
-        return make_block_spmv(self._local, self._ghost, self._la, self._ga,
-                               prob.halo.has_ghosts, exchange,
-                               self.kernels != "xla")
+        return exchange
 
     def _peer(self, dtype) -> PeerPlanes:
         """The mapped receive planes of ``dtype`` vectors, made at the
@@ -1434,11 +1465,14 @@ class DistCGSolver(_cg.ChunkedCGSolver):
 
         def run(b, x0):
             spmv = self._spmv()
+            telem = self._telemetry(sdt)
             if spec is None:
                 if self.pipelined:
                     return _cg._cg_pipelined_program(spmv, pdot, pdotk, b,
-                                                     x0, crit, use_kernel)
-                return _cg._cg_program(spmv, pdot, b, x0, crit)
+                                                     x0, crit, use_kernel,
+                                                     telem)
+                return _cg._cg_program(spmv, pdot, b, x0, crit,
+                                       telem=telem)
             # the apply rides this run's SpMV: a cheby apply is K more
             # halo'd SpMVs
             apply = make_apply(spec, lambda _A, x: spmv(x))
@@ -1448,10 +1482,17 @@ class DistCGSolver(_cg.ChunkedCGSolver):
 
             if self.pipelined:
                 return _cg._pcg_pipelined_program(spmv, pdot, pdotk, b, x0,
-                                                  crit, papply)
-            return _cg._cg_program(spmv, pdot, b, x0, crit, papply, pdotk)
+                                                  crit, papply, telem)
+            return _cg._cg_program(spmv, pdot, b, x0, crit, papply, pdotk,
+                                   telem)
 
         return run
+
+    def _solver_name(self) -> str:
+        """The telemetry and metrics label (the reference's)."""
+        if self.algo is not None:
+            return self.algo.solver_name("dist-cg")
+        return "dist-cg-pipelined" if self.pipelined else "dist-cg"
 
     def _host_x(self, x: np.ndarray) -> np.ndarray:
         if self._ranks is not None:

@@ -23,8 +23,9 @@ transpose transport only (the reference's batched mesh tier takes no
 :class:`~acg_tpu_torch.parallel.dist.DistCGSolver`.
 
 The reference's per-RHS residual ring (``trace``) and batched
-checkpoints (``ckpt``) come with the observability and robustness
-modules; the port refuses them by name until then.
+checkpoints (``ckpt``) are not ported yet (the ring's host class is in
+:mod:`acg_tpu_torch.telemetry`, called by nothing); the port refuses
+them by name.
 """
 
 from __future__ import annotations
@@ -126,9 +127,9 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
                 "single-device tier (acg_tpu.solvers.batched), or drop "
                 "--nrhs for the matrix-free mesh solve")
         if trace:
-            raise ValueError("trace (the per-RHS residual ring) comes "
-                             "with the observability modules "
-                             "(telemetry.py); not yet ported")
+            raise ValueError("trace (the per-RHS residual ring, "
+                             "BatchedConvergenceTrace in telemetry.py) "
+                             "is not ported yet")
         if ckpt is not None:
             raise ValueError("ckpt (batched checkpoints) comes with the "
                              "robustness modules (checkpoint.py); not "

@@ -171,6 +171,12 @@ def shutdown(timeout: float = 120.0) -> None:
         _world = None
 
 
+def host_collectives() -> bool:
+    """The collectives run on the host (gloo): they leave no device
+    event in a profiler capture."""
+    return _world is not None and _world.backend == "gloo"
+
+
 def _staged(t: torch.Tensor) -> bool:
     return _world.backend == "gloo" and t.device.type == "cuda"
 

@@ -55,10 +55,14 @@ def make_rank_psum(counts):
     each rank's part count, in rank order), then :func:`psum`.  Every
     rank folds the same values in the same order, so every rank holds
     the same bits."""
+    from acg_tpu_torch import tracing
     from acg_tpu_torch.parallel import multihost
 
     def rank_psum(v):
-        return psum(multihost.gather_parts(v, counts))
+        # a gloo gather leaves no device event: a capture sees it as a
+        # "psum" span
+        with tracing.host_span("psum", multihost.host_collectives()):
+            return psum(multihost.gather_parts(v, counts))
     return rank_psum
 
 

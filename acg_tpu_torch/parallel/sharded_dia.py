@@ -75,15 +75,17 @@ class ShardedDiaCGSolver(TorchCGSolver):
     ``"xla-roll"``).  ``precond``,
     ``replace_every`` and ``algorithm`` ride those programs as on one
     device.  ``stencil`` = ``(n, dim)`` of the generating Poisson grid
-    arms :func:`spot_check_manufactured`.  Not carried yet, each refused
-    with a ValueError naming it: ``health``, ``ckpt``, ``recovery`` and
-    ``trace``/``progress``."""
+    arms :func:`spot_check_manufactured`.  ``trace``/``progress`` ride
+    the single-device programs (the reference's ``:234-270``).  Not
+    carried yet, each refused with a ValueError naming it: ``health``,
+    ``ckpt`` and ``recovery``."""
 
     def __init__(self, A: DiaMatrix, nparts: int = 1,
                  pipelined: bool = False, precise_dots: bool = False,
                  vector_dtype=None, stencil=None, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, algorithm=None,
-                 kernels: str = "auto", device=None, **options):
+                 kernels: str = "auto", device=None, trace: int = 0,
+                 progress: int = 0, **options):
         if kernels not in ("auto", "xla-roll", "pallas-roll"):
             raise ValueError(f"unknown sharded kernels choice {kernels!r} "
                              f"(auto, xla-roll or pallas-roll)")
@@ -101,7 +103,8 @@ class ShardedDiaCGSolver(TorchCGSolver):
                          precise_dots=precise_dots,
                          replace_every=replace_every,
                          replace_restart=replace_restart, precond=precond,
-                         algorithm=algorithm)
+                         algorithm=algorithm, trace=trace,
+                         progress=progress)
         on_cuda = self.device.type == "cuda"
         if kernels == "auto":
             kernels = "pallas-roll" if on_cuda else "xla-roll"
@@ -251,6 +254,8 @@ class ShardedDiaCGSolver(TorchCGSolver):
         st.dxnrm2 = float("inf")
         st.converged = bool(converged)
         st.fexcept_arrays = [np.asarray([0.0])]
+        # the last inner solve's ring (each pass ran on a stats of its own)
+        st.trace = self.last_trace
         if not converged:
             raise NotConvergedError(
                 f"sharded refinement stalled after {npasses} passes "

@@ -31,8 +31,9 @@ A batch of one delegates to the single-RHS
 :class:`~acg_tpu_torch.solvers.cg.TorchCGSolver` (``kernels="xla"``, as
 the JAX package delegates to ``JaxCGSolver``).  The JAX package's
 per-RHS residual ring (``trace``) and batched checkpoints (``ckpt``)
-come with the observability and robustness modules; the port refuses
-them by name until then.
+are not ported yet (the ring's host class is in
+:mod:`acg_tpu_torch.telemetry`, called by nothing); the port refuses
+them by name.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ from acg_tpu_torch.ops.spmv import (BinnedEllMatrix, CooMatrix, DeviceMatrix,
                                     DiaMatrix, EllMatrix, acc_dtype,
                                     matrix_dtype, matrix_index_bytes, spmv,
                                     spmv_flops)
-from acg_tpu_torch.solvers.cg import CHUNK, _add_timing
+from acg_tpu_torch.solvers.cg import CHUNK
+from acg_tpu_torch.telemetry import add_timing as _add_timing
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
 
@@ -586,9 +588,9 @@ class BatchedCGSolver(ChunkedBatchedSolver):
                              "in the scalar dtype; precise_dots applies "
                              "to the batched/pipelined modes")
         if trace:
-            raise ValueError("trace (the per-RHS residual ring) comes "
-                             "with the observability modules "
-                             "(telemetry.py); not yet ported")
+            raise ValueError("trace (the per-RHS residual ring, "
+                             "BatchedConvergenceTrace in telemetry.py) "
+                             "is not ported yet")
         if ckpt is not None:
             raise ValueError("ckpt (batched checkpoints) comes with the "
                              "robustness modules (checkpoint.py); not "

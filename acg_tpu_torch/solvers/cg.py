@@ -18,6 +18,11 @@ tensors with the same semantics:
   ``fori_loop`` path.
 * bf16 vector storage computes every scalar in f32 and rounds each
   updated vector once, on store (``jax_cg.py:91-111,307``).
+* ``trace``/``progress`` (the observability tier, :mod:`acg_tpu_torch.
+  telemetry`) add a device ring of each iteration's scalars, written
+  in place and masked by the convergence flag, and a heartbeat printed
+  where the flag is read; disarmed, the loops build and launch nothing
+  more.
 
 The classic and pipelined programs take the SpMV and the global dot as
 callables, so the stacked multi-part tier (:mod:`acg_tpu_torch.parallel.
@@ -43,8 +48,9 @@ import time
 import numpy as np
 import torch
 
+from acg_tpu_torch import telemetry
 from acg_tpu_torch._device import device_sync, resolve_device
-from acg_tpu_torch.errors import NotConvergedError
+from acg_tpu_torch.errors import AcgError, ErrorCode, NotConvergedError
 from acg_tpu_torch.ops import kernels as K
 from acg_tpu_torch.ops.operator import is_matrix_free
 from acg_tpu_torch.ops.precision import dot2
@@ -76,6 +82,8 @@ class CGResult:
     dxnrm2: torch.Tensor
     converged: torch.Tensor
     breakdown: torch.Tensor
+    # the run's in-loop telemetry (a telemetry.LoopTelemetry), if armed
+    telem: object = None
 
 
 def _scalar_setup(dtype, precise: bool = False):
@@ -115,24 +123,42 @@ def _converged(rnrm2sqr, dxnrm2sqr, res_tol, diff_tol):
             | ((diff_tol > 0) & (dxnrm2sqr < diff_tol * diff_tol)))
 
 
-def _iterate(step, maxits: int, unbounded: bool, state) -> None:
+def _iterate(step, maxits: int, unbounded: bool, state,
+             telem=None) -> None:
     """Run ``step(live)`` until ``maxits`` iterations or convergence.
 
     ``state.done`` is the device convergence flag that ``step`` updates;
     ``live`` is ``~state.done`` on entry to the step, which the step
     uses to freeze its state once converged.  The host reads the flag
     once per :data:`CHUNK` iterations.  Unbounded solves run exactly
-    ``maxits`` steps with ``live = None`` and no reads.
+    ``maxits`` steps with ``live = None`` and no reads.  An armed
+    heartbeat (``telem.progress``) prints its lines right after each
+    flag read and after the last chunk; unbounded solves then read once
+    per chunk for it.
     """
+    beats = telem is not None and telem.progress > 0
     if unbounded:
-        for _ in range(maxits):
-            step(None)
+        if not beats:
+            for _ in range(maxits):
+                step(None)
+            return
+        for ran in range(0, maxits, CHUNK):
+            for _ in range(min(CHUNK, maxits - ran)):
+                step(None)
+            telem.flush()
         return
     ran = 0
-    while ran < maxits and not bool(state.done):
+    while ran < maxits:
+        done = bool(state.done)
+        if beats:
+            telem.flush()
+        if done:
+            break
         for _ in range(min(CHUNK, maxits - ran)):
             step(~state.done)
         ran += CHUNK
+    if beats:
+        telem.flush()
 
 
 class _State:
@@ -179,7 +205,7 @@ def _dotk(dot):
 
 
 def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria, papply=None,
-                dotk=None) -> CGResult:
+                dotk=None, telem=None) -> CGResult:
     """Classic CG (``acg_tpu.solvers.jax_cg._cg_program``) over the
     caller's ``spmv(x)`` and global ``dot(a, c)``: one vector on one
     device, or stacked parts with psum'd dots (``acg_tpu/parallel/
@@ -190,7 +216,12 @@ def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria, papply=None,
     is gamma = (r, z), and the carried true residual rr = (r, r) keeps the
     convergence test and the reported rnrm2 unpreconditioned.  Both come
     from ``dotk((r, z), (r, r))``: two dots on one device, one fused psum
-    on stacked parts (``dist.py:1608-1615``)."""
+    on stacked parts (``dist.py:1608-1615``).
+
+    ``telem`` (a :class:`~acg_tpu_torch.telemetry.LoopTelemetry`) records
+    each iteration's ``(gamma_next, alpha, beta, (p, t))`` -- under
+    ``papply`` gamma is the preconditioned ``(r, z)``, as the reference's
+    ring records it (``jax_cg.py:453-463``)."""
     dtype = b.dtype
     sdt = acc_dtype(dtype)
     dev = b.device
@@ -234,6 +265,8 @@ def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria, papply=None,
         p_next = (z.to(sdt) + beta * s.p.to(sdt)).to(dtype)
         dx = alpha * alpha * dot(s.p, s.p) if needs_diff else inf
         s.r = r
+        if telem is not None:
+            telem.step(s.k, live, gamma_next, alpha, beta, pdott)
         if live is None:
             s.p, s.gamma, s.rr, s.dx = p_next, gamma_next, rr_next, dx
             return
@@ -246,17 +279,17 @@ def _cg_program(spmv, dot, b, x0, crit: StoppingCriteria, papply=None,
         s.k = s.k + live.to(torch.int64)
         s.done = s.done | _converged(s.rr, s.dx, res_tol, diff_tol)
 
-    _iterate(step, crit.maxits, unbounded, s)
+    _iterate(step, crit.maxits, unbounded, s, telem)
     k = torch.tensor(crit.maxits, device=dev) if unbounded else s.k
     done = torch.tensor(True, device=dev) if unbounded else s.done
     return CGResult(x=s.x, niterations=k, rnrm2=torch.sqrt(s.rr),
                     r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2,
                     dxnrm2=torch.sqrt(s.dx), converged=done,
-                    breakdown=torch.tensor(False, device=dev))
+                    breakdown=torch.tensor(False, device=dev), telem=telem)
 
 
 def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
-                          use_kernel: bool) -> CGResult:
+                          use_kernel: bool, telem=None) -> CGResult:
     """Pipelined (Ghysels-Vanroose) CG (``acg_tpu.solvers.jax_cg.
     _cg_pipelined_program``, plain body ``:925-1012``; stacked parts:
     ``acg_tpu/parallel/dist.py:1833-1956``), both scalars of an iteration
@@ -265,7 +298,9 @@ def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
     convergence tests the carried gamma = ||r||^2 from before the update
     (one iteration stale, ``cgcuda.c:1798-1810``).  With ``use_kernel``
     the 6-vector update is kernel K5, in place, on the flat view of the
-    vectors (the whole stack at once)."""
+    vectors (the whole stack at once).  ``telem`` records the carried
+    gamma (stale by one) and the alpha denominator in the pAp slot
+    (``jax_cg.py:1004-1013``)."""
     dtype = b.dtype
     sdt = acc_dtype(dtype)
     dev = b.device
@@ -304,6 +339,8 @@ def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
                             for nv, old in zip(new, vecs))
             s.x, s.r, s.w, s.p, s.t, s.z = new
         dx = alpha * alpha * dot(s.p, s.p) if needs_diff else inf
+        if telem is not None:
+            telem.step(s.k, live, gamma, alpha, beta, denom)
         if live is None:
             s.gamma_prev, s.alpha_prev, s.dx = gamma, alpha, dx
             return
@@ -313,7 +350,7 @@ def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
         s.k = s.k + live.to(torch.int64)
         s.done = s.done | _converged(s.gamma_prev, s.dx, res_tol, diff_tol)
 
-    _iterate(step, crit.maxits, unbounded, s)
+    _iterate(step, crit.maxits, unbounded, s, telem)
     rnrm2 = torch.sqrt(dot(s.r, s.r))
     if unbounded:
         k = torch.tensor(crit.maxits, device=dev)
@@ -326,11 +363,11 @@ def _cg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
     return CGResult(x=s.x, niterations=k, rnrm2=rnrm2, r0nrm2=r0nrm2,
                     bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=torch.sqrt(s.dx),
                     converged=done,
-                    breakdown=torch.tensor(False, device=dev))
+                    breakdown=torch.tensor(False, device=dev), telem=telem)
 
 
 def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
-                           papply) -> CGResult:
+                           papply, telem=None) -> CGResult:
     """Preconditioned pipelined CG (``acg_tpu.solvers.jax_cg.
     _cg_pipelined_program``'s ``pbody``, ``:832-924``; stacked parts:
     ``acg_tpu/parallel/dist.py:1715-1835``): the carry adds u = M^-1 r
@@ -339,7 +376,9 @@ def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
     from one ``dotk`` (one fused psum on stacked parts).  Convergence
     tests the carried rr (the true residual, stale by one, like the
     unpreconditioned loop's gamma).  The 8-vector update is plain torch
-    (K5 computes only the unpreconditioned six-vector update)."""
+    (K5 computes only the unpreconditioned six-vector update).
+    ``telem`` records the preconditioned gamma (stale by one) and the
+    alpha denominator (``jax_cg.py:913-922``)."""
     dtype = b.dtype
     sdt = acc_dtype(dtype)
     dev = b.device
@@ -381,6 +420,8 @@ def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
                store(s.u.to(sdt) - alpha * q.to(sdt)),
                store(s.w.to(sdt) - alpha * z.to(sdt)), p, sv, q, z)
         dx = alpha * alpha * dot(p, p) if needs_diff else inf
+        if telem is not None:
+            telem.step(s.k, live, gamma, alpha, beta, denom)
         names = ("x", "r", "u", "w", "p", "s", "q", "z")
         if live is None:
             for name, v in zip(names, new):
@@ -396,7 +437,7 @@ def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
         s.k = s.k + live.to(torch.int64)
         s.done = s.done | _converged(s.rr, s.dx, res_tol, diff_tol)
 
-    _iterate(step, crit.maxits, unbounded, s)
+    _iterate(step, crit.maxits, unbounded, s, telem)
     rnrm2 = torch.sqrt(dot(s.r, s.r))
     if unbounded:
         k = torch.tensor(crit.maxits, device=dev)
@@ -407,7 +448,7 @@ def _pcg_pipelined_program(spmv, dot, dotk, b, x0, crit: StoppingCriteria,
     return CGResult(x=s.x, niterations=k, rnrm2=rnrm2, r0nrm2=r0nrm2,
                     bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=torch.sqrt(s.dx),
                     converged=done,
-                    breakdown=torch.tensor(False, device=dev))
+                    breakdown=torch.tensor(False, device=dev), telem=telem)
 
 
 def _cg_replaced_program(spmv, dot, b, x0, crit: StoppingCriteria, K: int,
@@ -551,14 +592,61 @@ class ChunkedCGSolver:
     dist.DistCGSolver``).  A subclass sets ``device`` and ``stats`` and
     provides ``_program(crit)`` (a callable of the device ``(b, x0)``
     returning a :class:`CGResult`), ``device_args(b, x0)``,
-    ``_host_x(x)`` (the host array the caller gets) and
-    ``_account_ops(st, niter)``."""
+    ``_host_x(x)`` (the host array the caller gets),
+    ``_account_ops(st, niter)`` and ``_solver_name()``.
+
+    ``trace`` (ring slots) and ``progress`` (heartbeat period) arm the
+    in-loop telemetry of the programs that take a :meth:`_telemetry`;
+    the solve then fetches the ring once, into ``self.last_trace`` and
+    ``stats.trace``.  Warm-up solves run the ring but print no
+    heartbeat."""
 
     max_restarts = None   # a restart budget arms the restart loop
     _what = "cg"      # the tier's name in recovery events
+    _beat_name = "cg"     # the tier's name on heartbeat lines
+    trace = 0
+    progress = 0
+    last_trace = None
+    _warming = False
 
     def _host_x(self, x: np.ndarray) -> np.ndarray:
         return x
+
+    def _solver_name(self) -> str:
+        return "cg"
+
+    def _telemetry(self, sdt):
+        """A fresh :class:`~acg_tpu_torch.telemetry.LoopTelemetry` for
+        one program run in scalar dtype ``sdt``, or None disarmed.  The
+        heartbeat prints from the first process only, and not during
+        warm-up solves."""
+        if not (self.trace or self.progress):
+            return None
+        from acg_tpu_torch.parallel import multihost
+        return telemetry.LoopTelemetry(
+            self.trace, 0 if self._warming else self.progress, sdt,
+            self.device, what=self._beat_name,
+            leader=multihost.is_primary())
+
+    def _check_telemetry(self, trace: int, progress: int) -> None:
+        """Validate and keep ``trace``/``progress`` (iteration counts; 0
+        disables)."""
+        self.trace, self.progress = int(trace), int(progress)
+        if self.trace < 0 or self.progress < 0:
+            raise ValueError("trace/progress must be >= 0 (iteration "
+                             "counts; 0 disables)")
+        if (self.trace or self.progress) and self.algo is not None:
+            raise ValueError(
+                f"trace/progress: the ring and heartbeat of the "
+                f"communication-avoiding recurrences (--algorithm "
+                f"{self.algo}) are not ported yet; use --algorithm "
+                f"classic|pipelined")
+
+    def _refuse_telemetry(self, what: str) -> None:
+        """The reference's refusal of in-loop telemetry on a program
+        that has no hook for it (``jax_cg.py:1524-1534,1566-1571``)."""
+        if self.trace or self.progress:
+            raise AcgError(ErrorCode.INVALID_VALUE, what)
 
     def _restart(self, res, niter: int, b, x0, crit, t0):
         """The restart loop of a solve whose program flagged a breakdown
@@ -597,7 +685,8 @@ class ChunkedCGSolver:
         """Solve Ax=b.  Returns x as a numpy array (bf16 solves as f32),
         or the device tensor with ``host_result=False``.  ``warmup``
         solves run first, outside the timed region; the timed solve is
-        bracketed by device synchronisations."""
+        bracketed by device synchronisations (and, while a profiler
+        runs, by ``acg:compile``/``acg:solve`` annotations)."""
         crit = criteria or StoppingCriteria()
         st = self.stats
         st.criteria = crit
@@ -605,16 +694,22 @@ class ChunkedCGSolver:
         t_xfer = time.perf_counter()
         b, x0 = self.device_args(b, x0)
         device_sync(self.device)
-        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
+        telemetry.add_timing(st, "transfer", time.perf_counter() - t_xfer)
         t_warm = time.perf_counter()
-        for _ in range(max(warmup, 0)):
-            program(b, x0)
-        device_sync(self.device)
+        with telemetry.annotate("compile"):
+            self._warming = True
+            try:
+                for _ in range(max(warmup, 0)):
+                    program(b, x0)
+                device_sync(self.device)
+            finally:
+                self._warming = False
         if warmup > 0:
-            _add_timing(st, "compile", time.perf_counter() - t_warm)
+            telemetry.add_timing(st, "compile", time.perf_counter() - t_warm)
         t0 = time.perf_counter()
-        res = program(b, x0)
-        device_sync(self.device)
+        with telemetry.annotate("solve"):
+            res = program(b, x0)
+            device_sync(self.device)
         niter = int(res.niterations)
         # the norms of the first attempt are the solve's, restarts or not
         norms = (float(res.bnrm2), float(res.x0nrm2), float(res.r0nrm2))
@@ -622,7 +717,13 @@ class ChunkedCGSolver:
             res, niter = self._restart(res, niter, b, x0, crit, t0)
         t_solve = time.perf_counter() - t0
         st.tsolve += t_solve
-        _add_timing(st, "solve", t_solve)
+        telemetry.add_timing(st, "solve", t_solve)
+        if res.telem is not None and res.telem.buf is not None:
+            # the one extra device fetch of a traced solve
+            st.trace = self.last_trace = \
+                telemetry.ConvergenceTrace.from_ring(
+                    res.telem.ring(), int(res.niterations),
+                    solver=self._solver_name())
         st.nsolves += 1
         st.niterations = niter
         st.ntotaliterations += niter
@@ -630,6 +731,9 @@ class ChunkedCGSolver:
         st.rnrm2 = float(res.rnrm2)
         st.dxnrm2 = float(res.dxnrm2)
         st.converged = bool(res.converged) or crit.unbounded
+        from acg_tpu_torch import metrics
+        metrics.record_solve(t_solve, niter, st.converged,
+                             solver=self._solver_name())
         self._account_ops(st, niter)
         if host_result:
             xv = res.x.to(torch.float32) if res.x.dtype == torch.bfloat16 \
@@ -684,6 +788,14 @@ class TorchCGSolver(ChunkedCGSolver):
     from ``mstate`` (:func:`~acg_tpu_torch.precond.state_from_numpy`).
     Each refuses the combinations ``JaxCGSolver`` refuses, with its
     messages.
+
+    ``trace`` (ring slots; 0 = off) records each iteration's ``(||r||^2,
+    alpha, beta, pAp)`` on the device, fetched once per solve into
+    ``last_trace``/``stats.trace``; ``progress`` (iterations; 0 = off)
+    prints a heartbeat to stderr.  The classic, pipelined and
+    preconditioned programs carry them; the fused and replacement
+    programs refuse them at solve time with the reference's messages,
+    and the CA recurrences at construction.
     """
 
     _what = "torch-cg"
@@ -692,7 +804,7 @@ class TorchCGSolver(ChunkedCGSolver):
                  kernels: str = "auto", vector_dtype=None, device=None,
                  precise_dots: bool = False, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, mstate=None,
-                 algorithm=None):
+                 algorithm=None, trace: int = 0, progress: int = 0):
         self.device = resolve_device(device)
         if A.device != self.device:
             raise ValueError(f"the matrix lives on {A.device}, the solver "
@@ -808,9 +920,16 @@ class TorchCGSolver(ChunkedCGSolver):
                 from acg_tpu_torch.recurrence import PL_RESTART_BUDGET
                 self.max_restarts = PL_RESTART_BUDGET
         self._mstate = None if mstate is None else tuple(mstate)
+        self._check_telemetry(trace, progress)
         self.kernels = kernels
         self.stats = SolverStats(unknowns=A.nrows)
         self._spmv_flops_cache: float | None = None
+
+    def _solver_name(self) -> str:
+        """The telemetry and metrics label (the reference's)."""
+        if self.algo is not None:
+            return self.algo.solver_name("cg")
+        return "cg-pipelined" if self.pipelined else "cg"
 
     @property
     def _spmv_flops(self) -> float:
@@ -892,6 +1011,10 @@ class TorchCGSolver(ChunkedCGSolver):
             if crit.needs_diff:
                 raise ValueError("kernels='fused' supports residual "
                                  "criteria only")
+            self._refuse_telemetry(
+                "kernels='fused' keeps its scalars in SMEM inside "
+                "the two streamed kernels; convergence telemetry "
+                "(trace/progress) needs kernels='xla'/'pallas'")
             return lambda b, x0: _cg_fused_program(A, b, x0, crit, kernels)
         spmv_ = self._spmv_of()
 
@@ -903,11 +1026,16 @@ class TorchCGSolver(ChunkedCGSolver):
                 raise ValueError("replace_every supports residual "
                                  "criteria only (the diff criterion has "
                                  "no meaning across replacement segments)")
+            self._refuse_telemetry(
+                "convergence telemetry (trace/progress) does not "
+                "reach the replacement-segment program "
+                "(replace_every); use the direct classic/pipelined "
+                "programs")
             dot, _ = self._dot_setup(torch.bfloat16)
             return lambda b, x0: _cg_replaced_program(
                 spmv, dot, b, x0, crit, self.replace_every,
                 self.replace_restart)
-        dot, _ = self._dot_setup(self._solve_dtype(), self.precise_dots)
+        dot, sdt = self._dot_setup(self._solve_dtype(), self.precise_dots)
         papply = None
         if self.precond_spec is not None:
             mstate = self._ensure_precond_state()
@@ -917,13 +1045,14 @@ class TorchCGSolver(ChunkedCGSolver):
                 return apply(mstate, A, r)
         if self.pipelined and papply is not None:
             return lambda b, x0: _pcg_pipelined_program(
-                spmv, dot, _dotk(dot), b, x0, crit, papply)
+                spmv, dot, _dotk(dot), b, x0, crit, papply,
+                self._telemetry(sdt))
         if self.pipelined:
             return lambda b, x0: _cg_pipelined_program(
                 spmv, dot, _dotk(dot), b, x0, crit,
-                not kernels.startswith("xla"))
+                not kernels.startswith("xla"), self._telemetry(sdt))
         return lambda b, x0: _cg_program(spmv, dot, b, x0, crit, papply,
-                                         _dotk(dot))
+                                         _dotk(dot), self._telemetry(sdt))
 
     def _to_device(self, v, dtype) -> torch.Tensor:
         if not isinstance(v, torch.Tensor):
@@ -1064,10 +1193,9 @@ def _account_precond(st: SolverStats, spec, mstate, niter: int, n: int,
     st.precond.update({"kind": str(spec), "applies": nappl,
                        "flops_per_apply": per_apply_flops,
                        "state_bytes": sb})
+    from acg_tpu_torch import metrics
+    metrics.record_precond(spec.kind, nops)
     if spec.kind == "cheby":
         st.precond["lambda_min"] = float(mstate[0].reshape(-1)[0])
         st.precond["lambda_max"] = float(mstate[1].reshape(-1)[0])
 
-
-def _add_timing(st: SolverStats, name: str, seconds: float) -> None:
-    st.timings[name] = st.timings.get(name, 0.0) + float(seconds)

@@ -22,10 +22,11 @@ the statistics come out bitwise-equal to the JAX package's:
   multi-RHS oracles of the batched tier.
 
 They compute on the host by definition: no device array is involved.
-The JAX package's recovery, health and checkpoint hooks of
-``HostCGSolver`` come with the robustness modules and its trace and
-progress hooks with the observability modules; until then the port
-refuses them by name.
+``HostCGSolver`` records its convergence trace through
+:class:`~acg_tpu_torch.telemetry.EagerTraceRecorder` (``trace``) and
+prints the heartbeat line (``progress``).  The JAX package's recovery,
+health and checkpoint hooks come with the robustness modules; until
+then the port refuses them by name.
 """
 
 from __future__ import annotations
@@ -35,18 +36,18 @@ import time
 import numpy as np
 import scipy.sparse as sp
 
+from acg_tpu_torch import metrics, observatory
 from acg_tpu_torch.errors import IndefiniteMatrixError, NotConvergedError
 from acg_tpu_torch.matrix import SymCsrMatrix
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
+from acg_tpu_torch.telemetry import EagerTraceRecorder, add_timing
 
 # the hooks of the JAX package's HostCGSolver the port does not have
 # yet, and the modules they come with
 _LATER_HOOKS = {"recovery": "robustness (solvers/resilience.py)",
                 "health": "robustness (health.py)",
-                "ckpt": "robustness (checkpoint.py)",
-                "trace": "observability (telemetry.py)",
-                "progress": "observability (observatory.py)"}
+                "ckpt": "robustness (checkpoint.py)"}
 
 
 def as_csr(A: SymCsrMatrix | sp.spmatrix,
@@ -61,28 +62,33 @@ def as_csr(A: SymCsrMatrix | sp.spmatrix,
     return A
 
 
-def _add_timing(st: SolverStats, name: str, seconds: float) -> None:
-    st.timings[name] = st.timings.get(name, 0.0) + float(seconds)
-
-
 class HostCGSolver:
     """Serial host CG over a :class:`SymCsrMatrix` (the ``acgsolver``
     role); ``precond`` (a :class:`~acg_tpu_torch.precond.PrecondSpec` or
-    its text) makes it the eager PCG oracle.  ``recovery``, ``trace``,
-    ``progress``, ``health`` and ``ckpt`` keep the JAX package's
-    signature and are refused when given."""
+    its text) makes it the eager PCG oracle.  ``trace`` (window size; 0 =
+    off) records each iteration's ``(rnrm2, alpha, beta, pAp)`` into
+    ``last_trace``/``stats.trace`` (under ``precond`` the rnrm2 slot is
+    the preconditioned norm sqrt((r, z)), as the device rings record
+    it); ``progress`` (iterations; 0 = off) prints the heartbeat line
+    every that many iterations.  ``recovery``, ``health`` and ``ckpt``
+    keep the JAX package's signature and are refused when given."""
 
     def __init__(self, A: SymCsrMatrix | sp.spmatrix, epsilon: float = 0.0,
                  recovery=None, trace: int = 0, progress: int = 0,
                  precond=None, health=None, ckpt=None):
-        given = {"recovery": recovery is not None, "trace": bool(trace),
-                 "progress": bool(progress), "health": health is not None,
-                 "ckpt": ckpt is not None}
+        given = {"recovery": recovery is not None,
+                 "health": health is not None, "ckpt": ckpt is not None}
         refused = [f"{k} (comes with the {_LATER_HOOKS[k]} modules)"
                    for k, on in given.items() if on]
         if refused:
             raise ValueError("HostCGSolver: not yet ported: "
                              + ", ".join(refused))
+        self.trace = int(trace)
+        self.progress = int(progress)
+        if self.trace < 0 or self.progress < 0:
+            raise ValueError("trace/progress must be >= 0 (iteration "
+                             "counts; 0 disables)")
+        self.last_trace = None
         self.A = as_csr(A, epsilon)
         self.n = self.A.shape[0]
         self.nnz_full = self.A.nnz
@@ -121,6 +127,13 @@ class HostCGSolver:
                 self.precond_spec, self.n, 8,
                 self.nnz_full * (8 + 4) + 2 * self.n * 8,
                 state_bytes(M.state))
+
+        recorder = (EagerTraceRecorder(self.trace) if self.trace
+                    else None)
+
+        def finish_trace():
+            if recorder is not None:
+                st.trace = self.last_trace = recorder.finish()
 
         tstart = time.perf_counter()
         st.bnrm2 = float(np.linalg.norm(b))
@@ -191,6 +204,8 @@ class HostCGSolver:
                 st.tsolve += time.perf_counter() - tstart
                 st.converged = False
                 st.fexcept_arrays = [x, r]
+                # the partial window leading into the breakdown
+                finish_trace()
                 raise IndefiniteMatrixError(
                     f"(p, Ap) = 0 at iteration {k}")
             alpha = gamma / pdott
@@ -228,13 +243,26 @@ class HostCGSolver:
             st.niterations = k
             st.ntotaliterations += 1
             st.rnrm2 = float(np.sqrt(rr))
+            if recorder is not None:
+                # under precond the rings record the preconditioned
+                # norm sqrt((r, z)) in the rnrm2 slot
+                gq = gamma if M is not None else rr
+                recorder.record(float(np.sqrt(gq)) if gq >= 0 else gq,
+                                alpha, beta, pdott)
+            if self.progress and k % self.progress == 0:
+                import sys
+
+                sys.stderr.write(observatory.heartbeat_line(
+                    "host-cg", k, st.rnrm2) + "\n")
             if not crit.unbounded:
                 converged = self._test(crit, st, res_tol)
 
         t_solve = time.perf_counter() - tstart
         st.tsolve += t_solve
-        _add_timing(st, "solve", t_solve)
+        add_timing(st, "solve", t_solve)
         st.converged = converged or crit.unbounded
+        metrics.record_solve(t_solve, st.niterations, st.converged,
+                             solver="host-cg")
         if M is not None:
             st.precond.update({"kind": str(self.precond_spec),
                                "applies": napply[0],
@@ -242,7 +270,12 @@ class HostCGSolver:
             if self.precond_spec.kind == "cheby":
                 st.precond["lambda_min"] = float(M.state[0])
                 st.precond["lambda_max"] = float(M.state[1])
+            metrics.record_precond(
+                self.precond_spec.kind,
+                napply[0] * (self.precond_spec.degree
+                             if self.precond_spec.kind == "cheby" else 1))
         st.fexcept_arrays = [x, r]
+        finish_trace()
         if not st.converged and raise_on_divergence:
             raise NotConvergedError(
                 f"{k} iterations, residual {st.rnrm2:.3e} > {res_tol:.3e}")

@@ -7,14 +7,20 @@ in the fixed text block of ``acgsolvercuda_fwrite``
 (``cgcuda.c:1927-1975``), plus the ``timings:`` section of pipeline
 phases, the ``precond:`` section of preconditioned solves, the
 ``batch:`` section of batched multi-RHS solves and the ``resilience:``
-line of solves that restarted.  Line-compatible with the JAX package's block, so scripts that grep
-``total solver time`` work on both.
+line of solves that restarted, and the observability tier's ``tracing:``
+(profiler-capture analysis, timeline summary) and ``slo:`` sections.
+Line-compatible with the JAX package's block, so scripts that grep
+``total solver time`` work on both.  :meth:`SolverStats.to_dict` is the
+``--stats-json`` twin with the reference's keys in its order: the
+sections of tiers the port does not have (``costmodel``, ``memory``,
+``soak``, ``health``, ``ckpt``, ``plan``) are there, empty.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import math
 
 from acg_tpu_torch.errors import fexcept_str
 
@@ -107,6 +113,83 @@ class SolverStats:
     nbreakdowns: int = 0
     nrestarts: int = 0
     recovery_log: list = dataclasses.field(default_factory=list)
+    # the observability tier (acg_tpu_torch.telemetry, .tracing,
+    # .observatory): timestamped events, the last solve's convergence
+    # trace (a telemetry.ConvergenceTrace), the profiler-capture
+    # analysis and timeline summary, and the --slo verdict
+    events: list = dataclasses.field(default_factory=list)
+    trace: object = None
+    tracing: dict = dataclasses.field(default_factory=dict)
+    slo: dict = dataclasses.field(default_factory=dict)
+    # the sections of the reference's tiers the port does not have yet:
+    # always empty, kept so to_dict() carries the reference's keys
+    nfallbacks: int = 0
+    nrollbacks: int = 0
+    costmodel: dict = dataclasses.field(default_factory=dict)
+    memory: dict = dataclasses.field(default_factory=dict)
+    soak: dict = dataclasses.field(default_factory=dict)
+    health: dict = dataclasses.field(default_factory=dict)
+    ckpt: dict = dataclasses.field(default_factory=dict)
+    plan: dict = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        """Machine-readable twin of :meth:`fwrite` -- the ``stats`` key
+        of a ``--stats-json`` document, keys in the reference's order
+        (``acg_tpu/solvers/stats.py:169-228``).  The convergence trace's
+        records are the ``--convergence-log`` JSONL data lines."""
+        c = self.criteria
+        d = {
+            "unknowns": self.unknowns,
+            "nsolves": self.nsolves,
+            "ntotaliterations": self.ntotaliterations,
+            "niterations": self.niterations,
+            "nflops": self.nflops,
+            "tsolve": self.tsolve,
+            "bnrm2": self.bnrm2,
+            "x0nrm2": self.x0nrm2,
+            "r0nrm2": self.r0nrm2,
+            "rnrm2": self.rnrm2,
+            "dxnrm2": self.dxnrm2,
+            "converged": bool(self.converged),
+            "criteria": {
+                "maxits": c.maxits,
+                "residual_atol": c.residual_atol,
+                "residual_rtol": c.residual_rtol,
+                "diff_atol": c.diff_atol,
+                "diff_rtol": c.diff_rtol,
+            },
+            "ops": {op: {"n": s.n, "t": s.t, "bytes": s.bytes}
+                    for op, s in self.ops.items()},
+            "fexcept": fexcept_str(*self.fexcept_arrays),
+            "resilience": {
+                "nbreakdowns": self.nbreakdowns,
+                "nrestarts": self.nrestarts,
+                "nfallbacks": self.nfallbacks,
+                "nrollbacks": self.nrollbacks,
+                "log": list(self.recovery_log),
+            },
+            "events": list(self.events),
+            "timings": dict(self.timings),
+            "costmodel": dict(self.costmodel),
+            "memory": dict(self.memory),
+            "soak": dict(self.soak),
+            "precond": dict(self.precond),
+            "health": dict(self.health),
+            "ckpt": dict(self.ckpt),
+            "tracing": dict(self.tracing),
+            "slo": dict(self.slo),
+            "batch": dict(self.batch),
+            "plan": dict(self.plan),
+        }
+        if self.trace is not None:
+            d["trace"] = self.trace.to_dict()
+        # JSON has no Inf/NaN literal; dxnrm2 is inf when no diff
+        # criterion ran
+        for k in ("bnrm2", "x0nrm2", "r0nrm2", "rnrm2", "dxnrm2",
+                  "nflops", "tsolve"):
+            if not math.isfinite(d[k]):
+                d[k] = repr(d[k])
+        return d
 
     def fwrite(self, f=None, indent: int = 0) -> str:
         """Solver report, line-compatible with ``acgsolvercuda_fwrite``."""
@@ -165,6 +248,12 @@ class SolverStats:
         if self.precond:
             p("precond:")
             _write_section(p, self.precond, 1)
+        if self.tracing:
+            p("tracing:")
+            _write_section(p, self.tracing, 1)
+        if self.slo:
+            p("slo:")
+            _write_section(p, self.slo, 1)
         if self.batch:
             p("batch:")
             _write_section(p, self.batch, 1)

@@ -122,7 +122,10 @@ checkout it sits in.  Phases, each of which raises on failure:
    alone printing stats) and pipelined under dma
    (path (g)'s bits); (ag) --distributed-read of the flagship expanded
    by mtx2bin's reader with (e)'s band bounds and b, --output written
-   rootless (af)'s x, byte for byte; (ah) gen:poisson3d:512 --nparts 2,
+   rootless (af)'s x, byte for byte; (af) under dma also writes
+   --stats-json/--timeline/--progress 500 (the ranks block holds both
+   processes, process 0 alone writes the aligned timeline, one heartbeat
+   line a sample); (ah) gen:poisson3d:512 --nparts 2,
    300 iterations on the sharded tier (K1 on each rank's halo'd window,
    301 launches a rank, each rank's device memory peak, x within 1e-12
    of (l)'s) and the manufactured draw timed, of all 134M normals and
@@ -135,6 +138,20 @@ checkout it sits in.  Phases, each of which raises on failure:
    (the peer put first and went idle), the one-flag ping-pong floor
    between the two contexts, and a peer that stops after one exchange,
    whose flag rank 0 must give up on, raising, within its 2 s timeout;
+   then the observability tier: (ai) path (a) with --warmup 1 and every
+   flag (--convergence-log of 512, --progress 500, --stats-json,
+   --metrics-file, --status-file, --history, --slo, --profile-ops 3,
+   --trace, --timeline): (a)'s iterations and bits, K1 twice (a)'s plus
+   the replay's chains, the log's 512 records ending at the last
+   iteration with the stats block's residual, the heartbeat at 500,
+   1000, ..., the capture's in-solve gemv (K1) seconds and the replay's
+   gemv a call logged beside K1's time, the textfile and the timeline
+   through the reference's checkers, the card in the manifest; the
+   armed ring and heartbeat against off (rates in turns, device
+   launches an iteration); (aj) path (e) under --trace/--timeline/
+   --stats-json/--convergence-log: (e)'s bits and launches, in-solve
+   seconds of K1 batched (gemv), K6 (halo, kind dma) and the per-part
+   dot (dot), overlap efficiency, one timeline pid a part;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -1046,6 +1063,7 @@ def main_path(torch, K, tmp, csr, irr, prob):
     paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
     paths.update(north_star_path(torch, K, tmp))
     paths.update(multiprocess_paths(torch, K, tmp, base, csr))
+    paths.update(observability_paths(torch, K, tmp, paths))
     return paths
 
 
@@ -2166,6 +2184,230 @@ def north_star_path(torch, K, tmp):
     return {"ae": c}
 
 
+# -- phase 3 (ai)-(aj): the observability tier on the flagship ------------
+
+PROFILE_REPS = 3   # --profile-ops REPS of path (ai)
+OBS_WINDOW = 512   # --telemetry-window of path (ai)
+OBS_EVERY = 500    # --progress of paths (ai) and (af-dma)
+
+
+def _script(name, *argv):
+    """One of the reference's checking scripts on a file: (rc, output)."""
+    res = subprocess.run([sys.executable, os.path.join("scripts", name),
+                          *argv], cwd=HERE, capture_output=True,
+                         text=True, timeout=300)
+    return res.returncode, (res.stdout + res.stderr).strip()
+
+
+def _beat_iterations(text: str) -> list:
+    """The iterations the --progress heartbeat lines name, in order."""
+    return [int(ln.split(": iteration ")[1].split(":")[0])
+            for ln in text.splitlines()
+            if ": iteration " in ln and "residual 2-norm" in ln]
+
+
+def _launches_per_iteration(torch, s, b, nits: int = 100) -> float:
+    """Device launches an iteration of solver ``s``'s unbounded solve of
+    ``b`` under torch.profiler (setup included), as phase 4 counts
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    s.solve(b, criteria=StoppingCriteria(maxits=10))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.solve(b, criteria=StoppingCriteria(maxits=nits))
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type != torch.autograd.DeviceType.CPU
+            and not ev.key.startswith("Activity Buffer"))
+    return n / nits
+
+
+def observability_paths(torch, K, tmp, paths):
+    """(ai) path (a) with every observability flag armed: x and K1's
+    launches as (a)'s, the 512-record convergence log ending at the last
+    iteration, the heartbeat at each 500, the capture's in-solve gemv
+    (K1) seconds, the metrics textfile, manifest and timeline through
+    the reference's checkers; the armed against the off rate and
+    launches an iteration.  (aj) path (e) under --trace/--timeline: x
+    and launches as (e)'s, in-solve seconds of K1 batched (gemv), K6
+    (halo, kind dma) and the per-part dot (dot), one timeline pid a
+    part.  A missing or empty capture fails."""
+    from acg_tpu_torch import telemetry
+    from acg_tpu_torch.solvers.profile import INNER
+
+    t_phase = time.perf_counter()
+    out = {}
+    d = os.path.join(tmp, "obs")
+    os.makedirs(d)
+    f = {k: os.path.join(d, v) for k, v in (
+        ("x", "ai.bin"), ("conv", "ai.jsonl"), ("stats", "ai.json"),
+        ("prom", "ai.prom"), ("status", "ai.status"), ("hist", "hist"),
+        ("trace", "trace-ai"), ("tl", "ai-timeline.json"))}
+    rc, text, c = run_cli(torch, K, [
+        MAIN_SPEC, "--warmup", "1", "-q", "--manufactured-solution",
+        "--residual-rtol", "1e-8", "--max-iterations", "20000",
+        "-o", f["x"], "--convergence-log", f["conv"],
+        "--telemetry-window", str(OBS_WINDOW), "--progress",
+        str(OBS_EVERY), "--stats-json", f["stats"], "--metrics-file",
+        f["prom"], "--status-file", f["status"], "--history", f["hist"],
+        "--slo", "iters=100000", "--profile-ops", str(PROFILE_REPS),
+        "--trace", f["trace"], "--timeline", f["tl"]], "ai-observed")
+    check(rc == 0, "path ai exit 0")
+    its = int(stat(text, "iterations").replace(",", ""))
+    same = np.array_equal(read_x(f["x"]),
+                          read_x(os.path.join(tmp, "a.bin")))
+    check(its == ITS["a"] and same,
+          f"path ai: path a's iterations and bits ({its}, bitwise {same})")
+    # the warm-up and timed solves are (a)'s solve twice; the replay's
+    # gemv chains run 5 INNER launches (INNER and 4 INNER) a rep, plus
+    # one untimed chain each
+    replay = 5 * INNER * (PROFILE_REPS + 1)
+    check(c["dia_spmv"] == 2 * paths["a"]["dia_spmv"] + replay,
+          f"path ai: K1 counted as in (a): {c['dia_spmv']} = 2 x "
+          f"{paths['a']['dia_spmv']} + {replay}")
+    meta, recs = telemetry.read_convergence_log(f["conv"])
+    block = stat(text, "residual 2-norm")
+    check(len(recs) == OBS_WINDOW and recs[-1]["it"] == its - 1
+          and meta["wrapped"] and f"{recs[-1]['rnrm2']:.15g}" == block,
+          f"path ai: {len(recs)} records ending at iteration "
+          f"{recs[-1]['it']}, last rnrm2 {recs[-1]['rnrm2']!r} against "
+          f"the block's {block}")
+    beats = _beat_iterations(text)
+    check(beats == list(range(OBS_EVERY, its + 1, OBS_EVERY)),
+          f"path ai: heartbeat iterations {beats}, once each in order")
+    doc = json.load(open(f["stats"]))
+    tr = doc["stats"]["tracing"]
+    ins = tr.get("op_seconds_in_solve", {})
+    check(tr.get("available") is True and ins.get("gemv", 0) > 0
+          and "gemv" in tr.get("ops_source", ""),
+          f"path ai: the capture measured gemv in the solve window "
+          f"({tr.get('why', '')}{ins})")
+    replay_line = [ln for ln in text.splitlines()
+                   if ln.startswith("per-op replay (seconds a call)")]
+    check(bool(replay_line), "path ai: the --profile-ops replay ran")
+    per_call = dict(kv.split() for kv in
+                    replay_line[0].split(": ", 1)[1].split(", "))
+    k1_timed = paths["a"]["dia_spmv"]
+    say(f"path ai: --profile-ops gemv {float(per_call['gemv']) * 1e6:.1f} "
+        f"us a call (K1 85.4 us in PERF.md); capture: gemv "
+        f"{ins.get('gemv', 0.0):.6f} s in the solve window over "
+        f"{k1_timed} K1 launches = "
+        f"{ins.get('gemv', 0.0) / max(k1_timed, 1) * 1e6:.1f} us each; "
+        f"in-solve {ins}; phases {tr.get('phase_seconds')}")
+    rc_m, msg = _script("check_metrics_textfile.py", f["prom"],
+                        "--require", "acg_solves_total")
+    mem = [float(ln.split()[-1]) for ln in open(f["prom"])
+           if ln.startswith("acg_device_memory_bytes{")]
+    check(rc_m == 0 and mem and max(mem) > 0,
+          f"path ai: metrics textfile ({msg}; device memory {mem})")
+    kind = doc["manifest"]["backend"]["device_kind"]
+    check(kind == torch.cuda.get_device_name(0),
+          f"path ai: the manifest names the card ({kind})")
+    rc_t, msg = _script("check_timeline.py", f["tl"])
+    check(rc_t == 0, f"path ai: timeline ({msg})")
+    status = json.load(open(f["status"]))
+    check(status["phase"] == "exited" and doc["stats"]["slo"]["breached"]
+          is False and os.listdir(f["hist"]),
+          "path ai: status file, --slo verdict and history ledger")
+    out["ai"] = c
+    _armed_rates(torch)
+    aj = _observed_stacked(torch, K, tmp, d, paths)
+    out["aj"] = aj
+    say(f"paths ai-aj took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _armed_rates(torch):
+    """Classic f64 at 2048^2, 1000 iterations after 50, with the ring and
+    heartbeat armed against off, in turns (off, armed, armed, off), and
+    the device launches an iteration of each."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
+
+    dev = torch.device("cuda", 0)
+    A = device_matrix_from_csr(synthesize_host_matrix(MAIN_SPEC).to_csr(),
+                               dtype=torch.float64, device=dev)
+    b = np.ones(A.nrows)
+    rates = {"off": [], "armed": []}
+    for turn in ("off", "armed", "armed", "off"):
+        kw = {} if turn == "off" else {"trace": OBS_WINDOW,
+                                       "progress": OBS_EVERY}
+        s = TorchCGSolver(A, device=dev, **kw)
+        with contextlib.redirect_stderr(io.StringIO()):
+            s.solve(b, criteria=StoppingCriteria(maxits=50))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.solve(b, criteria=StoppingCriteria(maxits=1000))
+            torch.cuda.synchronize()
+        rates[turn].append(1000 / (time.perf_counter() - t0))
+    with contextlib.redirect_stderr(io.StringIO()):
+        lpi = {turn: _launches_per_iteration(torch, TorchCGSolver(
+            A, device=dev, **kw), b) for turn, kw in (
+            ("off", {}), ("armed", {"trace": OBS_WINDOW,
+                                    "progress": OBS_EVERY}))}
+    say(f"path ai rates, classic f64 {MAIN_SPEC}: off "
+        f"{[round(r, 1) for r in rates['off']]} iters/s, ring and "
+        f"heartbeat armed {[round(r, 1) for r in rates['armed']]}; "
+        f"device launches an iteration off {lpi['off']:.2f}, armed "
+        f"{lpi['armed']:.2f}; {device_line(torch)}")
+    check(lpi["off"] < lpi["armed"] <= lpi["off"] + 8,
+          "path ai: the armed loop adds at most 8 launches an iteration")
+
+
+def _observed_stacked(torch, K, tmp, d, paths):
+    """(aj): path (e) with --trace/--timeline/--stats-json/
+    --convergence-log."""
+    f = {k: os.path.join(d, v) for k, v in (
+        ("x", "aj.bin"), ("conv", "aj.jsonl"), ("stats", "aj.json"),
+        ("trace", "trace-aj"), ("tl", "aj-timeline.json"))}
+    rc, text, c = run_cli(torch, K, [
+        MAIN_SPEC, "--warmup", "0", "-q", "--nparts", str(NPARTS),
+        "--comm", "dma", "--manufactured-solution", "--residual-rtol",
+        "1e-8", "--max-iterations", "20000", "-o", f["x"],
+        "--trace", f["trace"], "--timeline", f["tl"], "--stats-json",
+        f["stats"], "--convergence-log", f["conv"]], "aj-observed")
+    check(rc == 0, "path aj exit 0")
+    its = int(stat(text, "iterations").replace(",", ""))
+    same = np.array_equal(read_x(f["x"]),
+                          read_x(os.path.join(tmp, "e.bin")))
+    check(its == ITS["e"] and same,
+          f"path aj: path e's iterations and bits ({its}, bitwise {same})")
+    for k in ("dia_spmv_batched", "halo_put", "part_dot"):
+        check(c[k] == paths["e"][k],
+              f"path aj: {k} launched as in (e) ({c[k]})")
+    tr = json.load(open(f["stats"]))["stats"]["tracing"]
+    ins = tr.get("op_seconds_in_solve", {})
+    kinds = tr.get("collective_kind_seconds", {})
+    check(tr.get("available") is True and ins.get("gemv", 0) > 0
+          and ins.get("halo", 0) > 0 and ins.get("dot", 0) > 0
+          and kinds.get("dma", 0) > 0,
+          f"path aj: in-solve gemv/halo/dot and dma seconds "
+          f"({tr.get('why', '')}{ins}, kinds {kinds})")
+    check("overlap_efficiency:" in text,
+          "path aj: the stats block prints overlap_efficiency")
+    tl = json.load(open(f["tl"]))
+    pids = {e["pid"] for e in tl["traceEvents"]}
+    rc_t, msg = _script("check_timeline.py", f["tl"])
+    check(len(pids) == NPARTS and rc_t == 0,
+          f"path aj: timeline pids {sorted(pids)} ({msg})")
+    def per(op, k):
+        return ins.get(op, 0.0) / max(c[k], 1) * 1e6
+
+    say(f"path aj: in-solve {ins}; gemv {per('gemv', 'dia_spmv_batched'):.1f}"
+        f" us a batched K1, halo {per('halo', 'halo_put'):.1f} us a K6, "
+        f"dot {per('dot', 'part_dot'):.1f} us a part_dot "
+        f"(launch counts of the solve); overlap efficiency "
+        f"{tr.get('overlap_efficiency')}, exposed "
+        f"{tr.get('exposed_collective_seconds')} s; phases "
+        f"{tr.get('phase_seconds')}")
+    return c
+
+
 # -- phase 3 (af)-(ah) and K6 across processes: two processes on the card --
 
 NPROC = 2          # processes of the multi-process paths, on the one card
@@ -2278,7 +2520,14 @@ def multiprocess_paths(torch, K, tmp, base, csr):
             ("af-pipelined", ["--comm", "dma", "--solver", "acg-pipelined"],
              "g.bin", ITS["g"], 2)):
         out = os.path.join(tmp, f"{tag}.bin")
-        res, total, per = cli_pair(mp + extra + ["-o", out], tag)
+        obs = []
+        if tag == "af-dma":
+            # the observability sinks ride this pair: their gathers run
+            # after the solve, whose bits the check below holds
+            obs = ["--stats-json", os.path.join(tmp, "af.json"),
+                   "--timeline", os.path.join(tmp, "af-timeline.json"),
+                   "--progress", str(OBS_EVERY)]
+        res, total, per = cli_pair(mp + extra + obs + ["-o", out], tag)
         _rank0_only(res, tag)
         its = int(stat(res[0][2], "iterations").replace(",", ""))
         same = np.array_equal(read_x(out), read_x(os.path.join(tmp, ref)))
@@ -2287,6 +2536,8 @@ def multiprocess_paths(torch, K, tmp, base, csr):
             f"{stat(res[0][2], 'total solver time')}")
         check(its == its_ref and same,
               f"path {tag}: path {ref[0]}'s iterations and bits")
+        if obs:
+            _af_observed(tmp, res, its)
         nspmv = its + extra_spmv
         for r, c in enumerate(per):
             if "dma" in extra:
@@ -2303,6 +2554,32 @@ def multiprocess_paths(torch, K, tmp, base, csr):
     paths.update(distributed_read_path(torch, K, tmp, base, csr))
     paths.update(sharded_multiprocess_path(torch, K, tmp))
     return paths
+
+
+def _af_observed(tmp, res, its):
+    """(af-dma)'s sinks: the stats document's ranks block holds both
+    processes, process 0 alone wrote the clock-aligned timeline, and
+    each heartbeat sample is printed once, by process 0."""
+    doc = json.load(open(os.path.join(tmp, "af.json")))
+    procs = [p["process"] for p in doc["ranks"]["per_rank"]]
+    agg = doc["ranks"]["aggregate"]
+    check(procs == [0, 1] and agg["processes"] == NPROC,
+          f"path af-dma: the ranks block holds both processes ({procs})")
+    tl = json.load(open(os.path.join(tmp, "af-timeline.json")))
+    meta = tl["metadata"]
+    (_, _, se0), (_, _, se1) = res[0], res[1]
+    rc_t, msg = _script("check_timeline.py",
+                        os.path.join(tmp, "af-timeline.json"))
+    check(meta["nranks"] == NPROC and meta["clock"]["aligned"]
+          and "timeline:" in se0 and "timeline:" not in se1 and rc_t == 0,
+          f"path af-dma: process 0 wrote the timeline of both, aligned "
+          f"(skew {meta['clock']['max_skew_s']} s; {msg})")
+    beats = _beat_iterations(se0)
+    check(beats == list(range(OBS_EVERY, its + 1, OBS_EVERY))
+          and not _beat_iterations(se1),
+          f"path af-dma: one heartbeat line a sample ({beats})")
+    from acg_tpu_torch.telemetry import format_rank_report
+    say(f"path af-dma: {format_rank_report(agg)}")
 
 
 def distributed_read_path(torch, K, tmp, base, csr):

@@ -236,8 +236,8 @@ def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
 
 
 @pytest.mark.parametrize("flag", [["--max-restarts", "3"],
-                                  ["--convergence-log", "/tmp/x"],
-                                  ["--serve"], ["--trace", "/tmp/x"]])
+                                  ["--soak", "3"],
+                                  ["--serve"], ["--ckpt", "/tmp/x"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
     with pytest.raises(SystemExit) as e:
         torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
@@ -287,6 +287,11 @@ import acg_tpu_torch.prng
 import acg_tpu_torch.parallel.erragree
 import acg_tpu_torch.parallel.mesh
 import acg_tpu_torch.parallel.multihost
+import acg_tpu_torch.telemetry
+import acg_tpu_torch.metrics
+import acg_tpu_torch.tracing
+import acg_tpu_torch.observatory
+import acg_tpu_torch.solvers.profile
 from acg_tpu_torch.cli import main
 import tempfile
 from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition
@@ -364,6 +369,14 @@ assert main([A + ".e", "--binary", "--distributed-read", "--nparts", "3",
              "--device", "cpu", "-q", "--warmup", "0",
              "--manufactured-solution", "--max-iterations", "300",
              "-o", os.path.join(d, "x.bin")]) == 0
+o = os.path.join(d, "obs")
+assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "1",
+             "--max-iterations", "300", "--residual-rtol", "1e-8",
+             "--convergence-log", o + ".jsonl", "--progress", "5",
+             "--stats-json", o + ".json", "--metrics-file", o + ".prom",
+             "--status-file", o + ".status", "--history", o + "-hist",
+             "--slo", "iters=1000", "--profile-ops", "2",
+             "--trace", o + "-trace", "--timeline", o + "-tl.json"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded

@@ -373,6 +373,8 @@ def test_padding_rows_stay_zero(mats, pipelined, comm, kernels):
 # tier does: the message names the option
 _STILL_REFUSED = {"precond": {"replace_every": 4},
                   "precise_dots": {"replace_every": 4},
+                  "trace": {"replace_every": 4},
+                  "progress": {"replace_every": 4},
                   "algorithm": {"pipelined": True},
                   "kernels": {"precise_dots": True}}
 
