@@ -290,6 +290,125 @@ def make_parser() -> argparse.ArgumentParser:
                         "solve: each process bumps a store key from a "
                         "daemon thread and declares a peer dead after "
                         "SECONDS of silence, exiting 97 (0 = off)")
+    p.add_argument("--recover", action="store_true",
+                   help="arm breakdown detection and bounded restart "
+                        "recovery in the solve loops: a non-finite "
+                        "residual or non-positive p^T A p exits the "
+                        "loop, the solver restarts from the recomputed "
+                        "true residual (--max-restarts, "
+                        "--restart-backoff), falls back from the dma to "
+                        "the xla halo transport, then to the host "
+                        "reference solver -- every event in the stats "
+                        "block")
+    p.add_argument("--max-restarts", type=int, default=2, metavar="N",
+                   help="with --recover/--fault-inject: bounded restarts "
+                        "per solve before falling back (default: 2)")
+    p.add_argument("--restart-backoff", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="sleep SECONDS * 2^(n-1) before the n-th restart "
+                        "(default: 0 -- numerical breakdowns restart "
+                        "immediately)")
+    p.add_argument("--fault-inject", metavar="SPEC", default=None,
+                   help="arm the deterministic fault injector "
+                        "(acg_tpu_torch.faults): SITE:MODE[@ITER]"
+                        "[:KEY=VAL] -- e.g. spmv:nan@7, "
+                        "halo:inf@3:part=2, dot:neg@5, precond:nan@4, "
+                        "sdc:flip@7, crash:exit@20, "
+                        "solve:slow@10:secs=0.05.  Implies breakdown "
+                        "detection; recovery knobs as with --recover.  "
+                        "Exported as ACG_TPU_FAULT_INJECT")
+    p.add_argument("--audit-every", type=int, default=0, metavar="K",
+                   help="numerical-health tier: every K iterations the "
+                        "solve loop recomputes the true residual b - Ax "
+                        "through its own SpMV and carries the relative "
+                        "gap ||r_true - r_rec||/||b||; the gap lands in "
+                        "a 'health:' stats section, the acg_health_* "
+                        "metrics and (with --convergence-log) a 'gap' "
+                        "column in the trace (default 0: off)")
+    p.add_argument("--gap-threshold", type=float, default=0.0,
+                   metavar="G",
+                   help="with --audit-every: a relative gap above G "
+                        "emits an accuracy_degraded event and drives "
+                        "--on-gap (default 0: record-only)")
+    p.add_argument("--on-gap", default="warn",
+                   choices=["warn", "replace", "abort"],
+                   help="what a gap past --gap-threshold does: warn = "
+                        "event only; replace = exit through the "
+                        "breakdown path and restart from the "
+                        "recomputed true residual (bounded by "
+                        "--max-restarts); abort = fail the solve "
+                        "(default: warn)")
+    p.add_argument("--stall-window", type=int, default=0, metavar="N",
+                   help="stagnation detector: N consecutive iterations "
+                        "without residual decrease exit through the "
+                        "breakdown path (with --recover: bounded "
+                        "restarts; default: off).  Arms the "
+                        "dot-product sign-anomaly guards too")
+    p.add_argument("--abft", action="store_true",
+                   help="arm the Huang-Abraham checksum-protected SpMV: "
+                        "the column checksum c = A^T 1 is computed once "
+                        "through the loop's own SpMV and every "
+                        "--audit-every iterations sum(A p) is compared "
+                        "with (c, p), so a silent corruption of the "
+                        "SpMV output (sdc:flip) is detected on the "
+                        "device and routed into the breakdown -> "
+                        "rollback/recovery path.  Needs --audit-every K")
+    p.add_argument("--abft-threshold", type=float, default=0.0,
+                   metavar="T",
+                   help="with --abft: relative checksum-mismatch trip "
+                        "level (default 0 = 64*sqrt(n)*eps of the "
+                        "scalar type)")
+    p.add_argument("--ckpt", metavar="FILE", default=None,
+                   help="write solver-state snapshots -- the loop carry, "
+                        "iteration, tolerances, fault residue and "
+                        "telemetry tail -- to FILE by atomic rename with "
+                        "a checksummed header, every --ckpt-every "
+                        "iterations (the solve runs as chunks of the "
+                        "unchanged recurrence, bitwise an uninterrupted "
+                        "classic run).  A detected breakdown rolls back "
+                        "to the last snapshot before spending the "
+                        "restart budget; a killed process resumes via "
+                        "--resume.  Snapshots are the reference "
+                        "package's format")
+    p.add_argument("--ckpt-every", type=int, default=0, metavar="K",
+                   help="with --ckpt: snapshot period in iterations "
+                        "(also the chunk length; exactly one of "
+                        "--ckpt-every/--ckpt-secs is required)")
+    p.add_argument("--ckpt-secs", type=float, default=0.0, metavar="S",
+                   help="with --ckpt: wall-clock snapshot cadence -- "
+                        "each chunk is sized from the measured "
+                        "seconds/iteration.  Mutually exclusive with "
+                        "--ckpt-every")
+    p.add_argument("--resume", metavar="FILE", default=None,
+                   help="reconstruct the solver state from a --ckpt "
+                        "snapshot (written by this package or by "
+                        "acg-tpu) and continue the solve to the "
+                        "original tolerance; refuses snapshots of "
+                        "another tier, algorithm, preconditioner, size "
+                        "or right-hand side, or with a corrupted "
+                        "header.  Combine with --ckpt to keep "
+                        "snapshotting")
+    p.add_argument("--resume-repartition", action="store_true",
+                   help="with --resume: accept a snapshot of another "
+                        "partition count or tier (stacked parts <-> "
+                        "one device <-> host oracle): the carry is "
+                        "reassembled in global row order through the "
+                        "snapshot's row-permutation sidecar and "
+                        "re-sliced onto this run's partition")
+    p.add_argument("--soak", type=int, default=0, metavar="N",
+                   help="soak mode: run N repeated solves of the same "
+                        "system (the first carries --warmup), feed each "
+                        "into the metrics registry, report p50/p95/p99 "
+                        "solve latency and iterations in a 'soak:' "
+                        "stats section, and arm an EWMA latency-drift "
+                        "detector (see --fail-on-drift).  Single "
+                        "process only")
+    p.add_argument("--fail-on-drift", type=float, default=None,
+                   metavar="PCT",
+                   help="with --soak: exit 7 when the EWMA solve latency "
+                        "drifts more than PCT percent above the "
+                        "baseline window's median (default: warn-only "
+                        "at 50%%)")
     p.add_argument("--convergence-log", metavar="FILE", default=None,
                    help="record per-iteration (rnrm2, alpha, beta, pAp) "
                         "in a device-side ring buffer written by the "
@@ -458,6 +577,11 @@ def _buildinfo(out) -> int:
         ("live observatory", "--status-port PORT / --status-file FILE "
          "(acg-tpu-status/1), --history DIR (acg-tpu-history/1 run "
          "ledger), --slo latency=S,iters=N + --fail-on-slo (exit 8)"),
+        ("robustness", "--recover (restart, rollback, dma -> xla, host "
+         "rungs), --fault-inject (spmv|dot|halo|precond|sdc|crash|solve), "
+         "--audit-every/--stall-window/--abft (health: section), --ckpt/"
+         "--resume[-repartition] (the reference's snapshot file), --soak "
+         "+ --fail-on-drift (exit 7); one process"),
     ]
     for k, v in rows:
         out.write(f"{k}: {v}\n")
@@ -627,10 +751,8 @@ def _validate_batched(args) -> None:
              args.multihost or args.coordinator is not None),
             ("--distributed-read", args.distributed_read),
             ("--output-comm-matrix", args.output_comm_matrix),
-            ("--convergence-log (the per-RHS residual ring is not "
-             "ported yet)", bool(args.convergence_log)),
-            ("--progress (no batched heartbeat hook yet)",
-             args.progress > 0),
+            ("--progress with --block-cg (its columns share one "
+             "Krylov block)", args.progress > 0 and args.block_cg),
             ("--profile-ops", args.profile_ops is not None),
         ] if on]
         if unsupported:
@@ -673,9 +795,6 @@ def _validate_algorithm(args) -> None:
             ("--kernels fused", args.kernels == "fused"),
             ("--diff-atol/--diff-rtol (residual criteria only)",
              args.diff_atol > 0 or args.diff_rtol > 0),
-            ("--convergence-log/--progress (the CA recurrences' ring "
-             "and heartbeat are not ported yet)",
-             bool(args.convergence_log) or args.progress > 0),
             ("--profile-ops (the replay census has no CA op map)",
              args.profile_ops is not None),
         ] if on]
@@ -683,6 +802,210 @@ def _validate_algorithm(args) -> None:
             raise SystemExit(
                 f"acg-tpu-torch: --algorithm {args._algorithm} does not "
                 f"support: {', '.join(unsupported)}")
+
+
+def _validate_robustness(args) -> None:
+    """Validate and build the robustness tier's selections before
+    anything expensive (``acg_tpu/cli.py:2786-2900``, ``:3116-3189``,
+    ``:3007-3028``): the health spec, the checkpoint configuration (the
+    resume snapshot loaded and checked here), the fault injector
+    (installed process-wide and exported as ``ACG_TPU_FAULT_INJECT``
+    for child processes) and the recovery policy; each refuses what
+    could never fire.  The tiers the next slice carries (the
+    supervisor's multi-process flows, the sharded gen-direct tier, the
+    batched and CA tiers' checkpoints and fault sites) refuse by name."""
+    import os
+
+    from acg_tpu_torch import faults
+    from acg_tpu_torch import health as health_mod
+    if args.gap_threshold and not args.audit_every:
+        raise SystemExit(
+            "acg-tpu-torch: --gap-threshold needs --audit-every K (the "
+            "threshold judges audit gaps; without an audit it could "
+            "never fire)")
+    if args.abft and not args.audit_every:
+        raise SystemExit(
+            "acg-tpu-torch: --abft fires the checksum test at the audit "
+            "cadence; add --audit-every K")
+    try:
+        args._health = health_mod.make_spec(
+            args.audit_every, args.gap_threshold, args.on_gap,
+            args.stall_window, abft=args.abft,
+            abft_threshold=args.abft_threshold)
+    except ValueError as e:
+        raise SystemExit(f"acg-tpu-torch: {e}")
+    if args._health is not None:
+        unsupported = [flag for flag, on in [
+            (f"--solver {args.solver} (the external oracles have no "
+             f"audit hooks)", args.solver in ("host-native", "petsc")),
+            ("--replace-every (the replacement segments already "
+             "recompute b - Ax every K iterations)",
+             args.replace_every > 0),
+            ("--kernels fused (the two-phase kernels fold the whole "
+             "iteration; no audit hook)", args.kernels == "fused"),
+            ("--refine (the refinement outer loop already recomputes "
+             "f64 true residuals every pass)", args.refine),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --audit-every/--stall-window do not "
+                f"support: {', '.join(unsupported)}")
+    args._ckpt = None
+    if args.ckpt_every > 0 and args.ckpt_secs > 0:
+        raise SystemExit("acg-tpu-torch: --ckpt-every and --ckpt-secs "
+                         "are mutually exclusive cadences; pick one")
+    if args.ckpt_secs < 0:
+        raise SystemExit("acg-tpu-torch: --ckpt-secs must be positive "
+                         "seconds")
+    if args.ckpt is not None and args.ckpt_every <= 0 \
+            and args.ckpt_secs <= 0:
+        raise SystemExit("acg-tpu-torch: --ckpt needs a snapshot "
+                         "cadence: add --ckpt-every K or --ckpt-secs S")
+    if (args.ckpt_every or args.ckpt_secs > 0) and args.ckpt is None:
+        raise SystemExit("acg-tpu-torch: --ckpt-every/--ckpt-secs need "
+                         "--ckpt FILE (a cadence with nowhere to write)")
+    if args.resume_repartition and args.resume is None:
+        raise SystemExit("acg-tpu-torch: --resume-repartition is a "
+                         "resume policy; add --resume FILE")
+    if args.ckpt is not None or args.resume is not None:
+        unsupported = [flag for flag, on in [
+            (f"--solver {args.solver} (the external oracles expose no "
+             f"loop carry)", args.solver in ("host-native", "petsc")),
+            ("--replace-every (the replacement segments' inner state "
+             "never leaves the program)", args.replace_every > 0),
+            ("--kernels fused (the two-phase kernels expose no loop "
+             "carry)", args.kernels == "fused"),
+            ("--refine (the refinement outer loop re-enters solve; "
+             "checkpoint the inner tolerance solve instead)",
+             args.refine),
+            ("--diff-atol/--diff-rtol (the dx scalar is not part of "
+             "the snapshot carry)",
+             args.diff_atol > 0 or args.diff_rtol > 0),
+            ("--soak with --resume (every repetition would re-resume "
+             "from the same snapshot; resume the solve once, then "
+             "soak)", args.soak > 0 and args.resume is not None),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --ckpt/--resume do not support: "
+                f"{', '.join(unsupported)}")
+        from acg_tpu_torch.checkpoint import (CheckpointConfig,
+                                              load_snapshot)
+        from acg_tpu_torch.errors import AcgError
+        resume_snap = None
+        if args.resume is not None:
+            try:
+                resume_snap = load_snapshot(args.resume)
+            except AcgError as e:
+                raise SystemExit(f"acg-tpu-torch: {e}")
+        try:
+            args._ckpt = CheckpointConfig(
+                path=args.ckpt, every=args.ckpt_every,
+                secs=args.ckpt_secs, resume=resume_snap,
+                repartition=args.resume_repartition)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
+    if args.soak < 0:
+        raise SystemExit("acg-tpu-torch: --soak must be >= 0")
+    if args.fail_on_drift is not None and not args.soak:
+        raise SystemExit("acg-tpu-torch: --fail-on-drift needs --soak N "
+                         "(drift is a property of repeated solves)")
+    if args.fail_on_drift is not None and args.fail_on_drift <= 0:
+        raise SystemExit("acg-tpu-torch: --fail-on-drift must be "
+                         "positive percent")
+    if args.fail_on_drift is not None:
+        from acg_tpu_torch.soak import gate_is_vacuous
+        if gate_is_vacuous(args.soak):
+            raise SystemExit(
+                f"acg-tpu-torch: --fail-on-drift is vacuous at --soak "
+                f"{args.soak}: the baseline window consumes the whole "
+                f"run; use --soak 4 or more")
+    if args.soak:
+        unsupported = [flag for flag, on in [
+            ("--refine (the outer iteration re-enters solve itself)",
+             args.refine),
+            ("--profile-ops", args.profile_ops is not None),
+            ("--multihost/--coordinator (soak is per-process; run one "
+             "driver per controller)", _multi(args)),
+            ("--distributed-read", args.distributed_read),
+        ] if on]
+        if unsupported:
+            raise SystemExit(f"acg-tpu-torch: --soak does not support: "
+                             f"{', '.join(unsupported)}")
+    env_spec = os.environ.get(faults.ENV_VAR)
+    if env_spec and not args.fault_inject:
+        try:
+            faults.parse_fault_spec(env_spec)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {faults.ENV_VAR}: {e}")
+    spec = None
+    if args.fault_inject:
+        try:
+            spec = faults.parse_fault_spec(args.fault_inject)
+        except ValueError as e:
+            raise SystemExit(f"acg-tpu-torch: {e}")
+        if spec.site == "solve" and not args.soak:
+            raise SystemExit(
+                "acg-tpu-torch: solve:slow fires from the soak driver's "
+                "per-solve hook; add --soak N")
+        if spec.site == "crash" and (args._ckpt is None
+                                     or args._ckpt.path is None):
+            raise SystemExit(
+                "acg-tpu-torch: crash:exit fires between snapshot "
+                "commits; arm --ckpt FILE --ckpt-every K")
+        if spec.device_site and args.solver in ("host-native", "petsc"):
+            raise SystemExit(
+                f"acg-tpu-torch: --fault-inject has no injection sites "
+                f"in --solver {args.solver}; use --solver host or the "
+                f"device solvers")
+    armed = (args._health is not None or args._ckpt is not None
+             or (spec is not None and spec.site != "solve")
+             or args.recover)
+    if armed:
+        later = [flag for flag, on in [
+            ("--multihost/--coordinator (the rank-mode tier's hooks are "
+             "not ported yet)", _multi(args)),
+            ("--distributed-read", args.distributed_read),
+            ("--nrhs/--block-cg (the batched tiers' fault sites, audits "
+             "and checkpoints are not ported yet)", args._batched),
+            (f"--algorithm {args._algorithm} (the CA recurrences' fault "
+             f"sites, audits and checkpoints are not ported yet)",
+             args._algorithm is not None and (
+                 args._health is not None or args._ckpt is not None
+                 or spec is not None)),
+        ] if on]
+        if later:
+            raise SystemExit(
+                f"acg-tpu-torch: --recover/--fault-inject/--audit-every/"
+                f"--ckpt do not support: {', '.join(later)}")
+    if spec is not None:
+        args._prev_fault_env = env_spec
+        faults.install(spec)
+        os.environ[faults.ENV_VAR] = args.fault_inject
+    recovery = None
+    gap_replace = (args._health is not None
+                   and args._health.action == "replace")
+    if args.recover or args.fault_inject or gap_replace:
+        from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+        recovery = RecoveryPolicy(max_restarts=max(args.max_restarts, 0),
+                                  backoff=max(args.restart_backoff, 0.0))
+        if args.recover and args.solver in ("host-native", "petsc"):
+            sys.stderr.write(
+                f"acg-tpu-torch: warning: --recover has no effect for "
+                f"--solver {args.solver} (the external oracles have no "
+                f"breakdown detection)\n")
+    args._recovery = recovery
+
+
+def _robust_options(args) -> dict:
+    """The robustness keywords the single-device and stacked solvers
+    take (None when disarmed: the loops then run as before)."""
+    return dict(recovery=args._recovery, health=args._health,
+                ckpt=args._ckpt)
+
+
+def _robust_armed(args) -> bool:
+    return any(v is not None for v in _robust_options(args).values())
 
 
 def _validate_precision(args) -> None:
@@ -775,6 +1098,12 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     # sharded assembly and solve (parallel/sharded_dia), as in acg_tpu
     if (args.nparts > 1 or args.manufactured_solution or args.refine
             or _multi(args)):
+        if _robust_armed(args):
+            raise SystemExit(
+                "acg-tpu-torch: --recover/--fault-inject/--audit-every/"
+                "--ckpt do not reach the sharded gen-direct tier yet; "
+                "use the host-ingest path (raise ACG_TPU_GEN_DIRECT_MIN "
+                "above N) or a single-part solve")
         if args._operator_spec is not None:
             raise SystemExit(
                 "acg-tpu-torch: --operator does not reach the sharded "
@@ -801,7 +1130,8 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     try:
         solver = TorchCGSolver(A, pipelined="pipelined" in args.solver,
                                kernels=args.kernels, vector_dtype=vec_dtype,
-                               device=device, **_solver_options(args))
+                               device=device, **_solver_options(args),
+                               **_robust_options(args))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     args._phases.add("ingest", ingest)
@@ -812,9 +1142,10 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
         diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
     t0 = time.perf_counter()
     try:
-        x = _run_solve(args, solver, criteria, lambda: solver.solve(
-            b, criteria=criteria, warmup=args.warmup,
-            host_result=bool(not args.quiet or args.output)))
+        x = _run_solve(args, solver, criteria, _soak_call(
+            args, solver, b, None, criteria,
+            dict(warmup=args.warmup,
+                 host_result=bool(not args.quiet or args.output))))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
@@ -925,9 +1256,10 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
             _log(args, f"refine: {solver.stats.nrefine} passes, "
                        f"{solver.stats.niterations} inner iterations")
         else:
-            x = _run_solve(args, solver, criteria, lambda: solver.solve(
-                b, criteria=criteria, warmup=args.warmup,
-                host_result=False), nparts=nparts)
+            x = _run_solve(args, solver, criteria, _soak_call(
+                args, solver, b, None, criteria,
+                dict(warmup=args.warmup, host_result=False)),
+                nparts=nparts)
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
@@ -1448,11 +1780,11 @@ def _arm_observability(args) -> None:
         raise SystemExit("acg-tpu-torch: --fail-on-slo needs --slo SPEC "
                          "(a gate with no declared objectives could "
                          "never trip)")
-    if args._slo is not None and args._slo.gap is not None:
-        raise SystemExit("acg-tpu-torch: --slo gap=G judges the audit "
-                         "gaps of --audit-every, which the port does not "
-                         "have yet (the objective could never be "
-                         "observed)")
+    if (args._slo is not None and args._slo.gap is not None
+            and not args.audit_every):
+        raise SystemExit("acg-tpu-torch: --slo gap=G judges audit gaps; "
+                         "add --audit-every K (without an audit the "
+                         "objective could never be observed)")
     if args.history is not None and os.path.isfile(args.history):
         raise SystemExit(f"acg-tpu-torch: --history {args.history} is a "
                          f"file; the ledger needs a directory")
@@ -1537,7 +1869,58 @@ def _run_solve(args, solver, criteria, call, nparts: int = 1):
         try:
             return call()
         finally:
-            _observe_slo(args, solver)
+            _attach_health_spectrum(args, solver)
+            if args.soak:
+                # the soak driver judged every solve; only the stats
+                # section attach is left
+                observatory.attach_slo(solver.stats)
+            else:
+                _observe_slo(args, solver)
+
+
+def _soak_call(args, solver, b, x0, criteria, solve_kw: dict):
+    """The solve ``call`` of a CLI run: one solve, or under ``--soak N``
+    the soak driver's N solves (the first carries the warm-up), its
+    report kept for the ``--fail-on-drift`` gate."""
+    if not args.soak:
+        return lambda: solver.solve(b, x0=x0, criteria=criteria,
+                                    **solve_kw)
+
+    def call():
+        from acg_tpu_torch.soak import run_soak
+        kw = dict(solve_kw)
+        warm = kw.pop("warmup", None)
+        x, args._soak_report = run_soak(
+            solver, b, nsolves=args.soak, x0=x0, criteria=criteria,
+            fail_on_drift=args.fail_on_drift,
+            first_solve_kwargs=({"warmup": warm} if warm is not None
+                                else None),
+            solve_kwargs=kw,
+            progress_every=(max(1, args.soak // 10) if args.verbose
+                            else 0))
+        return x
+
+    return call
+
+
+def _attach_health_spectrum(args, solver) -> None:
+    """Post-hoc spectrum estimation: with an armed health spec and a
+    recorded trace, the Lanczos estimate of kappa and the predicted
+    iterations join the ``health:`` section (``acg_tpu/cli.py:1360``)."""
+    if getattr(args, "_health", None) is None:
+        return
+    inner = _inner_solver(solver)
+    trace = getattr(inner, "last_trace", None)
+    if trace is None:
+        return
+    from acg_tpu_torch.health import attach_spectrum
+    try:
+        attach_spectrum(inner.stats, trace, args.residual_rtol,
+                        precond=str(args._precond)
+                        if args._precond is not None else None)
+    except Exception as e:  # noqa: BLE001 -- never sinks a solve
+        sys.stderr.write(f"acg-tpu-torch: warning: spectrum estimate "
+                         f"failed: {e}\n")
 
 
 def _observe_slo(args, solver) -> None:
@@ -1548,7 +1931,8 @@ def _observe_slo(args, solver) -> None:
         return
     st = solver.stats
     observatory.slo_observe(st, latency=st.timings.get("solve", st.tsolve),
-                            iterations=int(st.niterations))
+                            iterations=int(st.niterations),
+                            gap=(st.health or {}).get("gap_last"))
     observatory.attach_slo(st)
 
 
@@ -1789,6 +2173,11 @@ def main(argv=None) -> int:
     try:
         rc = _main(args)
         _report_run(args)
+        if rc == 0 and getattr(args, "_soak_report", None) is not None:
+            # the --fail-on-drift gate: a clean run whose latency
+            # drifted exits 7
+            from acg_tpu_torch.soak import gate_exit_code
+            rc = gate_exit_code(args._soak_report, args.fail_on_drift)
         if rc == 0 and args.fail_on_slo:
             # a clean run that breached a declared objective exits 8
             from acg_tpu_torch import observatory
@@ -1799,6 +2188,17 @@ def main(argv=None) -> int:
         return 1
     finally:
         _finish_observability(args)
+        if args.fault_inject and hasattr(args, "_prev_fault_env"):
+            # the installed spec and the exported env var are scoped to
+            # this invocation: in-process callers must not stay armed
+            import os
+
+            from acg_tpu_torch import faults
+            faults.install(None)
+            if args._prev_fault_env is None:
+                os.environ.pop(faults.ENV_VAR, None)
+            else:
+                os.environ[faults.ENV_VAR] = args._prev_fault_env
         if _multi(args):
             from acg_tpu_torch.parallel import multihost
             multihost.shutdown(timeout=args.err_timeout)
@@ -1891,6 +2291,7 @@ def _main(args) -> int:
     _validate_algorithm(args)
     _validate_batched(args)
     _validate_operator(args)
+    _validate_robustness(args)
     _arm_observability(args)
     try:
         device = _start_processes(args)
@@ -1975,6 +2376,8 @@ def _main(args) -> int:
             solver = BatchedDistCGSolver(prob, pipelined=pipelined,
                                          precise_dots=args.precise_dots,
                                          precond=args._precond,
+                                         trace=args._trace,
+                                         progress=args.progress,
                                          device=device)
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
@@ -1997,7 +2400,9 @@ def _main(args) -> int:
             solver = BatchedCGSolver(dev, mode=mode,
                                      precise_dots=args.precise_dots,
                                      vector_dtype=vec_dtype,
-                                     precond=args._precond, device=device)
+                                     precond=args._precond,
+                                     trace=args._trace,
+                                     progress=args.progress, device=device)
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     elif comm == "none" or nparts == 1:
@@ -2014,7 +2419,9 @@ def _main(args) -> int:
             solver = TorchCGSolver(dev, pipelined=pipelined,
                                    kernels=args.kernels,
                                    vector_dtype=vec_dtype, device=device,
-                                   **_solver_options(args))
+                                   host_matrix=csr,
+                                   **_solver_options(args),
+                                   **_robust_options(args))
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     else:
@@ -2048,7 +2455,8 @@ def _main(args) -> int:
             solver = DistCGSolver(prob, pipelined=pipelined,
                                   comm=resolve_comm(comm),
                                   kernels=args.kernels, device=device,
-                                  **_solver_options(args))
+                                  **_solver_options(args),
+                                  **_robust_options(args))
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     if args.refine and not host:
@@ -2059,8 +2467,9 @@ def _main(args) -> int:
     # the host oracles run once: no warm-up solves
     solve_kw = {} if host else {"warmup": args.warmup}
     try:
-        x = _run_solve(args, solver, criteria, lambda: solver.solve(
-            b, x0=x0, criteria=criteria, **solve_kw), nparts=nparts)
+        x = _run_solve(args, solver, criteria,
+                       _soak_call(args, solver, b, x0, criteria, solve_kw),
+                       nparts=nparts)
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
@@ -2239,6 +2648,28 @@ def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
                 ErrorCode.INVALID_VALUE,
                 "--precond has no hooks in the multi-part host solver; "
                 "use --nparts 1 or the device solvers")
+        from acg_tpu_torch import faults
+        if faults.device_fault() is not None:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "fault injection has no injection sites in the "
+                "multi-part host solver; use the serial host solver "
+                "(--nparts 1) or the device solvers")
+        if args._health is not None:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "--audit-every/--stall-window have no hooks in the "
+                "multi-part host solver; use --nparts 1 or the device "
+                "solvers")
+        if args._ckpt is not None:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "--ckpt/--resume have no hooks in the multi-part host "
+                "solver; use --nparts 1 or the device solvers")
+        if args._recovery is not None:
+            sys.stderr.write(
+                "acg-tpu-torch: warning: --recover has no effect on the "
+                "multi-part host solver (no breakdown detection there)\n")
         if args._trace or args.progress:
             sys.stderr.write(
                 "acg-tpu-torch: warning: --convergence-log/--progress "
@@ -2246,8 +2677,9 @@ def _host_solver(args, csr, part, nparts: int, comm: str, pipelined: bool):
                 "--nparts 1 or the device solvers\n")
         return HostDistCGSolver(partition_matrix(csr, part, nparts))
     from acg_tpu_torch.solvers.host_cg import HostCGSolver
-    return HostCGSolver(csr, precond=args._precond, trace=args._trace,
-                        progress=args.progress)
+    return HostCGSolver(csr, recovery=args._recovery, trace=args._trace,
+                        progress=args.progress, precond=args._precond,
+                        health=args._health, ckpt=args._ckpt)
 
 
 def _default_nparts(device, args=None) -> int:

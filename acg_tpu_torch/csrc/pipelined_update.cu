@@ -15,7 +15,11 @@
 // rounded once on store; x, r and w take the rounded p, t and z.
 // Updates x, r, w, p, t, z in place.  `live` (one byte, or null for
 // always) set to 0 leaves all six untouched -- the frozen state of a
-// converged solve, without a host branch.
+// converged solve, without a host branch.  `bad` (one byte, or null:
+// the breakdown flag of a detecting loop, solvers/jax_cg.py:866-875)
+// set to 1 writes back the old x, r and w (p, t and z still update, as
+// the JAX body's `where(bad, old, new)` leaves them): a select, never a
+// zeroed alpha, since NaN * 0 is NaN.
 //
 // Bound on an H100: memory, 13 * N * itemsize bytes at 3.35 TB/s
 // (flagship f64: ~436 MB -> ~130 us); one thread per row, all loads
@@ -31,7 +35,8 @@ pipelined_update_kernel(long long n, VT* __restrict__ x, VT* __restrict__ r,
                         VT* __restrict__ t, VT* __restrict__ z,
                         const VT* __restrict__ q, const AT* __restrict__ alpha,
                         const AT* __restrict__ beta,
-                        const unsigned char* __restrict__ live) {
+                        const unsigned char* __restrict__ live,
+                        const unsigned char* __restrict__ bad) {
   if (live != nullptr && live[0] == 0) return;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -42,9 +47,16 @@ pipelined_update_kernel(long long n, VT* __restrict__ x, VT* __restrict__ r,
   const AT zn = rnd(static_cast<AT>(ld(q[i])) + b * ld(z[i]), z);
   const AT tn = rnd(wi + b * ld(t[i]), t);
   const AT pn = rnd(ri + b * ld(p[i]), p);
-  st(&x[i], xi + a * pn);
-  st(&r[i], ri - a * tn);
-  st(&w[i], wi - a * zn);
+  if (bad != nullptr && bad[0] != 0) {
+    // the loads round-trip exactly: the old values, bit for bit
+    st(&x[i], xi);
+    st(&r[i], ri);
+    st(&w[i], wi);
+  } else {
+    st(&x[i], xi + a * pn);
+    st(&r[i], ri - a * tn);
+    st(&w[i], wi - a * zn);
+  }
   st(&p[i], pn);
   st(&t[i], tn);
   st(&z[i], zn);
@@ -53,12 +65,13 @@ pipelined_update_kernel(long long n, VT* __restrict__ x, VT* __restrict__ r,
 template <typename VT, typename AT>
 int launch(long long n, void* x, void* r, void* w, void* p, void* t, void* z,
            const void* q, const void* alpha, const void* beta,
-           const void* live, cudaStream_t s) {
+           const void* live, const void* bad, cudaStream_t s) {
   pipelined_update_kernel<VT, AT><<<row_blocks(n), kBlock, 0, s>>>(
       n, static_cast<VT*>(x), static_cast<VT*>(r), static_cast<VT*>(w),
       static_cast<VT*>(p), static_cast<VT*>(t), static_cast<VT*>(z),
       static_cast<const VT*>(q), static_cast<const AT*>(alpha),
-      static_cast<const AT*>(beta), static_cast<const unsigned char*>(live));
+      static_cast<const AT*>(beta), static_cast<const unsigned char*>(live),
+      static_cast<const unsigned char*>(bad));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -66,21 +79,22 @@ int launch(long long n, void* x, void* r, void* w, void* p, void* t, void* z,
 
 // x, r, w, p, t, z (n,) updated in place, q (n,) read; alpha, beta: one
 // accumulation-type value each (double for f64 vectors, float otherwise);
-// live: one byte or null.
+// live, bad: one byte each or null.
 extern "C" int acg_pipelined_update(int vtype, long long n, void* x, void* r,
                                     void* w, void* p, void* t, void* z,
                                     const void* q, const void* alpha,
                                     const void* beta, const void* live,
-                                    void* stream) {
+                                    const void* bad, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vtype == ACG_F64)
     return launch<double, double>(n, x, r, w, p, t, z, q, alpha, beta, live,
-                                  s);
+                                  bad, s);
   if (vtype == ACG_F32)
-    return launch<float, float>(n, x, r, w, p, t, z, q, alpha, beta, live, s);
+    return launch<float, float>(n, x, r, w, p, t, z, q, alpha, beta, live,
+                                bad, s);
   if (vtype == ACG_BF16)
     return launch<__nv_bfloat16, float>(n, x, r, w, p, t, z, q, alpha, beta,
-                                        live, s);
+                                        live, bad, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -429,16 +429,35 @@ def end_solve(converged: bool, iterations: int, seconds: float) -> None:
     _maybe_flush()
 
 
-def note_chunk(what: str, iteration: int, residual,
-               abs_tol=None) -> None:
+def note_chunk(what: str, iteration: int, residual, abs_tol=None,
+               trace=None, rtol: float = 0.0) -> None:
     """One mid-solve ``(iteration, residual)`` sample of a chunked
-    driver (plus the absolute target the decay-rate ETA aims at)."""
+    driver (plus the absolute target the decay-rate ETA aims at) --
+    and, when the ring rode the chunk, a Lanczos kappa estimate refresh
+    so the ETA can ride the CG bound."""
     if not _armed:
         return
     STATUS.sample(what, iteration, residual)
     if abs_tol is not None:
         STATUS.note_target(abs_tol)
+    if trace is not None:
+        _kappa_from_trace(trace, rtol or STATUS.solve.get("rtol", 0.0))
     _maybe_flush()
+
+
+def _kappa_from_trace(trace, rtol) -> None:
+    """Refresh the kappa/predicted-iterations estimate from a chunk's
+    convergence trace (host-side; never sinks a solve)."""
+    try:
+        from acg_tpu_torch.health import (predicted_iterations,
+                                          spectrum_estimate)
+        est = spectrum_estimate(trace)
+        kappa = (est or {}).get("kappa")
+        if not kappa:
+            return
+        STATUS.note_kappa(kappa, predicted_iterations(kappa, rtol))
+    except Exception:  # noqa: BLE001 -- observability must never sink
+        pass           # the solve it watches
 
 
 def note_event(kind: str, detail: str) -> None:

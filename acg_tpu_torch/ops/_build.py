@@ -49,7 +49,7 @@ _SIGNATURES = {
     "acg_cg_phase_b": (_I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P),
     "acg_pipelined_update": (_I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P),
+                             _P, _P, _P),
     "acg_halo_put": (_I, _P, _P, _I, _L, _I, _P, _P),
     "acg_halo_put_peer": (_I, _P, _P, _I, _I, _I, _L, _I, _P, _I, _P),
     "acg_memops_init": (_I, ctypes.POINTER(ctypes.c_int)),

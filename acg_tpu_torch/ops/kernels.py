@@ -130,11 +130,11 @@ def _check_offsets_t(name, offsets_t, nd, dev):
                          f"{nd} offsets on {dev}")
 
 
-def _live_flag(name, live, dev):
+def _live_flag(name, live, dev, what: str = "live"):
     if live is None:
         return None
     if live.device != dev or live.numel() != 1 or live.dtype != torch.bool:
-        raise ValueError(f"{name}: live must be a one-element bool tensor "
+        raise ValueError(f"{name}: {what} must be a one-element bool tensor "
                          f"on {dev}")
     return live
 
@@ -375,11 +375,14 @@ def cg_phase_b(x, p, r, t, gamma, pdott, *, live=None):
 
 # -- K5: the pipelined-CG 6-vector update -------------------------------
 
-def pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta):
+def pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta, bad=None):
     """The Ghysels-Vanroose update as the JAX pipelined loop body
     computes it (``solvers/jax_cg.py:963-973``): in the scalars' dtype,
     each output rounded once to the vector dtype, x/r/w taking the
-    rounded p/t/z.  Returns new tensors ``(x, r, w, p, t, z)``."""
+    rounded p/t/z.  ``bad`` (a one-element bool tensor: the breakdown
+    flag of a detecting loop) keeps the old x/r/w where it is set, as
+    the body's ``where(bad, old, new)`` does (``:866-875``).  Returns new
+    tensors ``(x, r, w, p, t, z)``."""
     sdt = alpha.dtype
 
     def store(v):
@@ -388,21 +391,27 @@ def pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta):
     z = store(q.to(sdt) + beta * z.to(sdt))
     t = store(w.to(sdt) + beta * t.to(sdt))
     p = store(r.to(sdt) + beta * p.to(sdt))
-    x = store(x.to(sdt) + alpha * p.to(sdt))
-    r = store(r.to(sdt) - alpha * t.to(sdt))
-    w = store(w.to(sdt) - alpha * z.to(sdt))
-    return x, r, w, p, t, z
+    xn = store(x.to(sdt) + alpha * p.to(sdt))
+    rn = store(r.to(sdt) - alpha * t.to(sdt))
+    wn = store(w.to(sdt) - alpha * z.to(sdt))
+    if bad is not None:
+        xn = torch.where(bad, x, xn)
+        rn = torch.where(bad, r, rn)
+        wn = torch.where(bad, w, wn)
+    return xn, rn, wn, p, t, z
 
 
-def pipelined_update(x, r, w, p, t, z, q, alpha, beta, *, live=None):
+def pipelined_update(x, r, w, p, t, z, q, alpha, beta, *, live=None,
+                     bad=None):
     """Updates ``x, r, w, p, t, z`` IN PLACE (see
     :func:`pipelined_update_plain`) and returns them; ``alpha``/``beta``
     are one-element tensors in the accumulation dtype, ``live`` an
     optional one-element bool tensor whose False leaves all six
-    untouched."""
+    untouched, ``bad`` an optional one-element bool tensor whose True
+    leaves x, r and w untouched (the breakdown freeze)."""
     vecs = (x, r, w, p, t, z)
     if x.device.type == "cpu":
-        new = pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta)
+        new = pipelined_update_plain(x, r, w, p, t, z, q, alpha, beta, bad)
         for old, nv in zip(vecs, new):
             old.copy_(nv if live is None else torch.where(live, nv, old))
         return vecs
@@ -413,10 +422,11 @@ def pipelined_update(x, r, w, p, t, z, q, alpha, beta, *, live=None):
         raise ValueError("pipelined_update: vectors must share a dtype")
     _check_scalars("pipelined_update", acc_dtype(x.dtype), dev, alpha, beta)
     live = _live_flag("pipelined_update", live, dev)
+    bad = _live_flag("pipelined_update", bad, dev, "bad")
     err = _build.lib().acg_pipelined_update(
         _build.DTYPE_CODES[x.dtype], n, *(v.data_ptr() for v in vecs),
         q.data_ptr(), alpha.data_ptr(), beta.data_ptr(), _ptr(live),
-        _stream())
+        _ptr(bad), _stream())
     _build.check("pipelined_update", err)
     launches["pipelined_update"] += 1
     return vecs

@@ -837,7 +837,7 @@ def arm_matfree(prob: DistributedProblem, op) -> DistributedProblem:
 
 
 def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
-                   use_kernel: bool, recv=None):
+                   use_kernel: bool, recv=None, halo_hook=None):
     """``spmv(x)`` for stacked x: the local block (kernel K1 batched over
     parts when ``use_kernel`` and the blocks are DIA), then the halo
     exchange of ``comm`` ("xla": transpose; "dma": kernel K6 into the
@@ -845,7 +845,10 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
     exchange of another vector dtype) and the ghost block's contribution
     (``make_dist_spmv``, ``dist.py:761-810``).  ``la``/``ga``/``halo``/
     ``scnt`` are the device arrays of the problem's blocks, halo plan and
-    send counts."""
+    send counts.  ``halo_hook(ghost)`` (the fault injector's ``halo:``
+    site, :meth:`~acg_tpu_torch.solvers.cg.LoopGuard.apply_halo`) sees
+    the received ghost values after the exchange (after K6's put under
+    dma), as ``acg_tpu/parallel/dist.py:804`` applies it."""
     local, ghost = prob.local, prob.ghost
     has_ghosts = prob.halo.has_ghosts
     # one zeroed receive plane per vector dtype (the replacement program
@@ -862,9 +865,11 @@ def make_dist_spmv(prob: DistributedProblem, la, ga, halo, scnt, comm: str,
 
     def exchange(x):
         if comm == "dma":
-            return halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
-                                     halo.ghost_valid, scnt, recv_for(x))
-        return halo_exchange(x, halo.send_idx, halo.ghost_src)
+            g = halo_exchange_dma(x, halo.send_idx, halo.ghost_src,
+                                  halo.ghost_valid, scnt, recv_for(x))
+        else:
+            g = halo_exchange(x, halo.send_idx, halo.ghost_src)
+        return g if halo_hook is None else halo_hook(g)
 
     return make_block_spmv(local, ghost, la, ga, has_ghosts, exchange,
                            use_kernel)
@@ -975,11 +980,6 @@ def make_dist_spmv_overlapped(prob: DistributedProblem, la, ga, halo, scnt,
     return spmv_rows if side is None else spmv_streams
 
 
-# options of acg_tpu's DistCGSolver that the port does not carry yet,
-# each refused by name: (keyword, value that means "off")
-_REFUSED = (("health", None), ("ckpt", None), ("recovery", None))
-
-
 class DistCGSolver(_cg.ChunkedCGSolver):
     """Classic or pipelined CG over ``problem.nparts`` stacked parts on one
     device -- the counterpart of ``acg_tpu.parallel.dist.DistCGSolver``.
@@ -1038,8 +1038,14 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     mode).  The replacement program refuses them at solve time, the CA
     recurrences at construction.
 
-    Not carried yet, each refused with a ValueError naming it:
-    ``health``, ``ckpt`` and ``recovery``.
+    ``recovery``, ``health`` and ``ckpt`` arm the robustness tier on the
+    stacked tier (:class:`~acg_tpu_torch.solvers.cg.ChunkedCGSolver`):
+    detection in the loops, the ``halo:`` and ``part=`` fault sites, the
+    ladder's restart, transport (``--comm dma`` -> ``xla``) and
+    distributed-host rungs, the audit and ABFT over the psum'd dots, and
+    the checkpoint chunks with the row-permutation sidecar that lets a
+    snapshot resume on another partition.  In a multi-process run they
+    are refused by name (the rank-mode tier's is the next slice's).
     """
 
     _what = "dist-cg"
@@ -1050,14 +1056,7 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                  precise_dots: bool = False, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, mstate=None,
                  algorithm=None, trace: int = 0, progress: int = 0,
-                 **options):
-        for name, off in _REFUSED:
-            if options.pop(name, off) not in (off,):
-                raise ValueError(f"DistCGSolver: {name} is not ported to "
-                                 f"the multi-part tier yet")
-        if options:
-            raise TypeError(f"DistCGSolver: unexpected options "
-                            f"{sorted(options)}")
+                 recovery=None, health=None, ckpt=None):
         if comm not in ("xla", "dma"):
             raise ValueError(f"unknown halo transport {comm!r}")
         self.device = resolve_device(device)
@@ -1083,7 +1082,10 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             for on, what in ((precond is not None, "precond"),
                              (algorithm is not None
                               and rec.parse_algorithm(algorithm)
-                              .communication_avoiding, "algorithm")):
+                              .communication_avoiding, "algorithm"),
+                             (recovery is not None, "recovery"),
+                             (health is not None, "health"),
+                             (ckpt is not None, "ckpt")):
                 if on:
                     raise ValueError(f"DistCGSolver: {what} is not ported "
                                      f"to the multi-process tier yet")
@@ -1189,8 +1191,6 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                     f"{ca} amplifies storage rounding through its basis "
                     f"products; bf16 vectors need the classic/pipelined "
                     f"tiers")
-            if self.algo.kind == "pl":
-                self.max_restarts = rec.PL_RESTART_BUDGET
         if kernels.startswith("fused"):
             # the reference's fused base program threads none of these
             # (dist.py:1253-1289); the rest are refused by _REFUSED
@@ -1216,6 +1216,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                         f"{what}; use kernels='auto'/'xla'/'pallas'")
         self._mstate = None
         self._check_telemetry(trace, progress)
+        self._check_robustness(recovery, health, ckpt, None,
+                               kernels.startswith("fused"),
+                               self.replace_every)
         if self.replace_every and (self.trace or self.progress):
             raise ValueError(
                 "convergence telemetry (trace/progress) does not reach "
@@ -1257,10 +1260,12 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             self._irows = _put(p * problem.nmax_owned + split[p, i], dev,
                                torch.int64)
 
-    def _spmv(self):
+    def _spmv(self, guard=None):
         """This solve's distributed SpMV, with a fresh zeroed receive
         plane for the dma transport: under ``kernels="fused"`` the
-        interior/border overlapped SpMV."""
+        interior/border overlapped SpMV.  ``guard`` (a
+        :class:`~acg_tpu_torch.solvers.cg.LoopGuard`) sees the received
+        halo of the loop's main SpMV (the ``halo:`` fault site)."""
         prob = self.problem
         if self._ranks is not None:
             return self._rank_spmv()
@@ -1275,7 +1280,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                 self._irows, recv, self._side)
         return make_dist_spmv(prob, self._la, self._ga, self._halo,
                               self._scnt, self.comm,
-                              self.kernels != "xla", recv)
+                              self.kernels != "xla", recv,
+                              None if guard is None or guard.fault is None
+                              else guard.apply_halo)
 
     def _rank_spmv(self):
         """The SpMV of the multi-process tier: this rank's parts, the
@@ -1428,14 +1435,16 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         lam = self._ensure_lam()
         algo = self.algo
 
-        def run(b, x0):
+        def run(b, x0, guard=None):
             ops = rec.TierOps(spmv=self._spmv(), dot=pdot,
                               psum_stack=self._psum,
                               sdt=sdt)
+            telem = self._telemetry(sdt)
             if algo.kind == "sstep":
                 return rec._cg_sstep_program(ops, b, x0, crit, algo.param,
-                                             algo.basis, lam)
-            return rec._cg_pl_program(ops, b, x0, crit, algo.param, lam)
+                                             algo.basis, lam, telem)
+            return rec._cg_pl_program(ops, b, x0, crit, algo.param, lam,
+                                      telem)
 
         return run
 
@@ -1457,34 +1466,37 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             if crit.needs_diff:
                 raise ValueError("replace_every supports residual "
                                  "criteria only")
-            return lambda b, x0: _cg._cg_replaced_program(
+            return lambda b, x0, guard=None: _cg._cg_replaced_program(
                 self._spmv(), pdot, b, x0, crit, self.replace_every,
                 self.replace_restart)
         spec = self.precond_spec
-        mstate = self._ensure_precond_state()
+        self._ensure_precond_state()
 
-        def run(b, x0):
-            spmv = self._spmv()
+        def run(b, x0, guard=None):
+            spmv = self._spmv(guard)
             telem = self._telemetry(sdt)
             if spec is None:
                 if self.pipelined:
                     return _cg._cg_pipelined_program(spmv, pdot, pdotk, b,
                                                      x0, crit, use_kernel,
-                                                     telem)
+                                                     telem, guard)
                 return _cg._cg_program(spmv, pdot, b, x0, crit,
-                                       telem=telem)
+                                       dotk=pdotk, telem=telem,
+                                       guard=guard)
             # the apply rides this run's SpMV: a cheby apply is K more
             # halo'd SpMVs
             apply = make_apply(spec, lambda _A, x: spmv(x))
+            mstate = self._mstate
 
             def papply(r):
                 return apply(mstate, None, r)
 
             if self.pipelined:
                 return _cg._pcg_pipelined_program(spmv, pdot, pdotk, b, x0,
-                                                  crit, papply, telem)
+                                                  crit, papply, telem,
+                                                  guard)
             return _cg._cg_program(spmv, pdot, b, x0, crit, papply, pdotk,
-                                   telem)
+                                   telem, guard)
 
         return run
 
@@ -1500,6 +1512,97 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             x = multihost.get_global(torch.from_numpy(x).to(self.device),
                                      self.problem.nparts)
         return self.problem.gather(x)
+
+    # -- the robustness tier (acg_tpu/parallel/dist.py:2584-3200) ----------
+
+    _ckpt_tier = "dist-cg"
+    _host_fallback_event = "fallback: distributed host reference solver"
+
+    def _ckpt_nparts(self):
+        return int(self.problem.nparts)
+
+    def _n_global(self) -> int:
+        return int(self.problem.n)
+
+    def _tier_fault_refusals(self, fault) -> None:
+        """The stacked tier's refusals (``dist.py:2596-2610``): a halo
+        fault needs ghosts, a part fault an existing part."""
+        prob = self.problem
+        if fault.site == "halo" and not prob.halo.has_ghosts:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "halo fault injection needs a topology with ghost "
+                "exchange; this problem has no halo (single part or "
+                "fully decoupled partition)")
+        if fault.part >= prob.nparts:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                f"fault spec targets part {fault.part}, but this mesh "
+                f"has {prob.nparts} parts -- the fault could never "
+                f"fire")
+
+    def _transport_rung(self, driver) -> bool:
+        """A breakdown that a restart did not cure, under ``comm="dma"``:
+        retire the one-sided transport for the xla exchange
+        (``dist.py:2791-2811``), its own rung, not billed to the restart
+        budget.  On the card it runs only when the policy names it
+        (:meth:`RecoveryPolicy.comm_fallback`)."""
+        pol = self.recovery
+        if not (self.comm == "dma" and driver.restarts >= 1
+                and pol is not None and pol.comm_fallback(self.device)):
+            return False
+        self.stats.nbreakdowns += 1
+        driver.on_fallback("fallback: halo transport dma -> xla")
+        self.comm = "xla"
+        return True
+
+    def _can_host_fallback(self) -> bool:
+        """Only a full single-process build holds every part's blocks."""
+        prob = self.problem
+        return (self._ranks is None and prob.owned_parts is None
+                and all(s.A_local is not None for s in prob.subs))
+
+    def _host_fallback(self, b_host, crit, raise_on_divergence: bool,
+                       host_result: bool):
+        """The last rung (``dist.py:3034-3055``): re-solve on the
+        distributed host oracle over the same subdomains from the
+        original b, the injector suppressed."""
+        from acg_tpu_torch import faults
+        from acg_tpu_torch.solvers.host_cg import HostDistCGSolver
+        from acg_tpu_torch.solvers.resilience import adopt_host_stats
+        hs = HostDistCGSolver(self.problem.subs)
+        with faults.suppressed():
+            x = hs.solve(np.asarray(b_host, np.float64), criteria=crit,
+                         raise_on_divergence=raise_on_divergence)
+        adopt_host_stats(self.stats, hs.stats)
+        if host_result:
+            return x
+        return _put(self.problem.scatter(x), self.device,
+                    self.problem.vdtype)
+
+    def _ckpt_meta_extra(self, meta: dict, arrs: dict) -> None:
+        """The stacked snapshot's partition count and its shape-portable
+        sidecar: the global row ids in stacked slot order and the rows
+        of each part."""
+        prob = self.problem
+        meta["nparts"] = int(prob.nparts)
+        rp = prob.row_permutation()
+        if rp is not None:
+            arrs["_rowperm"] = rp
+            meta["part_rows"] = prob.part_rows()
+
+    def _resume_arrays(self, snap):
+        """A repartitioned snapshot comes back in global row order:
+        re-slice its vectors onto this problem's parts."""
+        if not self.ckpt.repartition:
+            return snap.arrays
+        from acg_tpu_torch.checkpoint import SCALAR_LEAVES
+        out = {}
+        for nm, a in snap.arrays.items():
+            a = np.asarray(a)
+            out[nm] = (a if nm in SCALAR_LEAVES or a.ndim == 0
+                       else self.problem.scatter(a))
+        return out
 
     def _account_ops(self, st, niter: int) -> None:
         """Analytic flop/byte census of ``niter`` iterations, as the JAX

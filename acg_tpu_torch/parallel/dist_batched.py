@@ -22,10 +22,11 @@ transpose transport only (the reference's batched mesh tier takes no
 ``comm``; its CLI refuses ``--comm dma`` with ``--nrhs``).  A batch of one delegates to
 :class:`~acg_tpu_torch.parallel.dist.DistCGSolver`.
 
-The reference's per-RHS residual ring (``trace``) and batched
-checkpoints (``ckpt``) are not ported yet (the ring's host class is in
-:mod:`acg_tpu_torch.telemetry`, called by nothing); the port refuses
-them by name.
+The per-RHS residual ring (``trace``, the reference's
+``acg_tpu/parallel/dist_batched.py:610``) and the worst-column
+heartbeat (``progress``) ride the shared batched loops; batched
+checkpoints (``ckpt``) are not ported yet: the port refuses them by
+name.
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
 
     def __init__(self, problem: DistributedProblem, pipelined: bool = False,
                  precise_dots: bool = False, precond=None, trace: int = 0,
-                 ckpt=None, device=None):
+                 ckpt=None, device=None, progress: int = 0):
         if precond is not None:
             from acg_tpu_torch.precond import parse_precond
             if parse_precond(precond) is not None:
@@ -126,18 +127,17 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
                 "plane form yet); matrix-free batching lives on the "
                 "single-device tier (acg_tpu.solvers.batched), or drop "
                 "--nrhs for the matrix-free mesh solve")
-        if trace:
-            raise ValueError("trace (the per-RHS residual ring, "
-                             "BatchedConvergenceTrace in telemetry.py) "
-                             "is not ported yet")
         if ckpt is not None:
-            raise ValueError("ckpt (batched checkpoints) comes with the "
-                             "robustness modules (checkpoint.py); not "
-                             "yet ported")
+            raise ValueError("ckpt: the batched tiers' checkpoints "
+                             "(checkpoint.py's batched carry) are not "
+                             "ported yet")
         self.device = resolve_device(device)
         self.problem = problem
         self.pipelined = bool(pipelined)
         self.mode = "pipelined" if self.pipelined else "batched"
+        self._trace_name = ("dist-cg-batched-pipelined" if self.pipelined
+                            else "dist-cg-batched")
+        self._check_batched_telemetry(trace, progress)
         self.precise_dots = bool(precise_dots)
         self.stats = SolverStats(unknowns=problem.n)
         self._inner1 = None
@@ -208,13 +208,17 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
 
         pdot_cols = make_pdot_cols(psum, lcoldot, sdt, self.precise_dots)
         spmv = self._spmv()
+
+        def telem(Bm):
+            return self._batched_telemetry(Bm.shape[-1], sdt)
+
         if self.pipelined:
             pdotk_cols = make_pdotk_cols(psum, lcoldot, sdt,
                                          self.precise_dots)
             return lambda Bm, X0: _batched_cg_pipelined_program(
-                spmv, pdot_cols, pdotk_cols, Bm, X0, crit)
+                spmv, pdot_cols, pdotk_cols, Bm, X0, crit, telem=telem(Bm))
         return lambda Bm, X0: _batched_cg_program(spmv, pdot_cols, Bm, X0,
-                                                  crit)
+                                                  crit, telem=telem(Bm))
 
     def device_args(self, B_global, x0=None):
         """``(B, X0)`` as stacked ``(P, nmax_owned, B)`` blocks in the

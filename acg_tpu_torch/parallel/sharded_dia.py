@@ -38,10 +38,13 @@ from acg_tpu_torch.io.generators import poisson_dia_device
 from acg_tpu_torch.ops.precision import df_add, two_prod, two_sum
 from acg_tpu_torch.ops.spmv import (DiaMatrix, acc_dtype, dia_mv_roll,
                                     spmv_flops)
-from acg_tpu_torch.parallel.dist import _REFUSED
 from acg_tpu_torch.parallel.reductions import make_rank_psum
 from acg_tpu_torch.solvers.cg import TorchCGSolver, _spmv_fn
 from acg_tpu_torch.solvers.stats import StoppingCriteria
+
+# options of acg_tpu's ShardedDiaCGSolver that the port does not carry
+# yet, each refused by name: (keyword, value that means "off")
+_REFUSED = (("health", None), ("ckpt", None), ("recovery", None))
 
 
 def dia_mv_roll_df(planes, offsets, xh, xl):
@@ -133,6 +136,18 @@ class ShardedDiaCGSolver(TorchCGSolver):
         sdt = acc_dtype(dtype)
         x = prng.normal(seed, self.A.nrows, sdt, self.device)
         return (x / torch.linalg.norm(x)).to(dtype)
+
+    def _fault_refusals(self, fault) -> None:
+        """The fault injector's sites and crash hook are not ported to
+        the sharded tier yet: an armed spec refuses by name."""
+        from acg_tpu_torch import faults
+        from acg_tpu_torch.errors import AcgError, ErrorCode
+        spec = faults.active_fault()
+        if spec is not None and (spec.device_site or spec.site == "crash"):
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                f"fault injection ({spec}) is not ported to the sharded "
+                f"gen-direct tier yet; use a replicated-read solve")
 
     def ones_b(self, dtype=None) -> torch.Tensor:
         """The all-ones right-hand side (the CLI default b)."""

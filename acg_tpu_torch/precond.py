@@ -528,6 +528,45 @@ def state_bytes(mstate) -> int:
     return total
 
 
+# -- recovery hooks (the robustness tier) ---------------------------------
+
+def state_finite(mstate) -> bool:
+    """True when every tensor of the state is finite -- the recovery
+    driver's preserve-vs-rebuild predicate (``acg_tpu/precond.py:614``)."""
+    for leaf in mstate or ():
+        if not bool(torch.isfinite(torch.as_tensor(leaf)).all()):
+            return False
+    return True
+
+
+def partition_sensitive(spec) -> bool:
+    """True when the preconditioner operator depends on the row
+    partition: bjacobi factors the local diagonal blocks on the stacked
+    tier, so M changes with the partition, and a repartitioned resume
+    continues under another M (flexible-CG).  Jacobi and Chebyshev are
+    partition-invariant."""
+    return spec is not None and getattr(spec, "kind", None) == "bjacobi"
+
+
+def refresh_state(solver, driver) -> bool:
+    """Restart hook: keep the preconditioner state across a restart when
+    it is still finite, rebuild it from the matrix when it is not.
+    Returns True when a rebuild happened; each decision lands in the
+    recovery log (``acg_tpu/precond.py:638-660``)."""
+    spec = getattr(solver, "precond_spec", None)
+    if spec is None or getattr(solver, "_mstate", None) is None:
+        return False
+    if state_finite(solver._mstate):
+        driver.record(f"preconditioner ({spec}) state preserved across "
+                      f"restart")
+        return False
+    solver._mstate = None
+    solver._ensure_precond_state()
+    driver.record(f"preconditioner ({spec}) state non-finite; rebuilt "
+                  f"from the matrix", kind="recovery")
+    return True
+
+
 # -- host (numpy/scipy) twins: the eager solver + the test oracle ---------
 
 class HostPrecond:

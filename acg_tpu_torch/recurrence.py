@@ -55,6 +55,7 @@ import re
 import numpy as np
 import torch
 
+from acg_tpu_torch import telemetry
 from acg_tpu_torch.ops.spmv import acc_dtype
 from acg_tpu_torch.solvers.cg import CHUNK, CGResult, _spmv_fn, _State
 
@@ -293,11 +294,19 @@ def sstep_build_basis(ops: TierOps, v, deg: int, basis: str, dc) -> list:
 
 
 def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
-                     maxits: int, unbounded: bool):
+                     maxits: int, unbounded: bool, telem=None):
     """The s-step outer block as ``block(st)`` over the carry ``st``
     (``x, r, p, gamma, k, bad``; ``gamma`` the coefficient-space ||r||^2
     carried across blocks).  A block the reference's ``while_loop``
-    would not have started leaves the carry as it was."""
+    would not have started leaves the carry as it was.
+
+    ``telem`` (a :class:`~acg_tpu_torch.telemetry.LoopTelemetry`) records
+    each inner step's plain CG scalars ``(gamma_next, alpha, beta,
+    denom)`` in the ring slot of its trajectory iteration ``k + j``,
+    masked by the step's own flag (``acg_tpu/recurrence.py:393-399``),
+    and a heartbeat row after each block that crosses a multiple of the
+    period, naming the block's end (the reference's test of ``k + 1``
+    against the period rarely meets a block's end)."""
     sdt = ops.sdt
     w = 2 * s + 1
     dev = Bmat.device
@@ -343,6 +352,10 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
                 gamma_blk == 0, 1.0, gamma_blk), zero)
             pc = torch.where(step, rc_new + beta * pc, pc)
             rc = torch.where(step, rc_new, rc)
+            if telem is not None and telem.buf is not None:
+                telemetry.ring_record(telem.buf, st.k + j, gamma_next,
+                                      alpha, beta, denom,
+                                      live=step & live)
             gamma_blk = torch.where(step, gamma_next, gamma_blk)
             nsteps = nsteps + step
         # -- map back: three small products, no reduction ---------------
@@ -350,14 +363,20 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
         st.r = torch.where(live, rc @ V, st.r)
         st.p = torch.where(live, pc @ V, st.p)
         st.gamma = torch.where(live, gamma_blk, st.gamma)
+        k_old = st.k
         st.k = st.k + torch.where(live, nsteps, 0)
         st.bad = torch.where(live, bad, st.bad)
+        if telem is not None and telem.progress:
+            # a block crossing a multiple of the period beats once
+            every = telem.progress
+            telem.beat(st.k, st.gamma,
+                       live & (k_old // every < st.k // every))
 
     return block
 
 
 def run_sstep_loop(ops: TierOps, s: int, basis: str, lam, x0, r, gamma,
-                   res_tol, maxits: int, unbounded: bool):
+                   res_tol, maxits: int, unbounded: bool, telem=None):
     """The s-step outer loop, shared by every tier.  The stop flag is
     read once every ``CHUNK // s`` blocks; an unbounded solve stops only
     on a breakdown and otherwise runs ``ceil(maxits / s)`` blocks, the
@@ -372,16 +391,23 @@ def run_sstep_loop(ops: TierOps, s: int, basis: str, lam, x0, r, gamma,
                 k=torch.zeros((), dtype=torch.int64, device=dev),
                 bad=torch.zeros((), dtype=torch.bool, device=dev))
     block = make_sstep_block(ops, s, basis, dc, Bmat, tol2, maxits,
-                             unbounded)
+                             unbounded, telem)
     nblocks = -(-maxits // s)
     per_chunk = max(1, CHUNK // s)
+    beats = telem is not None and telem.progress > 0
     ran = 0
-    while ran < nblocks and not bool(
-            st.bad if unbounded
-            else st.bad | (st.k >= maxits) | (st.gamma < tol2)):
+    while ran < nblocks:
+        stop = bool(st.bad if unbounded
+                    else st.bad | (st.k >= maxits) | (st.gamma < tol2))
+        if beats:
+            telem.flush()
+        if stop:
+            break
         for _ in range(min(per_chunk, nblocks - ran)):
             block(st)
         ran += per_chunk
+    if beats:
+        telem.flush()
     done = (~st.bad) if unbounded else (st.gamma < tol2)
     return st.x, st.k, st.gamma, st.bad, done
 
@@ -402,19 +428,20 @@ def _setup(ops: TierOps, b, x0, crit):
 
 
 def _cg_sstep_program(ops: TierOps, b, x0, crit, s: int, basis: str,
-                      lam) -> CGResult:
+                      lam, telem=None) -> CGResult:
     """A whole s-step CG solve over ``ops`` (``acg_tpu.recurrence.
     _cg_sstep_program``; the stacked tier's body, ``acg_tpu/parallel/
-    dist.py:2063-2185``, is the same code)."""
+    dist.py:2063-2185``, is the same code).  ``telem`` arms the ring and
+    heartbeat (:func:`make_sstep_block`)."""
     bnrm2, x0nrm2, r, gamma, r0nrm2, res_tol = _setup(ops, b, x0, crit)
     x, k, gamma_f, bad, done = run_sstep_loop(
         ops, s, basis, lam, x0, r, gamma, res_tol, crit.maxits,
-        crit.unbounded)
+        crit.unbounded, telem)
     inf = torch.tensor(math.inf, dtype=ops.sdt, device=b.device)
     return CGResult(x=x, niterations=k,
                     rnrm2=torch.sqrt(torch.clamp(gamma_f, min=0.0)),
                     r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
-                    converged=done, breakdown=bad & ~done)
+                    converged=done, breakdown=bad & ~done, telem=telem)
 
 
 # -- p(l)-CG ---------------------------------------------------------------
@@ -428,7 +455,7 @@ def pl_shifts(l: int, lam, sdt, device=None):
 
 
 def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
-                maxits: int, unbounded: bool):
+                maxits: int, unbounded: bool, telem=None):
     """The p(l) iteration loop, shared by every tier (``acg_tpu.
     recurrence.make_pl_step``/``run_pl_loop``).  Returns ``(x, adv, q,
     conv, bad)``: ``adv`` counts the solution advances (the reported
@@ -440,7 +467,13 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
     ring of 2l (v_t in slot t mod 2l), and the reduction delay line,
     the stream-Cholesky columns and the Lanczos T entries as Python
     lists of device scalars.  The newest two z vectors are kept apart,
-    contiguous, for the SpMV."""
+    contiguous, for the SpMV.
+
+    ``telem`` records, at each solution advance, ``(q^2, 1/d, l^2, d)``
+    in the ring slot of the advance count -- classic-aligned rows, as
+    the reference's ring holds them (``acg_tpu/recurrence.py:558-566``)
+    -- and a heartbeat row at each advance that lands on a multiple of
+    the period."""
     sdt = ops.sdt
     dev = x0.device
     tol2 = res_tol * res_tol
@@ -523,6 +556,11 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
             st.x = torch.where(do_adv, st.x + (st.q / safe(dd)) * pt_new,
                                st.x)
             q_next = -(gamma_m1 / safe(dd)) * st.q
+            if telem is not None and telem.buf is not None:
+                telemetry.ring_record(telem.buf, st.adv, q_next * q_next,
+                                      1.0 / safe(dd),
+                                      (q_next / safe(st.q)) ** 2, dd,
+                                      live=do_adv)
             st.conv = st.conv | (do_adv & (q_next * q_next < tol2))
             st.adv = st.adv + do_adv.to(torch.int64)
             st.q = torch.where(do_adv, q_next, st.q)
@@ -531,6 +569,10 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
         if m >= 0:
             # a frozen carry sets no flag (the reference has stopped)
             st.bad = st.bad | (bad_sqrt & live)
+        if m >= 1 and telem is not None and telem.progress:
+            # the advance that lands on a multiple of the period beats
+            telem.beat(st.adv, st.q * st.q,
+                       do_adv & (st.adv % telem.progress == 0))
         # -- build z_{j+1}: the step's one SpMV --------------------------
         Az = ops.spmv(zlast)
         if j < l:
@@ -554,31 +596,53 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
     # take maxits + l steps, unless a breakdown ends it first
     jcap = maxits + 2 * l + 2
     nsteps = (maxits + l if maxits > 0 else 0) if unbounded else jcap
+    beats = telem is not None and telem.progress > 0
     j = 0
-    while j < nsteps and not bool(
-            st.bad if unbounded
-            else st.conv | st.bad | (st.adv >= maxits)):
+    while j < nsteps:
+        stop = bool(st.bad if unbounded
+                    else st.conv | st.bad | (st.adv >= maxits))
+        if beats:
+            telem.flush()
+        if stop:
+            break
         for _ in range(min(CHUNK, nsteps - j)):
             step(j)
             j += 1
+    if beats:
+        telem.flush()
     return st.x, st.adv, st.q, st.conv, st.bad
 
 
-def _cg_pl_program(ops: TierOps, b, x0, crit, l: int, lam) -> CGResult:
+def _cg_pl_program(ops: TierOps, b, x0, crit, l: int, lam,
+                   telem=None) -> CGResult:
     """A whole p(l)-CG solve over ``ops`` (``acg_tpu.recurrence.
-    _cg_pl_program``; the stacked tier's body is the same code)."""
+    _cg_pl_program``; the stacked tier's body is the same code).
+    ``telem`` arms the ring and heartbeat (:func:`run_pl_loop`); each
+    restart attempt records its own, as the reference's does."""
     bnrm2, x0nrm2, r, eta2, eta, res_tol = _setup(ops, b, x0, crit)
     z0 = r / torch.where(eta == 0, 1.0, eta)
     x, adv, q, conv, bad = run_pl_loop(ops, l, lam, x0, z0, eta, eta2,
-                                       res_tol, crit.maxits, crit.unbounded)
+                                       res_tol, crit.maxits, crit.unbounded,
+                                       telem)
     done = (~bad) if crit.unbounded else conv
     inf = torch.tensor(math.inf, dtype=ops.sdt, device=b.device)
     return CGResult(x=x.to(b.dtype), niterations=adv, rnrm2=torch.abs(q),
                     r0nrm2=eta, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
-                    converged=done, breakdown=bad & ~done)
+                    converged=done, breakdown=bad & ~done, telem=telem)
 
 
 # -- the spectral estimate -------------------------------------------------
+
+def pl_restart_policy():
+    """The recovery policy a p(l) solver arms when the caller gave none
+    (``acg_tpu/recurrence.py:1326``): the square-root breakdown of the
+    deep pipeline is an expected event, and its remedy is the ladder's
+    restart from the current iterate, budgeted generously, with no
+    transport or host fallback."""
+    from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+    return RecoveryPolicy(max_restarts=PL_RESTART_BUDGET,
+                          fallback_comm=False, fallback_host=False)
+
 
 def _lmax(spmv, v0, iters: int = POWER_ITERS) -> float:
     """Power-iteration Rayleigh quotient through the tier's own SpMV

@@ -29,11 +29,11 @@ chunk.
 
 A batch of one delegates to the single-RHS
 :class:`~acg_tpu_torch.solvers.cg.TorchCGSolver` (``kernels="xla"``, as
-the JAX package delegates to ``JaxCGSolver``).  The JAX package's
-per-RHS residual ring (``trace``) and batched checkpoints (``ckpt``)
-are not ported yet (the ring's host class is in
-:mod:`acg_tpu_torch.telemetry`, called by nothing); the port refuses
-them by name.
+the JAX package delegates to ``JaxCGSolver``).  ``trace`` arms the
+per-RHS residual ring (:class:`~acg_tpu_torch.telemetry.
+BatchedLoopTelemetry`, ``acg_tpu/solvers/batched.py:855``) and
+``progress`` a worst-column heartbeat; batched checkpoints (``ckpt``)
+are not ported yet: the port refuses them by name.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from acg_tpu_torch.ops.spmv import (BinnedEllMatrix, CooMatrix, DeviceMatrix,
                                     matrix_dtype, matrix_index_bytes, spmv,
                                     spmv_flops)
 from acg_tpu_torch.solvers.cg import CHUNK
+from acg_tpu_torch import telemetry
 from acg_tpu_torch.telemetry import add_timing as _add_timing
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
@@ -133,6 +134,7 @@ class BatchedCGResult:
     bnrm2: torch.Tensor        # (B,)
     x0nrm2: torch.Tensor       # (B,)
     converged: torch.Tensor    # (B,) bool
+    telem: object = None       # the run's BatchedLoopTelemetry, if armed
 
 
 class _State:
@@ -159,28 +161,41 @@ def _safe_div(num, den, active):
                        torch.zeros_like(num))
 
 
-def _run(step, maxits: int, unbounded: bool, s, check=None) -> None:
+def _run(step, maxits: int, unbounded: bool, s, check=None,
+         telem=None) -> None:
     """Run ``step()`` until ``maxits`` iterations or every column has
     converged, reading ``s.done`` (B,) on the host once per
     :data:`CHUNK` iterations (and calling ``check()`` there); unbounded
     solves run exactly ``maxits`` steps with no reads.  ``step`` freezes
     what has converged, so the chunk's extra iterations change
-    nothing."""
+    nothing.  An armed heartbeat (``telem.progress``) prints where the
+    flag is read (once a chunk on unbounded solves)."""
+    beats = telem is not None and telem.progress > 0
     if unbounded:
-        for _ in range(maxits):
-            step()
+        for ran in range(0, maxits, CHUNK):
+            for _ in range(min(CHUNK, maxits - ran)):
+                step()
+            if beats:
+                telem.flush()
         return
     ran = 0
-    while ran < maxits and not bool(s.done.all()):
+    while ran < maxits:
+        done = bool(s.done.all())
+        if beats:
+            telem.flush()
+        if done:
+            break
         for _ in range(min(CHUNK, maxits - ran)):
             step()
         ran += CHUNK
         if check is not None:
             check()
+    if beats:
+        telem.flush()
 
 
 def _finish(s, crit: StoppingCriteria, nrhs: int, dev, rnrm2, r0nrm2,
-            bnrm2, x0nrm2, done) -> BatchedCGResult:
+            bnrm2, x0nrm2, done, telem=None) -> BatchedCGResult:
     if crit.unbounded:
         k = torch.tensor(crit.maxits, device=dev)
         done = torch.ones((nrhs,), dtype=torch.bool, device=dev)
@@ -188,11 +203,19 @@ def _finish(s, crit: StoppingCriteria, nrhs: int, dev, rnrm2, r0nrm2,
         k = s.k
     return BatchedCGResult(x=s.x, niterations=s.iters, k_total=k,
                            rnrm2=rnrm2, r0nrm2=r0nrm2, bnrm2=bnrm2,
-                           x0nrm2=x0nrm2, converged=done)
+                           x0nrm2=x0nrm2, converged=done, telem=telem)
+
+
+def _ring_step(telem, s, active, unbounded: bool, cols) -> None:
+    """One batched step's ring row and heartbeat (``telem`` armed): the
+    slot of the loop's device count, masked by its any-column-live
+    flag (the host step count on unbounded loops)."""
+    if telem is not None:
+        telem.step(s.k, None if unbounded else active.any(), cols)
 
 
 def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
-                        papply=None) -> BatchedCGResult:
+                        papply=None, telem=None) -> BatchedCGResult:
     """Batched classic CG (``acg_tpu.solvers.batched._batched_cg_program``):
     the single-RHS classic recurrence per column, its dots one column
     reduction, converged columns frozen by the masks.  ``spmv(X)`` and
@@ -201,7 +224,8 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
     halo'd SpMV and psum'd column dots (:mod:`acg_tpu_torch.parallel.
     dist_batched`).  ``papply(R)`` makes it preconditioned (gamma =
     (r, z); the carried rr = (r, r) keeps the convergence test
-    unpreconditioned)."""
+    unpreconditioned).  ``telem`` (a :class:`~acg_tpu_torch.telemetry.
+    BatchedLoopTelemetry`) records each iteration's per-RHS (r, r)."""
     dtype = Bm.dtype
     dev = Bm.device
     sdt = acc_dtype(dtype)
@@ -249,6 +273,7 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
             gamma_next = rr_next = coldot(s.r, s.r)
         beta = _safe_div(gamma_next, s.gamma, active)
         s.p = _col_where(active, store(Z.to(sdt) + beta * s.p.to(sdt)), s.p)
+        _ring_step(telem, s, active, unbounded, rr_next)
         s.iters = s.iters + active.to(torch.int64)
         s.k = s.k + active.any().to(torch.int64)
         s.gamma = torch.where(active, gamma_next, s.gamma)
@@ -256,21 +281,22 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
         if not unbounded:
             s.done = s.done | (active & (rr_next < tol2))
 
-    _run(step, crit.maxits, unbounded, s)
+    _run(step, crit.maxits, unbounded, s, telem=telem)
     return _finish(s, crit, nrhs, dev, torch.sqrt(s.rr), r0nrm2, bnrm2,
-                   x0nrm2, s.done)
+                   x0nrm2, s.done, telem)
 
 
 def _batched_cg_pipelined_program(spmv, coldot, coldotk, Bm, X0,
-                                  crit: StoppingCriteria, papply=None
-                                  ) -> BatchedCGResult:
+                                  crit: StoppingCriteria, papply=None,
+                                  telem=None) -> BatchedCGResult:
     """Batched Ghysels-Vanroose CG (``acg_tpu.solvers.batched.
     _batched_cg_pipelined_program``): the pipelined recurrences with a
     trailing batch axis, both reduction families of an iteration taken
     at one point, ``coldotk`` (one fused psum on stacked parts); the
     convergence test is one iteration stale, and a fresh final residual
     at tolerance counts as converged.  ``spmv``/``coldot`` as for
-    :func:`_batched_cg_program`."""
+    :func:`_batched_cg_program`; ``telem`` records each iteration's
+    fused per-RHS (r, r), stale by one like the test."""
     dtype = Bm.dtype
     dev = Bm.device
     sdt = acc_dtype(dtype)
@@ -342,6 +368,7 @@ def _batched_cg_pipelined_program(spmv, coldot, coldotk, Bm, X0,
         finish_step(active, gamma, alpha, gamma)
 
     def finish_step(active, gamma, alpha, rr_new):
+        _ring_step(telem, s, active, unbounded, rr_new)
         s.iters = s.iters + active.to(torch.int64)
         s.k = s.k + active.any().to(torch.int64)
         if not unbounded:
@@ -350,14 +377,16 @@ def _batched_cg_pipelined_program(spmv, coldot, coldotk, Bm, X0,
         s.gamma_prev = torch.where(active, gamma, s.gamma_prev)
         s.alpha_prev = torch.where(active, alpha, s.alpha_prev)
 
-    _run(pstep if papply is not None else step, crit.maxits, unbounded, s)
+    _run(pstep if papply is not None else step, crit.maxits, unbounded, s,
+         telem=telem)
     rnrm2 = torch.sqrt(coldot(s.r, s.r))
     done = s.done if unbounded else s.done | (rnrm2 <= res_tol)
-    return _finish(s, crit, nrhs, dev, rnrm2, r0nrm2, bnrm2, x0nrm2, done)
+    return _finish(s, crit, nrhs, dev, rnrm2, r0nrm2, bnrm2, x0nrm2, done,
+                   telem)
 
 
-def _block_cg_program(A, Bm, X0, crit: StoppingCriteria, papply=None
-                      ) -> BatchedCGResult:
+def _block_cg_program(A, Bm, X0, crit: StoppingCriteria, papply=None,
+                      telem=None) -> BatchedCGResult:
     """Block CG (O'Leary 1980; ``acg_tpu.solvers.batched.
     _block_cg_program``): one shared Krylov block, an iteration is one
     multi-column SpMV and two B x B Gram solves (``W alpha = G``, ``G
@@ -426,6 +455,7 @@ def _block_cg_program(A, Bm, X0, crit: StoppingCriteria, papply=None
         G_new = gram(Zn, R)
         beta = deflated_solve(s.g, G_new)
         P = Zn + s.p @ beta
+        _ring_step(telem, s, active, unbounded, rr)
         iters = s.iters + active.to(torch.int64)
         if live is None:
             s.x, s.r, s.p, s.g, s.iters = X, R, P, G_new, iters
@@ -438,11 +468,11 @@ def _block_cg_program(A, Bm, X0, crit: StoppingCriteria, papply=None
         s.iters = iters
         s.k = s.k + live.to(torch.int64)
 
-    _run(step, crit.maxits, unbounded, s, check)
+    _run(step, crit.maxits, unbounded, s, check, telem)
     check()
     s.x = store(s.x)
     return _finish(s, crit, nrhs, dev, torch.sqrt(coldot(s.r, s.r)),
-                   r0nrm2, bnrm2, x0nrm2, s.done)
+                   r0nrm2, bnrm2, x0nrm2, s.done, telem)
 
 
 class ChunkedBatchedSolver:
@@ -455,7 +485,38 @@ class ChunkedBatchedSolver:
     delegates to), ``_program(crit)`` (a callable of the device ``(B,
     X0)`` blocks returning a :class:`BatchedCGResult`), ``device_args(b,
     x0)``, ``_host_x(X)`` (the host ``(n, B)`` array the caller gets)
-    and ``_account_ops(st, k_total, nrhs)``."""
+    and ``_account_ops(st, k_total, nrhs)``.
+
+    ``trace`` (ring slots) and ``progress`` (heartbeat period) arm the
+    per-RHS ring and the worst-column heartbeat of the batched loops
+    (:class:`~acg_tpu_torch.telemetry.BatchedLoopTelemetry`); the ring
+    is fetched once per solve into ``last_trace``/``stats.trace``."""
+
+    trace = 0
+    progress = 0
+    last_trace = None
+    _warming = False
+    _trace_name = "cg-batched"
+
+    def _check_batched_telemetry(self, trace: int, progress: int) -> None:
+        self.trace, self.progress = int(trace), int(progress)
+        if self.trace < 0 or self.progress < 0:
+            raise ValueError("trace/progress must be >= 0 (iteration "
+                             "counts; 0 disables)")
+        if self.mode == "block" and self.progress:
+            raise ValueError("progress: block CG's columns share one "
+                             "Krylov block; its heartbeat is not "
+                             "ported (use trace for the per-RHS ring)")
+
+    def _batched_telemetry(self, nrhs: int, sdt):
+        """A fresh ring/heartbeat for one batched run, or None."""
+        if not (self.trace or self.progress):
+            return None
+        from acg_tpu_torch.parallel import multihost
+        return telemetry.BatchedLoopTelemetry(
+            self.trace, 0 if self._warming else self.progress, nrhs, sdt,
+            self.device, what=self._trace_name,
+            leader=multihost.is_primary())
 
     def solve(self, b, x0=None, criteria: StoppingCriteria | None = None,
               raise_on_divergence: bool = True, warmup: int = 0,
@@ -491,9 +552,13 @@ class ChunkedBatchedSolver:
         device_sync(self.device)
         _add_timing(st, "transfer", time.perf_counter() - t_xfer)
         t_warm = time.perf_counter()
-        for _ in range(max(warmup, 0)):
-            program(Bm, X0)
-        device_sync(self.device)
+        self._warming = True
+        try:
+            for _ in range(max(warmup, 0)):
+                program(Bm, X0)
+            device_sync(self.device)
+        finally:
+            self._warming = False
         if warmup > 0:
             _add_timing(st, "compile", time.perf_counter() - t_warm)
         t0 = time.perf_counter()
@@ -503,6 +568,12 @@ class ChunkedBatchedSolver:
         st.tsolve += t_solve
         _add_timing(st, "solve", t_solve)
         self._finish_stats(res, nrhs)
+        if res.telem is not None and res.telem.buf is not None:
+            # the one extra device fetch of a traced batched solve
+            st.trace = self.last_trace = \
+                telemetry.BatchedConvergenceTrace.from_ring(
+                    res.telem.ring(), int(res.k_total),
+                    solver=self._trace_name)
         if host_result:
             xv = (res.x.to(torch.float32) if res.x.dtype == torch.bfloat16
                   else res.x)
@@ -574,7 +645,7 @@ class BatchedCGSolver(ChunkedBatchedSolver):
     def __init__(self, A: DeviceMatrix, mode: str = "batched",
                  precise_dots: bool = False, kernels: str = "auto",
                  vector_dtype=None, precond=None, trace: int = 0,
-                 ckpt=None, device=None):
+                 ckpt=None, device=None, progress: int = 0):
         if mode not in ("batched", "pipelined", "block"):
             raise ValueError(f"unknown batched mode {mode!r} "
                              f"(batched, pipelined, block)")
@@ -587,14 +658,10 @@ class BatchedCGSolver(ChunkedBatchedSolver):
             raise ValueError("block-CG's scalars are B x B Gram solves "
                              "in the scalar dtype; precise_dots applies "
                              "to the batched/pipelined modes")
-        if trace:
-            raise ValueError("trace (the per-RHS residual ring, "
-                             "BatchedConvergenceTrace in telemetry.py) "
-                             "is not ported yet")
         if ckpt is not None:
-            raise ValueError("ckpt (batched checkpoints) comes with the "
-                             "robustness modules (checkpoint.py); not "
-                             "yet ported")
+            raise ValueError("ckpt: the batched tiers' checkpoints "
+                             "(checkpoint.py's batched carry) are not "
+                             "ported yet")
         self.device = resolve_device(device)
         if A.device != self.device:
             raise ValueError(f"the matrix lives on {A.device}, the solver "
@@ -602,6 +669,8 @@ class BatchedCGSolver(ChunkedBatchedSolver):
                              f"device={str(self.device)!r}")
         self.A = A
         self.mode = mode
+        self._trace_name = f"cg-{mode}"
+        self._check_batched_telemetry(trace, progress)
         self.precise_dots = bool(precise_dots)
         self.vector_dtype = vector_dtype
         from acg_tpu_torch.precond import parse_precond
@@ -672,8 +741,14 @@ class BatchedCGSolver(ChunkedBatchedSolver):
             def papply(R):
                 return apply(mstate, self.A, R)
         A = self.A
+        sdt = acc_dtype(self._solve_dtype())
+
+        def telem(Bm):
+            return self._batched_telemetry(Bm.shape[-1], sdt)
+
         if self.mode == "block":
-            return lambda Bm, X0: _block_cg_program(A, Bm, X0, crit, papply)
+            return lambda Bm, X0: _block_cg_program(A, Bm, X0, crit, papply,
+                                                    telem(Bm))
         coldot, _ = _coldot_setup(self._solve_dtype(), self.precise_dots)
 
         def spmv(X):
@@ -684,9 +759,9 @@ class BatchedCGSolver(ChunkedBatchedSolver):
                 return tuple(coldot(a, c) for a, c in pairs)
 
             return lambda Bm, X0: _batched_cg_pipelined_program(
-                spmv, coldot, coldotk, Bm, X0, crit, papply)
+                spmv, coldot, coldotk, Bm, X0, crit, papply, telem(Bm))
         return lambda Bm, X0: _batched_cg_program(spmv, coldot, Bm, X0,
-                                                  crit, papply)
+                                                  crit, papply, telem(Bm))
 
     def _account_ops(self, st, k_total: int, nrhs: int) -> None:
         """Analytic census: matrix bytes are read once an iteration for

@@ -24,9 +24,8 @@ the statistics come out bitwise-equal to the JAX package's:
 They compute on the host by definition: no device array is involved.
 ``HostCGSolver`` records its convergence trace through
 :class:`~acg_tpu_torch.telemetry.EagerTraceRecorder` (``trace``) and
-prints the heartbeat line (``progress``).  The JAX package's recovery,
-health and checkpoint hooks come with the robustness modules; until
-then the port refuses them by name.
+prints the heartbeat line (``progress``), and carries the robustness
+tier's recovery, health and checkpoint hooks as the reference does.
 """
 
 from __future__ import annotations
@@ -42,13 +41,6 @@ from acg_tpu_torch.matrix import SymCsrMatrix
 from acg_tpu_torch.solvers.stats import (SolverStats, StoppingCriteria,
                                          cg_flops_per_iteration)
 from acg_tpu_torch.telemetry import EagerTraceRecorder, add_timing
-
-# the hooks of the JAX package's HostCGSolver the port does not have
-# yet, and the modules they come with
-_LATER_HOOKS = {"recovery": "robustness (solvers/resilience.py)",
-                "health": "robustness (health.py)",
-                "ckpt": "robustness (checkpoint.py)"}
-
 
 def as_csr(A: SymCsrMatrix | sp.spmatrix,
            epsilon: float = 0.0) -> sp.csr_matrix:
@@ -70,31 +62,69 @@ class HostCGSolver:
     ``last_trace``/``stats.trace`` (under ``precond`` the rnrm2 slot is
     the preconditioned norm sqrt((r, z)), as the device rings record
     it); ``progress`` (iterations; 0 = off) prints the heartbeat line
-    every that many iterations.  ``recovery``, ``health`` and ``ckpt``
-    keep the JAX package's signature and are refused when given."""
+    every that many iterations.
+
+    ``recovery`` (:class:`~acg_tpu_torch.solvers.resilience.
+    RecoveryPolicy`) arms breakdown detection -- non-finite residual or
+    non-positive (p, Ap) -- with eager in-place restart; detection also
+    arms while the fault injector (:mod:`acg_tpu_torch.faults`) is
+    active.  ``health`` (:class:`~acg_tpu_torch.health.HealthSpec`) is
+    the eager twin of the device audit, ABFT and stall detector;
+    ``ckpt`` (:class:`~acg_tpu_torch.checkpoint.CheckpointConfig`)
+    writes snapshots in-loop and answers breakdowns with the rollback
+    rung first.  The class is the reference's (``acg_tpu/solvers/
+    host_cg.py``), with the hooks' types and the counts checked."""
 
     def __init__(self, A: SymCsrMatrix | sp.spmatrix, epsilon: float = 0.0,
                  recovery=None, trace: int = 0, progress: int = 0,
                  precond=None, health=None, ckpt=None):
-        given = {"recovery": recovery is not None,
-                 "health": health is not None, "ckpt": ckpt is not None}
-        refused = [f"{k} (comes with the {_LATER_HOOKS[k]} modules)"
-                   for k, on in given.items() if on]
-        if refused:
-            raise ValueError("HostCGSolver: not yet ported: "
-                             + ", ".join(refused))
+        self.A = as_csr(A, epsilon)
+        self.n = self.A.shape[0]
+        # survivability tier (acg_tpu.checkpoint): the eager twin of
+        # the compiled chunk drivers -- snapshots written in-loop every
+        # ``ckpt.every`` iterations, breakdowns answered by the
+        # rollback rung first
+        if ckpt is not None:
+            from acg_tpu_torch.checkpoint import CheckpointConfig
+            if not isinstance(ckpt, CheckpointConfig):
+                raise ValueError("ckpt must be an acg_tpu_torch.checkpoint."
+                                 "CheckpointConfig or None")
+        self.ckpt = ckpt
+        self.nnz_full = self.A.nnz
+        from acg_tpu_torch.health import HealthSpec
+        from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+        if recovery is not None and not isinstance(recovery,
+                                                   RecoveryPolicy):
+            raise ValueError("recovery must be an acg_tpu_torch.solvers."
+                             "resilience.RecoveryPolicy or None")
+        if health is not None and not isinstance(health, HealthSpec):
+            raise ValueError("health must be an acg_tpu_torch.health."
+                             "HealthSpec or None")
+        self.recovery = recovery
+        # numerical-health tier (acg_tpu.health): the EAGER twin of the
+        # compiled tiers' in-loop audit -- f64 arithmetic, so this
+        # solver doubles as the ground-truth-gap oracle in the tests.
+        # `replace` applies residual replacement literally (r := b - Ax
+        # in place) instead of the compiled tiers' restart hand-off
+        if health is not None and not getattr(health, "armed", False):
+            health = None
+        self.health_spec = health
+        # preconditioning tier (acg_tpu.precond): the eager PCG twin of
+        # the compiled solvers' -- same three kinds, f64 numpy/scipy
+        # arithmetic (this solver doubles as the PCG oracle in tests)
+        from acg_tpu_torch.precond import parse_precond
+        self.precond_spec = parse_precond(precond)
+        self._mhost = None
+        # telemetry tier (acg_tpu.telemetry): the eager twin of the
+        # compiled solvers' device ring -- same (rnrm2, alpha, beta,
+        # pAp) tuple, same capacity/wrap semantics, recorded per
+        # iteration in plain Python
         self.trace = int(trace)
         self.progress = int(progress)
         if self.trace < 0 or self.progress < 0:
             raise ValueError("trace/progress must be >= 0 (iteration "
                              "counts; 0 disables)")
         self.last_trace = None
-        self.A = as_csr(A, epsilon)
-        self.n = self.A.shape[0]
-        self.nnz_full = self.A.nnz
-        from acg_tpu_torch.precond import parse_precond
-        self.precond_spec = parse_precond(precond)
-        self._mhost = None
         self.stats = SolverStats(unknowns=self.n)
 
     def _op(self, name, t, n_bytes, flops):
@@ -109,49 +139,120 @@ class HostCGSolver:
         st.criteria = crit
         A, n = self.A, self.n
         b = np.asarray(b, dtype=np.float64)
-        x = (np.array(x0, dtype=np.float64, copy=True) if x0 is not None
-             else np.zeros(n))
+        x = np.array(x0, dtype=np.float64, copy=True) if x0 is not None else np.zeros(n)
         dbl = 8
+        from acg_tpu_torch import faults
+        fault = faults.device_fault()
+        _spec_all = faults.active_fault()
+        if (_spec_all is not None and _spec_all.site == "crash"
+                and (self.ckpt is None or self.ckpt.path is None)):
+            from acg_tpu_torch.errors import AcgError, ErrorCode
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "crash:exit fires between snapshot commits; arm "
+                "--ckpt FILE --ckpt-every K (a crash with no snapshot "
+                "to resume from proves nothing)")
+        if fault is not None and (fault.site == "halo" or fault.part > 0):
+            from acg_tpu_torch.errors import AcgError, ErrorCode
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "the serial host solver has no halo and only part 0: "
+                "this fault spec could never fire")
+        if (fault is not None and fault.site == "precond"
+                and self.precond_spec is None):
+            from acg_tpu_torch.errors import AcgError, ErrorCode
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "precond fault injection needs an armed preconditioner "
+                "(--precond jacobi|bjacobi|cheby:K); this solve runs "
+                "unpreconditioned CG")
         M = None
         if self.precond_spec is not None:
-            from acg_tpu_torch.precond import (HostPrecond, bytes_per_apply,
-                                               flops_per_apply, state_bytes)
             if self._mhost is None:
+                from acg_tpu_torch.precond import HostPrecond
                 self._mhost = HostPrecond(self.precond_spec, A)
             M = self._mhost
+            from acg_tpu_torch.precond import (bytes_per_apply, flops_per_apply,
+                                         state_bytes)
             self._mflops = flops_per_apply(self.precond_spec, self.n,
                                            3.0 * self.nnz_full)
             # kind-aware per-apply traffic (cheby streams the CSR
-            # degree-many times), matching the device tiers' census
+            # degree-many times), matching the compiled tiers' census
             self._mbytes = bytes_per_apply(
                 self.precond_spec, self.n, 8,
                 self.nnz_full * (8 + 4) + 2 * self.n * 8,
                 state_bytes(M.state))
+        pol = self.recovery
+        # detection mirrors the device tiers' _detect: recovery, an
+        # active injector, or a health spec whose detectors trip (the
+        # replace/abort/stall actions route through the driver so the
+        # restart budget and the resilience counters stay honest)
+        detect = (pol is not None or fault is not None
+                  or (self.health_spec is not None
+                      and self.health_spec.arms_detect))
+        driver = None
+        if detect:
+            from acg_tpu_torch.solvers.resilience import RecoveryDriver
+            driver = RecoveryDriver(pol, st, "host-cg")
+        hspec = self.health_spec
+        audited = hspec is not None and hspec.every > 0
+        # audit bookkeeping mirroring the device tiers' carried vector
+        h_gap, h_gap_max, h_naud, h_stall = float("nan"), 0.0, 0, 0
+        # ABFT checksum bookkeeping (the eager Huang-Abraham twin):
+        # column checksum c = A^T 1 = A 1 (symmetric), compared against
+        # sum(A p) at the audit cadence with the device tiers' exact
+        # mismatch scale
+        abft_armed = hspec is not None and hspec.abft
+        ab_rel, ab_max, ab_n, ab_trips = float("nan"), 0.0, 0, 0
+        if abft_armed:
+            from acg_tpu_torch.health import abft_default_threshold
+            cvec = A @ np.ones(n)
+            ab_tau = (hspec.abft_threshold
+                      or abft_default_threshold(np.float64, n))
 
-        recorder = (EagerTraceRecorder(self.trace) if self.trace
-                    else None)
+        def aud_vec():
+            """The device tiers' fetched audit vector, rebuilt from the
+            eager counters (8 slots with ABFT armed, 4 without)."""
+            base = [h_gap, h_gap_max, h_naud, h_stall]
+            if abft_armed:
+                base += [ab_rel, ab_max, ab_n, ab_trips]
+            return base
+
+        rr_prev = float("inf")
+        recorder = None
+        if self.trace:
+            from acg_tpu_torch.telemetry import EagerTraceRecorder
+            recorder = EagerTraceRecorder(self.trace, audit=audited)
 
         def finish_trace():
             if recorder is not None:
                 st.trace = self.last_trace = recorder.finish()
+            return st.trace
 
         tstart = time.perf_counter()
+        # st.timings["ckpt"] accumulates across solves on a shared
+        # stats object; bill only THIS solve's snapshot seconds below
+        ck_base = st.timings.get("ckpt", 0.0)
         st.bnrm2 = float(np.linalg.norm(b))
         st.x0nrm2 = float(np.linalg.norm(x))
 
         t0 = time.perf_counter()
         r = b - A @ x
         self._op("gemv", time.perf_counter() - t0,
-                 self.nnz_full * (dbl + 4) + 2 * n * dbl,
-                 3.0 * self.nnz_full)
+                 self.nnz_full * (dbl + 4) + 2 * n * dbl, 3.0 * self.nnz_full)
 
         napply = [0]
 
-        def papply(r):
-            """One timed preconditioner apply; cheby bills its
-            degree-many SpMVs per apply, as the device tiers count."""
+        def papply(r, k=None):
+            """One timed preconditioner apply (eager: seconds are real,
+            unlike the compiled tiers' replayed estimates).  The op row
+            counts per the compiled tiers' convention: cheby bills its
+            degree-many SpMVs per apply, so host and device censuses
+            agree."""
             t0 = time.perf_counter()
             z = M.apply(r)
+            if fault is not None and k is not None:
+                z = fault.apply_precond_np(z, k)
             napply[0] += 1
             per = (self.precond_spec.degree
                    if self.precond_spec.kind == "cheby" else 1)
@@ -183,16 +284,213 @@ class HostCGSolver:
         converged = (not crit.unbounded) and self._test(crit, st, res_tol)
         k = 0
 
+        # -- survivability tier: resume reconstruction + snapshot state
+        ck = self.ckpt
+        pc_kind = (str(self.precond_spec)
+                   if self.precond_spec is not None else None)
+        resumed_from = None
+        nsnaps = 0
+        last_snap = None
+        if ck is not None and ck.resume is not None:
+            from acg_tpu_torch import checkpoint as ckpt_mod
+            from acg_tpu_torch import metrics as _m
+            from acg_tpu_torch.telemetry import record_event
+            snap = ck.resume
+            ckpt_mod.validate_resume(
+                snap, tier="host-cg", pipelined=False, precond=pc_kind,
+                n=n, dtype=np.float64,
+                b_crc=ckpt_mod.vector_checksum(b),
+                repartition=ck.repartition)
+            ckpt_mod.check_resume_env(snap, st)
+            if ck.repartition:
+                # shape-portable resume: a stacked N-part snapshot
+                # reassembles into the global row vectors this eager
+                # oracle natively carries
+                snap, _rep = ckpt_mod.apply_repartition(
+                    snap, tier="host-cg", nparts=1, stats=st,
+                    precond_spec=self.precond_spec)
+            x = np.array(snap.arrays["x"], dtype=np.float64)
+            r = np.array(snap.arrays["r"], dtype=np.float64)
+            p = np.array(snap.arrays["p"], dtype=np.float64)
+            gamma = float(snap.arrays["gamma"])
+            rr = (float(snap.arrays["rr"]) if "rr" in snap.arrays
+                  else gamma)
+            k = resumed_from = snap.iteration
+            sm = snap.meta
+            # the FIRST attempt's absolute target and norms (never
+            # re-baseline rtol against an already-small residual)
+            res_tol = float(sm["abs_tol"])
+            st.bnrm2 = float(sm["bnrm2"])
+            st.x0nrm2 = float(sm["x0nrm2"])
+            st.r0nrm2 = float(sm["r0nrm2"])
+            st.rnrm2 = float(np.sqrt(rr))
+            last_snap = (k, dict(snap.arrays))
+            converged = ((not crit.unbounded)
+                         and self._test(crit, st, res_tol))
+            _m.record_resume()
+            record_event(st, "resume",
+                         f"resumed from snapshot at iteration {k}")
+
+        # wall-clock cadence (ckpt_secs): time of the last commit
+        last_commit = [time.perf_counter()]
+
+        def _commit_snapshot():
+            """One snapshot at the current iteration boundary (atomic
+            rename, checkpoint.save_snapshot); billed to the 'ckpt'
+            phase so solve latency stays clean."""
+            nonlocal nsnaps, last_snap
+            from acg_tpu_torch import checkpoint as ckpt_mod
+            from acg_tpu_torch import metrics as _m
+            from acg_tpu_torch.telemetry import add_timing
+            t_ck = time.perf_counter()
+            last_commit[0] = t_ck
+            arrs = {"x": x.copy(), "r": r.copy(), "p": p.copy(),
+                    "gamma": np.float64(gamma)}
+            if M is not None:
+                arrs["rr"] = np.float64(rr)
+            meta = {
+                "tier": "host-cg", "pipelined": False,
+                "precond": pc_kind, "n": int(n), "dtype": "float64",
+                "iteration": int(k), "seq": nsnaps + 1,
+                "abs_tol": float(res_tol),
+                "bnrm2": st.bnrm2, "x0nrm2": st.x0nrm2,
+                "r0nrm2": st.r0nrm2,
+                "b_crc": ckpt_mod.vector_checksum(b),
+                "fault": (str(faults.active_fault())
+                          if faults.active_fault() is not None else None),
+                "trace_tail": ckpt_mod.trace_tail(None),
+            }
+            nbytes = ckpt_mod.save_snapshot(ck.path, meta, arrs)
+            dt = time.perf_counter() - t_ck
+            add_timing(st, "ckpt", dt)
+            _m.record_snapshot(nbytes, dt)
+            prev = last_snap[0] if last_snap is not None else (
+                resumed_from or 0)
+            nsnaps += 1
+            last_snap = (int(k), arrs)
+            # crash:exit models preemption between iterations, after
+            # the snapshot committed (crossing semantics: a resumed
+            # solve starting at-or-past K does not re-kill itself)
+            faults.maybe_crash(prev, k)
+
+        def _breakdown(why: str):
+            """Detected-breakdown recovery (eager twin of the compiled
+            chunk drivers, same RecoveryDriver bookkeeping): FIRST roll
+            the Krylov state back to the last snapshot when one exists;
+            else recompute the true residual from the last finite
+            iterate and rebuild the Krylov space; raise once the
+            policy's restarts are exhausted."""
+            nonlocal x, r, p, gamma, rr, M, k, fault
+            driver.log_trace_window(finish_trace())
+            driver.note_breakdown(k)
+            # a deterministically-injected fault that already fired
+            # must not re-fire after the rollback rewinds k
+            if (fault is not None and fault.device_site
+                    and fault.iteration < k):
+                fault = None
+            if (last_snap is not None
+                    and driver.on_rollback(k, last_snap[0])):
+                ks, arrs = last_snap
+                x = np.array(arrs["x"])
+                r = np.array(arrs["r"])
+                p = np.array(arrs["p"])
+                gamma = float(arrs["gamma"])
+                rr = float(arrs.get("rr", gamma))
+                k = ks
+                st.rnrm2 = float(np.sqrt(rr))
+                return
+            if not driver.on_breakdown(k, noted=True):
+                st.tsolve += time.perf_counter() - tstart
+                st.converged = False
+                st.fexcept_arrays = [x, r]
+                if hspec is not None:
+                    # the audits that ran must reach the health
+                    # surfaces on exactly the failing solves
+                    from acg_tpu_torch.health import note_audit
+                    note_audit(st, aud_vec(), hspec, "host-cg")
+                raise driver.give_up(
+                    k, st.rnrm2,
+                    snapshot=(ck.path if ck is not None and nsnaps
+                              else None))
+            if not np.isfinite(x).all():
+                x = (np.array(x0, dtype=np.float64, copy=True)
+                     if x0 is not None else np.zeros(n))
+                driver.record("iterate non-finite; restarting from the "
+                              "initial guess")
+            r = b - A @ x
+            if M is not None:
+                # preserve-or-rebuild (the compiled tiers' contract):
+                # immutable finite state survives; a poisoned one is
+                # refactored from the matrix
+                if not all(np.isfinite(np.asarray(leaf)).all()
+                           for leaf in M.state):
+                    from acg_tpu_torch.precond import HostPrecond
+                    self._mhost = M = HostPrecond(self.precond_spec, A)
+                    driver.record(f"preconditioner "
+                                  f"({self.precond_spec}) state "
+                                  f"non-finite; rebuilt from the matrix")
+                else:
+                    driver.record(f"preconditioner "
+                                  f"({self.precond_spec}) state "
+                                  f"preserved across restart")
+                z = M.apply(r)
+                p = z.copy()
+                gamma = float(r @ z)
+                rr = float(r @ r)
+            else:
+                p = r.copy()
+                gamma = rr = float(r @ r)
+            st.rnrm2 = float(np.sqrt(rr))
+
         while not converged and k < crit.maxits:
             t0 = time.perf_counter()
             t = A @ p
+            if fault is not None:
+                t = fault.apply_spmv_np(t, k)
             self._op("gemv", time.perf_counter() - t0,
-                     self.nnz_full * (dbl + 4) + 2 * n * dbl,
-                     3.0 * self.nnz_full)
+                     self.nnz_full * (dbl + 4) + 2 * n * dbl, 3.0 * self.nnz_full)
+
+            if abft_armed and (k + 1) % hspec.every == 0:
+                # the eager Huang-Abraham check of THIS iteration's
+                # t = A p: sum(t) vs (c, p), the device tiers' exact
+                # mismatch scale -- a sign-flipped element (sdc:flip)
+                # is finite, so only this test can see it
+                ssum, cp, tt = float(t.sum()), float(cvec @ p), float(t @ t)
+                denom = (np.sqrt(max(tt, 0.0) * n) + abs(ssum) + abs(cp)
+                         + np.finfo(np.float64).tiny)
+                rel = abs(ssum - cp) / denom
+                ab_rel, ab_n = rel, ab_n + 1
+                ab_max = max(ab_max, rel)
+                if rel > ab_tau:
+                    ab_trips += 1
+                    k += 1
+                    st.niterations = k
+                    st.ntotaliterations += 1
+                    _breakdown("ABFT checksum mismatch")
+                    converged = self._test(crit, st, res_tol)
+                    continue
 
             t0 = time.perf_counter()
             pdott = float(p @ t)
+            if fault is not None:
+                pdott = fault.apply_dot_np(pdott, k)
             self._op("dot", time.perf_counter() - t0, 2 * n * dbl, 2.0 * n)
+            if detect and (not np.isfinite(pdott)
+                           or (pdott <= 0.0 and gamma > 0.0)):
+                k += 1
+                st.niterations = k
+                st.ntotaliterations += 1
+                if recorder is not None:
+                    # the poisoned scalar stays visible in the window
+                    # the recovery log quotes; no update ran -> no
+                    # alpha/beta for this iteration (preconditioned
+                    # norm under precond, the compiled rings' slot)
+                    gq = gamma if M is not None else st.rnrm2 ** 2
+                    recorder.record(np.sqrt(gq) if gq >= 0 else gq,
+                                    np.nan, np.nan, pdott)
+                _breakdown("non-finite or non-positive p^T A p")
+                converged = self._test(crit, st, res_tol)
+                continue
             if pdott == 0.0:
                 if gamma == 0.0:
                     # r = p = 0: exactly converged (reachable in
@@ -204,7 +502,6 @@ class HostCGSolver:
                 st.tsolve += time.perf_counter() - tstart
                 st.converged = False
                 st.fexcept_arrays = [x, r]
-                # the partial window leading into the breakdown
                 finish_trace()
                 raise IndefiniteMatrixError(
                     f"(p, Ap) = 0 at iteration {k}")
@@ -217,7 +514,7 @@ class HostCGSolver:
             self._op("axpy", 0.0, 3 * n * dbl, 2.0 * n)
 
             if M is not None:
-                z = papply(r)
+                z = papply(r, k)
                 t0 = time.perf_counter()
                 gamma_next = float(r @ z)
                 rr = float(r @ r)
@@ -229,6 +526,103 @@ class HostCGSolver:
                 gamma_next = rr = float(r @ r)
                 self._op("nrm2", time.perf_counter() - t0, n * dbl,
                          2.0 * n)
+            if detect and (not np.isfinite(gamma_next)
+                           or not np.isfinite(rr)
+                           # a negative (r, z): the non-SPD-M signal
+                           or (M is not None and gamma_next < 0)
+                           # sign anomaly under the health tier: a
+                           # negative computed (r, r) is arithmetic
+                           # poison (device-tier rationale)
+                           or (hspec is not None and gamma_next < 0)):
+                k += 1
+                st.niterations = k
+                st.ntotaliterations += 1
+                if recorder is not None:
+                    # the compiled rings record the PRECONDITIONED
+                    # residual norm under precond (the raw poisoned
+                    # gamma stays visible); mirror them exactly
+                    gq = gamma_next if M is not None else rr
+                    recorder.record(np.sqrt(gq) if gq >= 0 else gq,
+                                    alpha, np.nan, pdott)
+                _breakdown("non-finite residual"
+                           if not np.isfinite(rr)
+                           else "non-SPD preconditioner signal")
+                converged = self._test(crit, st, res_tol)
+                continue
+            gap = float("nan")
+            if audited and (k + 1) % hspec.every == 0:
+                # the eager twin of the device audit: true residual in
+                # f64 through the same CSR, gap relative to ||b||
+                rt = b - A @ x
+                gap = (float(np.linalg.norm(rt - r))
+                       / max(st.bnrm2, 1e-300))
+                h_gap, h_naud = gap, h_naud + 1
+                h_gap_max = max(h_gap_max, gap)
+                if hspec.threshold and gap > hspec.threshold:
+                    if hspec.action == "abort":
+                        st.tsolve += time.perf_counter() - tstart
+                        st.converged = False
+                        st.fexcept_arrays = [x, r]
+                        finish_trace()
+                        from acg_tpu_torch.errors import BreakdownError
+                        from acg_tpu_torch.health import note_audit
+                        note_audit(st, aud_vec(), hspec, "host-cg")
+                        raise BreakdownError(
+                            f"host-cg: true-residual gap {gap:.3e} "
+                            f"exceeds threshold {hspec.threshold:g} at "
+                            f"iteration {k} (--on-gap abort)")
+                    if hspec.action == "replace":
+                        # residual replacement, applied literally (Van
+                        # der Vorst & Ye): the recurrence residual is
+                        # swapped for the true one -- but BOUNDED by
+                        # the same restart budget the compiled tiers
+                        # consume, and counted on the same resilience
+                        # counters (driver.on_breakdown), so the
+                        # cross-tier stats stay comparable and a
+                        # hair-trigger threshold cannot loop forever
+                        if not driver.on_breakdown(k):
+                            st.tsolve += time.perf_counter() - tstart
+                            st.converged = False
+                            st.fexcept_arrays = [x, r]
+                            finish_trace()
+                            from acg_tpu_torch.errors import BreakdownError
+                            from acg_tpu_torch.health import note_audit
+                            note_audit(st, aud_vec(), hspec, "host-cg")
+                            raise BreakdownError(
+                                f"host-cg: true-residual gap {gap:.3e} "
+                                f"exceeds threshold "
+                                f"{hspec.threshold:g} at iteration "
+                                f"{k} (--on-gap replace); "
+                                f"{st.nrestarts} restart(s) exhausted "
+                                f"and no fallback available")
+                        st.recovery_log.append(
+                            f"residual replacement at iteration {k}: "
+                            f"gap {gap:.3e} > {hspec.threshold:g}")
+                        r = rt
+                        if M is not None:
+                            z = papply(r)
+                            gamma_next = float(r @ z)
+                        else:
+                            gamma_next = float(r @ r)
+                        rr = float(r @ r)
+            if hspec is not None and hspec.stall_window:
+                h_stall = 0 if rr < rr_prev else h_stall + 1
+                if h_stall >= hspec.stall_window:
+                    # the stagnation detector feeds the breakdown path
+                    # (an armed stall window always arms the driver --
+                    # see the detect computation above), so restarts,
+                    # counters, and the give-up raise match the
+                    # compiled tiers'
+                    k += 1
+                    st.niterations = k
+                    st.ntotaliterations += 1
+                    st.rnrm2 = float(np.sqrt(rr)) if rr >= 0 else rr
+                    h_stall = 0
+                    _breakdown(f"stagnation: {hspec.stall_window} "
+                               f"non-decreasing iterations")
+                    converged = self._test(crit, st, res_tol)
+                    continue
+            rr_prev = rr
             beta = gamma_next / gamma
             gamma = gamma_next
             if crit.needs_diff:
@@ -244,36 +638,75 @@ class HostCGSolver:
             st.ntotaliterations += 1
             st.rnrm2 = float(np.sqrt(rr))
             if recorder is not None:
-                # under precond the rings record the preconditioned
-                # norm sqrt((r, z)) in the rnrm2 slot
+                # the eager-twin contract: under precond the compiled
+                # rings record the PRECONDITIONED norm sqrt((r, z)) in
+                # the rnrm2 slot -- record the same quantity here (and
+                # this iteration's audit gap in the gap column)
                 gq = gamma if M is not None else rr
                 recorder.record(float(np.sqrt(gq)) if gq >= 0 else gq,
-                                alpha, beta, pdott)
+                                alpha, beta, pdott, gap=gap)
             if self.progress and k % self.progress == 0:
                 import sys
 
+                # the observatory's shared heartbeat line: the oracle
+                # path prints the same iterations/sec + ETA shape the
+                # compiled loops' callback does, and feeds the status
+                # endpoint the same samples
+                from acg_tpu_torch import observatory
                 sys.stderr.write(observatory.heartbeat_line(
                     "host-cg", k, st.rnrm2) + "\n")
             if not crit.unbounded:
                 converged = self._test(crit, st, res_tol)
+            if (ck is not None and ck.path is not None and not converged
+                    and k < crit.maxits):
+                due = (k % ck.every == 0 if ck.every > 0
+                       else time.perf_counter() - last_commit[0]
+                       >= ck.secs)
+                if due:
+                    _commit_snapshot()
 
         t_solve = time.perf_counter() - tstart
+        # snapshot serialisation is billed to its own phase, never the
+        # solve (the compiled chunk drivers' convention)
+        t_solve -= st.timings.get("ckpt", 0.0) - ck_base
         st.tsolve += t_solve
+        from acg_tpu_torch.telemetry import add_timing
         add_timing(st, "solve", t_solve)
         st.converged = converged or crit.unbounded
+        if ck is not None:
+            # niterations reports iterations THIS process executed (the
+            # compiled chunk drivers' convention); the trajectory
+            # iteration lives in the ckpt section
+            if resumed_from is not None:
+                st.niterations = max(k - resumed_from, 0)
+            st.ckpt = {
+                "path": ck.path,
+                "every": int(ck.every),
+                "snapshots": nsnaps,
+                "iteration": int(k),
+                "rollbacks": driver.rollbacks if driver is not None else 0,
+            }
+            if ck.secs > 0:
+                st.ckpt["secs"] = float(ck.secs)
+            if resumed_from is not None:
+                st.ckpt["resumed_from"] = resumed_from
+        if hspec is not None:
+            from acg_tpu_torch.health import note_audit
+            note_audit(st, aud_vec(), hspec, "host-cg")
+        from acg_tpu_torch import metrics
         metrics.record_solve(t_solve, st.niterations, st.converged,
                              solver="host-cg")
         if M is not None:
+            per = (self.precond_spec.degree
+                   if self.precond_spec.kind == "cheby" else 1)
             st.precond.update({"kind": str(self.precond_spec),
                                "applies": napply[0],
                                "flops_per_apply": self._mflops})
             if self.precond_spec.kind == "cheby":
                 st.precond["lambda_min"] = float(M.state[0])
                 st.precond["lambda_max"] = float(M.state[1])
-            metrics.record_precond(
-                self.precond_spec.kind,
-                napply[0] * (self.precond_spec.degree
-                             if self.precond_spec.kind == "cheby" else 1))
+            metrics.record_precond(self.precond_spec.kind,
+                                   napply[0] * per)
         st.fexcept_arrays = [x, r]
         finish_trace()
         if not st.converged and raise_on_divergence:
@@ -287,8 +720,7 @@ class HostCGSolver:
             return True
         if crit.diff_atol > 0 and st.dxnrm2 < crit.diff_atol:
             return True
-        if (crit.diff_rtol > 0
-                and st.dxnrm2 < crit.diff_rtol * max(st.x0nrm2, 1e-300)):
+        if crit.diff_rtol > 0 and st.dxnrm2 < crit.diff_rtol * max(st.x0nrm2, 1e-300):
             return True
         return False
 

@@ -6,14 +6,15 @@ per-op-class breakdowns (``cg.h:88-98``, ``cgcuda.h:107-116``), reported
 in the fixed text block of ``acgsolvercuda_fwrite``
 (``cgcuda.c:1927-1975``), plus the ``timings:`` section of pipeline
 phases, the ``precond:`` section of preconditioned solves, the
-``batch:`` section of batched multi-RHS solves and the ``resilience:``
-line of solves that restarted, and the observability tier's ``tracing:``
-(profiler-capture analysis, timeline summary) and ``slo:`` sections.
-Line-compatible with the JAX package's block, so scripts that grep
-``total solver time`` work on both.  :meth:`SolverStats.to_dict` is the
-``--stats-json`` twin with the reference's keys in its order: the
-sections of tiers the port does not have (``costmodel``, ``memory``,
-``soak``, ``health``, ``ckpt``, ``plan``) are there, empty.
+``batch:`` section of batched multi-RHS solves, the ``resilience:``
+line of solves that broke down, the robustness tier's ``soak:``,
+``health:`` and ``ckpt:`` sections, and the observability tier's
+``tracing:`` (profiler-capture analysis, timeline summary) and ``slo:``
+sections.  Line-compatible with the JAX package's block, so scripts
+that grep ``total solver time`` work on both.  :meth:`SolverStats.
+to_dict` is the ``--stats-json`` twin with the reference's keys in its
+order: the sections of tiers the port does not have (``costmodel``,
+``memory``, ``plan``) are there, empty.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ _OPTIONAL_OPS = ("precond",)
 
 # canonical pipeline-phase order for the ``timings:`` section
 PHASE_ORDER = ("ingest", "partition", "transfer", "compile", "solve",
-               "writeback")
+               "ckpt", "writeback")
 
 
 @dataclasses.dataclass
@@ -233,21 +234,39 @@ class SolverStats:
         p(f"  difference in solution iterates 2-norm: {self.dxnrm2:.15g}")
         p(f"  floating-point exceptions: {fexcept_str(*self.fexcept_arrays)}")
         # the resilience lines appear only when something happened, so a
-        # clean solve's block keeps the reference's lines; the port has
-        # no fallback rung, so its count is the reference's 0
-        if self.nbreakdowns or self.nrestarts:
+        # clean solve's block keeps the reference's lines; the rollback
+        # count appends only when rollbacks happened
+        if (self.nbreakdowns or self.nrestarts or self.nfallbacks
+                or self.nrollbacks):
+            rb = (f", {self.nrollbacks} rollbacks" if self.nrollbacks
+                  else "")
             p(f"  resilience: {self.nbreakdowns} breakdowns detected, "
-              f"{self.nrestarts} restarts, 0 fallbacks")
+              f"{self.nrestarts} restarts, {self.nfallbacks} fallbacks"
+              + rb)
             for ev in self.recovery_log:
                 p(f"    {ev}")
         if self.timings:
             p("timings:")
+            seen = []
             for name in PHASE_ORDER:
                 if name in self.timings:
+                    seen.append(name)
                     p(f"  {name}: {self.timings[name]:,.6f} seconds")
+            for name, secs in self.timings.items():
+                if name not in seen:
+                    p(f"  {name}: {secs:,.6f} seconds")
+        if self.soak:
+            p("soak:")
+            _write_section(p, self.soak, 1)
         if self.precond:
             p("precond:")
             _write_section(p, self.precond, 1)
+        if self.health:
+            p("health:")
+            _write_section(p, self.health, 1)
+        if self.ckpt:
+            p("ckpt:")
+            _write_section(p, self.ckpt, 1)
         if self.tracing:
             p("tracing:")
             _write_section(p, self.tracing, 1)

@@ -53,8 +53,8 @@ CONVERGENCE_SCHEMA = "acg-tpu-convergence/1"
 # default ring capacity (--telemetry-window)
 DEFAULT_WINDOW = 512
 TRACE_FIELDS = ("rnrm2", "alpha", "beta", "pAp")
-# the reference's optional 5th ring column (its numerical-health tier's
-# true-residual audit); the port has no audit, but reads rings that do
+# the optional 5th ring column: the numerical-health tier's
+# true-residual audit gap (NaN on unaudited iterations)
 AUDIT_FIELD = "gap"
 # a rank whose solve time exceeds this multiple of the median gets the
 # straggler callout in the cross-rank report
@@ -63,22 +63,30 @@ STRAGGLER_RATIO = 1.2
 
 # -- device-side ring buffer and heartbeat --------------------------------
 
-def ring_init(capacity: int, dtype, device) -> torch.Tensor:
+def ring_init(capacity: int, dtype, device,
+              audit: bool = False) -> torch.Tensor:
     """The ring: ``(capacity, 4)`` slots of ``(rnrm2sqr, alpha, beta,
-    pAp)``, NaN-initialised so unwritten slots are detectable host-side."""
-    return torch.full((max(int(capacity), 1), len(TRACE_FIELDS)),
+    pAp)`` (``(capacity, 5)`` with the health tier's ``gap`` column when
+    ``audit``), NaN-initialised so unwritten slots are detectable
+    host-side."""
+    width = len(TRACE_FIELDS) + (1 if audit else 0)
+    return torch.full((max(int(capacity), 1), width),
                       math.nan, dtype=dtype, device=device)
 
 
 def ring_record(buf: torch.Tensor, k, rnrm2sqr, alpha, beta, pAp,
-                live=None) -> None:
+                live=None, gap=None) -> None:
     """Write iteration ``k``'s scalars into slot ``k % capacity``, in
     place.  ``k`` is the device iteration count (a one-element tensor)
     or, for a loop with no ``live`` flag, the host step count; ``live``
     (a one-element bool) masks the write, so a frozen step past
-    convergence writes the slot's old row back."""
-    row = torch.stack([torch.as_tensor(v).reshape(()).to(buf.dtype)
-                       for v in (rnrm2sqr, alpha, beta, pAp)])
+    convergence writes the slot's old row back.  ``gap`` fills an
+    audited ring's fifth column."""
+    vals = (rnrm2sqr, alpha, beta, pAp)
+    if buf.shape[1] > len(TRACE_FIELDS):
+        vals = vals + (math.nan if gap is None else gap,)
+    row = torch.stack([torch.as_tensor(v, device=buf.device).reshape(())
+                       .to(buf.dtype) for v in vals])
     if live is None:
         buf[int(k) % buf.shape[0]] = row
         return
@@ -101,22 +109,26 @@ class LoopTelemetry:
     no heartbeat, so a run prints each line once."""
 
     def __init__(self, trace: int, progress: int, dtype, device,
-                 what: str = "cg", leader: bool = True):
-        self.buf = ring_init(trace, dtype, device) if trace else None
+                 what: str = "cg", leader: bool = True,
+                 audit: bool = False):
+        self.buf = (ring_init(trace, dtype, device, audit) if trace
+                    else None)
         self.progress = int(progress) if leader else 0
         self.what = what
         self._steps = 0
         self._beats: list = []
 
-    def step(self, k, live, rnrm2sqr, alpha, beta, pAp) -> None:
+    def step(self, k, live, rnrm2sqr, alpha, beta, pAp,
+             gap=None) -> None:
         """One loop step: ``k`` the device iteration count before the
         step (ignored when ``live`` is None: an unbounded loop's steps
-        are all live), the step's scalars as the ring records them."""
+        are all live), the step's scalars as the ring records them
+        (``gap``: the audit column of an audited ring)."""
         i = self._steps
         self._steps += 1
         if self.buf is not None:
             ring_record(self.buf, i if live is None else k, rnrm2sqr,
-                        alpha, beta, pAp, live=live)
+                        alpha, beta, pAp, live=live, gap=gap)
         if self.progress and (i + 1) % self.progress == 0:
             g = torch.as_tensor(rnrm2sqr).reshape(())
             if live is None:
@@ -126,6 +138,19 @@ class LoopTelemetry:
                 row = torch.stack([(k + 1).to(g.dtype), g])
                 self._beats.append(torch.where(
                     live, row, torch.full_like(row, math.nan)))
+
+    def beat(self, k_next, rnrm2sqr, mask) -> None:
+        """A heartbeat row of a loop whose device count is not its host
+        step count (the communication-avoiding recurrences): ``(k_next,
+        ||r||^2)`` where the one-element bool ``mask`` holds -- the loop
+        computes it from its device count -- NaN otherwise."""
+        if not self.progress:
+            return
+        g = torch.as_tensor(rnrm2sqr).reshape(())
+        row = torch.stack([torch.as_tensor(k_next).reshape(()).to(g.dtype),
+                           g])
+        self._beats.append(torch.where(mask, row,
+                                       torch.full_like(row, math.nan)))
 
     def flush(self) -> None:
         """Print the heartbeat lines recorded since the last flush (one
@@ -143,6 +168,62 @@ class LoopTelemetry:
 
     def ring(self) -> np.ndarray | None:
         """The ring on the host (the one fetch of a traced solve)."""
+        if self.buf is None:
+            return None
+        return self.buf.to(torch.float64).cpu().numpy()
+
+
+class BatchedLoopTelemetry:
+    """The in-loop telemetry of a batched run (``acg_tpu/solvers/
+    batched.py:252-253``, ``acg_tpu/parallel/dist_batched.py:610``): a
+    ``(capacity, nrhs)`` device ring of each loop iteration's per-RHS
+    ``||r_j||^2``, written in the slot of the loop's device iteration
+    count and masked by its any-column-live flag, so the frozen steps
+    past the last column's convergence leave it as it was; and a
+    heartbeat of the worst column at the iterations on the period,
+    printed where the loop reads its flag.  The reference refuses
+    ``--progress`` on this tier; the port prints the worst column."""
+
+    def __init__(self, trace: int, progress: int, nrhs: int, dtype,
+                 device, what: str = "cg-batched", leader: bool = True):
+        self.buf = (torch.full((max(int(trace), 1), max(int(nrhs), 1)),
+                               math.nan, dtype=dtype, device=device)
+                    if trace else None)
+        self.progress = int(progress) if leader else 0
+        self.what = what
+        self._steps = 0
+        self._beats: list = []
+
+    def step(self, k, live, rnrm2sqr_cols) -> None:
+        """One loop step: ``k`` the device iteration count before the
+        step (the host step count when ``live`` is None), the columns'
+        ``||r||^2`` after it."""
+        i = self._steps
+        self._steps += 1
+        cols = rnrm2sqr_cols.reshape(-1)
+        if self.buf is not None:
+            cols_b = cols.to(self.buf.dtype).reshape(1, -1)
+            if live is None:
+                self.buf[i % self.buf.shape[0]] = cols_b[0]
+            else:
+                slot = torch.remainder(k, self.buf.shape[0]).reshape(1)
+                old = self.buf.index_select(0, slot)
+                self.buf.index_copy_(0, slot, torch.where(live, cols_b,
+                                                          old))
+        if self.progress:
+            kk = (torch.full((), i, device=cols.device) if live is None
+                  else k)
+            worst = torch.max(cols)
+            row = torch.stack([(kk + 1).to(worst.dtype), worst])
+            on = (kk + 1) % self.progress == 0
+            if live is not None:
+                on = on & live
+            self._beats.append(torch.where(on, row,
+                                           torch.full_like(row, math.nan)))
+
+    flush = LoopTelemetry.flush
+
+    def ring(self) -> np.ndarray | None:
         if self.buf is None:
             return None
         return self.buf.to(torch.float64).cpu().numpy()

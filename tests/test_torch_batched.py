@@ -238,6 +238,13 @@ def test_solver_refusals(sys16):
         BatchedCGSolver(At, mode="block", precise_dots=True, device="cpu")
     for kw, what in ((dict(trace=4), "telemetry.py"),
                      (dict(ckpt=object()), "checkpoint.py")):
+        if "trace" in kw:
+            # the per-RHS ring is ported: it arms, and a negative size
+            # still refuses
+            assert BatchedCGSolver(At, device="cpu", **kw).trace == 4
+            with pytest.raises(ValueError, match="trace/progress"):
+                BatchedCGSolver(At, device="cpu", trace=-1)
+            continue
         with pytest.raises(ValueError, match=what):
             BatchedCGSolver(At, device="cpu", **kw)
     from acg_tpu_torch.errors import AcgError
@@ -375,3 +382,63 @@ def test_cli_nrhs_reads_column_files(tmp_path, capsys):
     assert torch_main(argv[:3] + ["--nrhs", "2", "--device", "cpu",
                                   "-q"]) == 1
     assert "needs a 144 x 2 array file" in capsys.readouterr().err
+
+
+# -- the per-RHS ring and the heartbeat -----------------------------------
+
+@pytest.mark.parametrize("mode", ["batched", "pipelined", "block"])
+@pytest.mark.parametrize("window", [512, 16])
+def test_batched_ring_matches_jax(sys16, mode, window):
+    """The per-RHS residual ring (BatchedConvergenceTrace) records each
+    loop iteration's column norms, as the reference's does (wrapped
+    windows included): the frozen steps past the last column's
+    convergence leave it alone."""
+    csr, At, B = sys16
+    sj = JaxBatched(jax_dm(csr, dtype=jnp.float64), mode=mode,
+                    trace=window)
+    sj.solve(B, criteria=JCrit(**KW))
+    st = BatchedCGSolver(At, mode=mode, trace=window, device="cpu")
+    st.solve(B, criteria=CRIT)
+    tj, tt = sj.last_trace, st.last_trace
+    assert st.stats.trace is tt
+    assert (tt.capacity, tt.niterations, tt.nrhs, tt.wrapped,
+            tt.solver) == (tj.capacity, tj.niterations, tj.nrhs,
+                           tj.wrapped, tj.solver)
+    assert np.array_equal(tt.iterations, tj.iterations)
+    rj = np.asarray(tj.records)
+    # the column norms to rounding: 1e-9 of the window's largest
+    np.testing.assert_allclose(tt.records, rj, rtol=1e-6,
+                               atol=1e-9 * np.abs(rj).max())
+    assert tt.to_dict().keys() == tj.to_dict().keys()
+
+
+def test_batched_unbounded_ring_and_heartbeat(sys16, capsys):
+    _, At, B = sys16
+    s = BatchedCGSolver(At, trace=8, progress=5, device="cpu")
+    s.solve(B, criteria=StoppingCriteria(maxits=12))
+    assert s.last_trace.niterations == 12
+    assert list(s.last_trace.iterations) == list(range(4, 12))
+    err = capsys.readouterr().err
+    its = [ln.split(": iteration ")[1].split(":")[0]
+           for ln in err.splitlines() if ": iteration " in ln]
+    assert its == ["5", "10"]
+
+
+def test_cli_convergence_log_with_nrhs_matches_jax(tmp_path, capsys):
+    from acg_tpu.cli import main as jax_main
+    from acg_tpu_torch.cli import main
+    from acg_tpu_torch.telemetry import read_convergence_log
+    argv = ["gen:poisson2d:12", "--nparts", "1", "--nrhs", "3",
+            "--max-iterations", "300", "--residual-rtol", "1e-10", "-q"]
+    pt, pj = tmp_path / "t.jsonl", tmp_path / "j.jsonl"
+    assert main(argv + ["--device", "cpu", "--convergence-log",
+                        str(pt), "--progress", "10"]) == 0
+    err = capsys.readouterr().err
+    assert ": iteration 10:" in err
+    assert jax_main(argv + ["--convergence-log", str(pj)]) == 0
+    mt, rt = read_convergence_log(pt)
+    mj, rj = read_convergence_log(pj)
+    assert mt["nrhs"] == mj["nrhs"] == 3
+    assert [r["it"] for r in rt] == [r["it"] for r in rj]
+    np.testing.assert_allclose([r["worst"] for r in rt],
+                               [r["worst"] for r in rj], rtol=1e-9)

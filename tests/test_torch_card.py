@@ -74,6 +74,28 @@ def test_kernels_match_plain_on_card(dev):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_k5_flagged_form_matches_plain(dev):
+    """K5 with the breakdown flag of a detecting loop: clear, the plain
+    update; set (with a NaN alpha too), x/r/w kept and p/t/z updated,
+    bitwise the plain version's in f64, f32 and bf16."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 100_003
+    for vdt in (torch.float64, torch.float32, torch.bfloat16):
+        vs = [torch.randn(n, generator=g, dtype=torch.float64,
+                          device=dev).to(vdt) for _ in range(7)]
+        sdt = K.acc_dtype(vdt)
+        be = torch.tensor(0.81, dtype=sdt, device=dev)
+        for bad, a in ((False, 0.37), (True, 0.37), (True, float("nan"))):
+            al = torch.tensor(a, dtype=sdt, device=dev)
+            flag = torch.tensor(bad, device=dev)
+            want = K.pipelined_update_plain(*vs, al, be, flag)
+            got = K.pipelined_update(*[v.clone() for v in vs[:6]], vs[6],
+                                     al, be, bad=flag)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+            if bad:
+                assert all(torch.equal(got[i], vs[i]) for i in range(3))
+
+
 def _k1_matches_plain(P, offsets, x):
     """K1 bitwise against its plain version in every dtype it takes, with
     the dot for a single-part x."""
@@ -1062,6 +1084,46 @@ def test_masked_ring_on_card_matches_cpu(dev, pipelined):
     assert np.all(err[:, 0] <= 1e-10 * scale[0])
     assert np.all(err[:, 1:] <= 1e-4 * np.abs(cpu.records[:, 1:]))
     assert K.launches["pipelined_update"] > 0
+
+
+@pytest.mark.parametrize("tier", ["single", "dist"])
+def test_breakdown_on_card_raises_where_the_cpu_falls_back(dev, tier):
+    """A fault the restarts do not cure ends a card solve in a
+    BreakdownError: the host rung (which the same solve takes on the
+    CPU) and the transport rung (not named by the policy) stay off, so
+    no answer comes from anything but the card's kernels."""
+    from acg_tpu_torch import faults
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.errors import BreakdownError
+    from acg_tpu_torch.ops.spmv import device_matrix_from_csr
+    from acg_tpu_torch.parallel.dist import DistCGSolver, DistributedProblem
+    from acg_tpu_torch.partition import partition_rows
+    from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+
+    csr = synthesize_host_matrix("gen:poisson2d:64").to_csr()
+    b = np.random.default_rng(5).standard_normal(csr.shape[0])
+    pol = RecoveryPolicy(max_restarts=1)
+    if tier == "single":
+        s = TorchCGSolver(device_matrix_from_csr(
+            csr, dtype=torch.float64, device=dev), device=dev,
+            recovery=pol, host_matrix=csr)
+        spec = "spmv:nan@3"
+    else:
+        s = DistCGSolver(DistributedProblem.build(csr, partition_rows(
+            csr, 4, method="band"), 4), comm="dma", device=dev,
+            recovery=pol)
+        spec = "halo:nan@3"
+    orig = faults.FaultSpec.shift
+    faults.FaultSpec.shift = lambda f, k: f     # the fault keeps firing
+    try:
+        with faults.injected(spec), pytest.raises(BreakdownError):
+            s.solve(b, criteria=StoppingCriteria(maxits=2000,
+                                                 residual_rtol=1e-8))
+    finally:
+        faults.FaultSpec.shift = orig
+    st = s.stats
+    assert (st.nbreakdowns, st.nrestarts, st.nfallbacks) == (2, 1, 0)
+    assert getattr(s, "comm", "dma") == "dma"
 
 
 def test_heartbeat_on_card_prints_once_per_sample(dev, capfd):

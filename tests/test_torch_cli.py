@@ -235,10 +235,14 @@ def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
         assert err.count("from the recomputed true residual\n") == 2 * n
 
 
-@pytest.mark.parametrize("flag", [["--max-restarts", "3"],
-                                  ["--soak", "3"],
-                                  ["--serve"], ["--ckpt", "/tmp/x"]])
+@pytest.mark.parametrize("flag", [["--supervise"], ["--explain"],
+                                  ["--serve"], ["--shrink"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
+    """The flags of tiers not ported yet (the supervisor, the decision
+    layer, the service) stay unregistered; --max-restarts, --soak and
+    --ckpt, which this test named before the robustness tier was
+    ported, are held against the reference in test_torch_faults.py,
+    test_torch_soak.py and test_torch_checkpoint.py."""
     with pytest.raises(SystemExit) as e:
         torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
     assert e.value.code == 2
@@ -292,6 +296,10 @@ import acg_tpu_torch.metrics
 import acg_tpu_torch.tracing
 import acg_tpu_torch.observatory
 import acg_tpu_torch.solvers.profile
+import acg_tpu_torch.faults
+import acg_tpu_torch.health
+import acg_tpu_torch.checkpoint
+import acg_tpu_torch.soak
 from acg_tpu_torch.cli import main
 import tempfile
 from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition

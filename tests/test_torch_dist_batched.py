@@ -204,6 +204,15 @@ def test_refusals_match_jax(systems):
 @pytest.mark.parametrize("kw,what", [(dict(trace=4), "telemetry.py"),
                                      (dict(ckpt=object()), "checkpoint.py")])
 def test_unported_hooks_refused_by_name(systems, kw, what):
+    if "trace" in kw:
+        # the per-RHS ring is ported (telemetry.BatchedLoopTelemetry):
+        # it arms, and a negative size still refuses
+        s = BatchedDistCGSolver(systems["dia"]["prob"], device=CPU, **kw)
+        assert s.trace == 4
+        with pytest.raises(ValueError, match="trace/progress"):
+            BatchedDistCGSolver(systems["dia"]["prob"], device=CPU,
+                                trace=-1)
+        return
     with pytest.raises(ValueError, match=what):
         BatchedDistCGSolver(systems["dia"]["prob"], device=CPU, **kw)
 
@@ -308,3 +317,22 @@ def test_cli_refuses_block_cg_on_parts():
                                          "tier"):
         torch_main(["gen:poisson2d:8", "--device", "cpu", "--nrhs", "2",
                     "--nparts", "2", "--block-cg"])
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_stacked_ring_matches_jax(systems, pipelined):
+    """The per-RHS ring on stacked parts records the psum'd column norms
+    (the reference's acg_tpu/parallel/dist_batched.py:610)."""
+    sy = systems["dia"]
+    js = JaxBatched(sy["jprob"], pipelined=pipelined, trace=64)
+    js.solve(sy["B"], criteria=JCrit(**KW))
+    ts = BatchedDistCGSolver(sy["prob"], pipelined=pipelined, trace=64,
+                             device=CPU)
+    ts.solve(sy["B"], criteria=CRIT)
+    tj, tt = js.last_trace, ts.last_trace
+    assert (tt.niterations, tt.nrhs, tt.solver) == \
+        (tj.niterations, tj.nrhs, tj.solver)
+    assert np.array_equal(tt.iterations, tj.iterations)
+    rj = np.asarray(tj.records)
+    np.testing.assert_allclose(tt.records, rj, rtol=1e-6,
+                               atol=1e-9 * np.abs(rj).max())

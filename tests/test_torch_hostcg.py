@@ -168,13 +168,13 @@ def test_indefinite_and_not_converged_errors():
                                   dict(health=object()),
                                   dict(ckpt=object())])
 def test_host_cg_refuses_hooks_of_later_modules(hook):
-    """The hooks of modules not ported yet are refused by name; trace and
-    progress, ported with the observability modules, refuse only a
-    negative count, as the reference does."""
+    """trace and progress, ported with the observability modules, refuse
+    only a negative count; recovery, health and ckpt, ported with the
+    robustness modules, refuse only an object of the wrong type."""
     _, tcsr, _ = _system("poisson")
     name = next(iter(hook))
     match = ("trace/progress must be >= 0" if name in ("trace", "progress")
-             else f"not yet ported: {name} ")
+             else f"{name} must be an acg_tpu_torch")
     with pytest.raises(ValueError, match=match):
         th.HostCGSolver(tcsr, **hook)
 

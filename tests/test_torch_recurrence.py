@@ -495,3 +495,140 @@ def test_cli_refusals_match_jax(flags):
             main(["gen:poisson2d:8", "--warmup", "0", "-q"] + flags + extra)
         msgs.append(str(e.value.code).replace(prog, ""))
     assert msgs[0] == msgs[1]
+
+
+# -- the CA recurrences' ring and heartbeat ---------------------------------
+
+@pytest.mark.parametrize("algorithm,window,tail_rtol", [
+    ("sstep:4", 512, 2e-4), ("sstep:2", 32, 1e-9), ("sstep:8", 512, 5e-2)])
+def test_ca_ring_matches_jax(aniso, algorithm, window, tail_rtol):
+    """The sstep:S ring records each inner step's plain CG scalars
+    (|r|, alpha, beta, p^T A p) in the slot of its trajectory iteration,
+    as the reference's does: the same window and iterations; every row
+    but the last 8 within 1e-8 (measured 1.7e-9 at S = 8, 2.0e-11 at
+    S = 4, 8.6e-14 at S = 2), and |r| within 1e-9 of |r0| on every row
+    (measured 6.6e-11 / 1.3e-12 / 1.0e-18).  The last 8
+    rows' scalars, computed from residuals near 1e-8 of r0 through the
+    basis Gram products, are held to ``tail_rtol``, a few times the
+    gap measured there (1.2e-2 / 5.2e-5 / 1.9e-10): the two packages
+    sum in different orders and the S-step basis amplifies the
+    difference, the more the larger S."""
+    J = JaxCGSolver(aniso["JA"], kernels="xla", algorithm=algorithm,
+                    trace=window)
+    J.solve(aniso["b"], criteria=JCrit(**KW))
+    T = TorchCGSolver(aniso["A"], kernels="xla", device=CPU,
+                      algorithm=algorithm, trace=window)
+    T.solve(aniso["b"], criteria=StoppingCriteria(**KW))
+    assert T.stats.niterations == J.stats.niterations
+    tj, tt = J.last_trace, T.last_trace
+    assert (tt.niterations, tt.wrapped, tt.solver) == \
+        (tj.niterations, tj.wrapped, tj.solver)
+    assert np.array_equal(tt.iterations, tj.iterations)
+    _same_window(tt.records, np.asarray(tj.records), J.stats.r0nrm2,
+                 tail_rtol)
+
+
+def _same_window(got, want, r0: float, tail_rtol: float, tail: int = 8):
+    head = max(want.shape[0] - tail, 1)
+    for col in range(want.shape[1]):
+        np.testing.assert_allclose(got[:head, col], want[:head, col],
+                                   rtol=1e-8,
+                                   atol=1e-9 * np.abs(want[:, col]).max())
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=0, atol=1e-9 * r0)
+    np.testing.assert_allclose(got[head:], want[head:], rtol=tail_rtol)
+
+
+@pytest.mark.parametrize("l,its,rtol", [(1, 30, 5e-5), (2, 30, 5e-6),
+                                        (3, 30, 1e-6), (2, 40, 2e-3)])
+def test_pl_ring_matches_jax_in_the_first_attempt(aniso, l, its, rtol):
+    """p(l)'s ring against the reference's over a fixed count of
+    advances inside the first attempt (the aniso family's first sqrt
+    breakdown comes later, in both packages): the same iterations, no
+    restart, the same rows; the first 15 within 1e-10 (measured
+    <= 9.0e-12 for l = 1, 2, 3), every row within ``rtol``, a few times
+    the gap measured on the last (8.8e-6 / 9.3e-7 / 1.2e-7 after 30
+    advances, 4.1e-4 after 40 for l = 2): the lag-l recovery amplifies
+    the packages' different rounding ~1e6 in 30 advances, as the
+    module docstring records for x."""
+    J = JaxCGSolver(aniso["JA"], kernels="xla", algorithm=f"pipelined:{l}",
+                    trace=4096)
+    J.solve(aniso["b"], criteria=JCrit(maxits=its))
+    T = TorchCGSolver(aniso["A"], kernels="xla", device=CPU,
+                      algorithm=f"pipelined:{l}", trace=4096)
+    T.solve(aniso["b"], criteria=StoppingCriteria(maxits=its))
+    assert T.stats.niterations == J.stats.niterations == its
+    assert T.stats.nrestarts == J.stats.nrestarts == 0
+    tj, tt = J.last_trace, T.last_trace
+    assert (tt.niterations, tt.wrapped, tt.solver) == \
+        (tj.niterations, tj.wrapped, tj.solver)
+    assert np.array_equal(tt.iterations, tj.iterations)
+    want = np.asarray(tj.records)
+    assert tt.records.shape == want.shape == (its, 4)
+    np.testing.assert_allclose(tt.records[:15], want[:15], rtol=1e-10)
+    np.testing.assert_allclose(tt.records, want, rtol=rtol)
+
+
+@pytest.mark.parametrize("l,window", [(2, 512), (1, 24)])
+def test_pl_ring_survives_the_restart_rung(aniso, l, window):
+    """p(l)'s ring records (q^2, 1/d, l^2, d) at each solution advance
+    (classic-aligned rows); after the restart rung's restarts the solve's
+    ring is the last attempt's, ending at the reported residual.  (p(l)
+    restarts at other iterations than the reference's -- its breakdowns
+    are rounding-driven -- so past the first attempt the window is held
+    to the port's own solve; the first attempt's ring is held to the
+    reference's above.)"""
+    T = TorchCGSolver(aniso["A"], kernels="xla", device=CPU,
+                      algorithm=f"pipelined:{l}", trace=window)
+    T.solve(aniso["b"], criteria=StoppingCriteria(**KW))
+    st, tr = T.stats, T.last_trace
+    assert st.nrestarts >= 1 and tr is st.trace
+    assert tr.solver == f"cg-pl{l}"
+    assert 0 < tr.niterations <= st.niterations
+    its = tr.iterations
+    assert np.array_equal(its, np.arange(its[0], its[0] + its.size))
+    assert tr.records[-1, 0] == pytest.approx(st.rnrm2, rel=1e-12)
+    assert np.isfinite(tr.records).all()
+    # 1/d and d are one another's reciprocals, l^2 >= 0
+    np.testing.assert_allclose(tr.records[:, 1] * tr.records[:, 3], 1.0,
+                               rtol=1e-12)
+    assert (tr.records[:, 2] >= 0).all()
+
+
+@pytest.mark.parametrize("algorithm", ["sstep:4", "pipelined:2"])
+def test_ca_heartbeat_prints_on_the_period(aniso, algorithm, capsys):
+    T = TorchCGSolver(aniso["A"], kernels="xla", device=CPU,
+                      algorithm=algorithm, progress=20)
+    T.solve(aniso["b"], criteria=StoppingCriteria(**KW))
+    err = capsys.readouterr().err
+    its = [int(ln.split(": iteration ")[1].split(":")[0])
+           for ln in err.splitlines() if ": iteration " in ln]
+    assert its and all(i % 20 == 0 for i in its)
+    assert max(its) <= T.stats.ntotaliterations
+
+
+def test_stacked_ca_ring_matches_single_device(aniso, parts):
+    prob, _ = parts
+    s1 = TorchCGSolver(aniso["A"], kernels="xla", device=CPU,
+                       algorithm="sstep:4", trace=64)
+    s1.solve(aniso["b"], criteria=StoppingCriteria(**KW))
+    s4 = DistCGSolver(prob, device=CPU, algorithm="sstep:4", trace=64)
+    s4.solve(aniso["b"], criteria=StoppingCriteria(**KW))
+    assert s4.stats.niterations == s1.stats.niterations
+    assert np.array_equal(s4.last_trace.iterations, s1.last_trace.iterations)
+    # the stacked dots sum by part: the last rows' gap measured 5.4e-5,
+    # the others' 4.2e-11, |r|'s 2.9e-13 of |r0|
+    _same_window(s4.last_trace.records, s1.last_trace.records,
+                 s1.stats.r0nrm2, 2e-4)
+
+
+def test_cli_ca_convergence_log(tmp_path, capsys):
+    from acg_tpu_torch.cli import main
+    from acg_tpu_torch.telemetry import read_convergence_log
+    log = tmp_path / "ca.jsonl"
+    assert main(["gen:poisson2d:16", "--device", "cpu", "--algorithm",
+                 "sstep:4", "--max-iterations", "500", "--residual-rtol",
+                 "1e-8", "-q", "--convergence-log", str(log),
+                 "--progress", "8"]) == 0
+    meta, recs = read_convergence_log(log)
+    assert meta["solver"].endswith("sstep4") and recs
+    assert ": iteration 8:" in capsys.readouterr().err

@@ -341,8 +341,8 @@ def test_disarmed_solves_dispatch_what_they_did(algo, rtol):
 
 def test_refusals_carry_the_references_messages(csr):
     """fused and replace_every refuse trace/progress at solve time with
-    the reference's messages; the CA recurrences and the batched tiers
-    refuse them by name."""
+    the reference's messages; the CA recurrences and the batched tiers,
+    which carry the ring now, refuse a negative size."""
     from acg_tpu.errors import AcgError as JaxAcgError
     from acg_tpu.io.generators import poisson_dia as jax_poisson_dia
     from acg_tpu.ops.spmv import DiaMatrix as JaxDia
@@ -378,15 +378,17 @@ def test_refusals_carry_the_references_messages(csr):
         msgs.append(str(e.value))
     assert msgs[0] == msgs[1] and "telemetry" in msgs[0]
     assert msgs[2] == msgs[3] and "replace_every" in msgs[2]
+    # the CA recurrences and the batched tiers carry the ring now; a
+    # negative size still refuses
     with pytest.raises(ValueError, match="trace/progress"):
         TorchCGSolver(device_matrix_from_csr(csr, dtype=torch.float64,
                                              device=CPU), device=CPU,
-                      algorithm="sstep:4", trace=8)
+                      algorithm="sstep:4", trace=-8)
     from acg_tpu_torch.solvers.batched import BatchedCGSolver
-    with pytest.raises(ValueError, match="per-RHS residual ring"):
+    with pytest.raises(ValueError, match="trace/progress"):
         BatchedCGSolver(device_matrix_from_csr(csr, dtype=torch.float64,
                                                device=CPU), device=CPU,
-                        trace=8)
+                        trace=-8)
 
 
 def test_run_manifest_reads_torch():
