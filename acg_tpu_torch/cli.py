@@ -395,6 +395,48 @@ def make_parser() -> argparse.ArgumentParser:
                         "reassembled in global row order through the "
                         "snapshot's row-permutation sidecar and "
                         "re-sliced onto this run's partition")
+    p.add_argument("--supervise", action="store_true",
+                   help="elastic-recovery tier (acg_tpu_torch."
+                        "supervisor): run the solve as a supervised "
+                        "child process and watch the exit-code contract "
+                        "(see --buildinfo): a crash (rc 94), a lost peer "
+                        "(rc 86/97), a signal death or a failed solve "
+                        "relaunches the child with --resume from the "
+                        "last committed snapshot -- shrinking --nparts "
+                        "with --resume-repartition when a peer was lost "
+                        "(--shrink) -- under a bounded relaunch budget "
+                        "with exponential backoff.  Needs --ckpt FILE "
+                        "with a cadence; drift (rc 7) and SLO (rc 8) "
+                        "verdicts pass through")
+    p.add_argument("--relaunch-budget", type=int, default=3, metavar="N",
+                   help="with --supervise: relaunches granted before "
+                        "giving up with exit 95 (default: 3)")
+    p.add_argument("--relaunch-backoff", type=float, default=1.0,
+                   metavar="SECONDS",
+                   help="with --supervise: sleep SECONDS * 2^(n-1) "
+                        "before the n-th relaunch (default: 1)")
+    p.add_argument("--shrink", default="peer-lost",
+                   choices=["never", "peer-lost", "any"],
+                   help="with --supervise: which failures shrink the "
+                        "mesh on relaunch (halving --nparts down to "
+                        "--min-parts, resuming with "
+                        "--resume-repartition): peer-lost = only dead-"
+                        "peer teardowns (rc 86/97; default), any = every "
+                        "relaunchable failure, never = always relaunch "
+                        "on the same parts")
+    p.add_argument("--min-parts", type=int, default=1, metavar="M",
+                   help="with --supervise: never shrink below M parts "
+                        "(default: 1)")
+    p.add_argument("--chaos", metavar="SEED[:N]", default=None,
+                   help="chaos campaign (acg_tpu_torch.supervisor): N "
+                        "(default 20) seeded fault schedules over the "
+                        "fault sites this run can fire, each through the "
+                        "supervisor; every green run's true residual is "
+                        "verified against a host rebuild of the matrix, "
+                        "verdicts (converged / agreed-abort / "
+                        "WRONG-ANSWER) to stderr and the --history "
+                        "ledger.  Exit 96 if any schedule converged to "
+                        "a wrong answer")
     p.add_argument("--soak", type=int, default=0, metavar="N",
                    help="soak mode: run N repeated solves of the same "
                         "system (the first carries --warmup), feed each "
@@ -581,10 +623,27 @@ def _buildinfo(out) -> int:
          "rungs), --fault-inject (spmv|dot|halo|precond|sdc|crash|solve), "
          "--audit-every/--stall-window/--abft (health: section), --ckpt/"
          "--resume[-repartition] (the reference's snapshot file), --soak "
-         "+ --fail-on-drift (exit 7); one process"),
+         "+ --fail-on-drift (exit 7), on one process and across "
+         "processes"),
+        ("elastic recovery", "--supervise (process supervisor: watches "
+         "the exit-code contract, relaunches with --resume -- shrinking "
+         "--nparts with --resume-repartition on a lost peer -- under "
+         "--relaunch-budget/--relaunch-backoff; recovery: section, "
+         "acg_recovery_* metrics, status-doc degraded key), "
+         "--resume-repartition (an N-part snapshot onto M parts or one "
+         "device through the global row-permutation sidecar), "
+         "--ckpt-secs S (wall-clock snapshot cadence)"),
+        ("chaos campaign", "--chaos SEED[:N] (seeded fault schedules "
+         "through the supervisor; per-schedule converged/agreed-abort/"
+         "WRONG-ANSWER verdicts into the --history ledger, exit 96 on "
+         "any wrong-answer-green)"),
     ]
     for k, v in rows:
         out.write(f"{k}: {v}\n")
+    from acg_tpu_torch.errors import exit_code_table
+    out.write("exit codes:\n")
+    for code, origin, meaning in exit_code_table():
+        out.write(f"  {code:>3}  [{origin}] {meaning}\n")
     return 0
 
 
@@ -747,6 +806,10 @@ def _validate_batched(args) -> None:
              "all_to_all transport)", args.comm in ("dma", "nvshmem")),
             ("--diff-atol/--diff-rtol (residual criteria only)",
              args.diff_atol > 0 or args.diff_rtol > 0),
+            ("--audit-every/--stall-window (no batched audit hooks "
+             "yet)", args.audit_every > 0 or args.stall_window > 0),
+            ("--fault-inject/--recover (no batched breakdown "
+             "detection yet)", bool(args.fault_inject) or args.recover),
             ("--multihost/--coordinator (single-controller tier)",
              args.multihost or args.coordinator is not None),
             ("--distributed-read", args.distributed_read),
@@ -811,9 +874,7 @@ def _validate_robustness(args) -> None:
     resume snapshot loaded and checked here), the fault injector
     (installed process-wide and exported as ``ACG_TPU_FAULT_INJECT``
     for child processes) and the recovery policy; each refuses what
-    could never fire.  The tiers the next slice carries (the
-    supervisor's multi-process flows, the sharded gen-direct tier, the
-    batched and CA tiers' checkpoints and fault sites) refuse by name."""
+    could never fire."""
     import os
 
     from acg_tpu_torch import faults
@@ -958,26 +1019,6 @@ def _validate_robustness(args) -> None:
                 f"acg-tpu-torch: --fault-inject has no injection sites "
                 f"in --solver {args.solver}; use --solver host or the "
                 f"device solvers")
-    armed = (args._health is not None or args._ckpt is not None
-             or (spec is not None and spec.site != "solve")
-             or args.recover)
-    if armed:
-        later = [flag for flag, on in [
-            ("--multihost/--coordinator (the rank-mode tier's hooks are "
-             "not ported yet)", _multi(args)),
-            ("--distributed-read", args.distributed_read),
-            ("--nrhs/--block-cg (the batched tiers' fault sites, audits "
-             "and checkpoints are not ported yet)", args._batched),
-            (f"--algorithm {args._algorithm} (the CA recurrences' fault "
-             f"sites, audits and checkpoints are not ported yet)",
-             args._algorithm is not None and (
-                 args._health is not None or args._ckpt is not None
-                 or spec is not None)),
-        ] if on]
-        if later:
-            raise SystemExit(
-                f"acg-tpu-torch: --recover/--fault-inject/--audit-every/"
-                f"--ckpt do not support: {', '.join(later)}")
     if spec is not None:
         args._prev_fault_env = env_spec
         faults.install(spec)
@@ -988,7 +1029,8 @@ def _validate_robustness(args) -> None:
     if args.recover or args.fault_inject or gap_replace:
         from acg_tpu_torch.solvers.resilience import RecoveryPolicy
         recovery = RecoveryPolicy(max_restarts=max(args.max_restarts, 0),
-                                  backoff=max(args.restart_backoff, 0.0))
+                                  backoff=max(args.restart_backoff, 0.0),
+                                  agree_timeout=args.err_timeout)
         if args.recover and args.solver in ("host-native", "petsc"):
             sys.stderr.write(
                 f"acg-tpu-torch: warning: --recover has no effect for "
@@ -1098,12 +1140,6 @@ def _solve_generated_direct(args, dim, n, N, device, dtype,
     # sharded assembly and solve (parallel/sharded_dia), as in acg_tpu
     if (args.nparts > 1 or args.manufactured_solution or args.refine
             or _multi(args)):
-        if _robust_armed(args):
-            raise SystemExit(
-                "acg-tpu-torch: --recover/--fault-inject/--audit-every/"
-                "--ckpt do not reach the sharded gen-direct tier yet; "
-                "use the host-ingest path (raise ACG_TPU_GEN_DIRECT_MIN "
-                "above N) or a single-part solve")
         if args._operator_spec is not None:
             raise SystemExit(
                 "acg-tpu-torch: --operator does not reach the sharded "
@@ -1206,7 +1242,7 @@ def _solve_generated_sharded(args, dim, n, N, device, dtype,
             n, dim, nparts=nparts, dtype=dtype, vector_dtype=vec_dtype,
             pipelined="pipelined" in args.solver,
             epsilon=args.epsilon, kernels=args.kernels, device=device,
-            **_solver_options(args))
+            **_solver_options(args), **_robust_options(args))
     except ValueError as e:
         raise SystemExit(f"acg-tpu-torch: {e}")
     _log(args, f"gen-direct: {args.A} (N={N}) sharded DIA planes assembled "
@@ -1455,10 +1491,17 @@ def _solve_distributed_read(args, device, dtype, vec_dtype) -> int:
         maxits=args.max_iterations,
         residual_atol=args.residual_atol, residual_rtol=args.residual_rtol,
         diff_atol=args.diff_atol, diff_rtol=args.diff_rtol)
+    if args._ckpt is not None:
+        # a snapshot records one b checksum and the primary's global
+        # vectors: every process solves the same global b
+        b = _allgather_sum(b, prob)
+        if x0 is not None:
+            x0 = _allgather_sum(x0, prob)
     try:
         solver = DistCGSolver(prob, pipelined="pipelined" in args.solver,
                               kernels=args.kernels, device=device,
-                              **_solver_options(args))
+                              **_solver_options(args),
+                              **_robust_options(args))
     except ValueError as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         _stage_sync(args, "solve", 1)
@@ -2167,6 +2210,13 @@ def main(argv=None) -> int:
     if "--buildinfo" in argv:
         return _buildinfo(sys.stdout)
     args = make_parser().parse_args(argv)
+    if args.chaos is not None or args.supervise:
+        # the elastic-recovery driver modes (acg_tpu/cli.py:2494-2501):
+        # the supervisor owns the child solves' lifecycle, before any
+        # device work -- the card belongs to the children
+        from acg_tpu_torch.supervisor import run_chaos, run_supervised
+        return (run_chaos(args, list(argv)) if args.chaos is not None
+                else run_supervised(args, list(argv)))
     args.numfmt = _validate_numfmt(args.numfmt)
     from acg_tpu_torch.errors import AcgError
 
@@ -2293,6 +2343,19 @@ def _main(args) -> int:
     _validate_operator(args)
     _validate_robustness(args)
     _arm_observability(args)
+    # the bounded liveness probe of the CUDA runtime, before anything
+    # touches the card (acg_tpu/cli.py:3154-3172)
+    from acg_tpu_torch._device import backend_probe_needed, probe_backend
+    if backend_probe_needed(args.device):
+        ok, detail = probe_backend()
+        if not ok:
+            sys.stderr.write(
+                f"acg-tpu-torch: backend unavailable: {detail}.  Fix the "
+                f"CUDA runtime, run with --device cpu for a host debug "
+                f"solve, or set ACG_TPU_SKIP_BACKEND_PROBE=1 to wait out "
+                f"a slow init\n")
+            from acg_tpu_torch.errors import ExitCode
+            return int(ExitCode.BACKEND_UNAVAILABLE)
     try:
         device = _start_processes(args)
     except AcgError as e:
@@ -2378,7 +2441,7 @@ def _main(args) -> int:
                                          precond=args._precond,
                                          trace=args._trace,
                                          progress=args.progress,
-                                         device=device)
+                                         device=device, ckpt=args._ckpt)
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     elif args._batched:
@@ -2402,7 +2465,8 @@ def _main(args) -> int:
                                      vector_dtype=vec_dtype,
                                      precond=args._precond,
                                      trace=args._trace,
-                                     progress=args.progress, device=device)
+                                     progress=args.progress, device=device,
+                                     ckpt=args._ckpt)
         except ValueError as e:
             raise SystemExit(f"acg-tpu-torch: {e}")
     elif comm == "none" or nparts == 1:

@@ -117,6 +117,53 @@ class ExitCode(enum.IntEnum):
     PEER_LOST = 97               # erragree watchdog/heartbeat teardown
 
 
+# (code, origin, meaning): the table --buildinfo renders and the
+# supervisor's relaunch policy keys off (acg_tpu/errors.py:131-158)
+EXIT_CONTRACT: tuple = (
+    (ExitCode.OK, "everywhere", "success"),
+    (ExitCode.FAILURE, "cli/solvers",
+     "solve or configuration failure (agreed abort)"),
+    (ExitCode.NOTHING_COMPARABLE, "bench_diff",
+     "no comparable case between captures"),
+    (ExitCode.BACKEND_UNAVAILABLE, "cli",
+     "accelerator backend unavailable (bounded probe failed)"),
+    (ExitCode.DRIFT, "soak",
+     "--fail-on-drift: EWMA solve latency drifted past the gate"),
+    (ExitCode.SLO_BREACH, "observatory",
+     "--fail-on-slo: a declared service-level objective breached"),
+    (ExitCode.PEER_DEAD_INJECTED, "faults",
+     "peer:dead fault injector killed this controller"),
+    (ExitCode.CRASH_INJECTED, "faults/checkpoint",
+     "crash:exit fault injector killed this process between snapshot "
+     "commits (relaunch with --resume)"),
+    (ExitCode.RELAUNCH_BUDGET, "supervisor",
+     "--supervise: relaunch budget exhausted without a converged run"),
+    (ExitCode.WRONG_ANSWER, "supervisor",
+     "--chaos: a schedule converged (rc 0) but failed the independent "
+     "true-residual verification"),
+    (ExitCode.PEER_LOST, "erragree",
+     "a peer controller died (stage-sync watchdog or solve heartbeat); "
+     "this process tore down so the supervisor can relaunch"),
+)
+
+# the supervisor's relaunch policy over the contract: the child exit
+# codes worth another attempt from the last snapshot, and those of them
+# that mean a LOST PEER (shrink onto the survivors)
+RELAUNCHABLE_CODES = frozenset({
+    int(ExitCode.FAILURE), int(ExitCode.BACKEND_UNAVAILABLE),
+    int(ExitCode.PEER_DEAD_INJECTED), int(ExitCode.CRASH_INJECTED),
+    int(ExitCode.PEER_LOST)})
+PEER_LOST_CODES = frozenset({
+    int(ExitCode.PEER_DEAD_INJECTED), int(ExitCode.PEER_LOST)})
+
+
+def exit_code_table() -> list:
+    """``[(int code, origin, meaning), ...]`` sorted by code: the
+    ``--buildinfo`` rendering of the contract."""
+    return [(int(c), o, m)
+            for c, o, m in sorted(EXIT_CONTRACT, key=lambda r: int(r[0]))]
+
+
 def fexcept_str(*arrays) -> str:
     """Report floating-point exceptions observable in computed arrays:
     NaN / Inf in the arrays produced by the solve (no trap flags are

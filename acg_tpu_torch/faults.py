@@ -48,9 +48,11 @@ never fires.  A disarmed loop calls none of them.  The numpy twins serve
 the eager host solver.
 
 The port keeps the reference's grammar and ``ACG_TPU_FAULT_INJECT`` (so
-scripts carry over).  ``peer:*`` and ``backend:hang`` belong to the
-multi-process supervisor, not ported yet: :func:`parse_fault_spec`
-refuses them by name.
+scripts carry over).  ``peer:*`` fires in the error agreement
+(:func:`maybe_fail_peer`, called at the head of :func:`acg_tpu_torch.
+parallel.erragree.agree_status`), ``backend:hang`` in the bounded
+backend probe's child (:func:`maybe_hang_backend`, :mod:`acg_tpu_torch.
+_device`).
 """
 
 from __future__ import annotations
@@ -92,10 +94,6 @@ _MODES = {
     "solve": ("slow",),
 }
 ENV_VAR = "ACG_TPU_FAULT_INJECT"
-# the sites of the multi-process supervisor, refused by name until it is
-# ported; the rest are the port's
-_LATER_SITES = ("peer", "backend")
-_PORTED_SITES = tuple(s for s in _SITES if s not in _LATER_SITES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,10 +261,6 @@ def parse_fault_spec(text: str) -> FaultSpec:
             kwargs["iteration"] = int(it)
         except ValueError:
             raise ValueError(f"fault spec {text!r}: bad iteration {it!r}")
-    if site in _LATER_SITES:
-        raise ValueError(f"fault spec {text!r}: site {site!r} belongs to "
-                         f"the multi-process supervisor, which is not "
-                         f"ported yet (sites: {', '.join(_PORTED_SITES)})")
     if site not in _SITES:
         raise ValueError(f"fault spec {text!r}: unknown site {site!r} "
                          f"(one of {', '.join(_SITES)})")
@@ -361,6 +355,35 @@ def device_fault() -> FaultSpec | None:
     return spec if spec is not None and spec.device_site else None
 
 
+def maybe_fail_peer(stage: str = "") -> None:
+    """Peer-fault hook of the error agreement: on the targeted process,
+    ``peer:dead`` exits hard BEFORE the agreement (the survivors'
+    watchdog must abort them within the agreed timeout) and
+    ``peer:stall`` sleeps through it."""
+    spec = active_fault()
+    if spec is None or spec.site != "peer":
+        return
+    from acg_tpu_torch.parallel import multihost
+
+    if multihost.process_index() != spec.proc:
+        return
+    import sys
+
+    if spec.mode == "dead":
+        from acg_tpu_torch.errors import ExitCode
+
+        sys.stderr.write(f"acg-tpu-torch: fault injector: controller "
+                         f"{spec.proc} dying before checkpoint "
+                         f"{stage or '?'}\n")
+        sys.stderr.flush()
+        os._exit(int(ExitCode.PEER_DEAD_INJECTED))
+    sys.stderr.write(f"acg-tpu-torch: fault injector: controller "
+                     f"{spec.proc} stalling {spec.secs:.0f}s at checkpoint "
+                     f"{stage or '?'}\n")
+    sys.stderr.flush()
+    time.sleep(spec.secs)
+
+
 def maybe_slow_solve(solve_index: int) -> float:
     """Soak-driver hook (``solve:slow@K:secs=S``): sleep ``S`` seconds
     inside the timed window of every solve from index ``K`` onward
@@ -402,3 +425,12 @@ def maybe_crash(before: int, after: int) -> None:
                      f"{int(after)} iterations (crash:exit@{K})\n")
     sys.stderr.flush()
     os._exit(CRASH_EXIT_CODE)
+
+
+def maybe_hang_backend() -> None:
+    """Backend-fault hook of the probe child: ``backend:hang`` sleeps in
+    place of the device runtime's initialisation, so a wedged runtime is
+    reproducible without one."""
+    spec = active_fault()
+    if spec is not None and spec.site == "backend" and spec.mode == "hang":
+        time.sleep(spec.secs)

@@ -762,14 +762,16 @@ class DistributedProblem:
     def row_permutation(self) -> np.ndarray | None:
         """The global row ids in stacked slot order (part 0's owned
         rows, then part 1's, ...), or None where this process cannot
-        derive them (a restricted build whose other parts are stubs
-        without band bounds), ``acg_tpu/parallel/dist.py:728-746``."""
+        derive them (parts that are stubs without band bounds),
+        ``acg_tpu/parallel/dist.py:728-746``.  A restricted build of the
+        multi-process tier still holds every part's node set, so its
+        snapshots carry the sidecar too."""
         if self.band_bounds is not None:
             b = self.band_bounds
             return np.concatenate(
                 [np.arange(b[p], b[p + 1], dtype=np.int64)
                  for p in range(self.nparts)] or [np.zeros(0, np.int64)])
-        if self.owned_parts is not None:
+        if any(getattr(s, "global_ids", None) is None for s in self.subs):
             return None
         return np.concatenate(
             [np.asarray(s.global_ids[: s.nowned], dtype=np.int64)
@@ -1028,8 +1030,11 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     (``"dma"``: :class:`~acg_tpu_torch.parallel.halo_dma.PeerPlanes`
     made at the first exchange, released by :meth:`close`; its plain
     version on the CPU).  Host results are gathered to every rank.
-    ``kernels="fused"``, ``precond`` and a CA ``algorithm`` are refused
-    there.
+    ``precond`` (its state built for this rank's parts, the cheby
+    interval from the ranks' power iteration) and the CA recurrences
+    (their Gram and window products through the same rank psum) run
+    there with the stacked tier's bits; ``kernels="fused"`` is
+    refused.
 
     ``trace``/``progress`` arm the in-loop ring and heartbeat of the
     classic and pipelined loops (:mod:`acg_tpu_torch.telemetry`), on the
@@ -1044,12 +1049,18 @@ class DistCGSolver(_cg.ChunkedCGSolver):
     ladder's restart, transport (``--comm dma`` -> ``xla``) and
     distributed-host rungs, the audit and ABFT over the psum'd dots, and
     the checkpoint chunks with the row-permutation sidecar that lets a
-    snapshot resume on another partition.  In a multi-process run they
-    are refused by name (the rank-mode tier's is the next slice's).
+    snapshot resume on another partition.  In a multi-process run a
+    part-targeted fault fires on the rank that owns the part, every
+    restart passes the ranks' error agreement, the audit and ABFT run
+    over the rank psum, and a snapshot is gathered to every rank and
+    written by the primary after :func:`~acg_tpu_torch.checkpoint.
+    agree_seq`.  The CA recurrences checkpoint on one device only, as
+    the reference's mesh refuses (``dist.py:1217-1221``).
     """
 
     _what = "dist-cg"
     _beat_name = "dist-cg"
+    _ca_ckpt = False
 
     def __init__(self, problem: DistributedProblem, pipelined: bool = False,
                  comm: str = "xla", kernels: str = "auto", device=None,
@@ -1079,16 +1090,6 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                     "restricted multi-controller builds hold other "
                     "controllers' coupled-row lists as stubs, so the "
                     "interior/border split is not derivable")
-            for on, what in ((precond is not None, "precond"),
-                             (algorithm is not None
-                              and rec.parse_algorithm(algorithm)
-                              .communication_avoiding, "algorithm"),
-                             (recovery is not None, "recovery"),
-                             (health is not None, "health"),
-                             (ckpt is not None, "ckpt")):
-                if on:
-                    raise ValueError(f"DistCGSolver: {what} is not ported "
-                                     f"to the multi-process tier yet")
             if comm == "dma" and self.device.type == "cuda" \
                     and not w.same_host:
                 # K6's peer puts need the peers' planes mapped: raise
@@ -1248,7 +1249,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         self._halo = halo.to(dev)
         self._scnt = _put(scnt, dev, torch.int32)
         if mstate is not None:
-            self._mstate = state_from_numpy(self.precond_spec, mstate, dev)
+            self._mstate = state_from_numpy(
+                self.precond_spec, [self._rank_rows(a) for a in mstate],
+                dev)
         self._irows = self._side = None
         if kernels == "fused":
             # the halo exchange's own stream, made once
@@ -1268,7 +1271,7 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         halo of the loop's main SpMV (the ``halo:`` fault site)."""
         prob = self.problem
         if self._ranks is not None:
-            return self._rank_spmv()
+            return self._rank_spmv(guard)
         recv = None
         if self.comm == "dma":
             h = prob.halo
@@ -1284,13 +1287,56 @@ class DistCGSolver(_cg.ChunkedCGSolver):
                               None if guard is None or guard.fault is None
                               else guard.apply_halo)
 
-    def _rank_spmv(self):
+    def _rank_spmv(self, guard=None):
         """The SpMV of the multi-process tier: this rank's parts, the
-        halo across ranks (:meth:`_rank_exchange`)."""
+        halo across ranks (:meth:`_rank_exchange`); ``guard`` sees the
+        received halo as on stacked parts."""
         prob = self.problem
+        exchange = self._rank_exchange()
+        if guard is not None and guard.fault is not None:
+            plain = exchange
+
+            def exchange(x):
+                return guard.apply_halo(plain(x))
         return make_block_spmv(self._local, self._ghost, self._la, self._ga,
-                               prob.halo.has_ghosts, self._rank_exchange(),
+                               prob.halo.has_ghosts, exchange,
                                self.kernels != "xla")
+
+    def _guard(self, fault, detect: bool, k_offset: int = 0, carry=None,
+               state_io: bool = False):
+        """The loop guard, its fault in this rank's frame: a
+        part-targeted fault fires on the rank that owns the part (at its
+        row of the rank's stack) and nowhere else; detection stays armed
+        on every rank, so the loops keep one shape."""
+        if (self._ranks is not None and fault is not None
+                and fault.part >= 0):
+            ranges, rank = self._ranks
+            lo, hi = ranges[rank]
+            fault = (dataclasses.replace(fault, part=fault.part - lo)
+                     if lo <= fault.part < hi else None)
+        return super()._guard(fault, detect, k_offset, carry, state_io)
+
+    def _rank_rows(self, a):
+        """This rank's rows of a host array with a leading parts axis
+        (all of it on the stacked tier)."""
+        if self._ranks is None:
+            return a
+        ranges, rank = self._ranks
+        lo, hi = ranges[rank]
+        return np.asarray(a)[lo:hi]
+
+    def _to_dev(self, a, name: str, sdt):
+        """A snapshot leaf on the device; in a multi-process run a
+        stacked vector keeps this rank's parts."""
+        a = np.asarray(a)
+        if a.ndim >= 2:
+            a = self._rank_rows(a)
+        return super()._to_dev(a, name, sdt)
+
+    def _to_host(self, leaf, name: str) -> np.ndarray:
+        if self._ranks is not None and leaf.dim() >= 2:
+            return multihost.get_global(leaf, self.problem.nparts)
+        return super()._to_host(leaf, name)
 
     def _rank_exchange(self):
         """The halo exchange across ranks -- ``all_to_all_single`` for
@@ -1382,8 +1428,9 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         sdt = acc_dtype(prob.vdtype)
         spmv = self._spmv()
         ldot = make_ldot(sdt)
-        v = _put(prob.scatter(np.random.default_rng(0).standard_normal(
-            prob.n)), self.device, prob.vdtype)
+        v = _put(self._rank_rows(prob.scatter(
+            np.random.default_rng(0).standard_normal(prob.n))),
+            self.device, prob.vdtype)
         for _ in range(iters):
             w = spmv(v)
             v = (w.to(sdt) / torch.sqrt(self._psum(ldot(w, w)))).to(
@@ -1409,7 +1456,8 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             lmax = self._power_lmax() * CHEBY_SAFETY
             host = (np.full(prob.nparts, lmax / CHEBY_RATIO),
                     np.full(prob.nparts, lmax))
-        self._mstate = tuple(_put(a, self.device, sdt) for a in host)
+        self._mstate = tuple(_put(self._rank_rows(a), self.device, sdt)
+                             for a in host)
         return self._mstate
 
     def _ensure_lam(self):
@@ -1436,15 +1484,15 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         algo = self.algo
 
         def run(b, x0, guard=None):
-            ops = rec.TierOps(spmv=self._spmv(), dot=pdot,
+            ops = rec.TierOps(spmv=self._spmv(guard), dot=pdot,
                               psum_stack=self._psum,
                               sdt=sdt)
             telem = self._telemetry(sdt)
             if algo.kind == "sstep":
                 return rec._cg_sstep_program(ops, b, x0, crit, algo.param,
-                                             algo.basis, lam, telem)
+                                             algo.basis, lam, telem, guard)
             return rec._cg_pl_program(ops, b, x0, crit, algo.param, lam,
-                                      telem)
+                                      telem, guard)
 
         return run
 
@@ -1548,8 +1596,12 @@ class DistCGSolver(_cg.ChunkedCGSolver):
         budget.  On the card it runs only when the policy names it
         (:meth:`RecoveryPolicy.comm_fallback`)."""
         pol = self.recovery
-        if not (self.comm == "dma" and driver.restarts >= 1
-                and pol is not None and pol.comm_fallback(self.device)):
+        if self.comm != "dma":
+            return False
+        want = (driver.restarts >= 1 and pol is not None
+                and pol.comm_fallback(self.device))
+        # across processes the rung runs only when every rank takes it
+        if not (driver._agree(0 if want else 1) and want):
             return False
         self.stats.nbreakdowns += 1
         driver.on_fallback("fallback: halo transport dma -> xla")

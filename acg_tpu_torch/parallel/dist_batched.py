@@ -24,9 +24,10 @@ transpose transport only (the reference's batched mesh tier takes no
 
 The per-RHS residual ring (``trace``, the reference's
 ``acg_tpu/parallel/dist_batched.py:610``) and the worst-column
-heartbeat (``progress``) ride the shared batched loops; batched
-checkpoints (``ckpt``) are not ported yet: the port refuses them by
-name.
+heartbeat (``progress``) ride the shared batched loops, and so do the
+batched checkpoint chunks (``ckpt``, classic only): a snapshot holds the
+``(nparts, nmax_owned, B)`` stacks with the row-permutation sidecar, so
+``--resume-repartition`` restores a batch onto another partition.
 """
 
 from __future__ import annotations
@@ -127,10 +128,12 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
                 "plane form yet); matrix-free batching lives on the "
                 "single-device tier (acg_tpu.solvers.batched), or drop "
                 "--nrhs for the matrix-free mesh solve")
-        if ckpt is not None:
-            raise ValueError("ckpt: the batched tiers' checkpoints "
-                             "(checkpoint.py's batched carry) are not "
-                             "ported yet")
+        if ckpt is not None and pipelined:
+            raise ValueError(
+                "batched checkpointing threads the batched-classic "
+                "carry; the pipelined batched mode does not expose "
+                "state_io")
+        self._check_ckpt(ckpt, True)
         self.device = resolve_device(device)
         self.problem = problem
         self.pipelined = bool(pipelined)
@@ -143,13 +146,17 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
         self._inner1 = None
         self._dev = None
 
+    def _solve_dtype(self):
+        return self.problem.vdtype
+
     def _inner(self):
         """The single-RHS solver a batch of one delegates to."""
         if self._inner1 is None:
             from acg_tpu_torch.parallel.dist import DistCGSolver
             self._inner1 = DistCGSolver(
                 self.problem, pipelined=self.pipelined,
-                precise_dots=self.precise_dots, device=self.device)
+                precise_dots=self.precise_dots, device=self.device,
+                ckpt=self.ckpt)
         return self._inner1
 
     def _upload(self):
@@ -193,10 +200,11 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
 
         return spmv
 
-    def _program(self, crit: StoppingCriteria):
+    def _program(self, crit: StoppingCriteria, **ckpt_kw):
         """``run(Bm, X0)`` of the armed recurrence (``dist_batched.py:
         200-369``): the single-device batched tier's programs over this
-        tier's SpMV and psum'd column dots."""
+        tier's SpMV and psum'd column dots (``ckpt_kw``: the chunk
+        driver's carry hooks, for the classic recurrence)."""
         if crit.needs_diff:
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
@@ -218,7 +226,8 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
             return lambda Bm, X0: _batched_cg_pipelined_program(
                 spmv, pdot_cols, pdotk_cols, Bm, X0, crit, telem=telem(Bm))
         return lambda Bm, X0: _batched_cg_program(spmv, pdot_cols, Bm, X0,
-                                                  crit, telem=telem(Bm))
+                                                  crit, telem=telem(Bm),
+                                                  **ckpt_kw)
 
     def device_args(self, B_global, x0=None):
         """``(B, X0)`` as stacked ``(P, nmax_owned, B)`` blocks in the
@@ -243,6 +252,49 @@ class BatchedDistCGSolver(ChunkedBatchedSolver):
         """The global ``(n, B)`` columns of the stacked host block."""
         return np.stack([self.problem.gather(X[:, :, j])
                          for j in range(X.shape[2])], axis=1)
+
+    # -- the checkpoint chunks (acg_tpu/parallel/dist_batched.py:649-849) --
+
+    _ckpt_tier = "dist-cg-batched"
+
+    def _ckpt_meta_extra(self, meta: dict, arrs: dict) -> None:
+        """The stacked snapshot's partition count and its row-permutation
+        sidecar: ``--resume-repartition`` reassembles every column onto
+        another partition."""
+        prob = self.problem
+        meta["nparts"] = int(prob.nparts)
+        rp = prob.row_permutation()
+        if rp is not None:
+            arrs["_rowperm"] = rp
+            meta["part_rows"] = prob.part_rows()
+
+    def _validate_snapshot(self, snap, nrhs: int, dtype, b_crc) -> None:
+        from acg_tpu_torch import checkpoint as ckpt_mod
+        ckpt_mod.validate_resume(
+            snap, tier=self._ckpt_tier, pipelined=False, precond=None,
+            n=int(self.problem.n), dtype=dtype, b_crc=b_crc,
+            nparts=int(self.problem.nparts),
+            repartition=self.ckpt.repartition, nrhs=nrhs)
+
+    def _resume_arrays(self, snap) -> tuple:
+        """A repartitioned snapshot's columns, reassembled in global row
+        order, re-sliced onto this problem's parts."""
+        if not self.ckpt.repartition:
+            return snap.arrays, None
+        from acg_tpu_torch import checkpoint as ckpt_mod
+        snap, repartitioned = ckpt_mod.apply_repartition(
+            snap, tier=self._ckpt_tier, nparts=int(self.problem.nparts),
+            stats=self.stats, precond_spec=None)
+        prob = self.problem
+        out = {}
+        for nm, a in snap.arrays.items():
+            a = np.asarray(a)
+            if nm in ckpt_mod.BATCHED_COL_LEAVES or a.ndim < 2:
+                out[nm] = a
+            else:
+                out[nm] = np.stack([prob.scatter(a[:, j])
+                                    for j in range(a.shape[1])], axis=-1)
+        return out, repartitioned
 
     def _account_ops(self, st, k_total: int, nrhs: int) -> None:
         """The reference's census (``dist_batched.py:590-618``): matrix

@@ -82,6 +82,11 @@ def agree_status(code: int, what: str = "", timeout: float = 120.0) -> int:
     with :data:`PEER_LOST_EXIT`.  Single-process: returns ``code``."""
     if multihost.process_count() == 1:
         return int(code)
+    # the fault injector's peer:dead / peer:stall: the targeted process
+    # dies or stalls HERE, before the collective -- the failure the
+    # watchdog exists for (acg_tpu/parallel/erragree.py:320-325)
+    from acg_tpu_torch.faults import maybe_fail_peer
+    maybe_fail_peer(what)
     seq = next(_seq)
     tag = f" ({what})" if what else ""
     done = threading.Event()

@@ -42,11 +42,6 @@ from acg_tpu_torch.parallel.reductions import make_rank_psum
 from acg_tpu_torch.solvers.cg import TorchCGSolver, _spmv_fn
 from acg_tpu_torch.solvers.stats import StoppingCriteria
 
-# options of acg_tpu's ShardedDiaCGSolver that the port does not carry
-# yet, each refused by name: (keyword, value that means "off")
-_REFUSED = (("health", None), ("ckpt", None), ("recovery", None))
-
-
 def dia_mv_roll_df(planes, offsets, xh, xl):
     """``y = A x`` in double-float (df64) arithmetic over the roll
     formulation (``acg_tpu/parallel/sharded_dia.py:43-66``): x rides as
@@ -79,26 +74,25 @@ class ShardedDiaCGSolver(TorchCGSolver):
     ``replace_every`` and ``algorithm`` ride those programs as on one
     device.  ``stencil`` = ``(n, dim)`` of the generating Poisson grid
     arms :func:`spot_check_manufactured`.  ``trace``/``progress`` ride
-    the single-device programs (the reference's ``:234-270``).  Not
-    carried yet, each refused with a ValueError naming it: ``health``,
-    ``ckpt`` and ``recovery``."""
+    the single-device programs (the reference's ``:234-270``), and so do
+    ``recovery``, ``health`` and ``ckpt`` (``:244-276``): the audit runs
+    this tier's SpMV, a snapshot holds the global vectors under the tier
+    name ``sharded-dia``, and a fault lands in the global vector (a
+    ``part=`` target refuses with the reference's diagnosis)."""
+
+    # snapshots name their own provenance: the carry is the global-vector
+    # layout, but a resume must re-enter the same SpMV selection
+    _ckpt_tier = "sharded-dia"
 
     def __init__(self, A: DiaMatrix, nparts: int = 1,
                  pipelined: bool = False, precise_dots: bool = False,
                  vector_dtype=None, stencil=None, replace_every: int = 0,
                  replace_restart: bool = True, precond=None, algorithm=None,
                  kernels: str = "auto", device=None, trace: int = 0,
-                 progress: int = 0, **options):
+                 progress: int = 0, recovery=None, health=None, ckpt=None):
         if kernels not in ("auto", "xla-roll", "pallas-roll"):
             raise ValueError(f"unknown sharded kernels choice {kernels!r} "
                              f"(auto, xla-roll or pallas-roll)")
-        for name, off in _REFUSED:
-            if options.pop(name, off) not in (off,):
-                raise ValueError(f"ShardedDiaCGSolver: {name} is not "
-                                 f"ported to the sharded tier yet")
-        if options:
-            raise TypeError(f"ShardedDiaCGSolver: unexpected options "
-                            f"{sorted(options)}")
         if A.ncols_padded != A.nrows:
             raise ValueError("sharded DIA solve needs a square matrix")
         super().__init__(A, pipelined=pipelined, kernels="xla",
@@ -107,7 +101,11 @@ class ShardedDiaCGSolver(TorchCGSolver):
                          replace_every=replace_every,
                          replace_restart=replace_restart, precond=precond,
                          algorithm=algorithm, trace=trace,
-                         progress=progress)
+                         progress=progress, recovery=recovery,
+                         health=health, ckpt=ckpt)
+        # the fault diagnosis: this tier is multi-part but applies faults
+        # to the global vector
+        self._fault_nparts = int(nparts)
         on_cuda = self.device.type == "cuda"
         if kernels == "auto":
             kernels = "pallas-roll" if on_cuda else "xla-roll"
@@ -136,18 +134,6 @@ class ShardedDiaCGSolver(TorchCGSolver):
         sdt = acc_dtype(dtype)
         x = prng.normal(seed, self.A.nrows, sdt, self.device)
         return (x / torch.linalg.norm(x)).to(dtype)
-
-    def _fault_refusals(self, fault) -> None:
-        """The fault injector's sites and crash hook are not ported to
-        the sharded tier yet: an armed spec refuses by name."""
-        from acg_tpu_torch import faults
-        from acg_tpu_torch.errors import AcgError, ErrorCode
-        spec = faults.active_fault()
-        if spec is not None and (spec.device_site or spec.site == "crash"):
-            raise AcgError(
-                ErrorCode.INVALID_VALUE,
-                f"fault injection ({spec}) is not ported to the sharded "
-                f"gen-direct tier yet; use a replicated-read solve")
 
     def ones_b(self, dtype=None) -> torch.Tensor:
         """The all-ones right-hand side (the CLI default b)."""
@@ -325,17 +311,21 @@ class RankShardedDiaCGSolver(ShardedDiaCGSolver):
     its window of the manufactured solution from the partitionable
     counters (the one-process draw's values) and normalises it by the
     norm of its rows' squares folded over the ranks -- not the bits of
-    one process's norm, which sums all N squares in one reduction."""
+    one process's norm, which sums all N squares in one reduction.
+
+    ``precond`` takes the window's diagonal (jacobi) or diagonal blocks
+    (bjacobi, blocks aligned to the rank's rows) for this rank's rows,
+    or the Chebyshev interval of a power iteration over the ranks; the
+    CA recurrences fold their Gram and window products over the ranks
+    like the dots.  A fault lands in the global vector: its element on
+    the rank that owns it.  A snapshot holds the gathered global
+    vectors, written by the primary; a resume keeps each rank's rows."""
 
     def __init__(self, n: int, dim: int, nparts: int, dtype=torch.float32,
                  vector_dtype=None, epsilon: float = 0.0,
                  kernels: str = "auto", device=None, **options):
         from acg_tpu_torch.parallel import mesh, multihost
 
-        if options.get("precond") is not None or \
-                options.get("algorithm") is not None:
-            raise ValueError("ShardedDiaCGSolver: precond and algorithm "
-                             "are not ported to the multi-process tier yet")
         self.world = multihost.world()
         size, rank = self.world.size, self.world.rank
         N = n ** dim
@@ -408,6 +398,110 @@ class RankShardedDiaCGSolver(ShardedDiaCGSolver):
     def _dot_setup(self, dtype, precise: bool = False):
         dot, sdt = super()._dot_setup(dtype, precise)
         return (lambda a, c: self._fold(dot(a, c).reshape(1))), sdt
+
+    def _ca_ops(self, dot, sdt):
+        """The CA recurrences' ops: the Gram and window products of
+        this rank's rows folded over the ranks in rank order."""
+        from acg_tpu_torch import recurrence as rec
+        ops = rec.single_ops(self.A, self._spmv_of(), dot, sdt)
+        ops.psum_stack = lambda v: self._fold(v.unsqueeze(0))
+        return ops
+
+    def _rank_lmax(self, v) -> float:
+        """Power-iteration lambda_max over the ranks' SpMV with norms
+        folded over the ranks, from this rank's rows ``v`` of the
+        one-process start vector (so only the dots' folding differs)."""
+        from acg_tpu_torch.precond import POWER_ITERS
+        spmv_ = self._spmv_of()
+        sdt = v.dtype
+
+        def fdot(a, c):
+            return self._fold(torch.dot(a, c).reshape(1))
+
+        for _ in range(POWER_ITERS):
+            w = spmv_(self.A, v).to(sdt)
+            v = w / torch.sqrt(fdot(w, w))
+        w = spmv_(self.A, v).to(sdt)
+        return fdot(v, w) / fdot(v, v)
+
+    def _own_rows(self, v):
+        return v[self.row0:self.row0 + self.nloc]
+
+    def _ensure_lam(self):
+        """The recurrences' interval from the one-process start vector
+        (numpy's ``default_rng(0)`` over all N rows, this rank's rows
+        kept)."""
+        if self._lam is None:
+            from acg_tpu_torch.recurrence import LAM_SAFETY
+            if self.algo is not None and self.algo.needs_lam:
+                sdt = acc_dtype(self._solve_dtype())
+                v = torch.from_numpy(self._own_rows(
+                    np.random.default_rng(0).standard_normal(self.N))).to(
+                        device=self.device, dtype=sdt)
+                self._lam = (0.0, float(self._rank_lmax(v)) * LAM_SAFETY)
+            else:
+                self._lam = (0.0, 0.0)
+        return self._lam
+
+    def _ensure_precond_state(self):
+        """The preconditioner state of this rank's rows: jacobi and
+        bjacobi from the window's planes (own rows only), cheby from the
+        ranks' power iteration."""
+        spec = self.precond_spec
+        if spec is None or self._mstate is not None:
+            return self._mstate
+        from acg_tpu_torch import precond as pc
+        sdt = acc_dtype(self._solve_dtype())
+        if spec.kind == "cheby":
+            # the one-process start vector (precond.estimate_lmax's draw)
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            v = self._own_rows(torch.randn(self.N, generator=gen, dtype=sdt,
+                                           device=self.device)).clone()
+            self._mstate = pc.cheby_state(self._rank_lmax(v), sdt,
+                                          self.device)
+            return self._mstate
+        if spec.kind == "jacobi":
+            (dinv,) = pc.jacobi_state(self.A, sdt)
+            self._mstate = (dinv[self.L:self.L + self.nloc].contiguous(),)
+            return self._mstate
+        bs = spec.block
+        if self.row0 % bs or self.L % bs or (
+                self.nloc % bs and self.row0 + self.nloc != self.N):
+            raise ValueError(
+                f"--precond {spec} on the multi-process sharded tier "
+                f"needs each rank's rows aligned to the {bs}-row blocks "
+                f"(rank rows {self.row0}..{self.row0 + self.nloc})")
+        (chol,) = pc.bjacobi_state(self.A, bs, sdt)
+        b0 = self.L // bs
+        self._mstate = (chol[b0:b0 + -(-self.nloc // bs)].contiguous(),)
+        return self._mstate
+
+    def _guard(self, fault, detect: bool, k_offset: int = 0, carry=None,
+               state_io: bool = False):
+        """The fault of the global vector's element ``seed % N`` fires on
+        the rank that owns it, at that row; a scalar fault everywhere."""
+        import dataclasses
+        if fault is not None and fault.site in ("spmv", "sdc", "precond"):
+            g = fault.seed % max(self.N, 1)
+            fault = (dataclasses.replace(fault, seed=g - self.row0)
+                     if self.row0 <= g < self.row0 + self.nloc else None)
+        return super()._guard(fault, detect, k_offset, carry, state_io)
+
+    def _b_host(self, b) -> np.ndarray:
+        return self.gather_x(b) if isinstance(b, torch.Tensor) \
+            else np.asarray(b, dtype=np.float64)
+
+    def _to_host(self, leaf, name: str) -> np.ndarray:
+        if leaf.dim() == 0:
+            return leaf.cpu().numpy()
+        return self.gather_x(leaf).astype(
+            np.dtype(str(leaf.dtype).replace("torch.", "")), copy=False)
+
+    def _to_dev(self, a, name: str, sdt):
+        a = np.asarray(a)
+        if a.ndim >= 1:
+            a = a[self.row0:self.row0 + self.nloc]
+        return super()._to_dev(a, name, sdt)
 
     def _norm(self, v) -> float:
         sdt = acc_dtype(v.dtype)

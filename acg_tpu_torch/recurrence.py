@@ -44,6 +44,16 @@ the reference's stops exact with device-side selects:
   step counter ``j`` is host-side (the reference increments it every
   trip), so its window indices are Python integers: the windows are
   ring buffers and lists of scalars, with no rolled copies.
+
+A :class:`~acg_tpu_torch.solvers.cg.LoopGuard` arms the robustness
+hooks (``acg_tpu/recurrence.py:325-440``, ``:627-735``): the fault
+sites (every SpMV of an s-step block carries the block's first
+iteration, as the reference's do, and (p, Ap) its own; a p(l) SpMV its
+step counter), the s-step audit on crossing the cadence, and the
+checkpoint carry in and out -- s-step's block-boundary ``(r, p,
+gamma)``, p(l)'s whole working set in the reference's rolled layout
+(:data:`acg_tpu_torch.checkpoint.ca_carry_names`), so a chunked solve
+continues the recurrence exactly.
 """
 
 from __future__ import annotations
@@ -294,7 +304,8 @@ def sstep_build_basis(ops: TierOps, v, deg: int, basis: str, dc) -> list:
 
 
 def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
-                     maxits: int, unbounded: bool, telem=None):
+                     maxits: int, unbounded: bool, telem=None, guard=None,
+                     b=None, bnrm2=None):
     """The s-step outer block as ``block(st)`` over the carry ``st``
     (``x, r, p, gamma, k, bad``; ``gamma`` the coefficient-space ||r||^2
     carried across blocks).  A block the reference's ``while_loop``
@@ -306,8 +317,21 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
     masked by the step's own flag (``acg_tpu/recurrence.py:393-399``),
     and a heartbeat row after each block that crosses a multiple of the
     period, naming the block's end (the reference's test of ``k + 1``
-    against the period rarely meets a block's end)."""
+    against the period rarely meets a block's end).
+
+    ``guard`` arms the fault sites and the audit
+    (``acg_tpu/recurrence.py:346-421``): the block's SpMVs carry its
+    first iteration ``st.kh`` (host-known: a live block starts at a
+    multiple of s), (p, Ap) of inner step j carries ``kh + j``, and the
+    audit fires when the block crosses a multiple of the cadence in the
+    trajectory frame (``k_offset``), through the tier's own SpMV of the
+    mapped-back x against ``b``."""
     sdt = ops.sdt
+    fault = guard.fault if guard is not None else None
+    health = guard.health if guard is not None else None
+    koff = guard.k_offset if guard is not None else 0
+    if health is not None:
+        from acg_tpu_torch import health as H
     w = 2 * s + 1
     dev = Bmat.device
     eye = torch.eye(w, dtype=sdt, device=dev)
@@ -320,12 +344,22 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
         live = (~st.bad) & (st.k < maxits)
         if not unbounded:
             live = live & (st.gamma >= tol2)
+        kh = st.kh
+        st.kh += s
+        bops = ops
+        if fault is not None and fault.site in ("spmv", "sdc"):
+            bops = dataclasses.replace(ops, spmv=lambda v: fault.apply_spmv(
+                ops.spmv(v), kh, live))
         # -- basis: 2s-1 SpMVs, no reduction ---------------------------
-        rows = sstep_build_basis(ops, st.p, s, basis, dc)
+        if guard is not None:
+            guard.at(kh, live)
+        rows = sstep_build_basis(bops, st.p, s, basis, dc)
         if s > 1:
-            rows += sstep_build_basis(ops, st.r, s - 1, basis, dc)
+            rows += sstep_build_basis(bops, st.r, s - 1, basis, dc)
         else:
             rows.append(st.r)
+        if guard is not None:
+            guard.at(None)
         V = torch.stack(rows, dim=-2)
         # -- the block's one reduction ---------------------------------
         G = ops.gram(V)
@@ -337,6 +371,8 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
             wc = Bmat @ pc
             Gw = G @ wc
             denom = pc @ Gw
+            if fault is not None:
+                denom = fault.apply_dot(denom, kh + j, live)
             bad_j = ((~(torch.isfinite(denom) & torch.isfinite(gamma_blk)))
                      | ((denom <= 0) & (gamma_blk > 0)))
             going = (gamma_blk >= tol2) & (st.k < maxits - j)
@@ -362,9 +398,30 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
         st.x = torch.where(live, st.x + xc @ V, st.x)
         st.r = torch.where(live, rc @ V, st.r)
         st.p = torch.where(live, pc @ V, st.p)
+        gamma_old = st.gamma
         st.gamma = torch.where(live, gamma_blk, st.gamma)
         k_old = st.k
         st.k = st.k + torch.where(live, nsteps, 0)
+        if health is not None:
+            every = int(health.every)
+            if every and (kh + koff + s) // every > (kh + koff) // every:
+                # the block may cross the cadence: audit where it did
+                fire = live & ((st.k + koff) // every
+                               > (kh + koff) // every)
+                gap = H.relative_gap(b - ops.spmv(st.x), st.r, ops.dot,
+                                     bnrm2, sdt).reshape(()).to(
+                                         st.aud.dtype)
+                new = st.aud.clone()
+                new[H.AUD_GAP] = gap
+                new[H.AUD_GAP_MAX] = torch.maximum(st.aud[H.AUD_GAP_MAX],
+                                                   gap)
+                new[H.AUD_COUNT] = st.aud[H.AUD_COUNT] + 1
+                st.aud = torch.where(fire, new, st.aud)
+            st.aud = H.stall_update(st.aud, health, st.gamma < gamma_old,
+                                    live)
+            tr = H.trip(st.aud, health)
+            if tr is not None:
+                bad = bad | tr
         st.bad = torch.where(live, bad, st.bad)
         if telem is not None and telem.progress:
             # a block crossing a multiple of the period beats once
@@ -376,22 +433,28 @@ def make_sstep_block(ops: TierOps, s: int, basis: str, dc, Bmat, tol2,
 
 
 def run_sstep_loop(ops: TierOps, s: int, basis: str, lam, x0, r, gamma,
-                   res_tol, maxits: int, unbounded: bool, telem=None):
+                   res_tol, maxits: int, unbounded: bool, telem=None,
+                   guard=None, p=None, b=None, bnrm2=None):
     """The s-step outer loop, shared by every tier.  The stop flag is
     read once every ``CHUNK // s`` blocks; an unbounded solve stops only
     on a breakdown and otherwise runs ``ceil(maxits / s)`` blocks, the
     last one stopping at ``maxits``.  Returns ``(x, k, gamma_f, bad,
-    done)``."""
+    done, st)``: ``st`` holds the final ``r``, ``p`` (the checkpoint
+    carry) and, audited, ``aud``.  ``p`` re-enters mid-trajectory at a
+    block boundary (``p = r`` is the fresh start)."""
     sdt = ops.sdt
     dev = r.device
     tol2 = res_tol * res_tol
     dc = tuple(v.to(dev) for v in _interval(lam, sdt))
     Bmat = sstep_combined_bmat(s, basis, lam, sdt).to(dev)
-    st = _State(x=x0, r=r, p=r, gamma=gamma,
+    st = _State(x=x0, r=r, p=r if p is None else p, gamma=gamma,
                 k=torch.zeros((), dtype=torch.int64, device=dev),
-                bad=torch.zeros((), dtype=torch.bool, device=dev))
+                bad=torch.zeros((), dtype=torch.bool, device=dev), kh=0)
+    if guard is not None and guard.health is not None:
+        from acg_tpu_torch import health as H
+        st.aud = H.audit_init(sdt, guard.health, dev)
     block = make_sstep_block(ops, s, basis, dc, Bmat, tol2, maxits,
-                             unbounded, telem)
+                             unbounded, telem, guard, b, bnrm2)
     nblocks = -(-maxits // s)
     per_chunk = max(1, CHUNK // s)
     beats = telem is not None and telem.progress > 0
@@ -409,17 +472,21 @@ def run_sstep_loop(ops: TierOps, s: int, basis: str, lam, x0, r, gamma,
     if beats:
         telem.flush()
     done = (~st.bad) if unbounded else (st.gamma < tol2)
-    return st.x, st.k, st.gamma, st.bad, done
+    return st.x, st.k, st.gamma, st.bad, done, st
 
 
-def _setup(ops: TierOps, b, x0, crit):
+def _setup(ops: TierOps, b, x0, crit, carry_gamma=None):
     """The shared setup: ``(bnrm2, x0nrm2, r0, gamma0, r0nrm2, res_tol)``
-    (one SpMV, three dots)."""
+    (one SpMV, three dots).  A carried ``gamma`` (a checkpoint re-entry)
+    skips the residual: r0 is then None and r0nrm2 ``sqrt(gamma)``."""
     sdt = ops.sdt
     bnrm2 = torch.sqrt(ops.dot(b, b))
     x0nrm2 = torch.sqrt(ops.dot(x0, x0))
-    r = b - ops.spmv(x0)
-    gamma = ops.dot(r, r)
+    if carry_gamma is None:
+        r = b - ops.spmv(x0)
+        gamma = ops.dot(r, r)
+    else:
+        r, gamma = None, carry_gamma
     r0nrm2 = torch.sqrt(gamma)
     res_tol = torch.maximum(
         torch.tensor(crit.residual_atol, dtype=sdt, device=b.device),
@@ -428,20 +495,37 @@ def _setup(ops: TierOps, b, x0, crit):
 
 
 def _cg_sstep_program(ops: TierOps, b, x0, crit, s: int, basis: str,
-                      lam, telem=None) -> CGResult:
+                      lam, telem=None, guard=None) -> CGResult:
     """A whole s-step CG solve over ``ops`` (``acg_tpu.recurrence.
     _cg_sstep_program``; the stacked tier's body, ``acg_tpu/parallel/
     dist.py:2063-2185``, is the same code).  ``telem`` arms the ring and
-    heartbeat (:func:`make_sstep_block`)."""
-    bnrm2, x0nrm2, r, gamma, r0nrm2, res_tol = _setup(ops, b, x0, crit)
-    x, k, gamma_f, bad, done = run_sstep_loop(
+    heartbeat (:func:`make_sstep_block`), ``guard`` the fault sites, the
+    audit and the checkpoint carry: ``guard.carry`` re-enters from a
+    block-boundary ``(r, p, gamma)`` (the setup SpMV is skipped),
+    ``guard.state_io`` returns the final one in ``res.carry``."""
+    from acg_tpu_torch.solvers.cg import _guard_of
+    g = _guard_of(guard)
+    carry = g.carry if g is not None else None
+    p = None
+    if carry is not None:
+        r, p, gamma = carry
+        bnrm2, x0nrm2, _, gamma, r0nrm2, res_tol = _setup(
+            ops, b, x0, crit, carry_gamma=gamma)
+    else:
+        bnrm2, x0nrm2, r, gamma, r0nrm2, res_tol = _setup(ops, b, x0, crit)
+    x, k, gamma_f, bad, done, st = run_sstep_loop(
         ops, s, basis, lam, x0, r, gamma, res_tol, crit.maxits,
-        crit.unbounded, telem)
+        crit.unbounded, telem, g, p, b, bnrm2)
     inf = torch.tensor(math.inf, dtype=ops.sdt, device=b.device)
-    return CGResult(x=x, niterations=k,
-                    rnrm2=torch.sqrt(torch.clamp(gamma_f, min=0.0)),
-                    r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
-                    converged=done, breakdown=bad & ~done, telem=telem)
+    res = CGResult(x=x, niterations=k,
+                   rnrm2=torch.sqrt(torch.clamp(gamma_f, min=0.0)),
+                   r0nrm2=r0nrm2, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
+                   converged=done, breakdown=bad & ~done, telem=telem)
+    if g is not None and g.health is not None:
+        res.aud = st.aud
+    if g is not None and g.state_io:
+        res.carry = (st.r, st.p, gamma_f)
+    return res
 
 
 # -- p(l)-CG ---------------------------------------------------------------
@@ -455,7 +539,7 @@ def pl_shifts(l: int, lam, sdt, device=None):
 
 
 def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
-                maxits: int, unbounded: bool, telem=None):
+                maxits: int, unbounded: bool, telem=None, guard=None):
     """The p(l) iteration loop, shared by every tier (``acg_tpu.
     recurrence.make_pl_step``/``run_pl_loop``).  Returns ``(x, adv, q,
     conv, bad)``: ``adv`` counts the solution advances (the reported
@@ -473,7 +557,14 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
     in the ring slot of the advance count -- classic-aligned rows, as
     the reference's ring holds them (``acg_tpu/recurrence.py:558-566``)
     -- and a heartbeat row at each advance that lands on a multiple of
-    the period."""
+    the period.
+
+    ``guard`` arms the ``spmv:``/``halo:`` fault sites at the step
+    counter ``j`` and the checkpoint carry: ``guard.carry`` re-enters
+    from the reference's rolled working set (:func:`pl_carry_in`), with
+    ABSOLUTE ``j``/``adv`` and so an absolute ``maxits``;
+    ``guard.state_io`` returns it as ``(x, adv, q, conv, bad, carry)``'s
+    last element (:func:`pl_carry_out`)."""
     sdt = ops.sdt
     dev = x0.device
     tol2 = res_tol * res_tol
@@ -481,27 +572,38 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
     sigma = pl_shifts(l, lam, sdt, dev).unbind()
     one = torch.ones((), dtype=sdt, device=dev)
     zero = torch.zeros((), dtype=sdt, device=dev)
+    fault = guard.fault if guard is not None else None
+    carry = guard.carry if guard is not None else None
 
     def safe(v):
         return torch.where(v == 0, one, v)
 
     lead = x0.shape[:-1]    # () on one device, (P,) on stacked parts
     n = x0.shape[-1]
-    Zb = torch.zeros(lead + (W, n), dtype=sdt, device=dev)
-    Zb.select(-2, 0).copy_(z0)
-    Vb = torch.zeros(lead + (2 * l, n), dtype=sdt, device=dev)
-    zlast, zprev = z0, torch.zeros_like(z0)
-    # the delay line: window dots initiated at step t consumed at t + l
-    zzq = [[zero] * W for _ in range(l)]
-    zzq[-1][2 * l + 1] = one
-    gb = [[zero] * (2 * l + 1) for _ in range(2 * l + 1)]
-    gammas = [zero] * (l + 2)
-    deltas = [zero] * (l + 1)
-    st = _State(x=x0.to(sdt), q=eta, dprev=one,
-                ptilde=torch.zeros_like(z0),
-                adv=torch.zeros((), dtype=torch.int64, device=dev),
-                conv=eta2 < tol2,
-                bad=torch.zeros((), dtype=torch.bool, device=dev))
+    fals = torch.zeros((), dtype=torch.bool, device=dev)
+    if carry is None:
+        Zb = torch.zeros(lead + (W, n), dtype=sdt, device=dev)
+        Zb.select(-2, 0).copy_(z0)
+        Vb = torch.zeros(lead + (2 * l, n), dtype=sdt, device=dev)
+        zlast, zprev = z0, torch.zeros_like(z0)
+        # the delay line: window dots initiated at step t consumed at t + l
+        zzq = [[zero] * W for _ in range(l)]
+        zzq[-1][2 * l + 1] = one
+        gb = [[zero] * (2 * l + 1) for _ in range(2 * l + 1)]
+        gammas = [zero] * (l + 2)
+        deltas = [zero] * (l + 1)
+        j0 = 0
+        st = _State(x=x0.to(sdt), q=eta, dprev=one,
+                    ptilde=torch.zeros_like(z0),
+                    adv=torch.zeros((), dtype=torch.int64, device=dev),
+                    conv=eta2 < tol2, bad=fals)
+    else:
+        (j0, q, dprev, ptilde, Zb, Vb, zzq, gb, gammas, deltas,
+         adv) = pl_carry_in(carry, l)
+        zlast = Zb.select(-2, j0 % W).clone()
+        zprev = Zb.select(-2, (j0 - 1) % W).clone()
+        st = _State(x=x0.to(sdt), q=q, dprev=dprev, ptilde=ptilde,
+                    adv=adv, conv=fals, bad=fals)
 
     def step(j: int):
         nonlocal zlast, zprev, zzq, gb, gammas, deltas
@@ -574,7 +676,13 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
             telem.beat(st.adv, st.q * st.q,
                        do_adv & (st.adv % telem.progress == 0))
         # -- build z_{j+1}: the step's one SpMV --------------------------
+        if guard is not None:
+            guard.at(j, live)
         Az = ops.spmv(zlast)
+        if guard is not None:
+            guard.at(None)
+        if fault is not None:
+            Az = fault.apply_spmv(Az, j, live)
         if j < l:
             znew = Az - sigma[j] * zlast
         else:
@@ -597,7 +705,11 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
     jcap = maxits + 2 * l + 2
     nsteps = (maxits + l if maxits > 0 else 0) if unbounded else jcap
     beats = telem is not None and telem.progress > 0
-    j = 0
+    # a frozen step still advances the windows, so a run that returns
+    # its working set reads the stop flag every step: it stops where
+    # the reference's while_loop does
+    per = 1 if guard is not None and guard.state_io else CHUNK
+    j = j0
     while j < nsteps:
         stop = bool(st.bad if unbounded
                     else st.conv | st.bad | (st.adv >= maxits))
@@ -605,30 +717,91 @@ def run_pl_loop(ops: TierOps, l: int, lam, x0, z0, eta, eta2, res_tol,
             telem.flush()
         if stop:
             break
-        for _ in range(min(CHUNK, nsteps - j)):
+        for _ in range(min(per, nsteps - j)):
             step(j)
             j += 1
     if beats:
         telem.flush()
-    return st.x, st.adv, st.q, st.conv, st.bad
+    out = (st.x, st.adv, st.q, st.conv, st.bad)
+    if guard is not None and guard.state_io:
+        out = out + (pl_carry_out(l, j, st, Zb, Vb, zzq, gb, gammas,
+                                  deltas),)
+    return out
+
+
+def pl_carry_out(l: int, j: int, st, Zb, Vb, zzq, gb, gammas,
+                 deltas) -> tuple:
+    """The p(l) working set at step ``j`` in the reference's rolled
+    layout (``acg_tpu/recurrence.py:470-497``, the ``ca_carry_names``
+    order less x): ``Z[i] = z_{j-2l-1+i}``, ``V[rr] = v_{m-2l+rr}`` with
+    m = j + 1 - l, the delay line, the Cholesky columns and the T
+    windows oldest first, and the absolute counters."""
+    W = 2 * l + 2
+    m = j + 1 - l
+    Z = torch.stack([Zb.select(-2, (j - (W - 1) + i) % W)
+                     for i in range(W)], dim=-2)
+    V = torch.stack([Vb.select(-2, (m + rr) % (2 * l))
+                     for rr in range(2 * l)], dim=-2)
+    dev = st.adv.device
+    return (st.q, st.dprev, st.ptilde, Z, V,
+            torch.stack([torch.stack(row) for row in zzq]),
+            torch.stack([torch.stack(col) for col in gb]),
+            torch.stack(gammas), torch.stack(deltas),
+            torch.tensor(j, dtype=torch.int64, device=dev), st.adv)
+
+
+def pl_carry_in(carry, l: int) -> tuple:
+    """:func:`pl_carry_out`'s inverse: ``(j, q, dprev, ptilde, Zb, Vb,
+    zzq, gb, gammas, deltas, adv)`` with the windows back in their ring
+    slots and the scalar windows as lists of device scalars."""
+    q, dprev, ptilde, Z, V, zzq, gb, gammas, deltas, j, adv = carry
+    W = 2 * l + 2
+    j = int(j)
+    m = j + 1 - l
+    Zb = torch.empty_like(Z)
+    for i in range(W):
+        Zb.select(-2, (j - (W - 1) + i) % W).copy_(Z.select(-2, i))
+    Vb = torch.empty_like(V)
+    for rr in range(2 * l):
+        Vb.select(-2, (m + rr) % (2 * l)).copy_(V.select(-2, rr))
+    return (j, q.reshape(()), dprev.reshape(()), ptilde, Zb, Vb,
+            [list(row.unbind()) for row in zzq.unbind()],
+            [list(col.unbind()) for col in gb.unbind()],
+            list(gammas.unbind()), list(deltas.unbind()),
+            adv.reshape(()).to(torch.int64))
 
 
 def _cg_pl_program(ops: TierOps, b, x0, crit, l: int, lam,
-                   telem=None) -> CGResult:
+                   telem=None, guard=None) -> CGResult:
     """A whole p(l)-CG solve over ``ops`` (``acg_tpu.recurrence.
     _cg_pl_program``; the stacked tier's body is the same code).
     ``telem`` arms the ring and heartbeat (:func:`run_pl_loop`); each
-    restart attempt records its own, as the reference's does."""
-    bnrm2, x0nrm2, r, eta2, eta, res_tol = _setup(ops, b, x0, crit)
-    z0 = r / torch.where(eta == 0, 1.0, eta)
-    x, adv, q, conv, bad = run_pl_loop(ops, l, lam, x0, z0, eta, eta2,
-                                       res_tol, crit.maxits, crit.unbounded,
-                                       telem)
+    restart attempt records its own, as the reference's does.
+    ``guard`` arms the fault sites and the checkpoint carry: a carried
+    working set re-enters mid-pipeline with no setup SpMV, its ``j``/
+    ``adv`` and ``crit.maxits`` absolute (``niterations`` then counts
+    from the solve's start)."""
+    from acg_tpu_torch.solvers.cg import _guard_of
+    g = _guard_of(guard)
+    if g is not None and g.carry is not None:
+        q = g.carry[0]
+        bnrm2, x0nrm2, _, eta2, eta, res_tol = _setup(
+            ops, b, x0, crit, carry_gamma=q * q)
+        z0 = None
+    else:
+        bnrm2, x0nrm2, r, eta2, eta, res_tol = _setup(ops, b, x0, crit)
+        z0 = r / torch.where(eta == 0, 1.0, eta)
+    out = run_pl_loop(ops, l, lam, x0, z0, eta, eta2, res_tol, crit.maxits,
+                      crit.unbounded, telem, g)
+    x, adv, q, conv, bad = out[:5]
     done = (~bad) if crit.unbounded else conv
     inf = torch.tensor(math.inf, dtype=ops.sdt, device=b.device)
-    return CGResult(x=x.to(b.dtype), niterations=adv, rnrm2=torch.abs(q),
-                    r0nrm2=eta, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
-                    converged=done, breakdown=bad & ~done, telem=telem)
+    res = CGResult(x=x.to(b.dtype), niterations=adv, rnrm2=torch.abs(q),
+                   r0nrm2=eta, bnrm2=bnrm2, x0nrm2=x0nrm2, dxnrm2=inf,
+                   converged=done, breakdown=bad & ~done, telem=telem)
+    if g is not None and g.state_io:
+        res.carry = out[5]
+    return res
 
 
 # -- the spectral estimate -------------------------------------------------

@@ -32,8 +32,13 @@ A batch of one delegates to the single-RHS
 the JAX package delegates to ``JaxCGSolver``).  ``trace`` arms the
 per-RHS residual ring (:class:`~acg_tpu_torch.telemetry.
 BatchedLoopTelemetry`, ``acg_tpu/solvers/batched.py:855``) and
-``progress`` a worst-column heartbeat; batched checkpoints (``ckpt``)
-are not ported yet: the port refuses them by name.
+``progress`` a worst-column heartbeat.  ``ckpt`` arms the batched
+checkpoint chunks (``acg_tpu/solvers/batched.py:894-1070``) of the
+batched classic recurrence: the per-RHS carry (:func:`acg_tpu_torch.
+checkpoint.batched_carry_names`: the r/p columns and the gamma/done/
+iters vectors) threads through chunks of ``ckpt.every`` iterations, so
+a whole batch survives preemption with every column's progress and
+tolerance intact.
 """
 
 from __future__ import annotations
@@ -135,6 +140,9 @@ class BatchedCGResult:
     x0nrm2: torch.Tensor       # (B,)
     converged: torch.Tensor    # (B,) bool
     telem: object = None       # the run's BatchedLoopTelemetry, if armed
+    # the final per-RHS carry of a state_io run (batched_carry_names
+    # order, without x)
+    carry: object = None
 
 
 class _State:
@@ -215,7 +223,9 @@ def _ring_step(telem, s, active, unbounded: bool, cols) -> None:
 
 
 def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
-                        papply=None, telem=None) -> BatchedCGResult:
+                        papply=None, telem=None, carry=None,
+                        state_io: bool = False,
+                        atol_cols=None) -> BatchedCGResult:
     """Batched classic CG (``acg_tpu.solvers.batched._batched_cg_program``):
     the single-RHS classic recurrence per column, its dots one column
     reduction, converged columns frozen by the masks.  ``spmv(X)`` and
@@ -225,7 +235,14 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
     dist_batched`).  ``papply(R)`` makes it preconditioned (gamma =
     (r, z); the carried rr = (r, r) keeps the convergence test
     unpreconditioned).  ``telem`` (a :class:`~acg_tpu_torch.telemetry.
-    BatchedLoopTelemetry`) records each iteration's per-RHS (r, r)."""
+    BatchedLoopTelemetry`) records each iteration's per-RHS (r, r).
+
+    The checkpoint hooks (``acg_tpu/solvers/batched.py:177-262``):
+    ``carry`` (:func:`acg_tpu_torch.checkpoint.batched_carry_names`
+    order, without x) re-enters a batch mid-solve with no setup SpMV,
+    ``state_io`` returns the final carry in ``res.carry``, and
+    ``atol_cols`` (B,) replaces the criteria's tolerances by per-RHS
+    absolute targets (a later chunk keeps every column's first ones)."""
     dtype = Bm.dtype
     dev = Bm.device
     sdt = acc_dtype(dtype)
@@ -237,23 +254,33 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
     unbounded = crit.unbounded
     bnrm2 = torch.sqrt(coldot(Bm, Bm))
     x0nrm2 = torch.sqrt(coldot(X0, X0))
-    R = Bm - spmv(X0)
-    if papply is not None:
-        Z0 = papply(R)
-        P = store(Z0)
-        gamma = coldot(R, Z0)
-        rr = coldot(R, R)
+    if carry is not None:
+        if papply is not None:
+            R, P, gamma, rr, done0, iters0 = carry
+        else:
+            R, P, gamma, done0, iters0 = carry
+            rr = gamma
     else:
-        P = R
-        gamma = rr = coldot(R, R)
+        R = Bm - spmv(X0)
+        if papply is not None:
+            Z0 = papply(R)
+            P = store(Z0)
+            gamma = coldot(R, Z0)
+            rr = coldot(R, R)
+        else:
+            P = R
+            gamma = rr = coldot(R, R)
     r0nrm2 = torch.sqrt(rr)
-    res_tol = _res_tols(crit, r0nrm2)
+    res_tol = _res_tols(crit, r0nrm2) if atol_cols is None else atol_cols
     tol2 = res_tol * res_tol
     s = _State(x=X0, r=R, p=P, gamma=gamma, rr=rr,
                iters=torch.zeros((nrhs,), dtype=torch.int64, device=dev),
                k=torch.zeros((), dtype=torch.int64, device=dev))
     s.done = (torch.zeros((nrhs,), dtype=torch.bool, device=dev)
               if unbounded else rr < tol2)
+    if carry is not None:
+        s.done = done0.to(torch.bool)
+        s.iters = iters0.to(torch.int64)
 
     def step():
         active = ~s.done
@@ -282,8 +309,13 @@ def _batched_cg_program(spmv, coldot, Bm, X0, crit: StoppingCriteria,
             s.done = s.done | (active & (rr_next < tol2))
 
     _run(step, crit.maxits, unbounded, s, telem=telem)
-    return _finish(s, crit, nrhs, dev, torch.sqrt(s.rr), r0nrm2, bnrm2,
-                   x0nrm2, s.done, telem)
+    res = _finish(s, crit, nrhs, dev, torch.sqrt(s.rr), r0nrm2, bnrm2,
+                  x0nrm2, s.done, telem)
+    if state_io:
+        res.carry = ((s.r, s.p, s.gamma)
+                     + ((s.rr,) if papply is not None else ())
+                     + (s.done, s.iters))
+    return res
 
 
 def _batched_cg_pipelined_program(spmv, coldot, coldotk, Bm, X0,
@@ -497,6 +529,26 @@ class ChunkedBatchedSolver:
     last_trace = None
     _warming = False
     _trace_name = "cg-batched"
+    ckpt = None
+    precond_spec = None
+    _ckpt_tier = "jax-cg-batched"
+
+    def _check_ckpt(self, ckpt, classic: bool) -> None:
+        """Keep ``ckpt`` (a :class:`~acg_tpu_torch.checkpoint.
+        CheckpointConfig`), refused where the reference refuses: only
+        the batched classic recurrence exposes its carry."""
+        if ckpt is not None:
+            from acg_tpu_torch.checkpoint import CheckpointConfig
+            if not isinstance(ckpt, CheckpointConfig):
+                raise ValueError("ckpt must be an acg_tpu_torch."
+                                 "checkpoint.CheckpointConfig or None")
+            if not classic:
+                raise ValueError(
+                    "batched checkpointing threads the batched-classic "
+                    "carry (r/p columns + gamma/done/iters); the "
+                    "pipelined/block modes do not expose state_io -- "
+                    "use mode='batched'")
+        self.ckpt = ckpt
 
     def _check_batched_telemetry(self, trace: int, progress: int) -> None:
         self.trace, self.progress = int(trace), int(progress)
@@ -546,6 +598,9 @@ class ChunkedBatchedSolver:
             if host_result:
                 return np.asarray(x).reshape(-1, 1)
             return x[..., None]
+        if self.ckpt is not None:
+            return self._solve_ckpt(b, x0, crit, raise_on_divergence,
+                                    host_result)
         program = self._program(crit)
         t_xfer = time.perf_counter()
         Bm, X0 = self.device_args(b, x0)
@@ -574,17 +629,7 @@ class ChunkedBatchedSolver:
                 telemetry.BatchedConvergenceTrace.from_ring(
                     res.telem.ring(), int(res.k_total),
                     solver=self._trace_name)
-        if host_result:
-            xv = (res.x.to(torch.float32) if res.x.dtype == torch.bfloat16
-                  else res.x)
-            x = self._host_x(xv.cpu().numpy())
-            st.fexcept_arrays = [x]
-        else:
-            x = res.x
-            has_nan = bool(torch.isnan(x).any())
-            has_inf = bool(torch.isinf(x).any())
-            st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
-                                             np.inf if has_inf else 0.0])]
+        x = self._finish_x(res, host_result)
         if not st.converged and raise_on_divergence:
             rn = np.asarray(st.batch["rnrm2"])
             worst = int(np.argmax(rn))
@@ -594,14 +639,214 @@ class ChunkedBatchedSolver:
                 f"residual {float(rn[worst]):.3e})")
         return x
 
-    def _finish_stats(self, res: BatchedCGResult, nrhs: int) -> None:
+    def _finish_x(self, res, host_result: bool):
+        st = self.stats
+        if host_result:
+            xv = (res.x.to(torch.float32) if res.x.dtype == torch.bfloat16
+                  else res.x)
+            x = self._host_x(xv.cpu().numpy())
+            st.fexcept_arrays = [x]
+            return x
+        x = res.x
+        has_nan = bool(torch.isnan(x).any())
+        has_inf = bool(torch.isinf(x).any())
+        st.fexcept_arrays = [np.asarray([np.nan if has_nan else 0.0,
+                                         np.inf if has_inf else 0.0])]
+        return x
+
+    # -- the survivability tier: the checkpoint-chunked batched solve -------
+
+    def _ckpt_meta_extra(self, meta: dict, arrs: dict) -> None:
+        """Tier additions to a snapshot (the stacked tier's partition
+        count and row-permutation sidecar)."""
+
+    def _resume_arrays(self, snap) -> tuple:
+        """``(arrays, repartitioned)`` of a validated snapshot in this
+        tier's layout."""
+        return snap.arrays, None
+
+    def _validate_snapshot(self, snap, nrhs: int, dtype, b_crc) -> None:
+        from acg_tpu_torch import checkpoint as ckpt_mod
+        ckpt_mod.validate_resume(
+            snap, tier=self._ckpt_tier, pipelined=False,
+            precond=(str(self.precond_spec)
+                     if self.precond_spec is not None else None),
+            n=int(self.stats.unknowns), dtype=dtype, b_crc=b_crc,
+            nrhs=nrhs)
+
+    def _leaf_to_dev(self, a, name: str, sdt):
+        a = np.asarray(a)
+        if name == "done":
+            dt = torch.bool
+        elif name == "iters":
+            dt = torch.int64
+        elif name in ("gamma", "rr"):
+            dt = sdt
+        else:
+            dt = self._solve_dtype()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dt)
+
+    def _solve_ckpt(self, b, x0, crit: StoppingCriteria,
+                    raise_on_divergence: bool, host_result: bool):
+        """The checkpoint-armed batched solve (``acg_tpu/solvers/
+        batched.py:894-1070``, ``acg_tpu/parallel/dist_batched.py:
+        649-849``): the unchanged batched classic program in chunks of
+        ``ckpt.every`` iterations, the per-RHS carry threaded through (a
+        chunked solve is the uninterrupted one bit for bit), a snapshot
+        committed between chunks, and a resume that keeps every
+        column's first absolute target."""
+        from acg_tpu_torch import checkpoint as ckpt_mod
+        from acg_tpu_torch import metrics, observatory
+        from acg_tpu_torch.solvers.cg import _np_dtype
+
+        cfg = self.ckpt
+        st = self.stats
+        dtype = self._solve_dtype()
+        sdt = acc_dtype(dtype)
+        names = ckpt_mod.batched_carry_names(self.precond_spec is not None)
+        t_xfer = time.perf_counter()
+        Bm, X0 = self.device_args(b, x0)
+        device_sync(self.device)
+        _add_timing(st, "transfer", time.perf_counter() - t_xfer)
+        nrhs = int(Bm.shape[-1])
+        bh = np.asarray(b, np.float64)
+        b_crc = ckpt_mod.vector_checksum(
+            bh.reshape(bh.shape[0], -1).astype(_np_dtype(dtype)))
+
+        def carry_of(arrs):
+            return tuple(self._leaf_to_dev(arrs[nm], nm, sdt)
+                         for nm in names[1:])
+
+        consumed = executed = 0
+        resumed_from = repartitioned = None
+        carry = None
+        x_cur = X0
+        abs_tol = first_r0 = None
+        snap = cfg.resume
+        if snap is not None:
+            self._validate_snapshot(snap, nrhs, _np_dtype(dtype), b_crc)
+            ckpt_mod.check_resume_env(snap, st)
+            arrs, repartitioned = self._resume_arrays(snap)
+            consumed = resumed_from = snap.iteration
+            sm = snap.meta
+            abs_tol = np.asarray(sm["abs_tol"], dtype=np.float64)
+            first_r0 = np.asarray(sm["r0nrm2"], dtype=np.float64)
+            x_cur = self._leaf_to_dev(arrs["x"], "x", sdt)
+            carry = carry_of(arrs)
+            metrics.record_resume()
+            telemetry.record_event(
+                st, "resume",
+                f"resumed batched solve ({nrhs} RHS) from snapshot at "
+                f"iteration {consumed}")
+        seq = nsnaps = 0
+        ck_secs = 0.0
+        res = None
+        t0 = time.perf_counter()
+        while True:
+            remaining = crit.maxits - consumed
+            if remaining <= 0:
+                break
+            m = min(cfg.chunk_for(None), remaining)
+            atol_cols = (None if abs_tol is None else torch.as_tensor(
+                abs_tol, dtype=sdt, device=self.device))
+            program = self._program(dataclasses.replace(crit, maxits=m),
+                                    carry=carry, state_io=True,
+                                    atol_cols=atol_cols)
+            res = program(Bm, x_cur)
+            device_sync(self.device)
+            k_chunk = int(res.k_total)
+            consumed += k_chunk
+            executed += k_chunk
+            if first_r0 is None:
+                first_r0 = res.r0nrm2.double().cpu().numpy()
+                abs_tol = np.maximum(crit.residual_atol,
+                                     crit.residual_rtol * first_r0)
+            if res.telem is not None and res.telem.buf is not None:
+                st.trace = self.last_trace = \
+                    telemetry.BatchedConvergenceTrace.from_ring(
+                        res.telem.ring(), k_chunk, solver=self._trace_name,
+                        offset=consumed - k_chunk)
+            rn = res.rnrm2.double().cpu().numpy()
+            conv = res.converged.cpu().numpy()
+            observatory.note_chunk(
+                self._ckpt_tier, consumed,
+                float(np.max(rn[~conv])) if (~conv).any()
+                else float(np.max(rn)),
+                abs_tol=float(np.max(abs_tol)), rtol=crit.residual_rtol)
+            finished = (consumed >= crit.maxits if crit.unbounded
+                        else bool(conv.all()))
+            x_cur = res.x
+            carry = res.carry
+            if cfg.path is not None and not finished:
+                t_ck = time.perf_counter()
+                arrs = {"x": res.x.cpu().numpy()}
+                for nm, leaf in zip(names[1:], res.carry):
+                    arrs[nm] = leaf.cpu().numpy()
+                seq += 1
+                meta = {
+                    "tier": self._ckpt_tier,
+                    "pipelined": False,
+                    "precond": (str(self.precond_spec)
+                                if self.precond_spec is not None
+                                else None),
+                    "n": int(self.stats.unknowns),
+                    "nrhs": nrhs,
+                    "dtype": str(_np_dtype(dtype)),
+                    "iteration": consumed,
+                    "seq": seq,
+                    "abs_tol": [float(v) for v in abs_tol],
+                    "bnrm2": [float(v) for v in
+                              res.bnrm2.double().cpu().numpy()],
+                    "x0nrm2": [float(v) for v in
+                               res.x0nrm2.double().cpu().numpy()],
+                    "r0nrm2": [float(v) for v in first_r0],
+                    "b_crc": b_crc,
+                    "trace_tail": [],
+                }
+                self._ckpt_meta_extra(meta, arrs)
+                nbytes = ckpt_mod.save_snapshot(cfg.path, meta, arrs)
+                dt = time.perf_counter() - t_ck
+                ck_secs += dt
+                _add_timing(st, "ckpt", dt)
+                metrics.record_snapshot(nbytes, dt)
+                nsnaps += 1
+            if finished:
+                break
+        if res is None:
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                f"snapshot iteration {consumed} already meets the "
+                f"iteration cap {crit.maxits}; raise --max-iterations "
+                f"to continue this solve")
+        t_solve = time.perf_counter() - t0 - ck_secs
+        st.tsolve += t_solve
+        _add_timing(st, "solve", t_solve)
+        self._finish_stats(res, nrhs, k_total=executed)
+        st.ckpt = {"path": cfg.path, "every": int(cfg.every),
+                   "snapshots": nsnaps, "iteration": consumed,
+                   "rollbacks": 0}
+        if resumed_from is not None:
+            st.ckpt["resumed_from"] = resumed_from
+        if repartitioned is not None:
+            st.ckpt["repartitioned_from"] = repartitioned
+        x = self._finish_x(res, host_result)
+        if not st.converged and raise_on_divergence:
+            raise NotConvergedError(
+                f"{executed} iterations, {st.batch['unconverged']} of "
+                f"{nrhs} RHS unconverged")
+        return x
+
+    def _finish_stats(self, res: BatchedCGResult, nrhs: int,
+                      k_total: int | None = None) -> None:
         """Per-RHS evidence -> ``stats.batch``; the aggregate fields keep
-        their single-RHS meaning through the slowest/worst column."""
+        their single-RHS meaning through the slowest/worst column
+        (``k_total``: the iterations this process ran, when chunked)."""
         st = self.stats
         iters = res.niterations.cpu().numpy().astype(int).tolist()
         rn = [float(v) for v in res.rnrm2.double().cpu().numpy()]
         conv = [bool(v) for v in res.converged.cpu().numpy()]
-        k_total = int(res.k_total)
+        k_total = int(res.k_total) if k_total is None else int(k_total)
         st.nsolves += 1
         st.niterations = k_total
         st.ntotaliterations += k_total
@@ -658,10 +903,7 @@ class BatchedCGSolver(ChunkedBatchedSolver):
             raise ValueError("block-CG's scalars are B x B Gram solves "
                              "in the scalar dtype; precise_dots applies "
                              "to the batched/pipelined modes")
-        if ckpt is not None:
-            raise ValueError("ckpt: the batched tiers' checkpoints "
-                             "(checkpoint.py's batched carry) are not "
-                             "ported yet")
+        self._check_ckpt(ckpt, mode == "batched")
         self.device = resolve_device(device)
         if A.device != self.device:
             raise ValueError(f"the matrix lives on {A.device}, the solver "
@@ -692,7 +934,7 @@ class BatchedCGSolver(ChunkedBatchedSolver):
                 self.A, pipelined=(self.mode == "pipelined"),
                 precise_dots=self.precise_dots, kernels="xla",
                 vector_dtype=self.vector_dtype, device=self.device,
-                precond=self.precond_spec)
+                precond=self.precond_spec, ckpt=self.ckpt)
         return self._inner1
 
     def _ensure_precond_state(self):
@@ -725,7 +967,10 @@ class BatchedCGSolver(ChunkedBatchedSolver):
     def _host_x(self, X: np.ndarray) -> np.ndarray:
         return X
 
-    def _program(self, crit: StoppingCriteria):
+    def _program(self, crit: StoppingCriteria, **ckpt_kw):
+        """``run(Bm, X0)`` of the armed mode; ``ckpt_kw`` (the chunk
+        driver's carry, state_io and atol_cols) reach the batched
+        classic program."""
         if crit.needs_diff:
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
@@ -761,7 +1006,8 @@ class BatchedCGSolver(ChunkedBatchedSolver):
             return lambda Bm, X0: _batched_cg_pipelined_program(
                 spmv, coldot, coldotk, Bm, X0, crit, papply, telem(Bm))
         return lambda Bm, X0: _batched_cg_program(spmv, coldot, Bm, X0,
-                                                  crit, papply, telem(Bm))
+                                                  crit, papply, telem(Bm),
+                                                  **ckpt_kw)
 
     def _account_ops(self, st, k_total: int, nrhs: int) -> None:
         """Analytic census: matrix bytes are read once an iteration for

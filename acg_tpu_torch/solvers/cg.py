@@ -993,6 +993,7 @@ class ChunkedCGSolver:
     last_trace = None
     _warming = False
     algo = None
+    _ca_ckpt = True   # the CA recurrences checkpoint on this tier
 
     def _host_x(self, x: np.ndarray) -> np.ndarray:
         return x
@@ -1041,8 +1042,9 @@ class ChunkedCGSolver:
     def _check_robustness(self, recovery, health, ckpt, host_matrix,
                           fused: bool, replace_every: int) -> None:
         """Validate and keep ``recovery``/``health``/``ckpt``, with the
-        reference's refusals (``jax_cg.py:1274-1394``); the CA
-        recurrences' hooks are the next slice's and refuse by name."""
+        reference's refusals (``jax_cg.py:1274-1394``), the CA
+        recurrences' matrix included (``_ca_ckpt``: whether they
+        checkpoint on this tier)."""
         from acg_tpu_torch.checkpoint import CheckpointConfig
         from acg_tpu_torch.health import HealthSpec
         from acg_tpu_torch.solvers.resilience import RecoveryPolicy
@@ -1084,14 +1086,39 @@ class ChunkedCGSolver:
                     "two streamed kernels and exposes no loop carry; "
                     "checkpointing needs kernels='xla'/'pallas'")
         if self.algo is not None:
-            for on, what in ((health is not None, "the health audit "
-                              "(health)"),
-                             (ckpt is not None, "checkpoints (ckpt)")):
-                if on:
+            # what the CA recurrences do not reach refuses, with the
+            # reference's messages (jax_cg.py:1354-1381; on stacked parts
+            # dist.py:1217-1230, where they checkpoint not at all)
+            ca = str(self.algo)
+            if ckpt is not None and not self._ca_ckpt:
+                raise ValueError(
+                    f"{ca} checkpoints on the single-device tier only "
+                    f"(checkpoint.ca_carry_names); on the mesh, "
+                    f"--ckpt/--resume need --algorithm "
+                    f"classic|pipelined")
+            if ckpt is not None and ckpt.repartition:
+                raise ValueError(
+                    f"{ca} snapshots its own carry layout "
+                    f"(checkpoint.ca_carry_names) which is not in the "
+                    f"field-compatible repartition set; "
+                    f"--resume-repartition needs --algorithm "
+                    f"classic|pipelined")
+            if ckpt is not None and self.algo.kind == "pl" and self.trace:
+                raise ValueError(
+                    f"{ca} checkpoints its pipeline counters in the "
+                    f"ABSOLUTE iteration frame, but the trace ring is "
+                    f"reconstructed chunk-relative; --ckpt with --trace "
+                    f"needs --algorithm classic|pipelined|sstep")
+            if health is not None:
+                if self.algo.kind == "pl":
                     raise ValueError(
-                        f"{self.algo}: {what} of the communication-"
-                        f"avoiding recurrences is not ported yet; use "
-                        f"--algorithm classic|pipelined")
+                        f"{ca} has no in-loop audit hook (the basis "
+                        f"recovery already detects its own breakdown); "
+                        f"--audit-every needs classic/pipelined/sstep")
+                if health.abft:
+                    raise ValueError(
+                        f"{ca} has no checksum hook for its basis "
+                        f"products; --abft needs classic/pipelined")
         self.recovery = recovery
         if (self.algo is not None and self.algo.kind == "pl"
                 and recovery is None):
@@ -1126,12 +1153,23 @@ class ChunkedCGSolver:
                 "nothing)")
         if fault is None:
             return
-        if self.algo is not None:
+        if (self.algo is not None and self.algo.kind == "sstep"
+                and fault.site in ("spmv", "sdc", "halo")
+                and fault.iteration % self.algo.param != 0):
+            # the s-step basis products carry the block's first
+            # iteration: a vector fault armed mid-block could never fire
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
-                f"fault injection into the communication-avoiding "
-                f"recurrences ({self.algo}) is not ported yet; use "
-                f"--algorithm classic|pipelined")
+                f"sstep:{self.algo.param} applies SpMV/halo faults at "
+                f"block boundaries; arm an iteration that is a "
+                f"multiple of {self.algo.param} (got {fault.iteration})")
+        if (self.algo is not None and self.algo.kind == "pl"
+                and fault.site == "dot"):
+            raise AcgError(
+                ErrorCode.INVALID_VALUE,
+                "dot fault injection has no site in the p(l) "
+                "recurrence (its reductions are fused window matvecs); "
+                "use spmv:, or the classic/pipelined/sstep programs")
         if getattr(self, "replace_every", 0):
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
@@ -1147,7 +1185,10 @@ class ChunkedCGSolver:
         self._tier_fault_refusals(fault)
 
     def _tier_fault_refusals(self, fault) -> None:
-        """The single-device tier's refusals: no halo, only part 0."""
+        """The single-device tier's refusals: no halo, only part 0; the
+        sharded tier, which reuses this solve over the global vector,
+        names its own reason (``_fault_nparts``, ``jax_cg.py:
+        1691-1710``)."""
         if fault.site == "halo":
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
@@ -1155,11 +1196,18 @@ class ChunkedCGSolver:
                 "ghost exchange (DistCGSolver, nparts > 1); the "
                 "single-device solver has no halo to poison")
         if fault.part > 0:
+            if getattr(self, "_fault_nparts", 1) == 1:
+                raise AcgError(
+                    ErrorCode.INVALID_VALUE,
+                    f"fault spec targets part {fault.part}, but the "
+                    f"single-device solver has only part 0 -- the fault "
+                    f"could never fire")
             raise AcgError(
                 ErrorCode.INVALID_VALUE,
-                f"fault spec targets part {fault.part}, but the "
-                f"single-device solver has only part 0 -- the fault "
-                f"could never fire")
+                f"the sharded single-program tier applies faults to the "
+                f"global vector and cannot target part {fault.part}; "
+                f"drop part= or use the partitioned DistCGSolver path "
+                f"for part-targeted injection")
 
     def _refuse_detect_tier(self, detect: bool) -> None:
         """The fused two-phase iteration has no breakdown hook."""
@@ -1248,8 +1296,18 @@ class ChunkedCGSolver:
 
     def _shift_fault(self, fault, k_done: int):
         """The fault as a restarted solve sees it: a fired one vanishes
-        (``FaultSpec.shift``)."""
-        return fault.shift(k_done) if fault is not None else None
+        (``FaultSpec.shift``; ``jax_cg.py:1873-1900``).  An s-step block
+        poisoned at its start froze before its steps counted, so a fault
+        at or before ``k_done`` fired; p(l)'s faults key on its step
+        counter, ``l + 1`` ahead of the advances at a breakdown."""
+        if fault is None:
+            return None
+        if self.algo is not None and fault.device_site:
+            if self.algo.kind == "sstep" and fault.iteration <= k_done:
+                return None
+            if self.algo.kind == "pl":
+                return fault.shift(k_done + self.algo.param + 1)
+        return fault.shift(k_done)
 
     def _attempt_trace(self, res):
         if res.telem is None or res.telem.buf is None:
@@ -1396,7 +1454,9 @@ class ChunkedCGSolver:
     # -- the survivability tier: the checkpoint-chunked solve ---------------
 
     def _carry_names(self) -> tuple:
-        from acg_tpu_torch.checkpoint import carry_names
+        from acg_tpu_torch.checkpoint import ca_carry_names, carry_names
+        if self.algo is not None:
+            return ca_carry_names(self.algo.kind)
         return carry_names(self.pipelined, self.precond_spec is not None)
 
     def _ckpt_meta_extra(self, meta: dict, arrs: dict) -> None:
@@ -1409,12 +1469,55 @@ class ChunkedCGSolver:
         return snap.arrays
 
     def _to_dev(self, a, name: str, sdt):
+        """A snapshot leaf on the device: the psum'd scalars in ``sdt``,
+        p(l)'s counters as int64 and its windows in ``sdt``, vectors in
+        the solve dtype."""
         from acg_tpu_torch.checkpoint import SCALAR_LEAVES
         a = np.asarray(a)
         if name in SCALAR_LEAVES:
             return torch.tensor(a, dtype=sdt, device=self.device).reshape(())
+        if name in ("j", "adv"):
+            return torch.tensor(a, dtype=torch.int64,
+                                device=self.device).reshape(())
+        dt = (sdt if self.algo is not None and self.algo.kind == "pl"
+              and name != "x" else self._solve_dtype())
         return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=self._solve_dtype())
+            device=self.device, dtype=dt)
+
+    def _b_host(self, b) -> np.ndarray:
+        """The whole right-hand side on the host in f64 (a snapshot's
+        checksum covers it)."""
+        if isinstance(b, torch.Tensor):
+            return b.detach().to(torch.float64).cpu().numpy()
+        return np.asarray(b, dtype=np.float64)
+
+    def _to_host(self, leaf, name: str) -> np.ndarray:
+        """A carry leaf as the snapshot stores it (stacked parts: every
+        part's rows, gathered to every process)."""
+        return leaf.cpu().numpy()
+
+    def _save(self, path, meta: dict, arrs: dict) -> int:
+        """Commit one snapshot: one agreed sequence number across
+        processes, then the primary writes (``acg_tpu/parallel/
+        dist.py:3423-3431``); returns the bytes written here."""
+        from acg_tpu_torch import checkpoint as ckpt_mod
+        from acg_tpu_torch.parallel import multihost
+        ckpt_mod.agree_seq(meta["seq"], meta["iteration"])
+        if not multihost.is_primary():
+            return 0
+        return ckpt_mod.save_snapshot(path, meta, arrs)
+
+    def _agreed_chunk(self, m: int, cfg) -> int:
+        """Every process runs a chunk of the same length: the wall-clock
+        cadence sizes chunks from a locally measured rate, so the ranks
+        take the smallest proposal (``acg_tpu/parallel/dist.py:
+        3239-3252``); ``--ckpt-every`` is the same everywhere."""
+        from acg_tpu_torch.parallel import multihost
+        if cfg.secs <= 0 or multihost.process_count() == 1:
+            return m
+        from acg_tpu_torch.parallel.erragree import allgather_blobs
+        got = allgather_blobs(str(int(m)), tag="ckpt-chunk")
+        return max(1, min(int(v) for v in got))
 
     def _solve_ckpt(self, b, x0=None, criteria=None,
                     raise_on_divergence: bool = True, warmup: int = 0,
@@ -1452,17 +1555,23 @@ class ChunkedCGSolver:
                                    f"{fault0.site}:{fault0.mode}"
                                    f"@{fault0.iteration}")
         t_xfer = time.perf_counter()
-        b_host = np.asarray(b, dtype=np.float64)
+        b_host = self._b_host(b)
         b_dev, x0_dev = self.device_args(b, x0)
         device_sync(self.device)
         telemetry.add_timing(st, "transfer", time.perf_counter() - t_xfer)
-        b_crc = ckpt_mod.vector_checksum(
-            np.asarray(b, dtype=_np_dtype(dtype)))
+        b_crc = ckpt_mod.vector_checksum(b_host.astype(_np_dtype(dtype)))
         hl = self.health_spec is not None
         pc_kind = (str(self.precond_spec)
                    if self.precond_spec is not None else None)
         names = self._carry_names()
         solver_name = self._solver_name()
+        algo_name = str(self.algo) if self.algo is not None else None
+        is_pl = self.algo is not None and self.algo.kind == "pl"
+
+        def pl_adv(carry):
+            # p(l)'s advance counter rides in its carry, absolute since
+            # the last restart: a chunk's cap and count are relative to it
+            return int(carry[-1]) if is_pl and carry is not None else 0
 
         def chunk(x_cur, atol, rtol, m, carry, k0, fault):
             program = self._program(StoppingCriteria(
@@ -1490,7 +1599,8 @@ class ChunkedCGSolver:
                 snap, tier=self._ckpt_tier, pipelined=self.pipelined,
                 precond=pc_kind, n=self._n_global(),
                 dtype=_np_dtype(dtype), b_crc=b_crc,
-                nparts=self._ckpt_nparts(), repartition=cfg.repartition)
+                nparts=self._ckpt_nparts(), repartition=cfg.repartition,
+                algorithm=algo_name)
             ckpt_mod.check_resume_env(snap, st)
             if cfg.repartition:
                 snap, repartitioned = ckpt_mod.apply_repartition(
@@ -1542,17 +1652,28 @@ class ChunkedCGSolver:
                 remaining = crit.maxits - consumed
                 if remaining <= 0:
                     break
-                m = min(cfg.chunk_for(rate), remaining)
+                m = self._agreed_chunk(
+                    min(cfg.chunk_for(rate), remaining), cfg)
+                if (self.algo is not None and self.algo.kind == "sstep"
+                        and m < remaining):
+                    # a non-final chunk ends where a block ends: only
+                    # there is the carried (r, p, gamma) the trajectory's
+                    s_ = int(self.algo.param)
+                    m = min(remaining, max(s_, (m // s_) * s_))
                 atol, rtol = ((crit.residual_atol, crit.residual_rtol)
                               if abs_tol is None else (abs_tol, 0.0))
-                chunk_fault = (fault.shift(executed) if fault is not None
-                               else None)
+                # p(l)'s counters never reset across chunks, so its
+                # injector already fires in the right frame
+                chunk_fault = (fault if is_pl
+                               else fault.shift(executed)
+                               if fault is not None else None)
+                adv_in = pl_adv(carry)
                 t_chunk = time.time()
-                res = chunk(x_cur, atol, rtol, m, carry, consumed,
+                res = chunk(x_cur, atol, rtol, adv_in + m, carry, consumed,
                             chunk_fault)
                 device_sync(self.device)
                 t_end = time.time()
-                k_chunk = int(res.niterations)
+                k_chunk = int(res.niterations) - adv_in
                 if k_chunk > 0:
                     rate = (t_end - t_chunk) / k_chunk
                 tracing.record_span(
@@ -1592,7 +1713,9 @@ class ChunkedCGSolver:
                     # rollback/restart: it stays in the trajectory frame
                     # (the per-chunk shift rebases it), so vanish it
                     if (fault is not None and fault.device_site
-                            and fault.iteration <= executed):
+                            and (is_pl or fault.iteration <= executed)):
+                        # p(l)'s frame is its own counter, which a
+                        # rollback or restart rewinds: vanish it outright
                         fault = None
                     # FIRST RUNG: roll the carry back to the last snapshot
                     if (last_snap is not None
@@ -1635,14 +1758,14 @@ class ChunkedCGSolver:
                 carry = res.carry
                 if cfg.path is not None and not finished:
                     t_ck = time.perf_counter()
-                    arrs = {"x": res.x.cpu().numpy()}
+                    arrs = {"x": self._to_host(res.x, "x")}
                     for nm, leaf in zip(names[1:], res.carry):
-                        arrs[nm] = leaf.cpu().numpy()
+                        arrs[nm] = self._to_host(leaf, nm)
                     seq += 1
                     meta = {
                         "tier": self._ckpt_tier,
                         "pipelined": bool(self.pipelined),
-                        "algorithm": None,
+                        "algorithm": algo_name,
                         "precond": pc_kind,
                         "n": self._n_global(),
                         "dtype": str(_np_dtype(dtype)),
@@ -1660,8 +1783,7 @@ class ChunkedCGSolver:
                             st.trace if self.trace else None),
                     }
                     self._ckpt_meta_extra(meta, arrs)
-                    ckpt_mod.agree_seq(seq, consumed)
-                    nbytes = ckpt_mod.save_snapshot(cfg.path, meta, arrs)
+                    nbytes = self._save(cfg.path, meta, arrs)
                     dt = time.perf_counter() - t_ck
                     ck_secs += dt
                     telemetry.add_timing(st, "ckpt", dt)
@@ -1911,6 +2033,12 @@ class TorchCGSolver(ChunkedCGSolver):
         """The SpMV ``f(A, x)`` of this solver's programs."""
         return _spmv_fn(self.kernels)
 
+    def _ca_ops(self, dot, sdt):
+        """The :class:`~acg_tpu_torch.recurrence.TierOps` of this
+        solver's CA recurrences."""
+        from acg_tpu_torch import recurrence as rec
+        return rec.single_ops(self.A, self._spmv_of(), dot, sdt)
+
     def _dot_setup(self, dtype, precise: bool = False):
         """``(dot, sdt)`` of this solver's programs (:func:`_scalar_setup`;
         the multi-process sharded tier folds the ranks' partials)."""
@@ -1970,14 +2098,15 @@ class TorchCGSolver(ChunkedCGSolver):
                     f"||dx|| scalar)")
             lam = self._ensure_lam()
             dot, sdt = self._dot_setup(self._solve_dtype())
-            ops = rec.single_ops(A, self._spmv_of(), dot, sdt)
+            ops = self._ca_ops(dot, sdt)
             algo = self.algo
             if algo.kind == "sstep":
                 return lambda b, x0, guard=None: rec._cg_sstep_program(
                     ops, b, x0, crit, algo.param, algo.basis, lam,
-                    self._telemetry(sdt))
+                    self._telemetry(sdt), guard)
             return lambda b, x0, guard=None: rec._cg_pl_program(
-                ops, b, x0, crit, algo.param, lam, self._telemetry(sdt))
+                ops, b, x0, crit, algo.param, lam, self._telemetry(sdt),
+                guard)
         if kernels.startswith("fused"):
             if crit.needs_diff:
                 raise ValueError("kernels='fused' supports residual "

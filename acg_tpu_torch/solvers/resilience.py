@@ -11,10 +11,10 @@ convergence flag, once per chunk.  p(l)'s restart rung is
 differ from the reference's on the card: the host rung re-solves on the
 CPU, so it runs for a solver on the CPU only (on the card the solve
 raises), and the transport rung, which retires K6, runs there only when
-the policy asks for it by name (``fallback_comm=True``).  Recovery is
-single-process: the multi-process tiers refuse it, so every restart or
-rollback verdict is the local one (the reference's item 4 below has no
-caller here).  The text below is the reference's.
+the policy asks for it by name (``fallback_comm=True``).  Across
+processes every restart verdict passes through the error agreement
+(item 4 below, :meth:`RecoveryDriver._agree`).  The text below is the
+reference's.
 
 Pipelined and reduced-precision CG are numerically brittle: deep
 pipelining and rounded recurrences can drive the residual non-finite or
@@ -67,12 +67,15 @@ class RecoveryPolicy:
     allows retiring the DMA halo transport for XLA collectives (None:
     on a solver on the CPU, as the reference's default; on the card
     only when set to True); ``fallback_host`` allows the final
-    host-solver rung, which runs for a solver on the CPU only."""
+    host-solver rung, which runs for a solver on the CPU only.
+    ``agree_timeout`` bounds the multi-process restart agreement (the
+    ``--err-timeout`` role at recovery checkpoints)."""
 
     max_restarts: int = 2
     backoff: float = 0.0
     fallback_comm: bool | None = None
     fallback_host: bool = True
+    agree_timeout: float = 120.0
     # the survivability tier's FIRST rung (acg_tpu.checkpoint): on a
     # detected breakdown, roll the loop carry back to the last on-disk
     # snapshot BEFORE spending the restart budget -- a rollback resumes
@@ -173,13 +176,22 @@ class RecoveryDriver:
     def on_breakdown(self, niter: int, noted: bool = False) -> bool:
         """Account one detected breakdown; returns True when the policy
         grants a restart (after the backoff sleep), False when retries
-        are exhausted (caller falls back or raises).  ``noted=True`` (the rollback-rung callers) skips the
-        breakdown accounting already done by :meth:`note_breakdown`."""
+        are exhausted (caller falls back or raises).  Across processes
+        the decision is error-agreed first: if any process is out of
+        retries (or dead), every process refuses the restart together.
+        ``noted=True`` (the rollback-rung callers) skips the breakdown
+        accounting already done by :meth:`note_breakdown`."""
         st = self.stats
         if not noted:
             self.note_breakdown(niter)
         pol = self.policy
-        if pol is None or self.restarts >= pol.max_restarts:
+        want_restart = pol is not None and self.restarts < pol.max_restarts
+        if not self._agree(0 if want_restart else 1):
+            if want_restart:
+                self.record("restart vetoed: a peer controller cannot "
+                            "continue")
+            return False
+        if not want_restart:
             return False
         self.restarts += 1
         st.nrestarts += 1
@@ -197,6 +209,20 @@ class RecoveryDriver:
         from acg_tpu_torch import metrics
         metrics.record_fallback()
         self.record(event, kind="fallback")
+
+    def _agree(self, code: int) -> bool:
+        """Cross-process restart-vs-abort agreement; True = every
+        process can restart.  One process: the local verdict."""
+        from acg_tpu_torch.parallel import multihost
+
+        if multihost.process_count() == 1:
+            return code == 0
+        from acg_tpu_torch.parallel.erragree import agree_status
+
+        timeout = (self.policy.agree_timeout if self.policy is not None
+                   else 120.0)
+        return agree_status(code, what=f"{self.what} recovery",
+                            timeout=timeout) == 0
 
     def give_up(self, niter: int, rnrm2: float,
                 snapshot: str | None = None):

@@ -162,12 +162,18 @@ checkout it sits in.  Phases, each of which raises on failure:
    dot (dot), overlap efficiency, one timeline pid a part;
    then the robustness tier (see robustness_paths): (ak) spmv:nan@7
    --recover, (al) pipelined dot:neg@5 --recover on K5's flagged form,
-   (am) --abft with sdc:flip@7 and a clean audited solve, (an) a child
-   killed by crash:exit@1200 after its snapshot, then --resume, (ao) 4
+   (am) --abft with sdc:flip@7 and a clean audited solve, (ao) 4
    stacked parts under dma with halo:nan@3 --recover and the transport
    rung (named by the policy: the one run in which a rung leaves a
    kernel; every CLI run fails the smoke if a fallback rung ran),
-   (ap) --soak 20 --fail-on-drift 50 and its drift trip;
+   (ap) --soak 20 --fail-on-drift 50 and its drift trip; and, as
+   child-process jobs run JOB_WORKERS at a time beside (af)-(ah) (see
+   elastic_paths), rank-mode recovery (aq), checkpoints (ar), precond
+   and sstep:4 (as) on a pair, the sharded tier's checkpoint and audit
+   (at), the supervisor's crash relaunch and shrink (au), a chaos
+   campaign (av), the batched and s-step checkpoints (aw), and the
+   supervisor's fault sites, a dead peer and a hung runtime (ax).
+   (af)-(ah) run as those jobs too;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -232,6 +238,7 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -250,6 +257,7 @@ COO_SPEC = "gen:irregular:65536"
 DIRECT_N = 512   # gen:poisson3d:512, the gen-direct tier's size
 LOG = []
 ITS = {}   # iterations of each phase-3 path, by path letter
+MP_TIMEOUT = 420   # seconds a child process (or a pair of them) may take
 XS = {}    # solutions later paths are held against, by path tag
 
 
@@ -1000,12 +1008,23 @@ def run_cli(torch, K, argv, tag):
     LOG.append(f"--- {tag}: {' '.join(argv)}\n{text}")
     say(f"path {tag}: rc={rc} wall {time.perf_counter() - t0:.1f} s, "
         f"launches {counts}")
-    # no rung that leaves the card's kernels ran (the CLI names neither
-    # the transport rung nor, on the card, has a host rung)
+    _no_fallback(text, tag)
+    return rc, text, counts
+
+
+def _no_fallback(text: str, tag: str) -> None:
+    """No rung that leaves the card's kernels ran (the CLI names neither
+    the transport rung nor, on the card, has a host rung)."""
     m = re.search(r"resilience: .* (\d+) fallbacks", text)
     check(not (m and int(m.group(1))) and ": fallback: " not in text,
           f"path {tag}: no fallback rung ran")
-    return rc, text, counts
+
+
+def launch_lines(text: str) -> list:
+    """The counts of every ``kernel launches:`` line a child printed
+    (``-vv``), in order: one a CLI run that finished its solve."""
+    return [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+            if ln.startswith("kernel launches: ")]
 
 
 def stat(text: str, key: str) -> str:
@@ -1108,16 +1127,35 @@ def main_path(torch, K, tmp, csr, irr, prob):
     paths.update(matfree_paths(torch, K, tmp, base, paths))
     paths.update(gen_direct_paths(torch, K, tmp))
     paths.update(reproducible_gather_paths(torch, K, tmp, irr))
-    paths.update(precond_paths(torch, K, tmp, base, b, csr))
+    paths.update(precond_paths(torch, K, tmp, base, b, csr, prob))
     paths.update(precision_paths(torch, K, tmp, base, b, csr))
     paths.update(tool_paths(torch, K, tmp, b, csr))
     paths.update(host_paths(torch, K, tmp))
     paths.update(batched_paths(torch, K, tmp, base, csr, paths))
     paths.update(ca_paths(torch, K, tmp, base, b, csr))
     paths.update(dist_batched_paths(torch, K, tmp, base, csr, prob))
-    paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
-    paths.update(north_star_path(torch, K, tmp))
-    paths.update(multiprocess_paths(torch, K, tmp, base, csr, prob))
+    # the child-process paths as jobs, JOB_WORKERS at a time, the longest
+    # first, started once the files they read exist; this process's own
+    # checks go on meanwhile, and the timing-sensitive paths ((ai)'s
+    # rates, (ap)'s drift gate) only after the last job
+    from concurrent.futures import ThreadPoolExecutor
+    pairs = multiprocess_paths(torch, K, tmp, base, csr, prob)
+    elastic = elastic_paths(torch, K, tmp, base, b, csr, prob)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=JOB_WORKERS) as pool:
+        futures = [pool.submit(j) for j in elastic.early[:3] + pairs.early
+                   + elastic.early[3:]]
+        paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
+        paths.update(north_star_path(torch, K, tmp))
+        for group in (pairs, elastic):
+            paths.update(group.local())
+            futures += [pool.submit(j) for j in group.late]
+        say(f"paths ac, ae, at, aw and the twins (this process) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        for f in futures:
+            paths.update(f.result())
+    say(f"paths ac, ae, at, aw, af-ah and aq-ax ({len(futures)} jobs, "
+        f"{JOB_WORKERS} at a time) took {time.perf_counter() - t0:.1f} s")
     paths.update(observability_paths(torch, K, tmp, paths))
     paths.update(robustness_paths(torch, K, tmp, base, b, csr, prob, paths))
     return paths
@@ -1128,6 +1166,51 @@ def chunked(its: int) -> int:
     once per CHUNK steps, and the last chunk's frozen steps launch too."""
     from acg_tpu_torch.solvers.cg import CHUNK
     return -(-its // CHUNK) * CHUNK
+
+
+# paths whose checks need no in-process state run as child processes,
+# this many at a time: their host work (ingest, partition, the eager
+# loops' launches) overlaps, and the card, idle most of a host-bound
+# solve, takes their kernels in turn
+JOB_WORKERS = 4
+
+
+class Jobs(NamedTuple):
+    """A group of main_path's child-process jobs: ``early`` start at
+    once; ``local()`` then runs in this process (the one-process twins
+    the ``late`` jobs are held to, and in-process paths) and returns its
+    launch counts by path; ``late`` start after it."""
+    early: list
+    local: Callable[[], dict]
+    late: list
+
+
+# the environment of every child process, fixed by main() before any
+# thread starts: without the fault injector's variable (a CLI run armed
+# in this process exports it while it runs) and with
+# ACG_TPU_SKIP_BACKEND_PROBE set
+CHILD_ENV: dict = {}
+
+
+def proc_cli(argv, tag, env=None, timeout=MP_TIMEOUT):
+    """``python -m acg_tpu_torch ARGV -vv`` as a child process from the
+    checkout's root, under ``env`` (default CHILD_ENV): (rc, stderr, the
+    counts of its last ``kernel launches:`` line, wall seconds); no
+    fallback rung may have run."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "acg_tpu_torch", *argv,
+                          "-vv"], cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout,
+                         env=CHILD_ENV if env is None else env)
+    wall = time.perf_counter() - t0
+    text = res.stderr
+    LOG.append(f"--- {tag}: rc={res.returncode} {' '.join(argv)}\n{text}")
+    lines = launch_lines(text)
+    counts = lines[-1] if lines else {}
+    say(f"path {tag}: rc={res.returncode} wall {wall:.1f} s (a child "
+        f"process), launches {counts}")
+    _no_fallback(text, tag)
+    return res.returncode, text, counts, wall
 
 
 def solve_path(torch, K, tmp, argv, tag, rhs=None, A=None):
@@ -1144,7 +1227,26 @@ def solve_path(torch, K, tmp, argv, tag, rhs=None, A=None):
     return rc, text, c, types, its, x, res
 
 
-def precond_paths(torch, K, tmp, base, b, csr):
+def library_twin(torch, K, prob, b, tag, **kw):
+    """A DistCGSolver solve of ``b`` on the flagship's parts ``prob`` to
+    the CLI's tolerance, the launch counters reset just before and read
+    just after: :func:`solve_path`'s tuple (x in global order)."""
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    s = DistCGSolver(prob, device="cuda", **kw)
+    x = s.solve(b, criteria=StoppingCriteria(maxits=20000,
+                                             residual_rtol=1e-8))
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    say(f"path {tag}: DistCGSolver({kw}) wall "
+        f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+    return 0, "", counts, None, int(s.stats.niterations), x, float("nan")
+
+
+def precond_paths(torch, K, tmp, base, b, csr, prob):
     """(n)-(q): the preconditioned tier on the card.  (n) --precond
     jacobi, classic f64 (K1 once per SpMV); (o) the same with --operator
     stencil (K7 in place of K1, x bitwise-equal: both diagonals are 4,
@@ -1153,7 +1255,8 @@ def precond_paths(torch, K, tmp, base, b, csr):
     iterations, K1 counted exactly: 5 per step and setup, and the power
     iteration's 25); (q) 4 stacked parts with bjacobi:32 (classic) and
     jacobi (pipelined) on --comm dma, K6 and batched K1 once per SpMV,
-    and each again on --comm xla to the same bits."""
+    and each again on --comm xla to the same bits (through the library
+    on the CLI's parts: the CLI's ingest is (q-dma)'s)."""
     out = {}
     mp = base + ["--manufactured-solution", "--residual-rtol", "1e-8",
                  "--max-iterations", "20000"]
@@ -1214,10 +1317,11 @@ def precond_paths(torch, K, tmp, base, b, csr):
             ("q-bjacobi32", ["--precond", "bjacobi:32"], 1, 1e-7),
             ("q-jacobi-pipelined", ["--precond", "jacobi", "--solver",
                                     "acg-pipelined"], 2, 1e-6)):
-        runs = {}
-        for comm in ("dma", "xla"):
-            runs[comm] = solve_path(torch, K, tmp, q + extra + [
-                "--comm", comm], f"{tag}-{comm}", b, csr)
+        runs = {"dma": solve_path(torch, K, tmp, q + extra + [
+            "--comm", "dma"], f"{tag}-dma", b, csr),
+                "xla": library_twin(torch, K, prob, b, f"{tag}-xla",
+                                    comm="xla", precond=extra[1],
+                                    pipelined="--solver" in extra)}
         rc, text, c, _, its_q, xq, res = runs["dma"]
         rcx, _, cx, _, its_x, xx, _ = runs["xla"]
         nspmv = chunked(its_q) + setup
@@ -1520,8 +1624,8 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
     paths["g"] = c
 
     # (h) an irregular matrix on a graph partition: binned-ELL local
-    # blocks (plain PyTorch gathers), K6 for the halo; run twice, and the
-    # two solutions must be the same bits
+    # blocks (plain PyTorch gathers), K6 for the halo; solved again, and
+    # the two solutions must be the same bits
     A = irr[0]
     xsol = np.random.default_rng(42).standard_normal(A.shape[0])
     xsol /= np.linalg.norm(xsol)
@@ -1542,11 +1646,13 @@ def multipart_paths(torch, K, tmp, base, b, csr, its_a, irr):
     check(rc == 0 and res <= 1e-7, "path h converged to 1e-7")
     check(launched_per_spmv(c, "halo_put", its + 1),
           "path h went through K6 once per SpMV")
-    out2 = os.path.join(tmp, "h2.bin")
-    rc2, text2, c2 = run_cli(torch, K, argv_h + ["-o", out2],
-                             "h-irregular-graph-f64-again")
-    its2 = int(stat(text2, "iterations").replace(",", ""))
-    same = np.array_equal(read_x(out), read_x(out2))
+    # again through the library on the CLI's parts (its ingest and graph
+    # partition are the first run's), from the CLI's own right-hand side
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    b_cli = synthesize_host_matrix(IRREGULAR_SPEC).dsymv(xsol, epsilon=0.0)
+    rc2, _, c2, _, its2, x2, _ = library_twin(
+        torch, K, irr[1], b_cli, "h-irregular-graph-f64-again", comm="dma")
+    same = np.array_equal(read_x(out), x2)
     say(f"path h again: {its2} iterations, x bitwise equal to the first "
         f"run = {same}")
     check(rc2 == 0 and its2 == its and same,
@@ -2226,13 +2332,17 @@ def north_star_path(torch, K, tmp):
     dev = float(text.split("max rel dev ")[1].split()[0])
     err = [ln for ln in text.splitlines() if ln.startswith("error 2-norm:")]
     passes = [ln for ln in text.splitlines() if ln.startswith("refine:")]
+    # main_path runs (ae) while the child-process jobs share the card and
+    # the host: its solver time is a loaded one; the peak is this
+    # process's allocator's alone (the jobs are other processes, and
+    # (ah)'s draw in this one runs before them)
     say(f"path ae: {spec} f32 --refine: spot check max rel dev {dev:.3e} "
         f"(limit 1e-5); {passes[0] if passes else 'no refine line'}; "
         f"{err[0] if err else 'no error line'}; solver time "
-        f"{stat(text, 'total solver time')}; residual "
-        f"{stat(text, 'residual 2-norm')} of "
+        f"{stat(text, 'total solver time')} (under the child jobs' load); "
+        f"residual {stat(text, 'residual 2-norm')} of "
         f"{stat(text, 'initial residual 2-norm')}; K1 {c['dia_spmv']}; "
-        f"peak device memory "
+        f"this process's peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(dev < 1e-5, "path ae: the spot check")
     check(rc == 0 and bool(err) and bool(passes), "path ae converged")
@@ -2267,14 +2377,14 @@ def north_star_path(torch, K, tmp):
 
 PROFILE_REPS = 3   # --profile-ops REPS of path (ai)
 OBS_WINDOW = 512   # --telemetry-window of path (ai)
-OBS_EVERY = 500    # --progress of paths (ai) and (af-dma)
+OBS_EVERY = 500    # --progress of path (ai)
 
 
 def _script(name, *argv):
     """One of the reference's checking scripts on a file: (rc, output)."""
     res = subprocess.run([sys.executable, os.path.join("scripts", name),
                           *argv], cwd=HERE, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=CHILD_ENV)
     return res.returncode, (res.stdout + res.stderr).strip()
 
 
@@ -2493,8 +2603,8 @@ def _observed_stacked(torch, K, tmp, d, paths):
 # -- phase 3 (ak)-(ap): the robustness tier on the flagship ---------------
 
 ROBUST_TOL = ["--residual-rtol", "1e-8", "--max-iterations", "20000"]
-CKPT_EVERY = 500     # --ckpt-every of path (an)
-CRASH_AT = 1200      # crash:exit@ of path (an)
+CKPT_EVERY = 500     # --ckpt-every of paths (ar) and (au)
+CRASH_AT = 1200      # crash:exit@ of paths (ar), (au) and (aw)
 RECOVER_RUNS = 3     # timed solves of each phase-4 --recover rate
 
 
@@ -2516,9 +2626,8 @@ def robustness_paths(torch, K, tmp, base, b, csr, prob, paths):
     converged.  (am) --abft --audit-every 8 with sdc:flip@7: the
     checksum trips at iteration 7 (one ABFT trip, breakdown at 8); a
     clean --abft --audit-every 100 solve: no trip, (a)'s iterations and
-    x bits.  (an) --ckpt --ckpt-every 500 with crash:exit@1200 in a child
-    (exit 94 after its snapshot at 1,500), then --resume: x bitwise an
-    uninterrupted chunked solve, which is bitwise (a).  (ao) 4 stacked
+    x bits.  ((an), the crash and the manual --resume, is path (au)'s
+    first supervised run since the supervisor was ported.)  (ao) 4 stacked
     parts under --comm dma with halo:nan@3 --recover: one restart on
     the CLI, and, through the API with the fault kept armed while the
     transport is dma (a link that keeps corrupting) and the policy
@@ -2615,50 +2724,6 @@ def robustness_paths(torch, K, tmp, base, b, csr, prob, paths):
           and _resilience(text) == (0, 0),
           "path am-clean: no trip, (a)'s iterations and bits")
     out["am-clean"] = c
-
-    # (an) crash:exit@1200 in a child, then --resume
-    ck = os.path.join(tmp, "an.ckpt")
-    xo = os.path.join(tmp, "an-child.bin")
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "acg_tpu_torch"] + man
-        + ["--ckpt", ck, "--ckpt-every", str(CKPT_EVERY), "--fault-inject",
-           f"crash:exit@{CRASH_AT}", "-o", xo],
-        cwd=HERE, capture_output=True, text=True, timeout=600,
-        env={k: v for k, v in os.environ.items()
-             if k != faults.ENV_VAR})
-    LOG.append(f"--- an-child: rc={res.returncode}\n{res.stderr}")
-    from acg_tpu_torch.checkpoint import load_snapshot
-    snap_it = load_snapshot(ck).iteration if os.path.exists(ck) else None
-    # the crash fires after the first snapshot at or past CRASH_AT
-    snap_at = -(-CRASH_AT // CKPT_EVERY) * CKPT_EVERY
-    say(f"path an-child: rc={res.returncode} (94: crash:exit) in "
-        f"{time.perf_counter() - t0:.1f} s, snapshot at iteration "
-        f"{snap_it}, no solution written = {not os.path.exists(xo)}")
-    check(res.returncode == 94 and snap_it == snap_at
-          and not os.path.exists(xo),
-          f"path an: the child died after its snapshot at {snap_at}")
-    rc, text, c, _, its, x, _ = solve_path(
-        torch, K, tmp, man + ["--resume", ck], "an-resume")
-    rc2, text2, c2, _, its2, x2, _ = solve_path(
-        torch, K, tmp, man + ["--ckpt", os.path.join(tmp, "an2.ckpt"),
-                              "--ckpt-every", str(CKPT_EVERY)],
-        "an-uninterrupted-chunked")
-    resumed = re.search(r"resumed_from: (\d+)", text)
-    total = re.search(r"\n  iteration: (\d+)", text)
-    say(f"path an: resumed at {resumed.group(1) if resumed else None}, "
-        f"{its} iterations after the resume, trajectory iteration "
-        f"{total.group(1) if total else None} (uninterrupted chunked: "
-        f"{its2}, a: {ITS['a']}); x bitwise the uninterrupted chunked "
-        f"solve = {np.array_equal(x, x2)}, and (a) = "
-        f"{np.array_equal(x2, xa)}")
-    check(rc == 0 and rc2 == 0 and np.array_equal(x, x2)
-          and np.array_equal(x2, xa) and its2 == ITS["a"]
-          and resumed and int(resumed.group(1)) == snap_at
-          and its == ITS["a"] - snap_at,
-          "path an: the resumed x is the uninterrupted chunked x's bits, "
-          "which are (a)'s")
-    out["an"] = c
 
     # (ao) 4 stacked parts under dma: halo:nan@3 --recover on the CLI,
     # then the transport rung through the API
@@ -2809,10 +2874,10 @@ def robustness_rates(torch):
 # -- phase 3 (af)-(ah) and K6 across processes: two processes on the card --
 
 NPROC = 2          # processes of the multi-process paths, on the one card
-MP_TIMEOUT = 420   # seconds a pair of child processes may take
 # (af-xla) and (af-pipelined) run this many iterations, no tolerance,
 # held bitwise against a one-process stacked solve of the same count
 AF_ITS = 300
+AF_EVERY = 100     # --progress of path (af-dma)
 STOP_TIMEOUT_S = 2.0   # K6 peer's wait timeout in the stopped-peer check
 
 
@@ -2826,12 +2891,13 @@ def free_port() -> int:
 def run_pair(args_of, tag, timeout=MP_TIMEOUT, env=None):
     """NPROC child processes, each ``python`` + ``args_of(rank, port)``
     from the checkout's root, started together; all are killed when one
-    pair outlives ``timeout``, and that fails the smoke.  Returns [(rc,
-    stdout, stderr), ...] in rank order."""
+    pair outlives ``timeout``, and that fails the smoke; ``env`` defaults
+    to CHILD_ENV.  Returns [(rc, stdout, stderr), ...] in rank order."""
     port = free_port()
     procs = [subprocess.Popen([sys.executable] + args_of(r, port), cwd=HERE,
                               stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env)
+                              stderr=subprocess.PIPE, text=True,
+                              env=CHILD_ENV if env is None else env)
              for r in range(NPROC)]
     outs = []
     deadline = time.monotonic() + timeout
@@ -2865,10 +2931,10 @@ def cli_pair(argv, tag, timeout=MP_TIMEOUT):
     for r, (rc, _, err) in enumerate(res):
         check(rc == 0, f"path {tag}: rank {r} exit 0 (rc {rc}; its stderr "
                        f"ends: {err[-600:]!r})")
-        line = [ln for ln in err.splitlines()
-                if ln.startswith("kernel launches: ")]
-        check(bool(line), f"path {tag}: rank {r} printed its launches")
-        per.append(json.loads(line[-1].split(": ", 1)[1]))
+        lines = launch_lines(err)
+        check(bool(lines), f"path {tag}: rank {r} printed its launches")
+        per.append(lines[-1])
+        _no_fallback(err, f"{tag} rank {r}")
         mh = [ln for ln in err.splitlines() if ln.startswith("multihost:")]
         check(bool(mh) and "backend" in mh[0],
               f"path {tag}: rank {r} named its backend")
@@ -2896,13 +2962,16 @@ def _peak_gib(err: str) -> float:
 
 
 def multiprocess_paths(torch, K, tmp, base, csr, prob):
-    """(af)-(ah): the multi-process tier, NPROC processes sharing the one
+    """Paths (af)-(ah) as :class:`Jobs`, whose ``local()`` solves the
+    one-process twins the late jobs are held to.  (af)-(ah):
+    the multi-process tier, NPROC processes sharing the one
     card (gloo for the host-side collectives, CUDA IPC for K6's peer
     puts: one card, NPROC contexts time-slicing it, not a cross-card
-    measurement).  (af) --nparts 4 classic f64 on --comm dma: the
-    iterations and bits of (e), K6's peer form once per SpMV on each rank;
-    xla and pipelined on dma a fixed AF_ITS iterations, each the bits of
-    a one-process stacked solve of the same count; (ag)
+    measurement).  (af) --nparts 4 classic f64 on --comm dma, xla, and
+    pipelined on dma, a fixed AF_ITS iterations each: the bits of a
+    one-process stacked solve of the same count, K6's peer form once per
+    SpMV on each rank under dma ((ar)'s resumed pair holds the pair to
+    (e)'s converged bits); (ag)
     --distributed-read of the flagship's expanded binary file with (e)'s
     band bounds and right-hand side, AF_ITS iterations, written rootless
     with --output: (af-xla)'s x and bytes; (ah)
@@ -2914,7 +2983,6 @@ def multiprocess_paths(torch, K, tmp, base, csr, prob):
     # the children allocate on the card too: hand back this process's
     # cached blocks first
     torch.cuda.empty_cache()
-    paths = {}
     mp = base + ["--nparts", str(NPARTS), "--manufactured-solution",
                  "--residual-rtol", "1e-8", "--max-iterations", "20000"]
     from acg_tpu_torch.parallel.dist import DistCGSolver
@@ -2924,19 +2992,18 @@ def multiprocess_paths(torch, K, tmp, base, csr, prob):
     xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
     xsol /= np.linalg.norm(xsol)
     b = csr @ xsol   # the CLI's --manufactured-solution right-hand side
-    for tag, comm, pipe in (("af-xla", "xla", False),
-                            ("af-pipelined", "dma", True)):
-        one = DistCGSolver(prob, comm=comm, pipelined=pipe, device="cuda")
-        np.save(os.path.join(tmp, f"{tag}-one.npy"),
-                one.solve(b, criteria=StoppingCriteria(maxits=AF_ITS)))
-        del one
-    torch.cuda.empty_cache()
-    for tag, extra, ref, its_ref, extra_spmv in (
-            ("af-dma", ["--comm", "dma"], "e.bin", ITS["e"], 1),
-            ("af-xla", ["--comm", "xla"] + fixed, "af-xla-one.npy",
-             AF_ITS, 1),
-            ("af-pipelined", ["--comm", "dma", "--solver", "acg-pipelined"]
-             + fixed, "af-pipelined-one.npy", AF_ITS, 2)):
+    def twins():
+        for tag, comm, pipe in (("af-xla", "xla", False),
+                                ("af-pipelined", "dma", True)):
+            one = DistCGSolver(prob, comm=comm, pipelined=pipe,
+                               device="cuda")
+            np.save(os.path.join(tmp, f"{tag}-one.npy"),
+                    one.solve(b, criteria=StoppingCriteria(maxits=AF_ITS)))
+            del one
+        torch.cuda.empty_cache()
+        return {}
+
+    def af(tag, extra, ref, its_ref, extra_spmv):
         out = os.path.join(tmp, f"{tag}.bin")
         obs = []
         if tag == "af-dma":
@@ -2944,7 +3011,7 @@ def multiprocess_paths(torch, K, tmp, base, csr, prob):
             # after the solve, whose bits the check below holds
             obs = ["--stats-json", os.path.join(tmp, "af.json"),
                    "--timeline", os.path.join(tmp, "af-timeline.json"),
-                   "--progress", str(OBS_EVERY)]
+                   "--progress", str(AF_EVERY)]
         res, total, per = cli_pair(mp + extra + obs + ["-o", out], tag)
         _rank0_only(res, tag)
         its = int(stat(res[0][2], "iterations").replace(",", ""))
@@ -2972,10 +3039,28 @@ def multiprocess_paths(torch, K, tmp, base, csr, prob):
                       f"path {tag}: rank {r}: no K6 on the xla transport")
             check(nspmv <= c["dia_spmv_batched"] <= nspmv + CHUNK,
                   f"path {tag}: rank {r} ran batched K1 once per SpMV")
-        paths[tag] = total
-    paths.update(distributed_read_path(torch, K, tmp, base, csr))
-    paths.update(sharded_multiprocess_path(torch, K, tmp))
-    return paths
+        return {tag: total}
+
+    def af_xla_then_ag():
+        # (ag) holds its rootless file against (af-xla)'s
+        out = af("af-xla", ["--comm", "xla"] + fixed, "af-xla-one.npy",
+                 AF_ITS, 1)
+        out.update(distributed_read_path(torch, K, tmp, base, csr))
+        return out
+
+    # the pairs are jobs: main_path runs them with the other child-process
+    # paths, JOB_WORKERS at a time; the one-process twins come first.  The
+    # dma transport's twin is the xla one: (f) shows the two give the
+    # same bits.  (ah)'s draws are timed here, before any job runs
+    draws = manufactured_draws(torch)
+    return Jobs([lambda: sharded_multiprocess_path(torch, K, tmp, draws)],
+                twins, [
+        lambda: af("af-dma", ["--comm", "dma"] + fixed, "af-xla-one.npy",
+                   AF_ITS, 1),
+        af_xla_then_ag,
+        lambda: af("af-pipelined", ["--comm", "dma", "--solver",
+                                    "acg-pipelined"] + fixed,
+                   "af-pipelined-one.npy", AF_ITS, 2)])
 
 
 def _af_observed(tmp, res, its):
@@ -2997,7 +3082,7 @@ def _af_observed(tmp, res, its):
           f"path af-dma: process 0 wrote the timeline of both, aligned "
           f"(skew {meta['clock']['max_skew_s']} s; {msg})")
     beats = _beat_iterations(se0)
-    check(beats == list(range(OBS_EVERY, its + 1, OBS_EVERY))
+    check(beats == list(range(AF_EVERY, its + 1, AF_EVERY))
           and not _beat_iterations(se1),
           f"path af-dma: one heartbeat line a sample ({beats})")
     from acg_tpu_torch.telemetry import format_rank_report
@@ -3056,14 +3141,12 @@ def distributed_read_path(torch, K, tmp, base, csr):
     return {"ag": total}
 
 
-def sharded_multiprocess_path(torch, K, tmp):
-    """(ah): gen:poisson3d:512 --nparts 2 on two processes, classic f64,
-    300 iterations: K1 on each rank's halo'd window, each rank's device
-    memory peak; x beside path (l)'s one-part solve (the dots are two
-    ranks' partials folded, not one reduction over N, so the bits may
-    differ: the check is 1e-12), and the manufactured-solution draw timed
-    once for all 134M rows and once for rank 0's window (its rows and
-    the band's reach past them: what a rank draws)."""
+def manufactured_draws(torch) -> tuple:
+    """(ah)'s manufactured-solution draw timed on the card, in this
+    process before any job starts: once for all 134M rows of
+    gen:poisson3d:512 and once for rank 0's window of a pair (its rows
+    and the band's reach past them: what a rank draws).  Returns
+    (seconds of the whole draw, seconds of the window's, the window)."""
     from acg_tpu_torch import prng
 
     dev = torch.device("cuda", 0)
@@ -3083,6 +3166,16 @@ def sharded_multiprocess_path(torch, K, tmp):
           "path ah: a rank's window is the whole draw's slice, bitwise")
     del x, xw
     torch.cuda.empty_cache()
+    return draw, draw_win, win
+
+
+def sharded_multiprocess_path(torch, K, tmp, draws):
+    """(ah): gen:poisson3d:512 --nparts 2 on two processes, classic f64,
+    300 iterations: K1 on each rank's halo'd window, each rank's device
+    memory peak; x beside path (l)'s one-part solve (the dots are two
+    ranks' partials folded, not one reduction over N, so the bits may
+    differ: the check is 1e-12), and :func:`manufactured_draws`' times."""
+    draw, draw_win, win = draws
     spec = f"gen:poisson3d:{DIRECT_N}"
     out = os.path.join(tmp, "ah.bin")
     res, total, per = cli_pair([spec, "--nparts", str(NPROC), "--warmup",
@@ -3107,6 +3200,423 @@ def sharded_multiprocess_path(torch, K, tmp):
           "kernel")
     os.remove(out)
     return {"ah": total}
+
+
+# -- phase 3 (aq)-(ax): rank-mode robustness, the tiers' checkpoints, the --
+# -- supervisor and its fault sites, run as jobs beside (af)-(ah) -----------
+
+ERR_TIMEOUT = 10     # --err-timeout of path (ax)'s dead peer
+# --max-iterations of path (av): the campaign draws a fault's iteration
+# in [2, 0.6 x this] = [2, 3600].  Its children solve b = ones (the host
+# oracle's right-hand side), which takes more than 3,000 iterations (a
+# cap of 3,000 stopped every child) and fewer than 4,915 (a dot fault
+# drawn there never fired): every draw lands inside the solve, and a
+# rollback replays at most CKPT_EVERY iterations within the cap
+CHAOS_MAXITS = 6000
+PROBE_TIMEOUT = 5    # ACG_TPU_PROBE_TIMEOUT of path (ax)'s hung runtime
+
+
+def mp_run(argv, tag, env=None):
+    """``python -m acg_tpu_torch ARGV -vv`` as NPROC processes sharing
+    the card, each rc whatever it is: (results, wall, per-rank launch
+    counts; {} for a rank that printed none)."""
+    t0 = time.perf_counter()
+    res = run_pair(lambda r, port: [
+        "-m", "acg_tpu_torch", *argv, "-vv", "--coordinator",
+        f"127.0.0.1:{port}", "--num-processes", str(NPROC),
+        "--process-id", str(r)], tag, env=env)
+    per = []
+    for r, (rc, _, err) in enumerate(res):
+        lines = launch_lines(err)
+        per.append(lines[-1] if lines else {})
+        _no_fallback(err, f"{tag} rank {r}")
+    wall = time.perf_counter() - t0
+    say(f"path {tag}: {NPROC} processes on the card, rcs "
+        f"{[r[0] for r in res]}, wall {wall:.1f} s; launches by rank {per}")
+    return res, wall, per
+
+
+def _sum_counts(per) -> dict:
+    keys = {k for c in per for k in c}
+    return {k: sum(c.get(k, 0) for c in per) for k in sorted(keys)}
+
+
+def elastic_paths(torch, K, tmp, base, b, csr, prob):
+    """Paths (aq)-(ax) on the flagship f64, pairs as NPROC processes on
+    the card, as :class:`Jobs`.  The early jobs are the child-process
+    runs that need nothing of this process; main_path starts them with
+    (af)-(ah), JOB_WORKERS at a time, then calls ``local()``, which runs
+    the one-process twins and the runs in this process ((at) and (aw)'s
+    chunked runs) while they go on; the late jobs are the pair runs held
+    to those twins.  (aq) the (af) pair, pipelined under
+    --comm dma, AF_ITS iterations with spmv:nan@7:part=2 --recover: one
+    restart on each rank, x and the iterations bitwise the one-process
+    stacked solve of the same fault, K6's peer form, the per-part dot
+    and K5's flagged form counted.  (ar) the pair
+    to 1e-8 checkpointing every 100 with crash:exit@150: both ranks exit
+    94 after the snapshot at 200; the pair's --resume ends on (e)'s
+    bits; one process resumes the two-process snapshot with
+    --resume-repartition to 1e-8.  (as) the pair with --precond jacobi
+    and with --algorithm sstep:4, AF_ITS iterations under dma: each
+    bitwise its one-process stacked twin.  (at) gen:poisson3d:512
+    --nparts 4 with --ckpt-every 150 (one 3 GB snapshot) and
+    --audit-every 100, 300 iterations: (l)'s bits.  (au) --supervise of
+    (a) with --ckpt-every 500 and crash:exit@1200: the child's rc 94 at
+    its snapshot at 1,500 with no stats and no solution, one relaunch
+    that resumed from 1,500 and ran (a)'s remaining iterations (K1 once a
+    loop step), the recovery: section, (a)'s bits; then 4 parts under
+    dma with --shrink any: relaunched on 2 parts with
+    --resume-repartition, degraded 4 -> 2, converged.  (av) --chaos
+    2026:3 --recover with --max-iterations CHAOS_MAXITS: every schedule
+    converged or agreed-abort, every fault fired inside its solve (read
+    from the campaign's --history ledger), no wrong answer, each green
+    run verified on the host.
+    (aw) (ab)'s --nparts 4 --nrhs 8 run with --ckpt-every 100: (ab)'s
+    bits; sstep:4 with --ckpt-every 512: (z-sstep4)'s bits, and so is
+    its crash:exit@1200 child's resume.  (ax) peer:dead:proc=1 on a
+    pair: rank 1 exits 86, rank 0 97 within --err-timeout (the pair's
+    wall under ERR_TIMEOUT + 30 s: a watchdog on the 120 s default fails
+    it); backend:hang under ACG_TPU_PROBE_TIMEOUT: exit 3 within
+    seconds.  Every child runs under CHILD_ENV."""
+    from acg_tpu_torch import faults
+    from acg_tpu_torch.checkpoint import load_snapshot
+
+    _fault_env()
+    tol = ["--residual-rtol", "1e-8", "--max-iterations", "20000"]
+    tol_av = ["--residual-rtol", "1e-8", "--max-iterations",
+              str(CHAOS_MAXITS)]
+    man = base + ["--manufactured-solution"] + tol
+    mp = man + ["--nparts", str(NPARTS), "--comm", "dma"]
+    fixed = ["--residual-rtol", "0", "--max-iterations", str(AF_ITS)]
+    mpf = base + ["--manufactured-solution", "--nparts", str(NPARTS),
+                  "--comm", "dma"] + fixed
+    fault_aq = "spmv:nan@7:part=2"
+
+    def true_rel(x):
+        return float(np.linalg.norm(b - csr @ x) / np.linalg.norm(b))
+
+    z = read_x(os.path.join(tmp, "z-sstep4.bin"))
+    sst = man + ["--algorithm", "sstep:4", "--ckpt-every", "512"]
+    twins = {}
+
+    def aq():
+        x_out = os.path.join(tmp, "aq.bin")
+        res, wall, per = mp_run(mpf + ["--solver", "acg-pipelined",
+                                       "--fault-inject", fault_aq,
+                                       "--recover", "-o", x_out], "aq")
+        x1, its1, rs1 = twins["aq"]
+        its = int(stat(res[0][2], "iterations").replace(",", ""))
+        # each rank logs its restarts (rank 0's stats block repeats them)
+        restarts = [sum(1 for ln in e.splitlines()
+                        if ln.startswith("acg-tpu-torch: dist-cg: ")
+                        and "; restart 1/" in ln) for _, _, e in res]
+        same = np.array_equal(read_x(x_out), x1)
+        say(f"path aq: {its} iterations (the one-process stacked twin: "
+            f"{its1}, {rs1} restart), restarts by rank {restarts}, x "
+            f"bitwise the twin's = {same}, resilience "
+            f"{_resilience(res[0][2])}")
+        check([r[0] for r in res] == [0] * NPROC,
+              "path aq: every rank exit 0")
+        check(restarts == [1] * NPROC and rs1 == 1
+              and _resilience(res[0][2]) == (1, 1),
+              "path aq: one restart on every rank")
+        check(its == its1 and same,
+              "path aq: the one-process stacked solve's iterations and bits")
+        check(all(c.get("halo_put_peer", 0) > AF_ITS
+                  and c.get("part_dot", 0) > AF_ITS
+                  and c.get("pipelined_update", 0) >= AF_ITS for c in per),
+              "path aq: K6's peer form, the per-part dot and K5's flagged "
+              "form on every rank")
+        return {"aq": _sum_counts(per)}
+
+    def ar():
+        ck = os.path.join(tmp, "ar.ckpt")
+        res, _, per = mp_run(mp + ["--ckpt", ck, "--ckpt-every", "100",
+                                   "--fault-inject", "crash:exit@150"],
+                             "ar-crash")
+        snap = load_snapshot(ck)
+        check([r[0] for r in res] == [94] * NPROC
+              and snap.iteration == 200 and snap.meta["nparts"] == NPARTS,
+              "path ar: both ranks died after the snapshot at 200")
+        x_out = os.path.join(tmp, "ar.bin")
+        res2, _, per2 = mp_run(mp + ["--resume", ck, "-o", x_out],
+                               "ar-resume")
+        same = np.array_equal(read_x(x_out), read_x(os.path.join(tmp,
+                                                                 "e.bin")))
+        check([r[0] for r in res2] == [0] * NPROC
+              and "resumed_from: 200" in res2[0][2] and same,
+              "path ar: the pair's resume ends on (e)'s bits")
+        x1 = os.path.join(tmp, "ar-one.bin")
+        rc, text, c, _ = proc_cli(man + ["--resume", ck,
+                                         "--resume-repartition", "-o", x1],
+                                  "ar-repartition")
+        res1 = true_rel(read_x(x1))
+        say(f"path ar: the pair's snapshot at {snap.iteration}; the resumed "
+            f"pair's x bitwise (e)'s = {same}; one process resumed it "
+            f"repartitioned: {stat(text, 'iterations')} iterations, true "
+            f"relative residual {res1:.3e}")
+        check(rc == 0 and "repartitioned_from" in text and res1 <= 1e-7,
+              "path ar: the repartitioned resume converged to 1e-7")
+        return {"ar": _sum_counts(per + per2 + [c])}
+
+    def as_(tag, extra):
+        def job():
+            x_out = os.path.join(tmp, f"{tag}.bin")
+            res, _, per = mp_run(mpf + extra + ["-o", x_out], tag)
+            same = np.array_equal(read_x(x_out), twins[tag])
+            say(f"path {tag}: x bitwise the one-process stacked twin's = "
+                f"{same}")
+            check([r[0] for r in res] == [0] * NPROC and same,
+                  f"path {tag}: the one-process stacked solve's bits")
+            check(all(c.get("dia_spmv_batched", 0) >= AF_ITS
+                      and c.get("halo_put_peer", 0) > 0 for c in per),
+                  f"path {tag}: batched K1 and K6's peer form on every "
+                  f"rank")
+            return {tag: _sum_counts(per)}
+        return job
+
+    def supervised(argv, tag):
+        """``argv`` under --supervise: (rc, stderr, the finished
+        children's launch counts; a crashed child prints none)."""
+        rc, text, _, _ = proc_cli(argv + ["--supervise",
+                                          "--relaunch-backoff", "0"], tag)
+        per = launch_lines(text)
+        say(f"path {tag}: the children's launches {per}")
+        return rc, text, per
+
+    def au1():
+        x_out = os.path.join(tmp, "au.bin")
+        # the crash fires after the first snapshot at or past CRASH_AT
+        snap_at = -(-CRASH_AT // CKPT_EVERY) * CKPT_EVERY
+        rc, text, per = supervised(
+            man + ["--ckpt", os.path.join(tmp, "au.ckpt"), "--ckpt-every",
+                   str(CKPT_EVERY), "--fault-inject", f"crash:exit@{CRASH_AT}",
+                   "-o", x_out], "au-supervise")
+        crashed, relaunch, resumed = text.partition(
+            "supervisor: child exited rc 94 (crash); relaunch 1/3 with "
+            "--resume\n")
+        # the crashed child's output ends at its hard exit inside the
+        # solve: no stats block, no launch counts, so no solution written
+        died = (f"hard exit at {snap_at} iterations (crash:exit@{CRASH_AT})"
+                in crashed and "total solver time" not in crashed
+                and not launch_lines(crashed))
+        same = os.path.exists(x_out) and np.array_equal(
+            read_x(x_out), read_x(os.path.join(tmp, "a.bin")))
+        from_ = re.search(r"resumed_from: (\d+)", resumed)
+        traj = re.search(r"\n  iteration: ([\d,]+)", resumed)
+        its = (int(stat(resumed, "iterations").replace(",", ""))
+               if relaunch else None)
+        # the relaunch keeps --ckpt-every: its loop runs the checkpoint
+        # chunks from the snapshot and, in the last, the flag's chunks
+        last = snap_at + (ITS["a"] - snap_at - 1) // CKPT_EVERY * CKPT_EVERY
+        k1 = last - snap_at + min(chunked(ITS["a"] - last), CKPT_EVERY)
+        say(f"path au: the first child died at its snapshot ({died}), "
+            f"resumed from {from_.group(1) if from_ else None}: {its} "
+            f"iterations, trajectory {traj.group(1) if traj else None} "
+            f"(a: {ITS['a']}), K1 {[c.get('dia_spmv') for c in per]} "
+            f"(expected {k1}); x bitwise (a)'s = {same}")
+        check(rc == 0 and relaunch and died and "recovery:" in resumed
+              and "relaunches: 1 (crash: 1)" in resumed and same,
+              f"path au: rc 94 after the snapshot at {snap_at} and no "
+              f"solution, one relaunch, the recovery: section, (a)'s bits")
+        check(from_ and int(from_.group(1)) == snap_at
+              and its == ITS["a"] - snap_at and traj
+              and int(traj.group(1).replace(",", "")) == ITS["a"]
+              and len(per) == 1 and per[0].get("dia_spmv") == k1,
+              f"path au: the relaunch resumed at {snap_at} and ran (a)'s "
+              f"remaining {ITS['a'] - snap_at} iterations, K1 once a "
+              f"loop step")
+        return {"au": _sum_counts(per)}
+
+    def au2():
+        x_out = os.path.join(tmp, "au2.bin")
+        rc, text, per = supervised(
+            mp + ["--ckpt", os.path.join(tmp, "au2.ckpt"), "--ckpt-every",
+                  str(CKPT_EVERY), "--fault-inject", f"crash:exit@{CRASH_AT}",
+                  "--shrink", "any", "-o", x_out], "au-shrink")
+        res2 = true_rel(read_x(x_out)) if os.path.exists(x_out) else 1.0
+        say(f"path au-shrink: true relative residual {res2:.3e}")
+        check(rc == 0 and f"shrinking {NPARTS} -> {NPARTS // 2} "
+              f"parts" in text and f"degraded: {NPARTS} -> "
+              f"{NPARTS // 2} parts (crash)" in text
+              and "repartitioned_from" in text and res2 <= 1e-7,
+              "path au: relaunched on 2 parts with --resume-repartition, "
+              "converged to 1e-7")
+        return {"au-shrink": _sum_counts(per)}
+
+    def av():
+        hist = os.path.join(tmp, "av-hist")
+        rc, text, _, _ = proc_cli(
+            base + tol_av + ["--recover", "--ckpt", os.path.join(
+                tmp, "av.ckpt"), "--ckpt-every", str(CKPT_EVERY), "--chaos",
+                "2026:3", "--relaunch-backoff", "0", "--history", hist],
+            "av-chaos", timeout=2 * MP_TIMEOUT)
+        verdicts = re.findall(r"chaos\[\d\]: fault=(\S+) .*-> (\S+)"
+                              r"( \(true rel residual)?", text)
+        fired = _chaos_fired(hist)
+        say(f"path av: schedules {verdicts}; each fault, whether it fired "
+            f"and the finishing child's iterations {fired}")
+        check(rc == 0 and "wrong-answer: 0" in text
+              and len(verdicts) == 3
+              and all(v in ("converged", "agreed-abort")
+                      for _, v, _ in verdicts)
+              and all(ver for _, v, ver in verdicts if v == "converged"),
+              "path av: every schedule converged (verified) or "
+              "agreed-abort")
+        check(len(fired) == 3 and all(f[1] for f in fired),
+              "path av: every schedule's fault fired inside its solve")
+        return {}
+
+    def aw_crash():
+        ck = os.path.join(tmp, "aw-s2.ckpt")
+        rcc, _, c, _ = proc_cli(sst + ["--ckpt", ck, "--fault-inject",
+                                       f"crash:exit@{CRASH_AT}"],
+                                "aw-sstep-crash")
+        snap_it = load_snapshot(ck).iteration
+        x_out = os.path.join(tmp, "aw-sstep2.bin")
+        rc2, _, c2, _ = proc_cli(man + ["--algorithm", "sstep:4",
+                                        "--resume", ck, "-o", x_out],
+                                 "aw-sstep-resume")
+        same = rc2 == 0 and np.array_equal(read_x(x_out), z)
+        say(f"path aw: the crashed sstep:4 child rc {rcc} at its snapshot "
+            f"{snap_it}, resumed: (z-sstep4)'s bits = {same}")
+        check(rcc == 94 and snap_it == 1536 and same,
+              "path aw: sstep:4 crashed then resumed is (z-sstep4)'s bits")
+        return {"aw-crash": _sum_counts([c, c2])}
+
+    def ax():
+        t0 = time.perf_counter()
+        res, wall, _ = mp_run(mpf + ["--fault-inject", "peer:dead:proc=1",
+                                     "--err-timeout", str(ERR_TIMEOUT)],
+                              "ax-peer-dead")
+        rcs = [r[0] for r in res]
+        check(rcs == [97, 86] and "dying before checkpoint" in res[1][2]
+              and wall < ERR_TIMEOUT + 30,
+              f"path ax: rank 1 died (86), rank 0's watchdog tore it down "
+              f"(97) within --err-timeout {ERR_TIMEOUT} s (rcs {rcs})")
+        env = {k: v for k, v in CHILD_ENV.items()
+               if k != "ACG_TPU_SKIP_BACKEND_PROBE"}
+        env.update({faults.ENV_VAR: "backend:hang:secs=60",
+                    "ACG_TPU_PROBE_TIMEOUT": str(PROBE_TIMEOUT)})
+        rc, text, _, w = proc_cli(man, "ax-backend-hang", env=env)
+        say(f"path ax: the dead peer's rcs {rcs} in {wall:.1f} s; the hung "
+            f"runtime's rc {rc} in {w:.1f} s; "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(rc == 3 and f"backend init exceeded {PROBE_TIMEOUT}s" in text
+              and w < PROBE_TIMEOUT + 30,
+              "path ax: the bounded probe exits BACKEND_UNAVAILABLE (3)")
+        return {}
+
+    # the longest first: the pool's tail is its last job
+    return Jobs([av, ar, au2, au1, ax, aw_crash],
+                lambda: _elastic_local(torch, K, tmp, base, b, csr, prob, man,
+                                       z, sst, fault_aq, twins),
+                [aq, as_("as-jacobi", ["--precond", "jacobi"]),
+                 as_("as-sstep4", ["--algorithm", "sstep:4"])])
+
+
+def _chaos_fired(hist: str) -> list:
+    """Each chaos schedule's (fault, whether it fired, the last child's
+    iterations) from the campaign's --history ledger, where each
+    schedule's children append their stats documents before the
+    campaign's row: a crash relaunched its child once after rc 94; a
+    device fault left a breakdown and a restart or rollback in the stats
+    of the child that finished; a control run (no fault) fires nothing
+    and counts as fired."""
+    from acg_tpu_torch import observatory
+
+    out, stats = [], []
+    for e in observatory.history_scan(hist):
+        doc = e["doc"]
+        if doc.get("schema") != "acg-tpu-chaos/1":
+            stats.append(doc.get("stats") or {})
+            continue
+        fault, rec = doc["chaos"]["fault"], doc["recovery"]
+        last = stats[-1] if stats else {}
+        res = last.get("resilience") or {}
+        if fault is None:
+            ok = True
+        elif fault.startswith("crash:"):
+            ok = (rec["attempts"] == 2
+                  and [r["rc"] for r in rec["relaunches"]] == [94])
+        else:
+            ok = (res.get("nbreakdowns", 0) >= 1
+                  and res.get("nrestarts", 0) + res.get("nrollbacks", 0) >= 1)
+        out.append((fault, ok, last.get("niterations")))
+        stats = []
+    return out
+
+
+def _elastic_local(torch, K, tmp, base, b, csr, prob, man, z, sst,
+                   fault_aq, twins) -> dict:
+    """:func:`elastic_paths`' work in this process: the one-process
+    stacked twins of (aq) and (as) into ``twins``, then (at) and (aw)'s
+    chunked runs; their launch counts."""
+    from acg_tpu_torch import faults
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+    from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+
+    out = {}
+    # the one-process stacked twins, on this process's parts of (e)
+    with faults.injected(fault_aq), \
+            contextlib.redirect_stderr(io.StringIO()):
+        s = DistCGSolver(prob, comm="dma", pipelined=True, device="cuda",
+                         recovery=RecoveryPolicy(max_restarts=2))
+        twins["aq"] = (s.solve(b, criteria=StoppingCriteria(
+            maxits=AF_ITS)), s.stats.niterations, s.stats.nrestarts)
+    for tag, kw in (("as-jacobi", dict(precond="jacobi")),
+                    ("as-sstep4", dict(algorithm="sstep:4"))):
+        s = DistCGSolver(prob, comm="dma", device="cuda", **kw)
+        twins[tag] = s.solve(b, criteria=StoppingCriteria(maxits=AF_ITS))
+    del s
+    torch.cuda.empty_cache()
+
+    # (at) the sharded tier's checkpoints and audit, in this process
+    x_out = os.path.join(tmp, "at.bin")
+    rc, text, c = run_cli(torch, K, [f"gen:poisson3d:{DIRECT_N}",
+                                     "--warmup", "0", "-v",
+                                     "--max-iterations", "300",
+                                     "--residual-rtol", "0", "--nparts",
+                                     str(NPARTS), "--ckpt",
+                                     os.path.join(tmp, "at.ckpt"),
+                                     "--ckpt-every", "150", "--audit-every",
+                                     "100", "-o", x_out], "at-sharded-hooks")
+    same = np.array_equal(read_x(x_out), read_x(os.path.join(tmp, "l.bin")))
+    say(f"path at: snapshots {stat(text, 'snapshots')}, audits "
+        f"{stat(text, 'naudits')}, x bitwise (l)'s = {same}")
+    check(rc == 0 and same and stat(text, "snapshots") == "1"
+          and stat(text, "naudits") == "3",
+          "path at: the chunked, audited sharded solve is (l)'s bits")
+    check(c["dia_spmv"] >= 301, "path at ran K1")
+    for f in (x_out, os.path.join(tmp, "at.ckpt")):
+        os.remove(f)
+    out["at"] = c
+
+    # (aw) the batched and s-step checkpoints, in this process
+    x_out = os.path.join(tmp, "aw-nrhs.bin")
+    bat = base + ["--nparts", str(NPARTS), "--nrhs", str(NRHS),
+                  "--manufactured-solution", "--residual-rtol", "0",
+                  "--max-iterations", str(BATCH_ITS)]
+    rc, text, c = run_cli(torch, K, bat + ["--ckpt", os.path.join(
+        tmp, "aw-nrhs.ckpt"), "--ckpt-every", "100", "-o", x_out],
+        "aw-nrhs-ckpt")
+    with open(x_out, "rb") as f1, open(os.path.join(
+            tmp, "ab-4part-nrhs.bin"), "rb") as f2:
+        same = f1.read() == f2.read()
+    say(f"path aw: --nrhs 8 chunked every 100: (ab)'s bytes = {same}")
+    check(rc == 0 and same and stat(text, "snapshots") == "1",
+          "path aw: the chunked --nrhs 8 run is (ab)'s bits")
+    x_out = os.path.join(tmp, "aw-sstep.bin")
+    rc, text, c2 = run_cli(torch, K, sst + ["--ckpt", os.path.join(
+        tmp, "aw-s1.ckpt"), "-o", x_out], "aw-sstep-ckpt")
+    same = np.array_equal(read_x(x_out), z)
+    say(f"path aw: sstep:4 chunked every 512: (z-sstep4)'s bits = {same}, "
+        f"snapshots {stat(text, 'snapshots')}")
+    check(rc == 0 and same, "path aw: sstep:4 chunked is (z-sstep4)'s bits")
+    out["aw"] = {k: c.get(k, 0) + c2.get(k, 0) for k in c2}
+
+    return out
 
 
 def k6_peer_checks(torch, K, tmp, inputs):
@@ -4261,9 +4771,17 @@ def main() -> int:
         sys.stderr.write("chip_smoke: no CUDA device; this script runs the "
                          "port on the card only\n")
         return 1
+    # this process just found the card: its CLI children skip the bounded
+    # liveness probe (a child of their own, seconds each); path (ax) runs
+    # one with it
+    os.environ["ACG_TPU_SKIP_BACKEND_PROBE"] = "1"
     # the checkout's package; outside a checkout this import fails
+    from acg_tpu_torch import faults
     from acg_tpu_torch.ops import _build
     from acg_tpu_torch.ops import kernels as K
+
+    CHILD_ENV.update((k, v) for k, v in os.environ.items()
+                     if k != faults.ENV_VAR)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

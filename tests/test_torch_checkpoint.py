@@ -381,8 +381,8 @@ def test_cli_ckpt_section_matches_reference(tmp_path, capsys):
     (["--ckpt", "x", "--ckpt-every", "5", "--kernels", "fused"],
      "--kernels fused"),
     (["--resume", "/nonexistent.ckpt"], "nonexistent"),
-    (["--ckpt", "x", "--ckpt-every", "5", "--algorithm", "sstep:4"],
-     "--algorithm sstep:4")])
+    (["--nparts", "4", "--algorithm", "sstep:4", "--ckpt", "x",
+      "--ckpt-every", "5"], "checkpoints on the single-device tier only")])
 def test_cli_ckpt_refusals(argv, msg):
     from acg_tpu_torch.cli import main
     with pytest.raises(SystemExit) as e:

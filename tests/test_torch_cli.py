@@ -235,14 +235,16 @@ def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
         assert err.count("from the recomputed true residual\n") == 2 * n
 
 
-@pytest.mark.parametrize("flag", [["--supervise"], ["--explain"],
-                                  ["--serve"], ["--shrink"]])
+@pytest.mark.parametrize("flag", [["--grow-after", "2"], ["--explain"],
+                                  ["--serve"], ["--commbench", "c.json"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
-    """The flags of tiers not ported yet (the supervisor, the decision
-    layer, the service) stay unregistered; --max-restarts, --soak and
-    --ckpt, which this test named before the robustness tier was
-    ported, are held against the reference in test_torch_faults.py,
-    test_torch_soak.py and test_torch_checkpoint.py."""
+    """The flags of tiers not ported yet (the decision layer, the service
+    and the daemon supervisor's --grow-after) stay unregistered;
+    --supervise and --shrink, which this test named before the elastic
+    tier was ported, are held against the reference in
+    test_torch_elastic.py, as --max-restarts, --soak and --ckpt are in
+    test_torch_faults.py, test_torch_soak.py and
+    test_torch_checkpoint.py."""
     with pytest.raises(SystemExit) as e:
         torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
     assert e.value.code == 2
@@ -289,6 +291,7 @@ import acg_tpu_torch.vector
 import acg_tpu_torch._native
 import acg_tpu_torch.prng
 import acg_tpu_torch.parallel.erragree
+import acg_tpu_torch.supervisor
 import acg_tpu_torch.parallel.mesh
 import acg_tpu_torch.parallel.multihost
 import acg_tpu_torch.telemetry

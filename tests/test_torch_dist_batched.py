@@ -201,20 +201,22 @@ def test_refusals_match_jax(systems):
         == _msg(lambda: JaxBatched(jprob))
 
 
-@pytest.mark.parametrize("kw,what", [(dict(trace=4), "telemetry.py"),
-                                     (dict(ckpt=object()), "checkpoint.py")])
-def test_unported_hooks_refused_by_name(systems, kw, what):
-    if "trace" in kw:
-        # the per-RHS ring is ported (telemetry.BatchedLoopTelemetry):
-        # it arms, and a negative size still refuses
-        s = BatchedDistCGSolver(systems["dia"]["prob"], device=CPU, **kw)
+@pytest.mark.parametrize("hook", ["trace", "ckpt"])
+def test_ported_hooks_arm(systems, hook, tmp_path):
+    """The per-RHS ring (telemetry.BatchedLoopTelemetry) and the batched
+    checkpoints arm; a bad value still refuses."""
+    prob = systems["dia"]["prob"]
+    if hook == "trace":
+        s = BatchedDistCGSolver(prob, device=CPU, trace=4)
         assert s.trace == 4
         with pytest.raises(ValueError, match="trace/progress"):
-            BatchedDistCGSolver(systems["dia"]["prob"], device=CPU,
-                                trace=-1)
+            BatchedDistCGSolver(prob, device=CPU, trace=-1)
         return
-    with pytest.raises(ValueError, match=what):
-        BatchedDistCGSolver(systems["dia"]["prob"], device=CPU, **kw)
+    from acg_tpu_torch.checkpoint import CheckpointConfig
+    cfg = CheckpointConfig(path=str(tmp_path / "c"), every=4)
+    assert BatchedDistCGSolver(prob, device=CPU, ckpt=cfg).ckpt is cfg
+    with pytest.raises(ValueError, match="CheckpointConfig"):
+        BatchedDistCGSolver(prob, device=CPU, ckpt=object())
 
 
 def test_diff_criteria_refused(systems):

@@ -48,6 +48,8 @@ torch.set_num_threads(min(2, torch.get_num_threads()))
 CPU = "cpu"
 KW = dict(maxits=500, residual_rtol=1e-10)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 @pytest.fixture(autouse=True)
 def _disarmed():
@@ -107,19 +109,19 @@ def test_bad_specs_refused_like_reference(text):
         faults.parse_fault_spec(text)
     with pytest.raises(ValueError) as j:
         jf.parse_fault_spec(text)
-    if "nope" in text:
-        # the port's site list leaves out the supervisor's two sites
-        assert "unknown site 'nope'" in str(t.value)
-    else:
-        assert str(t.value) == str(j.value)
+    assert str(t.value) == str(j.value)
 
 
 @pytest.mark.parametrize("text", ["peer:dead:proc=1",
                                   "backend:hang:secs=120"])
-def test_supervisor_sites_refused_by_name(text):
-    jf.parse_fault_spec(text)   # the reference takes them
-    with pytest.raises(ValueError, match="multi-process supervisor"):
-        faults.parse_fault_spec(text)
+def test_supervisor_sites_parse_like_the_reference(text):
+    """The supervisor's sites, refused by name before the elastic tier
+    was ported, parse to the reference's spec and print back."""
+    t, j = faults.parse_fault_spec(text), jf.parse_fault_spec(text)
+    for field in ("site", "mode", "iteration", "part", "proc", "secs",
+                  "seed"):
+        assert getattr(t, field) == getattr(j, field), field
+    assert str(t) == str(j) == text and not t.device_site
 
 
 def test_env_var_and_suppression():
@@ -363,11 +365,92 @@ def test_cli_fault_inject_matches_reference(extra, capsys):
     (["--fault-inject", "crash:exit@5"], "arm --ckpt FILE"),
     (["--fault-inject", "spmv:nan@3", "--solver", "petsc"],
      "no injection sites"),
-    (["--fault-inject", "peer:dead:proc=1"], "multi-process supervisor"),
-    (["--fault-inject", "spmv:nan@3", "--nrhs", "2"], "--nrhs/--block-cg")])
+    (["--fault-inject", "spmv:nan@3", "--nrhs", "2"],
+     "no batched breakdown detection")])
 def test_cli_fault_refusals(argv, msg):
     from acg_tpu_torch.cli import main
     with pytest.raises(SystemExit) as e:
         main(["gen:poisson2d:8", "--device", "cpu", "-q"] + argv)
     assert msg in str(e.value)
     assert os.environ.get(faults.ENV_VAR) is None
+
+
+@pytest.mark.parametrize("spec", ["peer:dead:proc=1",
+                                  "peer:stall:proc=1:secs=60"])
+def test_cli_peer_faults_fire_only_across_processes(spec):
+    """A peer fault, refused by name before the elastic tier was ported,
+    fires in the error agreement of a multi-process run
+    (test_torch_rankmode.py); one process makes no agreement, so the solve
+    runs clean, as the reference's does."""
+    from acg_tpu_torch.cli import main
+    assert main(["gen:poisson2d:8", "--device", "cpu", "-q",
+                 "--fault-inject", spec]) == 0
+    assert os.environ.get(faults.ENV_VAR) is None
+
+
+# -- the bounded backend probe (tests/test_faults.py:238-270) -------------------
+
+def test_probe_bounded_under_backend_hang(monkeypatch):
+    """A wedged CUDA runtime (backend:hang) fails the probe within its
+    timeout instead of wedging the caller; the child is killed."""
+    import time
+
+    from acg_tpu_torch import _device
+    monkeypatch.setenv(faults.ENV_VAR, "backend:hang:secs=120")
+    monkeypatch.delenv("ACG_TPU_SKIP_BACKEND_PROBE", raising=False)
+    monkeypatch.setattr(_device, "_probe_cache", None)
+    t0 = time.monotonic()
+    ok, detail = _device.probe_backend(timeout=6)
+    assert not ok and "exceeded 6s" in detail
+    assert time.monotonic() - t0 < 60
+    # cached for the process: a second call answers at once
+    assert _device.probe_backend(timeout=6) == (ok, detail)
+
+
+@pytest.mark.parametrize("case", ["env", "cpu", "no-cuda-build",
+                                  "initialised"])
+def test_probe_skip_paths(case, monkeypatch):
+    """The probe is skipped under ACG_TPU_SKIP_BACKEND_PROBE, for a CPU
+    run, for a torch without CUDA, and once CUDA is initialised here."""
+    from acg_tpu_torch import _device
+    monkeypatch.delenv("ACG_TPU_SKIP_BACKEND_PROBE", raising=False)
+    monkeypatch.setattr(torch.version, "cuda", "12.0")
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    assert _device.backend_probe_needed("cuda")
+    if case == "env":
+        monkeypatch.setenv("ACG_TPU_SKIP_BACKEND_PROBE", "1")
+        ok, detail = _device.probe_backend()
+        assert ok and "skipped" in detail
+    elif case == "cpu":
+        assert not _device.backend_probe_needed("cpu")
+        return
+    elif case == "no-cuda-build":
+        monkeypatch.setattr(torch.version, "cuda", None)
+    else:
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    assert not _device.backend_probe_needed("cuda")
+
+
+def test_cli_backend_hang_exits_backend_unavailable(tmp_path):
+    """The CLI's probe under backend:hang exits BACKEND_UNAVAILABLE (3)
+    within ACG_TPU_PROBE_TIMEOUT, with the reference's message, before
+    any device work.  A torch without CUDA skips the probe, so the child
+    stands one in."""
+    import subprocess
+    import sys
+    import time
+
+    code = ("import sys, torch; torch.version.cuda = '12.0'; "
+            "torch.cuda.is_initialized = lambda: False; "
+            "from acg_tpu_torch.cli import main; "
+            "sys.exit(main(['gen:poisson2d:8', '-q']))")
+    env = {k: v for k, v in os.environ.items()
+           if k not in (faults.ENV_VAR, "ACG_TPU_SKIP_BACKEND_PROBE")}
+    env.update({faults.ENV_VAR: "backend:hang:secs=60",
+                "ACG_TPU_PROBE_TIMEOUT": "5", "PYTHONPATH": REPO})
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 3, r.stderr
+    assert "backend unavailable: backend init exceeded 5s" in r.stderr
+    assert time.monotonic() - t0 < 60

@@ -67,18 +67,18 @@ def _kinds(st):
 
 
 def test_policy_defaults_match_the_reference():
-    """The reference's defaults; the transport rung's is the reference's
-    on the CPU and off on the card unless named (``fallback_comm=True``).
-    The reference's ``agree_timeout`` has no counterpart: recovery is
-    single-process here."""
+    """The reference's defaults, ``agree_timeout`` (the multi-process
+    restart agreement's bound) included; the transport rung's is the
+    reference's on the CPU and off on the card unless named
+    (``fallback_comm=True``)."""
     t, j = RecoveryPolicy(), jres.RecoveryPolicy()
-    for f in ("max_restarts", "backoff", "fallback_host", "max_rollbacks"):
+    for f in ("max_restarts", "backoff", "fallback_host", "max_rollbacks",
+              "agree_timeout"):
         assert getattr(t, f) == getattr(j, f)
     assert t.comm_fallback("cpu") == j.fallback_comm
     assert not t.comm_fallback("cuda")
     assert RecoveryPolicy(fallback_comm=True).comm_fallback("cuda")
     assert not RecoveryPolicy(fallback_comm=False).comm_fallback("cpu")
-    assert not hasattr(t, "agree_timeout")
 
 
 def test_backoff_sleeps_double_like_the_reference(sys16, monkeypatch):
@@ -269,3 +269,22 @@ def test_give_up_names_the_snapshot_like_the_reference():
     assert str(t.give_up(7, 1.5, snapshot="s.ckpt")) == \
         str(j.give_up(7, 1.5, snapshot="s.ckpt"))
     assert res.adopt_host_stats.__doc__ == jres.adopt_host_stats.__doc__
+
+
+@pytest.mark.parametrize("code,want", [(0, True), (1, False)])
+def test_restart_agreement_is_local_on_one_process(code, want):
+    """One process keeps the local verdict (the reference's ``_agree``
+    without ``jax.process_count() > 1``)."""
+    from acg_tpu_torch.solvers.stats import SolverStats
+    d = res.RecoveryDriver(RecoveryPolicy(), SolverStats(), "t")
+    assert d._agree(code) is want
+
+
+def test_cli_policy_takes_err_timeout():
+    """The CLI's policy bounds the restart agreement by --err-timeout, as
+    acg_tpu/cli.py:3178-3181 does."""
+    from acg_tpu_torch import cli
+    args = cli.make_parser().parse_args(["gen:poisson2d:8", "--recover",
+                                         "--err-timeout", "7"])
+    cli._validate_robustness(args)
+    assert args._recovery.agree_timeout == 7.0

@@ -253,19 +253,29 @@ def test_sharded_sstep_rides_the_sharded_spmv():
     np.testing.assert_array_equal(x.numpy(), x1)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("health", object()), ("ckpt", object()), ("recovery", object()),
-    ("trace", 8), ("progress", 10)])
-def test_unported_options_refused_by_name(option, value):
-    """The robustness hooks are refused by name on the sharded tier;
-    trace/progress ride its programs, the CA recurrences' too since
-    their ring and heartbeat were ported."""
-    if option in ("trace", "progress"):
-        s = _build(8, 2, **{option: value}, algorithm="sstep:2")
-        assert getattr(s, option) == value
-        return
-    with pytest.raises(ValueError, match=option):
-        _build(8, 2, **{option: value})
+@pytest.mark.parametrize("option", ["health", "ckpt", "recovery", "trace",
+                                    "progress"])
+def test_robustness_and_telemetry_options_arm(option, tmp_path):
+    """The robustness hooks, refused by name before this tier carried
+    them, arm and ride a solve of the sharded tier, as trace/progress
+    ride its programs (the CA recurrences' too); a wrong type still
+    refuses by name."""
+    from acg_tpu_torch.checkpoint import CheckpointConfig
+    from acg_tpu_torch.health import HealthSpec
+    from acg_tpu_torch.solvers.resilience import RecoveryPolicy
+    value = {"health": HealthSpec(every=4),
+             "ckpt": CheckpointConfig(path=str(tmp_path / "c"), every=4),
+             "recovery": RecoveryPolicy(), "trace": 8,
+             "progress": 10}[option]
+    s = _build(8, 2, **{option: value}, algorithm="sstep:2")
+    attr = {"health": "health_spec"}.get(option, option)
+    assert getattr(s, attr) == value
+    s.solve(s.ones_b(), criteria=StoppingCriteria(maxits=200,
+                                                  residual_rtol=1e-8))
+    assert s.stats.converged
+    if option in ("health", "ckpt", "recovery"):
+        with pytest.raises(ValueError, match=option):
+            _build(8, 2, **{option: object()})
 
 
 def test_one_part_runs_k1_on_the_whole_planes():
