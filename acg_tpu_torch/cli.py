@@ -519,6 +519,55 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--fail-on-slo", action="store_true",
                    help="with --slo: exit 8 when any declared "
                         "objective breached during the run")
+    p.add_argument("--explain", action="store_true",
+                   help="performance report instead of a normal solve: "
+                        "for the classic, pipelined and stacked "
+                        "multi-part tiers count the operations and "
+                        "hand-kernel launches an iteration dispatches, "
+                        "build the static communication ledger, time a "
+                        "short solve and print a roofline verdict "
+                        "(HBM-, comm-, dispatch- or compute-bound; the "
+                        "dispatch term is launches an iteration x the "
+                        "measured launch latency)")
+    p.add_argument("--commbench", nargs="?", const="-", default=None,
+                   metavar="FILE",
+                   help="communication observatory: microbenchmark the "
+                        "stacked parts' collectives (the parts' sum, "
+                        "the transposing plane copy, the roll, kernel "
+                        "K6's puts dense and per ring distance), measure "
+                        "the SpMV/halo/reduction segments of this case, "
+                        "fit alpha-beta per kind and write the "
+                        "acg-tpu-commbench/1 document to FILE ('-' or "
+                        "omitted = stdout).  Alone, or with --explain "
+                        "to calibrate the verdict live")
+    p.add_argument("--calibration", metavar="FILE", default=None,
+                   help="a saved --commbench document: --explain prices "
+                        "comm from its fitted alpha-beta model and "
+                        "reports predicted-vs-measured with its id; a "
+                        "normal solve records the id in the --stats-json "
+                        "manifest and the convergence-log meta line")
+    p.add_argument("--plan", nargs="?", const="-", default=None,
+                   metavar="FILE",
+                   help="decision observatory: write the ranked "
+                        "acg-tpu-plan/1 document (every candidate "
+                        "program priced in seconds a solve; typed "
+                        "reasons for pruned cells) to FILE ('-' or "
+                        "omitted = stdout).  With --explain: print the "
+                        "ranked table without solving; with --autotune: "
+                        "record the document the decision came from")
+    p.add_argument("--autotune", action="store_true",
+                   help="plan the candidate programs, time the top two "
+                        "by short probes and dispatch the winner instead "
+                        "of the flag-selected program; the decision and "
+                        "its plan-vs-actual row land in the 'plan:' "
+                        "stats section and the --history ledger, where "
+                        "later planned runs consult them to correct the "
+                        "model")
+    p.add_argument("--no-probe-cache", action="store_true",
+                   help="ignore the on-disk triad-probe sidecar "
+                        "(ACG_TPU_PROBE_CACHE / "
+                        "~/.cache/acg-tpu/probe_cache.json) and "
+                        "re-measure the bandwidth")
     p.add_argument("--profile-ops", nargs="?", const=10, type=int,
                    default=None, metavar="REPS",
                    help="fill the stats block's per-op seconds/GB/s by "
@@ -865,6 +914,134 @@ def _validate_algorithm(args) -> None:
             raise SystemExit(
                 f"acg-tpu-torch: --algorithm {args._algorithm} does not "
                 f"support: {', '.join(unsupported)}")
+
+
+def _validate_decision(args) -> None:
+    """The decision layers' refusals, before anything expensive
+    (``acg_tpu/cli.py:2580-2700``, ``:2751-2789``): ``--explain`` and
+    ``--commbench`` are single-controller passes that produce no solve
+    output and run pristine programs; ``--calibration`` is loaded and
+    validated here; ``--autotune`` owns the axes it plans over, and
+    ``--plan`` needs ``--explain`` or ``--autotune``."""
+    import os
+
+    fault_armed = bool(args.fault_inject
+                       or os.environ.get("ACG_TPU_FAULT_INJECT"))
+    multi = (args.multihost or args.coordinator is not None
+             or args.distributed_read)
+    if args.explain:
+        if multi:
+            raise SystemExit(
+                "acg-tpu-torch: --explain is a single-controller analysis "
+                "pass (drop --multihost/--coordinator/--distributed-read)")
+        if fault_armed:
+            raise SystemExit(
+                "acg-tpu-torch: --explain analyses and times the PRISTINE "
+                "solve programs; drop --fault-inject (fault-test a normal "
+                "solve instead)")
+        ignored = [flag for flag, on in [
+            ("--convergence-log", bool(args.convergence_log)),
+            ("--progress", args.progress > 0),
+            ("-o/--output", args.output is not None),
+            ("--profile-ops", args.profile_ops is not None),
+            ("--output-comm-matrix", args.output_comm_matrix),
+            ("--audit-every (--explain computes its own convergence "
+             "verdict from the host oracle)", args.audit_every > 0),
+            ("--stall-window", args.stall_window > 0),
+            ("--timeline (the analysis solves are not the pipeline the "
+             "timeline describes; --trace works and feeds the measured "
+             "verdict)", args.timeline is not None),
+            ("--status-port/--status-file (the analysis solves are not "
+             "the solve a status plane watches)",
+             args.status_port > 0 or args.status_file is not None),
+            ("--history (the ledger records solves, not analysis "
+             "passes; --explain --plan --history consults it "
+             "read-only)", args.history is not None and args.plan is None),
+            ("--slo (objectives judge real solves)", args.slo is not None),
+        ] if on]
+        if ignored:
+            raise SystemExit(
+                f"acg-tpu-torch: --explain is an analysis pass and "
+                f"produces none of: {', '.join(ignored)} -- run a normal "
+                f"solve for those (--stats-json works with --explain)")
+    if args.commbench is not None and args.calibration is not None:
+        raise SystemExit(
+            "acg-tpu-torch: --commbench and --calibration are two "
+            "calibration sources; run --commbench to produce a document, "
+            "then --explain --calibration FILE to consume it")
+    if args.commbench is not None:
+        if multi:
+            raise SystemExit(
+                "acg-tpu-torch: --commbench is a single-controller "
+                "measurement pass (drop --multihost/--coordinator/"
+                "--distributed-read)")
+        if fault_armed:
+            raise SystemExit(
+                "acg-tpu-torch: --commbench measures the PRISTINE "
+                "collectives; drop --fault-inject")
+        if not args.explain:
+            ignored = [flag for flag, on in [
+                ("--convergence-log", bool(args.convergence_log)),
+                ("-o/--output", args.output is not None),
+                ("--profile-ops", args.profile_ops is not None),
+                ("--timeline", args.timeline is not None),
+                ("--stats-json (the commbench document IS the "
+                 "structured output; --stats-json works with --explain "
+                 "--commbench)", args.stats_json is not None),
+                ("--soak", args.soak > 0),
+                ("--history (the ledger records solves, not "
+                 "microbenchmarks)", args.history is not None),
+                ("--slo (objectives judge real solves)",
+                 args.slo is not None),
+            ] if on]
+            if ignored:
+                raise SystemExit(
+                    f"acg-tpu-torch: --commbench is a measurement pass and "
+                    f"produces none of: {', '.join(ignored)} -- run a "
+                    f"normal solve for those")
+    args._calibration = None
+    if args.calibration is not None:
+        from acg_tpu_torch.commbench import load_calibration
+        try:
+            args._calibration = load_calibration(args.calibration)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"acg-tpu-torch: --calibration "
+                             f"{args.calibration}: {e}")
+        args._calibration_source = f"--calibration {args.calibration}"
+    if args.autotune:
+        if args.explain:
+            raise SystemExit(
+                "acg-tpu-torch: --autotune dispatches a real solve; use "
+                "--explain --plan for the ranked table without solving")
+        if args.commbench is not None:
+            raise SystemExit(
+                "acg-tpu-torch: --autotune consumes a SAVED calibration "
+                "(--calibration FILE); run --commbench first")
+        unsupported = [flag for flag, on in [
+            (f"--algorithm {args.algorithm} (the planner chooses the "
+             f"recurrence numerically)",
+             args.algorithm not in (None, "auto")),
+            (f"--solver {args.solver} (the planner chooses among the "
+             f"device tiers)", args.solver != "acg"),
+            ("--kernels fused (the planner chooses the kernel tier)",
+             args.kernels == "fused"),
+            ("--nrhs/--block-cg (no batched candidate pricing yet)",
+             args.nrhs >= 2 or args.block_cg),
+            ("--refine", args.refine),
+            ("--replace-every", args.replace_every > 0),
+            ("--fault-inject (probes must time the pristine programs)",
+             fault_armed),
+            ("--multihost/--coordinator/--distributed-read (single-"
+             "controller planning only)", multi),
+        ] if on]
+        if unsupported:
+            raise SystemExit(
+                f"acg-tpu-torch: --autotune does not support: "
+                f"{', '.join(unsupported)}")
+    if args.plan is not None and not (args.explain or args.autotune):
+        raise SystemExit(
+            "acg-tpu-torch: --plan needs --explain (ranked table, no "
+            "solve) or --autotune (plan, probe, dispatch)")
 
 
 def _validate_robustness(args) -> None:
@@ -2093,6 +2270,15 @@ def _emit_timeline(args, solver, nparts=1, collective=True) -> None:
                      f"{summary['nranks']} rank(s) -> {args.timeline}\n")
 
 
+def _calibration_id(args) -> str:
+    """The active commbench calibration's id, or ``uncalibrated``
+    (``acg_tpu/cli.py:1595-1665``): one lookup for both provenance
+    surfaces, the convergence-log meta line and the stats manifest."""
+    from acg_tpu_torch.commbench import UNCALIBRATED
+    cal = getattr(args, "_calibration", None)
+    return cal["calibration_id"] if cal is not None else UNCALIBRATED
+
+
 def _emit_telemetry(args, solver, *, matrix_id, nparts=1, comm=None,
                     collective=True) -> None:
     """The telemetry sinks (``acg_tpu/cli.py:1581-1733``): the
@@ -2117,7 +2303,7 @@ def _emit_telemetry(args, solver, *, matrix_id, nparts=1, comm=None,
     if args.convergence_log and _is_primary():
         try:
             if trace is not None:
-                trace.meta_extra["calibration"] = "uncalibrated"
+                trace.meta_extra["calibration"] = _calibration_id(args)
                 trace.write_jsonl(args.convergence_log)
             else:
                 sys.stderr.write(
@@ -2153,9 +2339,8 @@ def _emit_telemetry(args, solver, *, matrix_id, nparts=1, comm=None,
         return
     extra = {"matrix": str(matrix_id), "solver": args.solver,
              "comm": comm, "nparts": int(nparts), "dtype": args.dtype,
-             # the reference's commbench calibration id: the port has no
-             # calibrations, and the sentinel keeps the case key
-             "calibration": "uncalibrated",
+             # the --calibration id (the case key folds it in)
+             "calibration": _calibration_id(args),
              "argv": list(sys.argv[1:])}
     if args._precond is not None:
         extra["precond"] = str(args._precond)
@@ -2341,6 +2526,7 @@ def _main(args) -> int:
     _validate_algorithm(args)
     _validate_batched(args)
     _validate_operator(args)
+    _validate_decision(args)
     _validate_robustness(args)
     _arm_observability(args)
     # the bounded liveness probe of the CUDA runtime, before anything
@@ -2362,6 +2548,8 @@ def _main(args) -> int:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
         return 1
     dtype, vec_dtype = DTYPES[args.dtype]
+    if args.commbench is not None or args.explain:
+        return _run_decision_pass(args, device, dtype, vec_dtype)
     if args.distributed_read:
         return _solve_distributed_read(args, device, dtype, vec_dtype)
     if args.A.startswith("gen:"):
@@ -2393,6 +2581,10 @@ def _main(args) -> int:
                              "failed during ingest\n")
         return rc
     A, csr, n, perm, nparts, part, b, x0, xsol = state
+    if args.autotune:
+        # the planner rewrites the parsed flags before the ordinary
+        # construction below; it never alters a program
+        _run_autotune(args, csr, part, nparts, b, dtype, vec_dtype, device)
     comm = args.comm
     criteria = StoppingCriteria(
         maxits=args.max_iterations,
@@ -2538,6 +2730,7 @@ def _main(args) -> int:
         raise SystemExit(f"acg-tpu-torch: {e}")
     except (NotConvergedError, BreakdownError) as e:
         sys.stderr.write(f"acg-tpu-torch: {e}\n")
+        _finalize_plan(args, solver)
         _fold_phases(args, solver)
         if _is_primary():   # the stats block from rank 0 only
             solver.stats.fwrite(sys.stderr)
@@ -2555,6 +2748,7 @@ def _main(args) -> int:
         sys.stderr.write("acg-tpu-torch: aborting: a peer controller "
                          "failed during the solve\n")
         return rc
+    _finalize_plan(args, solver)
     _after_solve(args, solver, b)
     _close(solver)
     # every process solves; only rank 0 speaks (the reference's
@@ -2592,6 +2786,107 @@ def _main(args) -> int:
     _emit_telemetry(args, solver, matrix_id=args.A, nparts=nparts,
                     comm=comm)
     return 0
+
+
+def _run_decision_pass(args, device, dtype, vec_dtype) -> int:
+    """``--commbench`` alone (the calibration document), or ``--explain``
+    (with ``--commbench``: calibrated live; with ``--plan``: the ranked
+    table without a solve) instead of a normal solve."""
+    if not args.explain:
+        from acg_tpu_torch.commbench import run_commbench
+        return run_commbench(args, dtype, vec_dtype, device)
+    if args.commbench is not None:
+        # live calibration: collect the document, write it (stdout when
+        # FILE is omitted: the verdict goes to stderr), then explain
+        # against it
+        from acg_tpu_torch import commbench
+        doc = commbench.collect_document(args, dtype, vec_dtype,
+                                         sys.stderr, device)
+        try:
+            commbench.write_document(doc, args.commbench)
+        except OSError as e:
+            sys.stderr.write(f"acg-tpu-torch: --commbench "
+                             f"{args.commbench}: {e}\n")
+        args._calibration = doc
+        args._calibration_source = "live --commbench run"
+    if args.plan is not None:
+        from acg_tpu_torch.planner import run_plan_explain
+        return run_plan_explain(args, dtype, vec_dtype, device)
+    from acg_tpu_torch.perfmodel import run_explain
+    return run_explain(args, dtype, vec_dtype, device)
+
+
+def _run_autotune(args, csr, part, nparts, b, dtype, vec_dtype,
+                  device) -> None:
+    """Plan, probe, dispatch (``acg_tpu/cli.py:1512-1560``): build the
+    ranked plan, time its top candidates, and rewrite the parsed flags so
+    the ordinary construction dispatches the winner.  A candidate the
+    tier refuses to build, or whose probe ends in divergence or a
+    breakdown, is disqualified; when none is left the flag-selected
+    program dispatches with provenance ``fallback``.  On the card any
+    other error of a probe (a kernel's among them) raises."""
+    from acg_tpu_torch import planner
+
+    err = sys.stderr
+    doc = planner.plan_for_args(args, csr, nparts, dtype, vec_dtype,
+                                device, part=part)
+    err.write(planner.render_plan(doc))
+    if args.plan not in (None, "-"):
+        try:
+            planner.write_plan(doc, args.plan)
+        except OSError as e:
+            err.write(f"acg-tpu-torch: --plan {args.plan}: {e}\n")
+    decision = {"plan_id": doc["plan_id"],
+                "calibration": doc["calibration"],
+                "uncalibrated": bool(doc.get("uncalibrated")),
+                "kappa_source": doc["kappa_source"],
+                "correction_scale": doc["correction"]["scale"],
+                "correction_nsamples": doc["correction"]["nsamples"],
+                "key": doc["correction"]["key"]}
+    probe_b = b[:, 0] if getattr(b, "ndim", 1) == 2 else b
+    winner = planner.autotune_select(args, doc, csr, part, nparts, probe_b,
+                                     dtype, vec_dtype, device, err)
+    if winner is None:
+        err.write("acg-tpu-torch: autotune: every probe failed; "
+                  "dispatching the flag-selected program (provenance: "
+                  "fallback)\n")
+        args._plan_decision = {**decision, "source": "fallback"}
+        return
+    planner.apply_candidate_to_args(args, winner)
+    err.write(f"acg-tpu-torch: autotune: dispatching {winner['label']} "
+              f"(predicted {winner['predicted_s_per_solve']:.3e} s/solve, "
+              f"{winner['predicted_iterations']} its)\n")
+    args._plan_decision = {
+        **decision, "source": "planned", "selected": winner["label"],
+        "algorithm": winner["algorithm"], "kernels": winner["kernels"],
+        "comm": winner["comm"], "precond": winner["precond"],
+        "predicted_s_per_solve": winner["predicted_s_per_solve"],
+        "predicted_iterations": winner["predicted_iterations"],
+    }
+
+
+def _finalize_plan(args, solver) -> None:
+    """One planned solve's plan-vs-actual row (``acg_tpu/cli.py:
+    1556-1578``): predicted against measured seconds and iterations and
+    their ratio, in the ``plan:`` stats section, and from there in
+    ``--stats-json`` and the ``--history`` ledger, where the next plan
+    for the same key consults it."""
+    dec = getattr(args, "_plan_decision", None)
+    if dec is None or solver is None:
+        return
+    from acg_tpu_torch import metrics
+    st = solver.stats
+    plan = dict(dec)
+    measured = float(st.tsolve or 0.0)
+    plan["measured_s_per_solve"] = measured
+    plan["measured_iterations"] = int(st.niterations)
+    pred = dec.get("predicted_s_per_solve")
+    if pred and measured > 0:
+        plan["misprediction_ratio"] = float(pred) / measured
+        metrics.record_plan_misprediction(plan["misprediction_ratio"])
+    st.plan = plan
+    metrics.record_plan_decision(dec.get("source", "planned"))
+    args._plan_decision = None  # one solve, one row
 
 
 def _ingest(args, device, phases):

@@ -64,6 +64,10 @@ from acg_tpu_torch.errors import ExitCode as _ExitCode  # noqa: E402
 
 SLO_EXIT_CODE = int(_ExitCode.SLO_BREACH)
 
+# the case keying of --stats-json documents is the perfmodel's (one
+# copy, as acg_tpu/observatory.py:865 imports it)
+from acg_tpu_torch.perfmodel import UNAVAILABLE_METRIC, _doc_case  # noqa: E402,F401
+
 
 def _finite(v) -> float | None:
     try:
@@ -829,57 +833,6 @@ def slo_exit_code(fail_on_slo: bool) -> int:
 
 
 # -- run-history ledger ---------------------------------------------------
-
-# the sentinel case of a bench row whose backend probe failed
-# (acg_tpu/perfmodel.py:1150): never a usable baseline
-UNAVAILABLE_METRIC = "bench_backend_unavailable"
-
-
-def _keyed(metric, key: str, value) -> str:
-    """Fold one selection into a case key (``|key=value``), so captures
-    of different programs never compare as one case; absent, ``none``
-    and ``uncalibrated`` values add nothing."""
-    v = str(value or "")
-    if v and v not in ("none", "uncalibrated"):
-        return f"{metric}|{key}={v}"
-    return str(metric)
-
-
-def _doc_case(doc: dict):
-    """``(key, value)`` for one --stats-json document, as
-    ``acg_tpu/perfmodel.py:1184-1290`` keys it: ``solver:matrix`` (or a
-    bench row's metric) with the precond, batch, operator and
-    calibration selections folded in, valued at iterations/second (a
-    soak capture at its p50s)."""
-    man = doc.get("manifest") or {}
-    st = doc.get("stats") or {}
-    metric = man.get("metric")
-    if metric is None:
-        metric = f"{man.get('solver', 'solve')}:{man.get('matrix', '?')}"
-    metric = _keyed(metric, "precond", man.get("precond"))
-    try:
-        b = int(man.get("nrhs") or 0)
-    except (TypeError, ValueError):
-        b = 0
-    if b > 1:
-        metric = f"{metric}|nrhs={b}" + ("|block" if man.get("block_cg")
-                                         else "")
-    metric = _keyed(metric, "operator", man.get("operator"))
-    metric = _keyed(metric, "cal", man.get("calibration"))
-    soak = st.get("soak") or {}
-    try:
-        if soak:
-            secs = float((soak.get("latency") or {}).get("p50") or 0.0)
-            its = float((soak.get("iterations") or {}).get("p50") or 0.0)
-        else:
-            secs = float(st.get("tsolve", 0.0))
-            its = float(st.get("niterations", 0))
-    except (TypeError, ValueError):
-        return None
-    if secs <= 0 or its <= 0:
-        return None
-    return str(metric), its / secs
-
 
 def _index_of(doc: dict) -> dict:
     """The ledger index fields for one --stats-json document: enough to

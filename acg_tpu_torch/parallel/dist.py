@@ -1399,6 +1399,153 @@ class DistCGSolver(_cg.ChunkedCGSolver):
             peer.close()
         self._peers = {}
 
+    # -- the static communication ledger (acg_tpu/parallel/dist.py:2387) --
+
+    def comm_profile(self) -> dict:
+        """The static per-iteration communication ledger (the reference's
+        keys): per-neighbour halo payload bytes from the halo plans,
+        psum counts and bytes, ring distances over the parts, the padded
+        plane the transport moves per exchange ((P-1) windows under dma,
+        P under xla), the matrix-free and fused-overlap stanzas, the CA
+        recurrences' and the preconditioner's reclassifications.  Pure
+        host arithmetic: nothing here touches the device.
+
+        Classic CG psums 2 scalars an iteration apart, pipelined 1 fused
+        psum of 2; compensated dots double each payload.  A restricted or
+        local-read build holds plans for its own parts only
+        (``owned_parts_only``)."""
+        prob = self.problem
+        P = int(prob.nparts)
+        dbl = torch.empty((), dtype=prob.vdtype).element_size()
+        sdl = torch.empty((), dtype=acc_dtype(prob.vdtype)).element_size()
+        scnt, _rcnt = prob.neighbor_counts()
+        neighbors = []
+        total = 0
+        max_hops = 0
+        for p in range(P):
+            for q in range(P):
+                c = int(scnt[p, q])
+                if c == 0 or p == q:
+                    continue
+                hops = min(abs(p - q), P - abs(p - q))
+                max_hops = max(max_hops, hops)
+                total += c * dbl
+                neighbors.append({"src": p, "dst": q, "bytes": c * dbl,
+                                  "hops": hops})
+        nred = 1 if self.pipelined else 2
+        scal = ((2 if self.pipelined else 1)
+                * (2 if self.precise_dots else 1))
+        led = {
+            "transport": self.comm,
+            "nparts": P,
+            "mesh_shape": {mesh.PARTS_AXIS: P},
+            "halo_exchanges_per_iteration": 1,
+            **({"owned_parts_only": True,
+                "owned_parts": [int(p) for p in prob.owned_parts]}
+               if prob.owned_parts is not None else {}),
+            "halo_bytes_per_iteration": int(total),
+            "allreduce_per_iteration": int(nred),
+            "allreduce_scalars": int(scal),
+            "allreduce_bytes_per_iteration": int(nred * scal * sdl),
+            "max_hops": int(max_hops),
+            "halo_plane_bytes_per_exchange": int(
+                ((P - 1) if self.comm == "dma" else P)
+                * int(prob.halo.maxcnt) * dbl),
+            "ring_distances": sorted({n["hops"] for n in neighbors}),
+        }
+        if prob.operator is not None:
+            led["operator"] = prob.operator.identity()
+            led["matrix_free"] = True
+            led["matrix_bytes_per_spmv"] = int(prob.operator.table_bytes())
+        if self.kernels.startswith("fused"):
+            # how much interior-SpMV work can hide the halo exchange
+            irows = interior_border_split(prob)
+            nint = int((irows < prob.nmax_owned).sum())
+            nbor = int((np.asarray(prob.ghost.rows) < prob.nmax_owned).sum())
+            mat_b = torch.empty((), dtype=prob.dtype).element_size()
+            matfree = prob.local.format == "matfree"
+            idx_b = 0 if prob.local.format in ("dia", "matfree") else 4
+            nnz_int = 0
+            for p, s in enumerate(prob.subs):
+                if s.A_local is None:
+                    continue
+                rnnz = np.diff(s.A_local.indptr)
+                ir = irows[p]
+                ir = ir[ir < s.nowned]
+                nnz_int += int(rnnz[ir].sum())
+            led["overlap"] = {
+                "split": "interior|border",
+                "interior_rows": nint,
+                "border_rows": nbor,
+                "interior_nnz": nnz_int,
+                "interior_matrix_bytes": (
+                    (0 if matfree else nnz_int * (mat_b + idx_b))
+                    + 2 * nint * dbl),
+            }
+        if self.algo is not None:
+            sched = rec.reduction_schedule(self.algo, False)
+            led["algorithm"] = str(self.algo)
+            led["allreduce_per_iteration"] = \
+                sched["allreduce_per_iteration"]
+            led["allreduce_scalars"] = sched["allreduce_scalars"]
+            led["allreduce_bytes_per_iteration"] = (
+                sched["allreduce_per_iteration"]
+                * sched["allreduce_scalars"] * sdl)
+            led["halo_exchanges_per_iteration"] = \
+                sched["spmv_per_iteration"]
+            led["halo_bytes_per_iteration"] = (
+                total * sched["spmv_per_iteration"])
+            for extra_key in ("iterations_per_reduction",
+                              "reduction_latency_hidden"):
+                if extra_key in sched:
+                    led[extra_key] = sched[extra_key]
+        if self.precond_spec is not None:
+            # cheby adds its degree's halo'd SpMVs; the PCG scalar widens
+            # the fused reductions: both loops move 3 scalars in all
+            from acg_tpu_torch.precond import comm_contribution
+            pc = comm_contribution(self.precond_spec)
+            extra = int(pc.get("halo_spmv_equivalents_per_apply", 0))
+            led["halo_exchanges_per_iteration"] = 1 + extra
+            led["halo_bytes_per_iteration"] = int(total) * (1 + extra)
+            led["allreduce_scalars"] = ((3 if self.pipelined else 2)
+                                        * (2 if self.precise_dots else 1))
+            led["allreduce_bytes_per_iteration"] = (
+                3 * (2 if self.precise_dots else 1) * sdl)
+            led["precond"] = pc
+        if len(neighbors) > 64:
+            led["neighbors_truncated"] = len(neighbors) - 64
+            neighbors = neighbors[:64]
+        led["neighbors"] = neighbors
+        return led
+
+    def _observe_comm(self, niter: int) -> None:
+        """Fold this solve's traffic into the comm-byte counters.  Across
+        processes each rank counts the halo its own parts send (its rows
+        of the ledger's send counts) and the primary counts the psums,
+        so the ranks' counters sum to the run's traffic once."""
+        from acg_tpu_torch import metrics
+        if self._ranks is None:
+            metrics.observe_solver_comm(self, niter)
+            return
+        if not metrics.armed():
+            return
+        try:
+            led = self.comm_profile()
+        except Exception:  # noqa: BLE001 -- metrics never sink a solve
+            return
+        ranges, rank = self._ranks
+        lo, hi = ranges[rank]
+        scnt = self.problem.neighbor_counts()[0].astype(np.int64)
+        np.fill_diagonal(scnt, 0)
+        total = int(scnt.sum())
+        share = int(scnt[lo:hi].sum()) / total if total else 0.0
+        metrics.record_comm(
+            {"halo_bytes_per_iteration":
+                 led.get("halo_bytes_per_iteration", 0) * share,
+             "allreduce_bytes_per_iteration":
+                 led.get("allreduce_bytes_per_iteration", 0)
+                 if rank == 0 else 0}, niter)
+
     def _solve_dtype(self):
         """The dtype b and x0 scatter to: the vector dtype, except f32
         for the replacement program, whose outer iteration owns them."""

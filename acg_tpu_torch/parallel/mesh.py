@@ -13,6 +13,10 @@ refused with the JAX package's message (``mesh.py:56-61``).
 
 from __future__ import annotations
 
+# the parts axis's name (``acg_tpu/parallel/mesh.py:23``): the comm
+# ledgers key their mesh shape by it
+PARTS_AXIS = "parts"
+
 
 def part_ranges(nparts: int, nprocs: int) -> list[tuple[int, int]]:
     """``[(lo, hi), ...]``: the parts of each rank, in rank order."""

@@ -38,6 +38,7 @@ from acg_tpu_torch.io.generators import poisson_dia_device
 from acg_tpu_torch.ops.precision import df_add, two_prod, two_sum
 from acg_tpu_torch.ops.spmv import (DiaMatrix, acc_dtype, dia_mv_roll,
                                     spmv_flops)
+from acg_tpu_torch.parallel.mesh import PARTS_AXIS
 from acg_tpu_torch.parallel.reductions import make_rank_psum
 from acg_tpu_torch.solvers.cg import TorchCGSolver, _spmv_fn
 from acg_tpu_torch.solvers.stats import StoppingCriteria
@@ -125,6 +126,83 @@ class ShardedDiaCGSolver(TorchCGSolver):
         if self.kernels == "xla-roll":
             return _roll_spmv
         return _spmv_fn("pallas")
+
+    def comm_profile(self) -> dict:
+        """The static per-iteration communication ledger of the sharded
+        tier (``acg_tpu/parallel/sharded_dia.py:316-409``), in the
+        reference's keys.  The halo is derived from the offsets: under
+        ``xla-roll`` each nonzero offset's cyclic shift moves
+        ``min(|offset|, nloc)`` boundary elements a shard, one exchange
+        per offset; under ``pallas-roll`` (K1 on the whole planes) a
+        part reads the ``L + R`` band rows of its neighbours, one
+        exchange per populated side.  The CG scalars psum as on the
+        stacked tier; the CA recurrences and a preconditioner reclassify
+        as there."""
+        P = int(self.nparts)
+        N = int(self.N)
+        nloc = -(-N // P) if P else N
+        vdt = (torch.bfloat16 if self.replace_every
+               else self._vector_dtype())
+        dbl = torch.empty((), dtype=vdt).element_size()
+        sdl = torch.empty((), dtype=acc_dtype(vdt)).element_size()
+        pallas = self.kernels.startswith("pallas-roll")
+        offs = [int(o) for o in self.A.offsets]
+        if P <= 1:
+            per_shard, max_hops, nexch = 0, 0, 0
+        elif pallas:
+            L, R = max(0, -min(offs)), max(0, max(offs))
+            per_shard, max_hops = L + R, 1
+            nexch = int(bool(L)) + int(bool(R))
+        else:
+            nz = [abs(o) for o in offs if o]
+            per_shard = sum(min(o, nloc) for o in nz)
+            max_hops = max((-(-o // nloc) for o in nz), default=0)
+            nexch = len(nz)
+        nred = 1 if self.pipelined else 2
+        scal = ((2 if self.pipelined else 1)
+                * (2 if self.precise_dots else 1))
+        algo_led = {}
+        if self.algo is not None:
+            from acg_tpu_torch.recurrence import reduction_schedule
+            sched = reduction_schedule(self.algo, False)
+            nred = sched["allreduce_per_iteration"]
+            scal = sched["allreduce_scalars"]
+            nexch = nexch * sched["spmv_per_iteration"]
+            per_shard = per_shard * sched["spmv_per_iteration"]
+            algo_led = {"algorithm": str(self.algo)}
+            for extra_key in ("iterations_per_reduction",
+                              "reduction_latency_hidden"):
+                if extra_key in sched:
+                    algo_led[extra_key] = sched[extra_key]
+        precond_led = {}
+        ar_bytes = None
+        if self.precond_spec is not None:
+            from acg_tpu_torch.precond import comm_contribution
+            pc = comm_contribution(self.precond_spec)
+            extra = int(pc.get("halo_spmv_equivalents_per_apply", 0))
+            nexch = nexch * (1 + extra)
+            per_shard = per_shard * (1 + extra)
+            scal = ((3 if self.pipelined else 2)
+                    * (2 if self.precise_dots else 1))
+            ar_bytes = 3 * (2 if self.precise_dots else 1) * sdl
+            precond_led = {"precond": pc}
+        return {
+            "transport": ("pallas-roll/ppermute" if pallas
+                          else "xla-roll/collective-permute"),
+            **algo_led,
+            "nparts": P,
+            "mesh_shape": {PARTS_AXIS: P},
+            "halo_exchanges_per_iteration": nexch,
+            "halo_bytes_per_iteration": int(per_shard * P * dbl),
+            "halo_bytes_per_shard": int(per_shard * dbl),
+            "allreduce_per_iteration": (nred if self.algo is not None
+                                        else int(nred)),
+            "allreduce_scalars": int(scal),
+            "allreduce_bytes_per_iteration": int(
+                nred * scal * sdl if ar_bytes is None else ar_bytes),
+            "max_hops": int(max_hops),
+            **precond_led,
+        }
 
     def _manufactured_x(self, seed: int, dtype, xsol):
         if xsol is not None:
@@ -352,6 +430,13 @@ class RankShardedDiaCGSolver(ShardedDiaCGSolver):
         self.rank, self.size = rank, size
         self._fold = make_rank_psum([1] * size)
         self.stats.unknowns = N
+
+    def _observe_comm(self, niter: int) -> None:
+        """Every rank holds the pod-wide ledger: it counts on the
+        primary alone, so the ranks' counters sum to the run's traffic
+        once."""
+        if self.rank == 0:
+            super()._observe_comm(niter)
 
     @property
     def _spmv_flops(self) -> float:

@@ -530,6 +530,18 @@ def state_bytes(mstate) -> int:
 
 # -- recovery hooks (the robustness tier) ---------------------------------
 
+def comm_contribution(spec: PrecondSpec | None) -> dict:
+    """The comm-ledger stanza of one preconditioner
+    (``acg_tpu/precond.py:602-611``): the extra halo'd
+    SpMV-equivalents an apply performs.  Jacobi and block-Jacobi are
+    local; cheby multiplies the halo pattern by its degree."""
+    if spec is None:
+        return {}
+    extra = spec.degree if spec.kind == "cheby" else 0
+    return {"kind": str(spec), "applies_per_iteration": 1,
+            "halo_spmv_equivalents_per_apply": extra}
+
+
 def state_finite(mstate) -> bool:
     """True when every tensor of the state is finite -- the recovery
     driver's preserve-vs-rebuild predicate (``acg_tpu/precond.py:614``)."""

@@ -912,3 +912,150 @@ def host_sstep_cg(A, b, x0=None, rtol=1e-8, maxits=1000, s=4, basis=None,
         r = rc @ V
         p = pc @ V
     return x, k, np.sqrt(max(gamma, 0.0)) / r0, traj
+
+
+# -- segment probes (acg_tpu/recurrence.py:1155-1325) ----------------------
+#
+# The commbench observatory's measured segment decomposition: SpMV-only,
+# halo-only and reduction-only probes built from the same TierOps the
+# solve loops run (the same SpMV selection, the same psum ladder).  The
+# reference chains ``reps`` rounds inside one fori_loop dispatch; the
+# port chains ``reps`` EAGER rounds between the caller's two
+# synchronizes, so every round pays its launches as an iteration of the
+# solve loop does.  Each round feeds the next: the SpMV chain through
+# its output (clamped, so repeated A.v stays finite without a norm
+# smuggling a reduction into the SpMV segment), the halo and reduction
+# chains through the first element of each part of their own vector,
+# updated in place by 1e-30 times the received value or the reduced
+# scalar -- one small launch, where the reference's whole-vector update
+# would add a vector pass to the segment.  Probes read the solver's
+# device arrays and never write them: a solve after the probes launches
+# the same kernels and returns the same bits.
+
+def _probe_reduction_calls(pipelined: bool) -> tuple[str, float]:
+    """(flavour, calls an iteration) of the reduction segment: classic
+    CG reduces two single-scalar dots an iteration, pipelined one fused
+    two-scalar reduction."""
+    return ("pdotk2", 1.0) if pipelined else ("pdot", 2.0)
+
+
+def _chain(round_, v, reps: int):
+    """``reps`` rounds of ``round_`` from ``v``, one after another."""
+    def run():
+        w = v
+        for _ in range(int(reps)):
+            w = round_(w)
+        return w
+    return run
+
+
+def _feed(v, g):
+    """``v``'s first element of each part plus 1e-30 ``g``, in place:
+    the dependence of the next round on this one."""
+    v.select(-1, 0).add_((g * 1e-30).to(v.dtype))
+    return v
+
+
+def _red_round(dot, dotk, flavour: str):
+    def rnd(v):
+        if flavour == "pdotk2":
+            g1, g2 = dotk((v, v), (v, v))
+            return _feed(v, g1 + g2)
+        return _feed(v, dot(v, v))
+    return rnd
+
+
+def build_single_segment_probes(solver, b, reps: int) -> list[tuple]:
+    """``[(name, runner, calls_per_iteration), ...]`` for the
+    single-device tier: the SpMV alone (K1 or K7 under the hand-kernel
+    choice) and the reduction ladder (no halo on one device).  Each
+    runner chains ``reps`` rounds and returns the last vector."""
+    from acg_tpu_torch.solvers.cg import _dotk
+
+    if getattr(solver, "algo", None) is not None:
+        raise ValueError("segment probes cover the classic/pipelined "
+                         "recurrences")
+    if str(solver.kernels).startswith("fused"):
+        raise ValueError("segment probes cover the unfused programs: the "
+                         "fused kernels K3/K4 merge the SpMV with the "
+                         "updates")
+    dtype = solver._solve_dtype()
+    dot, sdt = solver._dot_setup(dtype, solver.precise_dots)
+    ops = single_ops(solver.A, solver._spmv_of(), dot, sdt)
+    v0 = torch.ones(int(solver.A.nrows), dtype=dtype, device=solver.device)
+    flavour, calls = _probe_reduction_calls(solver.pipelined)
+    return [("spmv", _chain(lambda v: torch.clamp(ops.spmv(v), -1e3, 1e3),
+                            v0, reps), 1.0),
+            ("reduction", _chain(_red_round(ops.dot, _dotk(ops.dot),
+                                            flavour), v0.clone(), reps),
+             calls)]
+
+
+def _dist_pieces(solver, b_global):
+    """The stacked tier's probe pieces: ``(ops, dotk, halo, b)``, its
+    SpMV, dots and halo exchange as the loop runs them (``halo`` None
+    without ghosts) and the right-hand side on the device."""
+    from acg_tpu_torch.parallel.halo import halo_exchange
+    from acg_tpu_torch.parallel.halo_dma import halo_exchange_dma
+    from acg_tpu_torch.parallel.reductions import (make_ldot, make_pdot,
+                                                   make_pdotk)
+
+    if getattr(solver, "algo", None) is not None:
+        raise ValueError("segment probes cover the classic/pipelined "
+                         "recurrences")
+    if solver._ranks is not None:
+        raise ValueError("segment probes run on one process (the "
+                         "single-controller observatory)")
+    prob = solver.problem
+    sdt = acc_dtype(prob.vdtype)
+    ldot = make_ldot(sdt)
+    ops = TierOps(spmv=solver._spmv(),
+                  dot=make_pdot(solver._psum, ldot, sdt,
+                                solver.precise_dots),
+                  psum_stack=solver._psum, sdt=sdt)
+    dotk = make_pdotk(solver._psum, ldot, sdt, solver.precise_dots)
+    b, _x0 = solver.device_args(np.asarray(b_global))
+    h, scnt = solver._halo, solver._scnt
+    recv = None
+    if solver.comm == "dma":
+        recv = torch.zeros((prob.nparts, prob.nparts,
+                            max(prob.halo.maxcnt, 1)), dtype=b.dtype,
+                           device=b.device)
+
+    def halo(x):
+        if solver.comm == "dma":
+            return halo_exchange_dma(x, h.send_idx, h.ghost_src,
+                                     h.ghost_valid, scnt, recv)
+        return halo_exchange(x, h.send_idx, h.ghost_src)
+
+    return ops, dotk, (halo if prob.halo.has_ghosts else None), b
+
+
+def dist_comm_rounds(solver, b_global) -> tuple:
+    """``(reduction, halo, v)`` of the stacked tier: one round of its
+    reduction ladder (a dot: the per-part dot and the parts' sum), one
+    halo exchange of its transport (None without ghosts), and a device
+    vector to apply them to -- the pieces the segment probes chain,
+    without the chaining or the probes' feed."""
+    ops, _dotk, halo, b = _dist_pieces(solver, b_global)
+    return (lambda v: ops.dot(v, v)), halo, b
+
+
+def build_dist_segment_probes(solver, b_global, reps: int) -> list[tuple]:
+    """``[(name, runner, calls_per_iteration), ...]`` for the stacked
+    multi-part tier: the halo'd SpMV the solve runs (K1 batched over
+    parts with the exchange of the solver's transport, or the
+    overlapped SpMV under ``kernels="fused"``), the halo exchange alone
+    (the pack gather, K6 ``halo_put`` under dma or the transpose under
+    xla, the unpack gather) and the reduction ladder (the per-part dot
+    and the parts' sum; one fused two-scalar psum for pipelined)."""
+    ops, dotk, halo, b = _dist_pieces(solver, b_global)
+    flavour, calls = _probe_reduction_calls(solver.pipelined)
+    probes = [("spmv", _chain(lambda v: torch.clamp(ops.spmv(v), -1e3,
+                                                    1e3), b, reps), 1.0)]
+    if halo is not None:
+        probes.append(("halo", _chain(lambda v: _feed(v, halo(v)[:, 0]),
+                                      b.clone(), reps), 1.0))
+    probes.append(("reduction", _chain(_red_round(ops.dot, dotk, flavour),
+                                       b.clone(), reps), calls))
+    return probes

@@ -1442,6 +1442,7 @@ class ChunkedCGSolver:
         from acg_tpu_torch import metrics
         metrics.record_solve(t_solve, niter, st.converged,
                              solver=self._solver_name())
+        self._observe_comm(niter)
         self._account_ops(st, niter)
         x = self._finish_x(res, host_result)
         if not st.converged and raise_on_divergence:
@@ -1450,6 +1451,14 @@ class ChunkedCGSolver:
         return x
 
     _host_fallback_event = "fallback: host reference solver"
+
+    def _observe_comm(self, niter: int) -> None:
+        """This solve's halo and psum bytes from the tier's static
+        ledger (``comm_profile``; a no-op for tiers without one) into
+        the comm-byte counters, as ``acg_tpu/solvers/jax_cg.py:1967``
+        records them."""
+        from acg_tpu_torch import metrics
+        metrics.observe_solver_comm(self, niter)
 
     # -- the survivability tier: the checkpoint-chunked solve ---------------
 
@@ -1826,6 +1835,7 @@ class ChunkedCGSolver:
             st.ckpt["repartitioned_from"] = repartitioned
         metrics.record_solve(t_solve, executed, st.converged,
                              solver=solver_name)
+        self._observe_comm(executed)
         self._account_ops(st, executed)
         x = self._finish_x(res, host_result)
         if not st.converged and raise_on_divergence:

@@ -10,11 +10,11 @@ phases, the ``precond:`` section of preconditioned solves, the
 line of solves that broke down, the robustness tier's ``soak:``,
 ``health:`` and ``ckpt:`` sections, and the observability tier's
 ``tracing:`` (profiler-capture analysis, timeline summary) and ``slo:``
-sections.  Line-compatible with the JAX package's block, so scripts
-that grep ``total solver time`` work on both.  :meth:`SolverStats.
-to_dict` is the ``--stats-json`` twin with the reference's keys in its
-order: the sections of tiers the port does not have (``costmodel``,
-``memory``, ``plan``) are there, empty.
+sections, and the decision layers' ``costmodel:``, ``memory:`` and
+``plan:`` sections (``--explain``, ``--autotune``).  Line-compatible
+with the JAX package's block, so scripts that grep ``total solver
+time`` work on both.  :meth:`SolverStats.to_dict` is the
+``--stats-json`` twin with the reference's keys in its order.
 """
 
 from __future__ import annotations
@@ -255,6 +255,15 @@ class SolverStats:
             for name, secs in self.timings.items():
                 if name not in seen:
                     p(f"  {name}: {secs:,.6f} seconds")
+        # the perfmodel sections (analytic and counted costs, the comm
+        # ledger, the device footprint) and the planner's plan-vs-actual
+        # row, where the reference's block prints them
+        if self.costmodel:
+            p("costmodel:")
+            _write_section(p, self.costmodel, 1)
+        if self.memory:
+            p("memory:")
+            _write_section(p, self.memory, 1)
         if self.soak:
             p("soak:")
             _write_section(p, self.soak, 1)
@@ -276,6 +285,9 @@ class SolverStats:
         if self.batch:
             p("batch:")
             _write_section(p, self.batch, 1)
+        if self.plan:
+            p("plan:")
+            _write_section(p, self.plan, 1)
         text = out.getvalue()
         if f is not None:
             f.write(text)

@@ -173,7 +173,16 @@ checkout it sits in.  Phases, each of which raises on failure:
    (at), the supervisor's crash relaunch and shrink (au), a chaos
    campaign (av), the batched and s-step checkpoints (aw), and the
    supervisor's fault sites, a dead peer and a hung runtime (ax).
-   (af)-(ah) run as those jobs too;
+   (af)-(ah) run as those jobs too, and so do the communication and
+   decision layers (see decision_paths): (ay) --commbench on the
+   flagship's 4 parts under dma (the document valid, every kind
+   fitted, K6's launches each phase's exchanges), (az) --explain
+   --calibration (three tiers, verdicts and dispatch terms, one
+   iteration's hand kernels counted) and (ba) --autotune twice at
+   512^2 (a probed winner dispatched, the plans valid, the second
+   self-corrected); after those jobs, (ay-twin) in this process: a
+   4-part dma solve, the segment probes and the planner's comm-round
+   count, the same solve again, its x bitwise and its launches equal;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -1141,10 +1150,11 @@ def main_path(torch, K, tmp, csr, irr, prob):
     from concurrent.futures import ThreadPoolExecutor
     pairs = multiprocess_paths(torch, K, tmp, base, csr, prob)
     elastic = elastic_paths(torch, K, tmp, base, b, csr, prob)
+    decision = decision_paths(torch, K, tmp)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=JOB_WORKERS) as pool:
-        futures = [pool.submit(j) for j in elastic.early[:3] + pairs.early
-                   + elastic.early[3:]]
+        futures = [pool.submit(j) for j in decision.early
+                   + elastic.early[:3] + pairs.early + elastic.early[3:]]
         paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
         paths.update(north_star_path(torch, K, tmp))
         for group in (pairs, elastic):
@@ -1154,8 +1164,10 @@ def main_path(torch, K, tmp, csr, irr, prob):
             f"{time.perf_counter() - t0:.1f} s")
         for f in futures:
             paths.update(f.result())
-    say(f"paths ac, ae, at, aw, af-ah and aq-ax ({len(futures)} jobs, "
-        f"{JOB_WORKERS} at a time) took {time.perf_counter() - t0:.1f} s")
+    say(f"paths ac, ae, at, aw, af-ah, aq-ax and ay-ba ({len(futures)} "
+        f"jobs, {JOB_WORKERS} at a time) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths.update(probe_twin_path(torch, K, prob, b))
     paths.update(observability_paths(torch, K, tmp, paths))
     paths.update(robustness_paths(torch, K, tmp, base, b, csr, prob, paths))
     return paths
@@ -3617,6 +3629,244 @@ def _elastic_local(torch, K, tmp, base, b, csr, prob, man, z, sst,
     out["aw"] = {k: c.get(k, 0) + c2.get(k, 0) for k in c2}
 
     return out
+
+
+AUTOTUNE_SPEC = "gen:poisson2d:512"
+# the reference's candidate labels: algorithm/kernels/comm/precond/operand
+PLAN_LABEL = re.compile(r"^(classic|pipelined|sstep:\d+|pipelined:\d+)/"
+                        r"(auto|fused)/(xla|dma)/(none|jacobi|bjacobi:\d+|"
+                        r"cheby:\d+)/(assembled|matfree)$")
+# the hand kernels of one iteration of each --explain tier under --comm
+# dma: K1 (single or batched over parts), K5, K6 and the per-part dot
+EXPLAIN_LAUNCHES = {"cg": {"dia_spmv": 1.0},
+                    "cg-pipelined": {"dia_spmv": 1.0,
+                                     "pipelined_update": 1.0},
+                    "dist-cg": {"dia_spmv_batched": 1.0, "halo_put": 1.0,
+                                "part_dot": 2.0}}
+
+
+def probe_twin_path(torch, K, prob, b):
+    """(ay-twin), in this process once no job runs: the probes leave the
+    solve loop unchanged on the card.  The flagship's 4 parts under dma
+    solve ``b`` to 1e-8; then the segment probes
+    (``commbench.segment_decomposition``) and the planner's count of a
+    reduction round and a halo exchange run on the same solver; then the
+    same solve again: x bitwise, the iterations and each kernel's
+    launches equal."""
+    from acg_tpu_torch import commbench as cb
+    from acg_tpu_torch.parallel.dist import DistCGSolver
+    from acg_tpu_torch.solvers import StoppingCriteria
+
+    t0 = time.perf_counter()
+    start = dict(K.launches)
+    s = DistCGSolver(prob, comm="dma", device="cuda")
+    crit = StoppingCriteria(maxits=20000, residual_rtol=1e-8)
+
+    def solve():
+        before = dict(K.launches)
+        x = s.solve(b, criteria=crit)
+        torch.cuda.synchronize()
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        return x, int(s.stats.niterations), {
+            n: v - before.get(n, 0) for n, v in K.launches.items()
+            if v - before.get(n, 0)}
+
+    x0, it0, c0 = solve()
+    segs = cb.segment_decomposition(s, b, reps=4, repeats=1)
+    rounds = cb.comm_round_dispatches(s, b)
+    x1, it1, c1 = solve()
+    check(segs["available"] and set(segs["segments"]) == {
+        "spmv", "halo", "reduction"}, "path ay-twin: the probes ran")
+    check(np.array_equal(x0, x1) and it0 == it1 and c0 == c1,
+          f"path ay-twin: the solve after the probes is the solve before "
+          f"them (bitwise x: {np.array_equal(x0, x1)}, iterations "
+          f"{it0}/{it1}, launches {c0} / {c1})")
+    counts = {n: v - start.get(n, 0) for n, v in K.launches.items()}
+    say(f"path ay-twin: {it0} iterations twice, x bitwise equal, "
+        f"launches a solve {c0}, around the probes "
+        f"{segs.get('kernel_launches')} and a comm round {rounds}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ay-twin": counts}
+
+
+def decision_paths(torch, K, tmp):
+    """Paths (ay)-(ba), the communication and decision layers, as two
+    child-process jobs ((ay) then (az); (ba), which waits for (ay)'s
+    calibration):
+    (ay) ``--commbench`` on the flagship's 4 parts under dma: the
+    document validates with no ``unavailable`` entry, alpha >= 0 and
+    beta > 0 for each kind, the segments positive, K6's launches the
+    dense sweep's, the edges', the SpMV and halo probes' (warm-up,
+    timed and counted chains) and the timed solve's exchanges; (az) ``--explain --calibration``:
+    the calibration header and the three tiers, each with a verdict and
+    a dispatch term, one iteration's counted hand kernels the loop's
+    (K1, K5, K6 and the per-part dot), the timed solves' launches those
+    of their iterations; (ba) ``--autotune --calibration`` twice at
+    512^2 on 4 parts with a --history ledger: both dispatch a probed
+    winner (never the fallback), each plan validates with the
+    reference's labels, the plan-vs-actual row lands, and the second
+    plan self-corrects.  The card is shared with the other jobs while
+    these run: their checks are structural, their times are not kept."""
+    from acg_tpu_torch import commbench as cb
+    from acg_tpu_torch import planner
+
+    cal = os.path.join(tmp, "ay-cal.json")
+    base = [MAIN_SPEC, "--nparts", str(NPARTS), "--comm", "dma",
+            "--max-iterations", "60", "--warmup", "0", "-q"]
+
+    def commbench_run() -> dict:
+        rc, text, c, wall = proc_cli(base + ["--commbench", cal],
+                                     "ay-commbench")
+        check(rc == 0 and os.path.exists(cal), "path ay: --commbench ran")
+        with open(cal) as f:
+            doc = json.load(f)
+        check(cb.validate_commbench(doc) == [] and "unavailable" not in
+              json.dumps(doc), "path ay: the document validates, every "
+              "kind and segment measured")
+        for kind in cb.KINDS:
+            fit = doc["collectives"][kind]
+            check(fit["alpha_s"] >= 0 and fit["beta_s_per_byte"] > 0,
+                  f"path ay: {kind} alpha >= 0, beta > 0")
+        segs = doc["segments"]["segments"]
+        check(set(segs) == {"spmv", "halo", "reduction"} and all(
+            v["s_per_iteration"] > 0 for v in segs.values()),
+            "path ay: the SpMV, halo and reduction segments positive")
+        reps, rep = doc["reps"], doc["timed_repeats"]
+        seg_l = doc["segments"].get("kernel_launches", {})
+        L = doc.get("kernel_launches", {})
+        nits = doc["case"]["timed_iterations"]
+        want = {"dma_sweep": len(doc["sweep_bytes"]) * (1 + rep) * reps,
+                "edges": len(doc["edges"]) * (1 + rep) * reps,
+                # the warm-up chain, the timed ones, the counted one
+                "spmv probe": (2 + rep) * cb.SEGMENT_REPS,
+                "halo probe": (2 + rep) * cb.SEGMENT_REPS,
+                # one warm-up solve and the timed ones, each its
+                # iterations' exchanges and the setup residual's
+                "timed solve": (1 + doc["case"]["timed_solves"])
+                * (nits + 1)}
+        got = {"dma_sweep": L.get("dma_sweep", {}).get("halo_put", 0),
+               "edges": L.get("edges", {}).get("halo_put", 0),
+               "spmv probe": seg_l.get("spmv", {}).get("halo_put", 0),
+               "halo probe": seg_l.get("halo", {}).get("halo_put", 0),
+               "timed solve": L.get("timed_solve", {}).get("halo_put", 0)}
+        check(got == want and c.get("halo_put") == sum(want.values()),
+              f"path ay: K6's launches {c.get('halo_put')} are the "
+              f"phases' exchanges {got} (want {want})")
+        meas = doc["case"]["measured_s_per_iteration"]
+        say(f"path ay: {doc['calibration_id']}; fits " + "; ".join(
+            f"{k} alpha {doc['collectives'][k]['alpha_s']:.3e} s beta "
+            f"{doc['collectives'][k]['beta_s_per_byte']:.3e} s/B"
+            for k in cb.KINDS) + "; edges " + ", ".join(
+            f"d={e['distance']} {e['put_wait_seconds']:.3e} s"
+            for e in doc["edges"]) + "; segments " + ", ".join(
+            f"{k} {v['s_per_iteration']:.3e}" for k, v in segs.items())
+            + f" s/iter, explained "
+            f"{doc['segments']['explained_s_per_iteration']:.3e} of "
+            f"measured {meas:.3e} s/iter; {wall:.1f} s")
+        return c
+
+    def explain_run() -> dict:
+        sj = os.path.join(tmp, "az-explain.jsonl")
+        rc, text, c, wall = proc_cli(base + [
+            "--explain", "--calibration", cal, "--no-probe-cache",
+            "--stats-json", sj], "az-explain")
+        check(rc == 0 and "== explain: calibration ==" in text
+              and "WARNING" not in text,
+              "path az: --explain --calibration ran on a matching "
+              "calibration")
+        with open(sj) as f:
+            rows = [json.loads(ln)["manifest"]["explain"] for ln in f
+                    if ln.strip()]
+        check(len(rows) == 3, "path az: three tiers reported")
+        for row in rows:
+            tier = row["tier"].split(" ")[0]
+            per_it = row["kernel_launches_per_iteration"]
+            timed = row["timed_kernel_launches"]
+            k = row["timed_iterations"]
+            check(per_it == EXPLAIN_LAUNCHES[tier],
+                  f"path az: one {tier} iteration launches "
+                  f"{EXPLAIN_LAUNCHES[tier]} (counted {per_it})")
+            check(all(0 <= timed.get(n, 0) - 2 * k * v <= 8
+                      for n, v in per_it.items()),
+                  f"path az: the {tier} timed solves' launches {timed} "
+                  f"are 2 x {k} iterations' and the setup's")
+            check(row["components_s"]["dispatch-bound"] > 0
+                  and row["bound"].endswith("-bound"),
+                  f"path az: {tier} has a verdict and a dispatch term")
+            say(f"path az: {row['tier']}: measured "
+                f"{row['measured_s_per_iter']:.3e} s/iter, predicted "
+                f"{row['predicted_s_per_iter']:.3e} (uncalibrated "
+                f"{row['uncalibrated_predicted_s_per_iter']:.3e}); "
+                f"{row['dispatches_per_iteration']:g} dispatches/iter; "
+                f"components " + ", ".join(
+                    f"{n} {v:.3e}" for n, v in row["components_s"].items())
+                + f"; verdict {row['bound']}")
+        return c
+
+    def autotune_runs() -> dict:
+        hist = os.path.join(tmp, "ba-hist")
+        out, plans = {}, []
+        for i in (1, 2):
+            plan = os.path.join(tmp, f"ba-plan{i}.json")
+            st = os.path.join(tmp, f"ba-stats{i}.json")
+            rc, text, c, wall = proc_cli([
+                AUTOTUNE_SPEC, "--nparts", str(NPARTS), "--autotune",
+                "--calibration", cal, "--no-probe-cache", "--plan", plan,
+                "--history", hist, "--stats-json", st, "--residual-rtol",
+                "1e-6", "--max-iterations", "3000", "--warmup", "0", "-q"],
+                f"ba-autotune-{i}")
+            check(rc == 0 and "autotune: dispatching" in text
+                  and "provenance: fallback" not in text,
+                  f"path ba: run {i} dispatched a probed winner")
+            with open(plan) as f:
+                doc = json.load(f)
+            with open(st) as f:
+                row = json.load(f)["stats"]["plan"]
+            check(planner.validate_plan(doc) == [] and all(
+                PLAN_LABEL.match(r["label"]) for r in doc["ranked"]),
+                f"path ba: plan {i} validates, the reference's labels")
+            check(row["source"] == "planned"
+                  and row["plan_id"] == doc["plan_id"]
+                  and row["measured_s_per_solve"] > 0,
+                  f"path ba: run {i}'s plan-vs-actual row")
+            say(f"path ba: run {i}: {row['selected']}, predicted "
+                f"{row['predicted_s_per_solve']:.3e} s, measured "
+                f"{row['measured_s_per_solve']:.3e} s "
+                f"(x{row['misprediction_ratio']:.3f}), correction "
+                f"x{doc['correction']['scale']:.3f} over "
+                f"{doc['correction']['nsamples']}; {wall:.1f} s")
+            plans.append(doc)
+            out[f"ba-{i}"] = c
+        corr = plans[1]["correction"]
+        check(corr["nsamples"] >= 1 and corr["scale"] != 1.0,
+              "path ba: the second plan self-corrects from the first "
+              "run's row")
+        return out
+
+    import threading
+    calibrated = threading.Event()
+    state = {}
+
+    def commbench_explain() -> dict:
+        t0 = time.perf_counter()
+        try:
+            state["ay"] = commbench_run()
+        finally:
+            calibrated.set()
+        out = {"ay": state["ay"], "az": explain_run()}
+        say(f"paths ay-az took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def autotune() -> dict:
+        t0 = time.perf_counter()
+        calibrated.wait(MP_TIMEOUT)
+        check("ay" in state, "path ba: (ay)'s calibration was written")
+        out = autotune_runs()
+        say(f"path ba took {time.perf_counter() - t0:.1f} s (its wait for "
+            f"(ay) included)")
+        return out
+
+    return Jobs([commbench_explain, autotune], lambda: {}, [])
 
 
 def k6_peer_checks(torch, K, tmp, inputs):

@@ -235,15 +235,17 @@ def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
         assert err.count("from the recomputed true residual\n") == 2 * n
 
 
-@pytest.mark.parametrize("flag", [["--grow-after", "2"], ["--explain"],
-                                  ["--serve"], ["--commbench", "c.json"]])
+@pytest.mark.parametrize("flag", [["--grow-after", "2"],
+                                  ["--access-log", "a.jsonl"],
+                                  ["--serve"], ["--serve-port", "9471"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
-    """The flags of tiers not ported yet (the decision layer, the service
+    """The flags of tiers not ported yet (the service, its request log,
     and the daemon supervisor's --grow-after) stay unregistered;
-    --supervise and --shrink, which this test named before the elastic
-    tier was ported, are held against the reference in
-    test_torch_elastic.py, as --max-restarts, --soak and --ckpt are in
-    test_torch_faults.py, test_torch_soak.py and
+    --explain and --commbench, which this test named before the decision
+    layers were ported, are held against the reference in
+    test_torch_perfmodel.py and test_torch_commbench.py, as --supervise,
+    --shrink, --max-restarts, --soak and --ckpt are in
+    test_torch_elastic.py, test_torch_faults.py, test_torch_soak.py and
     test_torch_checkpoint.py."""
     with pytest.raises(SystemExit) as e:
         torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
@@ -298,6 +300,9 @@ import acg_tpu_torch.telemetry
 import acg_tpu_torch.metrics
 import acg_tpu_torch.tracing
 import acg_tpu_torch.observatory
+import acg_tpu_torch.commbench
+import acg_tpu_torch.perfmodel
+import acg_tpu_torch.planner
 import acg_tpu_torch.solvers.profile
 import acg_tpu_torch.faults
 import acg_tpu_torch.health
@@ -388,6 +393,12 @@ assert main(["gen:poisson2d:12", "--device", "cpu", "-q", "--warmup", "1",
              "--status-file", o + ".status", "--history", o + "-hist",
              "--slo", "iters=1000", "--profile-ops", "2",
              "--trace", o + "-trace", "--timeline", o + "-tl.json"]) == 0
+assert main(["gen:poisson2d:8", "--device", "cpu", "-q", "--nparts", "2",
+             "--commbench", o + "-cb.json", "--max-iterations", "8",
+             "--warmup", "0"]) == 0
+assert main(["gen:poisson2d:8", "--device", "cpu", "-q", "--nparts", "2",
+             "--explain", "--no-probe-cache", "--plan", o + "-plan.json",
+             "--calibration", o + "-cb.json", "--max-iterations", "50"]) == 0
 loaded = [m for m, v in sys.modules.items() if v is not None
           and (m.split(".")[0] in ("jax", "jaxlib", "acg_tpu"))]
 assert not loaded, loaded

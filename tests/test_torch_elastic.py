@@ -362,13 +362,25 @@ def test_chaos_campaign_acceptance(tmp_path):
     "--serve-queue-depth", "--serve-coalesce", "--serve-deadline",
     "--serve-faults", "--access-log"])
 def test_flags_of_later_tiers_stay_unregistered(flag):
-    """The decision layer's and the service's flags (and the daemon
-    supervisor's --grow-after) are the reference's, not yet the port's."""
+    """The service's flags (and the daemon supervisor's --grow-after)
+    are the reference's, not yet the port's; the decision layer's,
+    ported since, are registered with the reference's dest, default,
+    choices, nargs and type."""
     from acg_tpu.cli import make_parser as jax_parser
     from acg_tpu_torch.cli import make_parser
-    assert flag in {o for a in jax_parser()._actions for o in a.option_strings}
-    assert flag not in {o for a in make_parser()._actions
-                        for o in a.option_strings}
+    ref = {o: a for a in jax_parser()._actions for o in a.option_strings}
+    port = {o: a for a in make_parser()._actions for o in a.option_strings}
+    assert flag in ref
+    if flag not in _DECISION_FLAGS:
+        assert flag not in port
+        return
+    for attr in ("dest", "default", "choices", "nargs", "type"):
+        assert getattr(port[flag], attr) == getattr(ref[flag], attr), attr
+
+
+# the decision layer's flags (Queue 1 item 13, ported)
+_DECISION_FLAGS = ("--commbench", "--calibration", "--explain", "--plan",
+                   "--autotune", "--no-probe-cache")
 
 
 @pytest.mark.parametrize("flag,dest,value", [

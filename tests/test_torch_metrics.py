@@ -150,3 +150,80 @@ def test_failed_validation_never_clobbers_the_textfile(tmp_path):
         torch_main(["gen:poisson2d:8", "--device", "cpu", "--metrics-file",
                     str(prom), "--metrics-port", "70000"])
     assert prom.read_text() == "# previous scrape\n"
+
+
+_SOAK_DIST = ["gen:poisson2d:16", "--nparts", "4", "--max-iterations", "200",
+              "--residual-rtol", "1e-8", "--warmup", "0", "--quiet",
+              "--soak", "3"]
+
+
+def test_cli_soak_dist_solver(tmp_path):
+    """The twin of the reference's ``test_cli_soak_dist_solver``: a soak
+    over 4 stacked parts folds the comm ledger into the halo and psum
+    byte counters, to the reference's values on the same argv (64,512
+    and 1,344 bytes: 3 solves of 28 iterations, 768 halo and 16 psum
+    bytes an iteration).  Both CLIs run in fresh processes, whose
+    registries start empty."""
+    def counters(argv, prom):
+        res = subprocess.run(
+            [sys.executable] + argv + ["--metrics-file", str(prom)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu",
+                     XLA_FLAGS="--xla_force_host_platform_device_count=4"))
+        assert res.returncode == 0, res.stderr
+        out = {}
+        for ln in prom.read_text().splitlines():
+            for name in ("acg_halo_bytes_total", "acg_allreduce_bytes_total"):
+                if ln.startswith(name + " "):
+                    out[name] = float(ln.split()[-1])
+        return out
+
+    port = counters(["-m", "acg_tpu_torch"] + _SOAK_DIST
+                    + ["--device", "cpu"], tmp_path / "t.prom")
+    ref = counters(["-m", "acg_tpu.cli"] + _SOAK_DIST, tmp_path / "j.prom")
+    assert port == ref == {"acg_halo_bytes_total": 64512.0,
+                           "acg_allreduce_bytes_total": 1344.0}
+
+
+def test_rank_mode_comm_counters_sum_to_one_process(tmp_path):
+    """Across two gloo processes each rank counts the halo its own parts
+    send and rank 0 the psums: the ranks' counters sum to the one-process
+    stacked solve's, never twice its traffic."""
+    import socket
+
+    argv = ["-m", "acg_tpu_torch", "gen:poisson2d:16", "--device", "cpu",
+            "--nparts", "4", "--comm", "dma", "--warmup", "0",
+            "--max-iterations", "500", "-q"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def counters(prom):
+        out = {}
+        for ln in prom.read_text().splitlines():
+            name, _, v = ln.partition(" ")
+            if name in ("acg_halo_bytes_total", "acg_allreduce_bytes_total"):
+                out[name] = float(v)
+        return out
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable] + argv + [
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+            "--process-id", str(i), "--metrics-file",
+            str(tmp_path / f"r{i}.prom")],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for i in (0, 1)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+    res = subprocess.run([sys.executable] + argv + [
+        "--metrics-file", str(tmp_path / "one.prom")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    r0, r1 = (counters(tmp_path / f"r{i}.prom") for i in (0, 1))
+    one = counters(tmp_path / "one.prom")
+    assert r1["acg_allreduce_bytes_total"] == 0
+    assert one["acg_halo_bytes_total"] > 0
+    for name in one:
+        assert r0[name] + r1[name] == one[name], name
