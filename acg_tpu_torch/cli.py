@@ -39,8 +39,8 @@ rows of ``--output``.  The observability tier (``--convergence-log``,
 records the solve through :mod:`acg_tpu_torch.telemetry`,
 :mod:`~acg_tpu_torch.metrics`, :mod:`~acg_tpu_torch.observatory` and
 :mod:`~acg_tpu_torch.tracing`.  Flag names and defaults follow the JAX
-package's CLI; flags of tiers the port does not have yet (``--serve``,
-``--soak``, ``--ckpt``, ...) are not accepted.
+package's CLI, every one of them.  ``--serve`` runs the solver service
+(:mod:`acg_tpu_torch.serve`) in place of one solve.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error instead of solving on the CPU (the host oracles
@@ -427,6 +427,73 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-parts", type=int, default=1, metavar="M",
                    help="with --supervise: never shrink below M parts "
                         "(default: 1)")
+    p.add_argument("--grow-after", type=int, default=0, metavar="N",
+                   help="with --serve --supervise: grow-on-recovery -- "
+                        "a shrunken daemon (a crash relaunch halved "
+                        "--nparts) that stays healthy for N served "
+                        "requests is relaunched back toward the "
+                        "original part count (doubling --nparts, with "
+                        "--resume-repartition), counted by "
+                        "acg_recovery_regrows_total (default: 0 = "
+                        "never grow back)")
+    p.add_argument("--serve", action="store_true",
+                   help="solver-service tier (acg_tpu_torch.serve): run "
+                        "a long-lived daemon that owns the card and "
+                        "answers POST /solve over HTTP on localhost "
+                        "(JSON in/out; GET /status, /metrics, /healthz, "
+                        "/requests; POST /shutdown).  The positional "
+                        "matrix is preloaded into the operator cache; "
+                        "each request names its own gen: operator, b "
+                        "and solver knobs.  Repeated request shapes hit "
+                        "the operator and program caches (zero ingest, "
+                        "no warm-up -- acg_serve_cache_*), compatible "
+                        "queued requests coalesce into one batched "
+                        "multi-RHS solve (bitwise-equal to single "
+                        "service), admission control sheds with typed "
+                        "429/503 responses and downgrades before "
+                        "refusing as the --slo error budget burns, and "
+                        "a failed request is answered with a typed "
+                        "error -- never a dead daemon.  --supervise "
+                        "wraps it in the relaunch/shrink/grow ladder "
+                        "(warm cache restore from --ckpt serve state); "
+                        "--chaos SEED[:N] fires seeded fault schedules "
+                        "at the live daemon with per-request answer "
+                        "verification (exit 96 on wrong-answer-green)")
+    p.add_argument("--serve-port", type=int, default=0, metavar="PORT",
+                   help="with --serve: bind PORT on localhost (default "
+                        "0 = OS-assigned, printed to stderr)")
+    p.add_argument("--serve-queue-depth", type=int, default=16,
+                   metavar="N",
+                   help="with --serve: bounded request queue depth; "
+                        "an arrival past it is shed with a typed 429 "
+                        "(default: 16)")
+    p.add_argument("--serve-coalesce", type=int, default=8, metavar="B",
+                   help="with --serve: coalesce up to B compatible "
+                        "queued requests into one batched multi-RHS "
+                        "solve (1 disables; default: 8)")
+    p.add_argument("--serve-deadline", type=float, default=60.0,
+                   metavar="SECONDS",
+                   help="with --serve: default per-request deadline "
+                        "(a request may set its own 'timeout'); an "
+                        "expired request is answered with a typed 504 "
+                        "(default: 60)")
+    p.add_argument("--serve-faults", action="store_true",
+                   help="with --serve: honour per-request 'fault' "
+                        "fields (crash / slow:S / device fault specs) "
+                        "-- the chaos campaign's hook; never arm on a "
+                        "production service")
+    p.add_argument("--access-log", metavar="FILE", default=None,
+                   help="with --serve: append one acg-tpu-access/1 "
+                        "JSONL row per request (atomic line writes): "
+                        "request_id, outcome, per-stage seconds "
+                        "(admit/queue-wait/coalesce/cache/compile/"
+                        "solve/demux/respond), cache + coalesce + "
+                        "degrade + plan provenance, batch id/width "
+                        "with per-RHS solve attribution.  "
+                        "scripts/access_report.py renders the per-"
+                        "stage p50/p95/p99 table and tail "
+                        "decomposition; scripts/check_access_log.py "
+                        "validates the ledger")
     p.add_argument("--chaos", metavar="SEED[:N]", default=None,
                    help="chaos campaign (acg_tpu_torch.supervisor): N "
                         "(default 20) seeded fault schedules over the "
@@ -686,6 +753,21 @@ def _buildinfo(out) -> int:
          "through the supervisor; per-schedule converged/agreed-abort/"
          "WRONG-ANSWER verdicts into the --history ledger, exit 96 on "
          "any wrong-answer-green)"),
+        ("solver service", "--serve (long-lived daemon on the card: "
+         "POST /solve JSON requests; GET /status /metrics /healthz "
+         "/requests, POST /shutdown; operator + program caches, typed "
+         "429/503/504 sheds, the --slo degrade-before-refuse ladder, "
+         "--serve-coalesce B bitwise-equal batched service, typed "
+         "request isolation; --serve-port/--serve-queue-depth/"
+         "--serve-deadline/--serve-faults), --serve --supervise (warm "
+         "operator-cache restore from --ckpt serve state; --grow-after "
+         "N), --serve --chaos SEED[:N] (live campaign, exit 96 on "
+         "wrong-answer-green); acg_serve_* metric families"),
+        ("request observatory", "request ids (client request_id, "
+         "traceparent or generated), --access-log FILE "
+         "(acg-tpu-access/1 JSONL, per-stage seconds and provenance), "
+         "--serve --timeline FILE (worker row + request lanes), GET "
+         "/requests, acg_serve_stage_seconds{stage}"),
     ]
     for k, v in rows:
         out.write(f"{k}: {v}\n")
@@ -2395,6 +2477,16 @@ def main(argv=None) -> int:
     if "--buildinfo" in argv:
         return _buildinfo(sys.stdout)
     args = make_parser().parse_args(argv)
+    if args.serve:
+        # the solver service (acg_tpu/cli.py:2487-2493): the daemon owns
+        # its lifecycle; --supervise/--chaos wrap the live daemon
+        from acg_tpu_torch.errors import AcgError
+        from acg_tpu_torch.serve import run_serve
+        try:
+            return run_serve(args, list(argv))
+        except AcgError as e:
+            sys.stderr.write(f"acg-tpu-torch: {e}\n")
+            return 1
     if args.chaos is not None or args.supervise:
         # the elastic-recovery driver modes (acg_tpu/cli.py:2494-2501):
         # the supervisor owns the child solves' lifecycle, before any

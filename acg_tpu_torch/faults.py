@@ -424,7 +424,38 @@ def maybe_crash(before: int, after: int) -> None:
     sys.stderr.write(f"acg-tpu-torch: fault injector: hard exit at "
                      f"{int(after)} iterations (crash:exit@{K})\n")
     sys.stderr.flush()
+    _crash_rendezvous(K)
     os._exit(CRASH_EXIT_CODE)
+
+
+# how long the store host waits for its peers at a crash:exit rendezvous
+CRASH_RENDEZVOUS_SECS = 30.0
+
+
+def _crash_rendezvous(K: int) -> None:
+    """Multi-process ``crash:exit``: process 0 hosts the run's TCPStore,
+    and a peer can still be reading the agreement the crash follows when
+    process 0 gets here -- its exit would end the peer's read with a
+    store error (exit 1) instead of the peer's own crash.  Every process
+    marks its arrival after its last read; process 0 leaves last, once
+    every peer arrived or after :data:`CRASH_RENDEZVOUS_SECS` (a peer
+    that died elsewhere)."""
+    from acg_tpu_torch.parallel import multihost
+
+    n = multihost.process_count()
+    if n == 1:
+        return
+    import datetime
+
+    store = multihost.world().store
+    me = multihost.process_index()
+    try:
+        store.set(f"acg_tpu/crash/{K}/{me}", "1")
+        if me == 0:
+            store.wait([f"acg_tpu/crash/{K}/{q}" for q in range(1, n)],
+                       datetime.timedelta(seconds=CRASH_RENDEZVOUS_SECS))
+    except Exception:  # noqa: BLE001 -- the crash goes ahead regardless
+        pass
 
 
 def maybe_hang_backend() -> None:

@@ -110,11 +110,22 @@ def spmv_multi(A: DeviceMatrix, X: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unsupported device matrix {type(A)}")
 
 
-def _coldot_setup(dtype, precise: bool):
+def _coldot_setup(dtype, precise: bool, per_column: bool = False):
     """``(coldot, sdt)``: the per-column dot ``(n, B), (n, B) -> (B,)``
     (every per-RHS dot in one column reduction) and the scalar dtype;
-    ``precise`` takes the compensated dot2 of each column."""
+    ``precise`` takes the compensated dot2 of each column.
+    ``per_column`` takes instead the single-RHS solver's ``torch.dot``
+    of each column, copied contiguous: a column reduction adds in
+    another order than ``torch.dot``, and in another again for another
+    B, so only this form gives each column its single-RHS solve's bits
+    (B dots and 2B copies a call)."""
     sdt = acc_dtype(dtype)
+    if per_column:
+        def coldot(a, c):
+            return torch.stack([torch.dot(a[:, j].to(sdt).contiguous(),
+                                          c[:, j].to(sdt).contiguous())
+                                for j in range(a.shape[-1])])
+        return coldot, sdt
     if precise:
         def coldot(a, c):
             return dot2(a.to(sdt).mT, c.to(sdt).mT)
@@ -885,12 +896,17 @@ class BatchedCGSolver(ChunkedBatchedSolver):
     solvers.cg.TorchCGSolver` (the matrix must live there).  Only
     ``kernels="auto"/"xla"``: the batched tier is plain PyTorch.  A
     single-column ``b`` delegates to a :class:`~acg_tpu_torch.solvers.cg.
-    TorchCGSolver` with the same configuration."""
+    TorchCGSolver` with the same configuration.  ``column_dots="single"``
+    (the solver service's coalesced batches) computes each column's dots
+    as that solver's ``torch.dot`` does, so every column of the batched
+    classic recurrence is bitwise its ``kernels="xla"`` single-RHS solve
+    (``"reduce"``, the default: one column reduction a dot)."""
 
     def __init__(self, A: DeviceMatrix, mode: str = "batched",
                  precise_dots: bool = False, kernels: str = "auto",
                  vector_dtype=None, precond=None, trace: int = 0,
-                 ckpt=None, device=None, progress: int = 0):
+                 ckpt=None, device=None, progress: int = 0,
+                 column_dots: str = "reduce"):
         if mode not in ("batched", "pipelined", "block"):
             raise ValueError(f"unknown batched mode {mode!r} "
                              f"(batched, pipelined, block)")
@@ -903,6 +919,14 @@ class BatchedCGSolver(ChunkedBatchedSolver):
             raise ValueError("block-CG's scalars are B x B Gram solves "
                              "in the scalar dtype; precise_dots applies "
                              "to the batched/pipelined modes")
+        if column_dots not in ("reduce", "single"):
+            raise ValueError(f"unknown column_dots {column_dots!r} "
+                             f"(reduce, single)")
+        if column_dots == "single" and precise_dots:
+            raise ValueError("column_dots='single' is the single-RHS "
+                             "solver's plain dot; precise_dots takes "
+                             "the compensated dot2 instead")
+        self.column_dots = column_dots
         self._check_ckpt(ckpt, mode == "batched")
         self.device = resolve_device(device)
         if A.device != self.device:
@@ -994,7 +1018,8 @@ class BatchedCGSolver(ChunkedBatchedSolver):
         if self.mode == "block":
             return lambda Bm, X0: _block_cg_program(A, Bm, X0, crit, papply,
                                                     telem(Bm))
-        coldot, _ = _coldot_setup(self._solve_dtype(), self.precise_dots)
+        coldot, _ = _coldot_setup(self._solve_dtype(), self.precise_dots,
+                                  self.column_dots == "single")
 
         def spmv(X):
             return spmv_multi(A, X)

@@ -74,9 +74,17 @@ def _chain_seconds(op, x, extra, n: int, reps: int) -> float:
 
 
 def _time_op(op, x, *extra, reps: int = 10) -> float:
-    """Two-point estimate of one application's seconds."""
-    lo = _chain_seconds(op, x, extra, INNER, reps)
-    hi = _chain_seconds(op, x, extra, 4 * INNER, reps)
+    """Two-point estimate of one application's seconds.  Where host
+    noise hides the difference (the long chain's best not above the
+    short one's: a loaded host's CPU timings), both chains take more
+    samples, up to three more rounds, since no op takes zero seconds;
+    on the card the first round's events settle it."""
+    lo = hi = math.inf
+    for _ in range(4):
+        lo = min(lo, _chain_seconds(op, x, extra, INNER, reps))
+        hi = min(hi, _chain_seconds(op, x, extra, 4 * INNER, reps))
+        if hi > lo:
+            break
     return max(hi - lo, 0.0) / (3 * INNER)
 
 

@@ -1,6 +1,5 @@
 """Survivor-mesh supervisor and chaos campaign: the elastic half of the
-recovery ladder (``acg_tpu/supervisor.py``, less the daemon supervisor
-of ``--serve``).
+recovery ladder (``acg_tpu/supervisor.py``).
 
 The in-process ladder (:mod:`acg_tpu_torch.solvers.resilience`:
 rollback, restart, transport, agreed abort) ends where the process
@@ -35,6 +34,13 @@ loop from the host:
   schedule converged to a wrong answer.  The check is an oracle beside
   the card's answer, never a replacement for it.
 
+* :class:`DaemonSupervisor` (CLI ``--serve --supervise``) keeps a
+  long-lived ``--serve`` daemon up: every unexpected death is judged by
+  the same contract and relaunched (the daemon warm-restores its
+  operator cache from its state sidecar), crash-class deaths shrink
+  ``--nparts``, and a shrunken daemon that served ``--grow-after``
+  requests is relaunched toward its original width.
+
 The supervising process manages processes only: this module imports no
 torch and the supervisor never initialises CUDA (the card belongs to
 the child), and every relaunch runs the same kernels on the card.
@@ -55,14 +61,14 @@ from acg_tpu_torch.errors import (PEER_LOST_CODES, RELAUNCHABLE_CODES,
 # flags the supervisor consumes (flag -> number of value tokens), never
 # forwarded to the child.  --metrics-file belongs to the supervisor: each
 # child's registry dies with it, while the supervisor's carries the
-# acg_recovery_* families across relaunches (acg_tpu/supervisor.py:62-81,
-# less --grow-after, which belongs to the --serve daemon)
+# acg_recovery_* families across relaunches (acg_tpu/supervisor.py:62-81)
 SUPERVISOR_FLAGS = {
     "--supervise": 0,
     "--relaunch-budget": 1,
     "--relaunch-backoff": 1,
     "--shrink": 1,
     "--min-parts": 1,
+    "--grow-after": 1,
     "--chaos": 1,
     "--metrics-file": 1,
 }
@@ -361,6 +367,278 @@ def run_supervised(args, argv: list) -> int:
     _write_metrics(args)
     metrics.disarm()
     return int(report["rc"])
+
+
+# -- the daemon supervisor (--serve --supervise) ---------------------------
+
+class DaemonSupervisor:
+    """The relaunch loop for a LONG-LIVED child (the ``--serve``
+    daemon).  :func:`supervise` models a batch child -- run to
+    completion, then judge the exit code; a daemon never completes, so
+    this variant runs the child under ``subprocess.Popen`` on a
+    watcher thread and applies the same exit-code contract to every
+    unexpected death: relaunch within budget (the daemon WARM-RESTORES
+    its operator cache from the serve state sidecar -- no ``--resume``
+    injection), shrink ``--nparts`` on crash-class deaths, and -- the
+    other half of the shrink ratchet -- GROW back: a shrunken child
+    that stays healthy for ``grow_after`` served requests is
+    deliberately relaunched toward the original part count with
+    ``--resume-repartition``, counted by
+    ``acg_recovery_regrows_total``."""
+
+    POLL_SECS = 0.2
+
+    def __init__(self, child_argv: list, *, state_path: str,
+                 budget: int = 3, backoff: float = 1.0,
+                 shrink: str = "any", min_parts: int = 1,
+                 nparts: int = 0, grow_after: int = 0,
+                 env: dict | None = None, label: str = "serve"):
+        import threading
+        self.argv = list(child_argv)
+        self.state_path = state_path
+        self.budget = max(int(budget), 0)
+        self.backoff = max(float(backoff), 0.0)
+        self.shrink = shrink
+        self.min_parts = max(int(min_parts), 1)
+        self.orig_parts = int(nparts or 0)
+        self.cur_parts = self.orig_parts
+        self.grow_after = max(int(grow_after), 0)
+        self.env = dict(os.environ if env is None else env)
+        self.tag = f"supervisor [{label}]"
+        self.report: dict = {"rc": None, "relaunches": [],
+                             "regrows": 0, "degraded": None,
+                             "outcome": None}
+        self._proc: subprocess.Popen | None = None
+        self._stop = threading.Event()
+        self._served_at_launch = 0
+        self._thread = threading.Thread(target=self._loop,
+                                        name="acg-daemon-supervisor",
+                                        daemon=True)
+
+    # -- state-file probes -------------------------------------------------
+
+    def _served(self) -> int:
+        """``requests_served`` of the running child from the serve state
+        sidecar (the counter the daemon persists after every request);
+        0 when unreadable or still the previous child's.  The sidecar
+        names the pid that wrote it: a relaunched daemon counts from 0,
+        while the sidecar holds its predecessor's count until the new
+        daemon's first write (the reference's supervisor takes that
+        count as the new child's baseline, so a daemon that served k
+        requests before a crash regrows only after k + grow_after)."""
+        import json
+        try:
+            with open(self.state_path) as f:
+                doc = json.load(f)
+            proc = self._proc
+            if proc is None or doc.get("pid") != proc.pid:
+                return 0
+            return int(doc.get("requests_served", 0))
+        except (OSError, ValueError, TypeError, AttributeError):
+            return 0
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "DaemonSupervisor":
+        self._launch()
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Deliberate wind-down: never counted as a failure."""
+        self._stop.set()
+        proc = self._proc
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5.0)
+        if self._thread.is_alive():
+            self._thread.join(timeout=10.0)
+
+    def wait(self) -> int:
+        """Block until the loop ends (clean child exit, budget
+        exhausted, or a non-relaunchable death); the final rc."""
+        while self._thread.is_alive():
+            self._thread.join(timeout=0.5)
+        return int(self.report["rc"] or 0)
+
+    # -- the loop ----------------------------------------------------------
+
+    def _launch(self) -> None:
+        cmd = [sys.executable, "-m", "acg_tpu_torch", *self.argv]
+        self._proc = subprocess.Popen(cmd, env=self.env)
+        self._served_at_launch = self._served()
+
+    def _relaunch(self, *, parts: int | None, reason: str,
+                  grow: bool) -> None:
+        from acg_tpu_torch import metrics
+        mesh_note = ""
+        if parts is not None and parts != self.cur_parts:
+            mesh_note = (f", {'growing' if grow else 'shrinking'} "
+                         f"{self.cur_parts} -> {parts} parts")
+            self.argv = set_flag(self.argv, "--nparts", parts)
+            if grow:
+                if "--resume-repartition" not in self.argv:
+                    self.argv.append("--resume-repartition")
+                if parts >= self.orig_parts:
+                    from acg_tpu_torch.observatory import DEGRADED_ENV
+                    self.report["degraded"] = None
+                    self.env.pop(DEGRADED_ENV, None)
+            else:
+                from acg_tpu_torch.observatory import DEGRADED_ENV
+                frm = (self.report["degraded"]["from"]
+                       if self.report["degraded"] else self.cur_parts)
+                self.report["degraded"] = {"from": int(frm),
+                                           "to": int(parts),
+                                           "reason": reason}
+                self.env[DEGRADED_ENV] = f"{frm}:{parts}:{reason}"
+            self.cur_parts = parts
+        if grow:
+            self.report["regrows"] += 1
+            metrics.record_regrow()
+            sys.stderr.write(f"{_TAG}: {self.tag}: child healthy for "
+                             f"{self.grow_after}+ requests -- regrow "
+                             f"relaunch{mesh_note}\n")
+        else:
+            nrel = len(self.report["relaunches"]) + 1
+            sleep = self.backoff * (2 ** (nrel - 1))
+            sys.stderr.write(f"{_TAG}: {self.tag}: daemon died "
+                             f"({reason}); relaunch {nrel}/"
+                             f"{self.budget}{mesh_note}"
+                             f"{f' after {sleep:.1f}s' if sleep else ''}"
+                             "\n")
+            self.report["relaunches"].append(
+                {"reason": reason, "parts": self.cur_parts})
+            metrics.record_relaunch(reason)
+            if sleep:
+                time.sleep(sleep)
+        self._launch()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            proc = self._proc
+            rc = proc.poll() if proc is not None else None
+            if rc is None:
+                if (self.grow_after > 0
+                        and 0 < self.cur_parts < self.orig_parts
+                        and (self._served() - self._served_at_launch
+                             >= self.grow_after)):
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=30.0)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait(timeout=5.0)
+                    self._relaunch(
+                        parts=min(self.orig_parts,
+                                  max(self.cur_parts * 2, 1)),
+                        reason="regrow", grow=True)
+                    continue
+                self._stop.wait(self.POLL_SECS)
+                continue
+            if self._stop.is_set():
+                break
+            rc = int(rc)
+            if rc == 0:
+                self.report["rc"] = 0
+                self.report["outcome"] = "clean-exit"
+                return
+            reason = _reason(rc)
+            relaunchable = (rc in RELAUNCHABLE_CODES or rc < 0)
+            if (not relaunchable
+                    or len(self.report["relaunches"]) >= self.budget):
+                why = ("relaunch budget exhausted" if relaunchable
+                       else "not a relaunchable failure")
+                sys.stderr.write(f"{_TAG}: {self.tag}: daemon died "
+                                 f"rc {rc} ({reason}); {why} -- "
+                                 f"giving up\n")
+                self.report["rc"] = (int(ExitCode.RELAUNCH_BUDGET)
+                                     if relaunchable else rc)
+                self.report["outcome"] = "gave-up"
+                return
+            parts = None
+            if (self.shrink != "never"
+                    and (reason == "peer-lost" or self.shrink == "any")
+                    and self.cur_parts > self.min_parts):
+                parts = max(self.min_parts, self.cur_parts // 2)
+            self._relaunch(parts=parts, reason=reason, grow=False)
+
+
+def supervise_daemon(child_argv: list, *, state_path: str,
+                     budget: int = 3, backoff: float = 1.0,
+                     shrink: str = "any", min_parts: int = 1,
+                     nparts: int = 0, grow_after: int = 0,
+                     env: dict | None = None,
+                     label: str = "serve") -> DaemonSupervisor:
+    """Launch ``python -m acg_tpu_torch <child_argv>`` (a ``--serve``
+    daemon) under the relaunch/shrink/grow policy; returns the STARTED
+    :class:`DaemonSupervisor` (``.stop()`` to wind down, ``.wait()``
+    to block)."""
+    return DaemonSupervisor(
+        child_argv, state_path=state_path, budget=budget,
+        backoff=backoff, shrink=shrink, min_parts=min_parts,
+        nparts=nparts, grow_after=grow_after, env=env,
+        label=label).start()
+
+
+def run_supervised_serve(args, argv: list) -> int:
+    """The ``--serve --supervise`` CLI mode: the self-healing service.
+    Unlike batch ``--supervise`` there is no snapshot-cadence
+    requirement -- the daemon persists its serve state after every
+    request -- but ``--ckpt`` must be armed so the state has a home."""
+    import signal
+
+    from acg_tpu_torch import metrics
+
+    if args.ckpt is None:
+        raise SystemExit(
+            f"{_TAG}: --serve --supervise warm-restores the daemon "
+            "from its persisted serve state; arm --ckpt FILE")
+    if args.resume is not None:
+        raise SystemExit(
+            f"{_TAG}: --serve --supervise owns relaunches; start it "
+            "without --resume")
+    metrics.arm()
+    child_argv = strip_flags(argv, SUPERVISOR_FLAGS)
+    sup = supervise_daemon(
+        child_argv, state_path=args.ckpt + ".serve.json",
+        budget=args.relaunch_budget, backoff=args.relaunch_backoff,
+        shrink=args.shrink, min_parts=args.min_parts,
+        nparts=int(args.nparts or 0),
+        grow_after=int(getattr(args, "grow_after", 0) or 0))
+
+    def _term(signum, frame):
+        sys.stderr.write(f"{_TAG}: supervisor [serve]: signal "
+                         f"{signum} -- stopping the daemon\n")
+        sup.stop()
+
+    try:
+        signal.signal(signal.SIGTERM, _term)
+        signal.signal(signal.SIGINT, _term)
+    except ValueError:
+        pass
+    try:
+        rc = sup.wait()
+    except KeyboardInterrupt:
+        sup.stop()
+        rc = 0
+    rep = dict(sup.report)
+    sys.stderr.write(
+        "recovery:\n"
+        f"  relaunches: {len(rep['relaunches'])}\n"
+        f"  regrows: {rep['regrows']}\n"
+        f"  outcome: {rep.get('outcome')} (rc {rep.get('rc')})\n")
+    if args.metrics_file:
+        try:
+            metrics.write_textfile(args.metrics_file)
+        except OSError as e:
+            sys.stderr.write(f"{_TAG}: --metrics-file "
+                             f"{args.metrics_file}: {e}\n")
+    metrics.disarm()
+    return rc
 
 
 # -- the chaos campaign ----------------------------------------------------

@@ -166,15 +166,16 @@ checkout it sits in.  Phases, each of which raises on failure:
    stacked parts under dma with halo:nan@3 --recover and the transport
    rung (named by the policy: the one run in which a rung leaves a
    kernel; every CLI run fails the smoke if a fallback rung ran),
-   (ap) --soak 20 --fail-on-drift 50 and its drift trip; and, as
+   (ap) --soak 8 --fail-on-drift 50 and its drift trip; and, as
    child-process jobs run JOB_WORKERS at a time beside (af)-(ah) (see
    elastic_paths), rank-mode recovery (aq), checkpoints (ar), precond
    and sstep:4 (as) on a pair, the sharded tier's checkpoint and audit
    (at), the supervisor's crash relaunch and shrink (au), a chaos
    campaign (av), the batched and s-step checkpoints (aw), and the
    supervisor's fault sites, a dead peer and a hung runtime (ax).
-   (af)-(ah) run as those jobs too, and so do the communication and
-   decision layers (see decision_paths): (ay) --commbench on the
+   (af)-(ah) run as those jobs too; the communication and decision
+   layers (see decision_paths) are jobs of the same pool, started
+   first with the service's, beside (a)-(ab): (ay) --commbench on the
    flagship's 4 parts under dma (the document valid, every kind
    fitted, K6's launches each phase's exchanges), (az) --explain
    --calibration (three tiers, verdicts and dispatch terms, one
@@ -183,6 +184,21 @@ checkout it sits in.  Phases, each of which raises on failure:
    self-corrected); after those jobs, (ay-twin) in this process: a
    4-part dma solve, the segment probes and the planner's comm-round
    count, the same solve again, its x bitwise and its launches equal;
+   and the service layer (see service_paths), jobs in the same pool
+   started first, beside (a)-(ab), with (ay)-(ba): (bb) the
+   single-part --serve daemon on the flagship (caches: miss then hit
+   with acg_compiles_total
+   unmoved; the first answer bitwise the one-shot CLI solve of its b;
+   three requests coalesced behind a slow lead, each bitwise its single
+   answer; typed 504 and 500; /status, /metrics, /requests; the access
+   log and timeline through the reference's checkers; SIGTERM exits 0),
+   (bb-429) a daemon of queue depth 1 shedding a typed 429, (bc) the
+   4-part daemon under dma (a classic and a pipelined request bitwise
+   the one-shot CLI solves of their b on the same tier; batched K1, K6,
+   the per-part dot and K5 counted: twice the CLI runs'), (bd) --serve
+   --supervise at 512^2 (a crash request, the relaunch on 2 parts
+   warm-restored, the regrow to 4 after 2 requests) and (be) the live
+   chaos campaign --serve --chaos 5:4 at 512^2;
 4. times: solve rates (1000 iterations after a 50-iteration warm-up;
    200 for --precise-dots),
    single-device (classic, --kernels fused in f32, mixed and bf16,
@@ -1049,6 +1065,21 @@ def read_x(path):
 
 
 def main_path(torch, K, tmp, csr, irr, prob):
+    """Phase 3: the paths, this process's own runs in turn and the
+    child-process jobs in one pool, JOB_WORKERS at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=JOB_WORKERS) as pool:
+        return _main_path(torch, K, tmp, csr, irr, prob, pool)
+
+
+def _main_path(torch, K, tmp, csr, irr, prob, pool):
+    # the service jobs (bb)-(be) and the decision jobs (ay)-(ba) read
+    # nothing of this process's paths: they start first, beside (a)-(ab)
+    # ((u) joins them once (a) wrote its x), and end long before the
+    # jobs submitted below
+    t_early = time.perf_counter()
+    early = [pool.submit(j) for j in service_paths(torch, K, tmp, csr)
+             + decision_paths(torch, K, tmp).early]
     base = [MAIN_SPEC, "--warmup", "0", "-q"]
     xsol = np.random.default_rng(42).standard_normal(csr.shape[0])
     xsol /= np.linalg.norm(xsol)
@@ -1131,6 +1162,8 @@ def main_path(torch, K, tmp, csr, irr, prob):
     check(c["dia_spmv"] == 501 and c2["dia_spmv"] == 501,
           "path d: one K1 launch per iteration plus the setup residual")
     paths["d"] = c
+    # (u) reads (a)'s x: a child-process job from here on
+    early.append(pool.submit(tool_job(torch, K, tmp, b, csr)))
     its_a = int(stat_of["a"])
     paths.update(multipart_paths(torch, K, tmp, base, b, csr, its_a, irr))
     paths.update(matfree_paths(torch, K, tmp, base, paths))
@@ -1138,35 +1171,34 @@ def main_path(torch, K, tmp, csr, irr, prob):
     paths.update(reproducible_gather_paths(torch, K, tmp, irr))
     paths.update(precond_paths(torch, K, tmp, base, b, csr, prob))
     paths.update(precision_paths(torch, K, tmp, base, b, csr))
-    paths.update(tool_paths(torch, K, tmp, b, csr))
     paths.update(host_paths(torch, K, tmp))
     paths.update(batched_paths(torch, K, tmp, base, csr, paths))
     paths.update(ca_paths(torch, K, tmp, base, b, csr))
     paths.update(dist_batched_paths(torch, K, tmp, base, csr, prob))
-    # the child-process paths as jobs, JOB_WORKERS at a time, the longest
-    # first, started once the files they read exist; this process's own
-    # checks go on meanwhile, and the timing-sensitive paths ((ai)'s
-    # rates, (ap)'s drift gate) only after the last job
-    from concurrent.futures import ThreadPoolExecutor
+    for f in early:
+        paths.update(f.result())
+    say(f"paths bb-be, ay-ba and u ({len(early)} jobs beside (a)-(ab)) "
+        f"ended {time.perf_counter() - t_early:.1f} s into phase 3")
+    # the other child-process paths as jobs, JOB_WORKERS at a time, the
+    # longest first, started once the files they read exist; this
+    # process's own checks go on meanwhile, and the timing-sensitive
+    # paths ((ai)'s rates, (ap)'s drift gate) only after the last job
     pairs = multiprocess_paths(torch, K, tmp, base, csr, prob)
     elastic = elastic_paths(torch, K, tmp, base, b, csr, prob)
-    decision = decision_paths(torch, K, tmp)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=JOB_WORKERS) as pool:
-        futures = [pool.submit(j) for j in decision.early
-                   + elastic.early[:3] + pairs.early + elastic.early[3:]]
-        paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
-        paths.update(north_star_path(torch, K, tmp))
-        for group in (pairs, elastic):
-            paths.update(group.local())
-            futures += [pool.submit(j) for j in group.late]
-        say(f"paths ac, ae, at, aw and the twins (this process) took "
-            f"{time.perf_counter() - t0:.1f} s")
-        for f in futures:
-            paths.update(f.result())
-    say(f"paths ac, ae, at, aw, af-ah, aq-ax and ay-ba ({len(futures)} "
-        f"jobs, {JOB_WORKERS} at a time) took "
+    futures = [pool.submit(j) for j in elastic.early[:3] + pairs.early
+               + elastic.early[3:]]
+    paths.update(fused_dist_paths(torch, K, tmp, base, csr, prob, irr))
+    paths.update(north_star_path(torch, K, tmp))
+    for group in (pairs, elastic):
+        paths.update(group.local())
+        futures += [pool.submit(j) for j in group.late]
+    say(f"paths ac, ae, at, aw and the twins (this process) took "
         f"{time.perf_counter() - t0:.1f} s")
+    for f in futures:
+        paths.update(f.result())
+    say(f"paths ac, ae, at, aw, af-ah and aq-ax ({len(futures)} jobs, "
+        f"{JOB_WORKERS} at a time) took {time.perf_counter() - t0:.1f} s")
     paths.update(probe_twin_path(torch, K, prob, b))
     paths.update(observability_paths(torch, K, tmp, paths))
     paths.update(robustness_paths(torch, K, tmp, base, b, csr, prob, paths))
@@ -1686,76 +1718,76 @@ BATCH_ITS = 200
 ANISO_SPEC = f"gen:poisson2d:{FLAGSHIP // 4}"
 
 
-def _tool_stdout(fn, argv, path):
-    """Run tool ``fn(argv)`` with its standard output (written through
-    ``sys.stdout.buffer``) sent to ``path``."""
-    saved = sys.stdout
-    with open(path, "wb") as f:
-        sys.stdout = io.TextIOWrapper(f, write_through=True)
-        try:
-            rc = fn(argv)
-            sys.stdout.flush()
-        finally:
-            sys.stdout.detach()
-            sys.stdout = saved
-    return rc
-
-
 def _device_format(text: str) -> str:
     m = re.search(r"device matrix: (\w+)", text)
     return m.group(1) if m else "not logged"
 
 
-def tool_paths(torch, K, tmp, b, csr):
-    """(u): the offline tools at full width and the permuted input:
-    genmatrix (binary and text), mtxpartition --parts 4 on the binary
-    file, mtx2bin --expand --partition on the text file with its
-    .perm.mtx sidecar; then classic f64 on the permuted binary matrix
-    with (a)'s right-hand side given in the original row order.  The
-    solution comes back in the original order: within 1e-8 of (a)'s x,
-    iterations within 1 of (a)'s, true residual <= 1e-7."""
+def tool_job(torch, K, tmp, b, csr):
+    """(u), a child-process job (started once (a) wrote its x): the
+    offline tools at full width and the permuted input, each a
+    ``python -m acg_tpu_torch.tools...`` child: genmatrix (binary and
+    text), mtxpartition --parts 4 on the binary file, mtx2bin --expand
+    --partition on the text file with its .perm.mtx sidecar; then classic
+    f64 on the permuted binary matrix with (a)'s right-hand side given in
+    the original row order.  The solution comes back in the original
+    order: within 1e-8 of (a)'s x, iterations within 1 of (a)'s, true
+    residual <= 1e-7."""
     from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
-    from acg_tpu_torch.tools import genmatrix, mtx2bin, mtxpartition
 
-    t0 = time.perf_counter()
-    tb = os.path.join(tmp, "u-A.bin.mtx")
-    tt = os.path.join(tmp, "u-A.mtx")
-    part = os.path.join(tmp, "u-part.mtx")
-    perm = os.path.join(tmp, "u-P.bin.mtx")
-    steps = []
-    for what, fn in (
-            ("genmatrix --binary", lambda: genmatrix.main(
-                ["-n", str(FLAGSHIP), "--binary", "-o", tb])),
-            ("genmatrix", lambda: genmatrix.main(
-                ["-n", str(FLAGSHIP), "-o", tt])),
-            (f"mtxpartition --parts {NPARTS}", lambda: _tool_stdout(
-                mtxpartition.main, [tb, "--binary", "--parts",
-                                    str(NPARTS)], part)),
-            ("mtx2bin --expand --partition", lambda: mtx2bin.main(
-                ["--expand", "--partition", part, tt, perm]))):
-        ts = time.perf_counter()
-        check(fn() == 0, f"path u: {what}")
-        steps.append(f"{what} {time.perf_counter() - ts:.1f} s")
-    check(os.path.exists(perm + ".perm.mtx")
-          and os.path.exists(perm + ".bounds.mtx"),
-          "path u: mtx2bin wrote the .perm.mtx and .bounds.mtx sidecars")
-    bfile = os.path.join(tmp, "u-b.bin")
-    write_mtx(bfile, vector_mtx(b), binary=True)
-    rc, text, c, _, its, x, res = solve_path(
-        torch, K, tmp, [perm, bfile, "--binary", "--warmup", "0", "-q",
-                        "-v", "--residual-rtol", "1e-8",
-                        "--max-iterations", "20000"], "u-permuted", b, csr)
-    xa = read_x(os.path.join(tmp, "a.bin"))
-    rel = float(np.linalg.norm(x - xa) / np.linalg.norm(xa))
-    say(f"path u: tools {'; '.join(steps)}; the permuted solve: format "
-        f"auto picked {_device_format(text)}, {its} iterations (path a: "
-        f"{ITS['a']}), x vs path a's rel {rel:.3e} (limit 1e-8), true "
-        f"relative residual {res:.3e} (limit 1e-7), solver time "
-        f"{stat(text, 'total solver time')}, launches {c}; path u took "
-        f"{time.perf_counter() - t0:.1f} s")
-    check(rc == 0 and abs(its - ITS["a"]) <= 1 and rel <= 1e-8
-          and res <= 1e-7, "path u: the permuted solve is path a's")
-    return {"u": c}
+    def job() -> dict:
+        t0 = time.perf_counter()
+        tb = os.path.join(tmp, "u-A.bin.mtx")
+        tt = os.path.join(tmp, "u-A.mtx")
+        part = os.path.join(tmp, "u-part.mtx")
+        perm = os.path.join(tmp, "u-P.bin.mtx")
+        steps = []
+        for what, argv, stdout in (
+                ("genmatrix --binary", ["genmatrix", "-n", str(FLAGSHIP),
+                                        "--binary", "-o", tb], None),
+                ("genmatrix", ["genmatrix", "-n", str(FLAGSHIP), "-o", tt],
+                 None),
+                (f"mtxpartition --parts {NPARTS}",
+                 ["mtxpartition", tb, "--binary", "--parts", str(NPARTS)],
+                 part),
+                ("mtx2bin --expand --partition",
+                 ["mtx2bin", "--expand", "--partition", part, tt, perm],
+                 None)):
+            ts = time.perf_counter()
+            with open(stdout or os.devnull, "wb") as out:
+                res = subprocess.run(
+                    [sys.executable, "-m", f"acg_tpu_torch.tools.{argv[0]}",
+                     *argv[1:]], cwd=HERE, env=CHILD_ENV, stdout=out,
+                    stderr=subprocess.PIPE, text=False, timeout=MP_TIMEOUT)
+            check(res.returncode == 0, f"path u: {what} "
+                  f"({res.stderr.decode()[-500:]})")
+            steps.append(f"{what} {time.perf_counter() - ts:.1f} s")
+        check(os.path.exists(perm + ".perm.mtx")
+              and os.path.exists(perm + ".bounds.mtx"),
+              "path u: mtx2bin wrote the .perm.mtx and .bounds.mtx sidecars")
+        bfile = os.path.join(tmp, "u-b.bin")
+        write_mtx(bfile, vector_mtx(b), binary=True)
+        out = os.path.join(tmp, "u-permuted.bin")
+        rc, text, c, _ = proc_cli(
+            [perm, bfile, "--binary", "--warmup", "0", "-q", "-v",
+             "--residual-rtol", "1e-8", "--max-iterations", "20000", "-o",
+             out], "u-permuted")
+        its = int(stat(text, "iterations").replace(",", ""))
+        x = read_x(out)
+        res = float(np.linalg.norm(b - csr @ x) / np.linalg.norm(b))
+        xa = read_x(os.path.join(tmp, "a.bin"))
+        rel = float(np.linalg.norm(x - xa) / np.linalg.norm(xa))
+        say(f"path u: tools {'; '.join(steps)}; the permuted solve: format "
+            f"auto picked {_device_format(text)}, {its} iterations (path a: "
+            f"{ITS['a']}), x vs path a's rel {rel:.3e} (limit 1e-8), true "
+            f"relative residual {res:.3e} (limit 1e-7), solver time "
+            f"{stat(text, 'total solver time')}, launches {c}; path u took "
+            f"{time.perf_counter() - t0:.1f} s (a child-process job)")
+        check(rc == 0 and abs(its - ITS["a"]) <= 1 and rel <= 1e-8
+              and res <= 1e-7, "path u: the permuted solve is path a's")
+        return {"u": c}
+
+    return job
 
 
 def host_paths(torch, K, tmp):
@@ -2618,6 +2650,7 @@ ROBUST_TOL = ["--residual-rtol", "1e-8", "--max-iterations", "20000"]
 CKPT_EVERY = 500     # --ckpt-every of paths (ar) and (au)
 CRASH_AT = 1200      # crash:exit@ of paths (ar), (au) and (aw)
 RECOVER_RUNS = 3     # timed solves of each phase-4 --recover rate
+SOAK_SOLVES = 8      # --soak of path (ap): its baseline of 3 and 5 judged
 
 
 def _fault_env():
@@ -2644,9 +2677,9 @@ def robustness_paths(torch, K, tmp, base, b, csr, prob, paths):
     the CLI, and, through the API with the fault kept armed while the
     transport is dma (a link that keeps corrupting) and the policy
     naming the rung (``fallback_comm=True``: on the card it is off
-    unless named), the transport rung retiring dma for xla.  (ap) --soak 20 --fail-on-drift 50: exit 0
-    and no drift; --soak 5 with solve:slow@3:secs=3 on the
-    quarter-width matrix: exit 7."""
+    unless named), the transport rung retiring dma for xla.  (ap) --soak
+    8 --fail-on-drift 50: exit 0 and no drift; --soak 5 with
+    solve:slow@3:secs=3 on the quarter-width matrix: exit 7."""
     from acg_tpu_torch import faults
     from acg_tpu_torch.ops.spmv import device_matrix_from_csr
     from acg_tpu_torch.solvers import StoppingCriteria, TorchCGSolver
@@ -2788,17 +2821,17 @@ def robustness_paths(torch, K, tmp, base, b, csr, prob, paths):
     # (ap) the soak driver and its drift gate
     t0 = time.perf_counter()
     rc, text, c = run_cli(torch, K, base + ["--manufactured-solution"]
-                          + ROBUST_TOL + ["--soak", "20", "--fail-on-drift",
-                                          "50"], "ap-soak")
+                          + ROBUST_TOL + ["--soak", str(SOAK_SOLVES),
+                                          "--fail-on-drift", "50"], "ap-soak")
     tripped = re.search(r"tripped: (\w+)", text)
     ratio = re.search(r"ratio: ([\d.]+)", text)
-    say(f"path ap: --soak 20 rc={rc}, drift tripped "
+    say(f"path ap: --soak {SOAK_SOLVES} rc={rc}, drift tripped "
         f"{tripped.group(1) if tripped else None}, ratio "
         f"{ratio.group(1) if ratio else None}, p50 "
         f"{stat(text, 'p50')} s; {time.perf_counter() - t0:.1f} s")
     check(rc == 0 and tripped and tripped.group(1) == "False"
-          and c["dia_spmv"] >= 20 * ITS["a"],
-          "path ap: 20 solves on K1, no drift")
+          and c["dia_spmv"] >= SOAK_SOLVES * ITS["a"],
+          f"path ap: {SOAK_SOLVES} solves on K1, no drift")
     out["ap"] = c
     # the gate's trip on the quarter-width matrix (solves of ~0.3 s):
     # the drift, not the width, is what this run shows
@@ -3867,6 +3900,532 @@ def decision_paths(torch, K, tmp):
         return out
 
     return Jobs([commbench_explain, autotune], lambda: {}, [])
+
+
+SERVE_SMALL = "gen:poisson2d:512"   # (bd) and (be): relaunches, not rates
+SERVE_TOL = {"rtol": 1e-9, "maxits": 20000}
+SERVE_SLOW_S = 4.0       # the slow lead that holds (bb)'s worker
+# a request's deadline on the flagship daemons: (bb)'s members wait out
+# the lead, its solve and the batch's warm-up and solve, ~1 min on a
+# loaded card, past the daemon's default 60 s
+SERVE_DEADLINE = ["--serve-deadline", "600"]
+CHAOS_SERVE_SEED = 5     # (be): schedules dot:nan@2, crash, slow, dot:nan@6
+
+
+class ServeChild:
+    """``python -m acg_tpu_torch ARGV -vv`` as a long-lived child (a
+    ``--serve`` daemon or its supervisor), its stderr in a file: the port
+    lines it prints, its exit on SIGTERM."""
+
+    def __init__(self, argv, tag, tmp):
+        self.tag, self.argv = tag, argv
+        self.log = os.path.join(tmp, f"{tag}.stderr")
+        self._f = open(self.log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "acg_tpu_torch", *argv, "-vv"],
+            cwd=HERE, env=CHILD_ENV, stdout=subprocess.DEVNULL,
+            stderr=self._f)
+
+    def text(self) -> str:
+        with open(self.log) as f:
+            return f.read()
+
+    def port(self, nth: int = 1, timeout: float = MP_TIMEOUT) -> int:
+        """The port of the ``nth`` daemon this child started."""
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            ports = re.findall(r"listening on port (\d+)", self.text())
+            if len(ports) >= nth:
+                return int(ports[nth - 1])
+            check(self.proc.poll() is None,
+                  f"path {self.tag}: the daemon is up (stderr: "
+                  f"{self.text()[-2000:]})")
+            time.sleep(0.2)
+        raise AssertionError(f"path {self.tag}: no daemon listened in "
+                             f"{timeout:.0f} s")
+
+    def stop(self, timeout: float = 120.0) -> tuple:
+        """SIGTERM, then (rc, stderr text); logged with the wall time."""
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=timeout)
+        self._f.close()
+        text = self.text()
+        LOG.append(f"--- {self.tag}: rc={rc} {' '.join(self.argv)}\n{text}")
+        say(f"path {self.tag}: rc={rc} wall "
+            f"{time.perf_counter() - self.t0:.1f} s (a daemon child)")
+        _no_fallback(text, self.tag)
+        return rc, text
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self._f.closed:
+            self._f.close()
+
+
+def _http(base, method, path, doc=None, timeout=300.0):
+    from acg_tpu_torch.serve import _http_json
+    return _http_json(method, base + path, doc, timeout=timeout)
+
+
+def _http_text(base, path, timeout=60.0) -> str:
+    import urllib.request
+    with urllib.request.urlopen(base + path, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def _metric(text: str, name: str) -> float:
+    """The sum of a family's samples in a Prometheus exposition."""
+    total = 0.0
+    for line in text.splitlines():
+        head, _, val = line.rpartition(" ")
+        if not line.startswith("#") and (head == name
+                                         or head.startswith(name + "{")):
+            total += float(val)
+    return total
+
+
+def _serving(base, timeout=MP_TIMEOUT) -> dict:
+    """Wait for ``base`` to answer /healthz; its /status document."""
+    from acg_tpu_torch.serve import _wait_serving
+    check(_wait_serving(base, timeout), f"{base} came up")
+    return _http(base, "GET", "/status")[1]
+
+
+def _until(cond, what, timeout=60.0, every=0.05):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        try:
+            if cond():
+                return
+        except OSError:
+            pass
+        time.sleep(every)
+    raise AssertionError(f"chip_smoke: timed out waiting for {what}")
+
+
+def _held(base, rid: str, timeout: float = 60.0) -> None:
+    """Wait until the daemon's worker holds request ``rid``: popped from
+    the queue, its coalesce window closed (its /requests document has
+    the stage), its solve begun -- not merely admitted."""
+    def held():
+        docs = _http(base, "GET", "/requests")[1]["inflight"]
+        return any(d["request_id"] == rid and "coalesce" in d["stages"]
+                   for d in docs)
+    _until(held, f"the worker to hold {rid}", timeout)
+
+
+def _ended(child) -> tuple:
+    """Stop ``child`` if it still runs: (rc, stderr text)."""
+    try:
+        if child.proc.poll() is None:
+            return child.stop()
+        LOG.append(f"--- {child.tag}: rc={child.proc.returncode} "
+                   f"{' '.join(child.argv)}\n{child.text()}")
+        return child.proc.returncode, child.text()
+    finally:
+        child.kill()
+
+
+def _rel_res(A, b, x) -> float:
+    x = np.asarray(x, dtype=np.float64)
+    return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+
+
+def service_paths(torch, K, tmp, csr):
+    """Paths (bb)-(be), the service layer, as child-process jobs: every
+    daemon a ``python -m acg_tpu_torch ... --serve`` child on localhost,
+    its requests sent from this process, every green answer verified
+    here against the host matrix (b is ``default_rng(b_seed)``'s normals,
+    as the daemon draws it).
+    (bb) the single-part daemon on the flagship: the operator preloaded,
+    a first request missing only the program cache and a second hitting
+    both with ``acg_compiles_total`` unmoved, the first bitwise the
+    one-shot CLI solve of the same b (``--kernels xla``, the daemon's
+    single-RHS program); three requests queued behind a slow lead
+    coalesced into one batch, each bitwise its single answer with the
+    same iterations; a typed 504 for an expired deadline and a typed 500
+    for maxits 2; /status, /metrics and /requests; the access log through
+    the reference's checker; SIGTERM: exit 0, the "served" line, a
+    timeline with the worker row and request lanes.  (bb-429) a second
+    daemon at queue depth 1 sheds a typed 429.  (bc) the 4-part daemon
+    under dma: a classic and a pipelined request each bitwise the
+    one-shot CLI solve of the same b on the same tier, same iterations,
+    and its launches (batched K1, K6, the per-part dot, K5) twice the
+    CLI runs' (each request a program miss: a warm-up and the solve).
+    (bd) ``--serve --supervise --nparts 4 --shrink any --grow-after 2`` at
+    512^2: a crash request kills the daemon, the relaunch serves on 2
+    parts and warm-restores, and after 2 served requests it regrows to 4.
+    (be) the live chaos campaign at 512^2: exit 0, every green answer
+    verified, the daemon serving at the end.  Returns the jobs; each logs
+    the numbers PERF.md keeps."""
+    from acg_tpu_torch.cli import synthesize_host_matrix
+    from acg_tpu_torch.io.mtxfile import vector_mtx, write_mtx
+
+    n = csr.shape[0]
+
+    def b_of(seed, size=n):
+        return np.random.default_rng(seed).standard_normal(size)
+
+    def b_file(seed, tag):
+        path = os.path.join(tmp, f"{tag}-b{seed}.bin")
+        write_mtx(path, vector_mtx(b_of(seed)), binary=True)
+        return path
+
+    def doc(**kw):
+        d = {"matrix": MAIN_SPEC, **SERVE_TOL}
+        d.update(kw)
+        return d
+
+    def single() -> dict:
+        t_job = time.perf_counter()
+        ledger = os.path.join(tmp, "bb-access.jsonl")
+        tl = os.path.join(tmp, "bb-timeline.json")
+        d = ServeChild([MAIN_SPEC, "--serve", "--serve-port", "0",
+                        "--serve-faults", "--serve-coalesce", "4",
+                        "--access-log", ledger, "--timeline", tl, "--ckpt",
+                        os.path.join(tmp, "bb-ck")] + SERVE_DEADLINE, "bb",
+                       tmp)
+        try:
+            # the one-shot CLI solve of request 1's system while the daemon
+            # ingests
+            xcli = os.path.join(tmp, "bb-cli.bin")
+            rc, text, _, cli_wall = proc_cli([
+                MAIN_SPEC, b_file(1, "bb"), "--binary", "--kernels", "xla",
+                "--residual-rtol", str(SERVE_TOL["rtol"]),
+                "--max-iterations", str(SERVE_TOL["maxits"]),
+                "--warmup", "0", "-q", "-o", xcli], "bb-cli")
+            check(rc == 0, "path bb: the one-shot CLI solve ran")
+            cli_its = int(stat(text, "iterations").replace(",", ""))
+            cli_solve = stat(text, "total solver time")
+            base = f"http://127.0.0.1:{d.port()}"
+            st = _serving(base)
+            check(st["operator_cache"]["keys"] == [[MAIN_SPEC, "f64", 0]],
+                  "path bb: the operator is preloaded")
+            comp0 = _metric(_http_text(base, "/metrics"),
+                            "acg_compiles_total")
+            s1, r1 = _http(base, "POST", "/solve", doc(b_seed=1))
+            comp1 = _metric(_http_text(base, "/metrics"),
+                            "acg_compiles_total")
+            s2, r2 = _http(base, "POST", "/solve", doc(b_seed=2))
+            comp2 = _metric(_http_text(base, "/metrics"),
+                            "acg_compiles_total")
+            res = [_rel_res(csr, b_of(k), r["x"]) for k, r in ((1, r1),
+                                                               (2, r2))]
+            check(s1 == s2 == 200 and r1["cache"] == {
+                "operator": "hit", "program": "miss"} and r2["cache"] == {
+                "operator": "hit", "program": "hit"},
+                  f"path bb: miss then hit ({r1.get('cache')}, "
+                  f"{r2.get('cache')})")
+            check(comp1 > comp0 and comp2 == comp1,
+                  f"path bb: the miss absorbed a warm-up, the hit none "
+                  f"(acg_compiles_total {comp0}, {comp1}, {comp2})")
+            check(max(res) <= 1e-8, f"path bb: true residuals {res} <= "
+                                    f"1e-8")
+            check(np.array_equal(np.asarray(r1["x"]), read_x(xcli))
+                  and r1["iterations"] == cli_its,
+                  "path bb: request 1 bitwise the one-shot CLI solve, "
+                  "same iterations")
+            # coalescing: three singles, then the same three queued behind
+            # a slow lead and drained as one batch
+            singles = {s: _http(base, "POST", "/solve", doc(
+                b_seed=s, coalesce=False, request_id=f"bb-single-{s}"))[1]
+                for s in (11, 22, 33)}
+            check(all(r.get("coalesced") == 1 for r in singles.values()),
+                  "path bb: three single answers")
+            import threading
+            got = {}
+
+            def post(key, body):
+                got[key] = _http(base, "POST", "/solve", body)
+
+            lead = threading.Thread(target=post, args=("lead", doc(
+                b_seed=99, fault=f"slow:{SERVE_SLOW_S}",
+                request_id="bb-lead")))
+            lead.start()
+            _held(base, "bb-lead")
+            members = [threading.Thread(target=post, args=(s, doc(
+                b_seed=s, request_id=f"bb-member-{s}")))
+                for s in (11, 22, 33)]
+            for t in members:
+                t.start()
+            _until(lambda: _http(base, "GET", "/status")[1][
+                "queue_depth"] == 3, "three queued members")
+            for t in [lead] + members:
+                t.join(timeout=MP_TIMEOUT)
+            for s in (11, 22, 33):
+                st_, r = got[s]
+                xs, x1 = (np.asarray(v.get("x", [np.nan])) for v in (
+                    r, singles[s]))
+                diff = (float(np.max(np.abs(xs - x1)))
+                        if xs.shape == x1.shape else None)
+                check(st_ == 200 and r["coalesced"] == 3
+                      and np.array_equal(xs, x1)
+                      and r["iterations"] == singles[s]["iterations"],
+                      f"path bb: member {s} coalesced {r.get('coalesced')} "
+                      f"wide (3), bitwise its single answer (max diff "
+                      f"{diff}), iterations {r.get('iterations')} "
+                      f"({singles[s].get('iterations')}); status {st_} "
+                      f"{r.get('error')}")
+                check(_rel_res(csr, b_of(s), r["x"]) <= 1e-8,
+                      f"path bb: member {s} verified")
+            # the typed answers: an expired deadline, maxits too small
+            lead = threading.Thread(target=post, args=("lead2", doc(
+                b_seed=98, fault="slow:2", request_id="bb-lead2")))
+            lead.start()
+            _held(base, "bb-lead2")
+            s504, r504 = _http(base, "POST", "/solve",
+                               doc(b_seed=97, timeout=0.5))
+            lead.join(timeout=MP_TIMEOUT)
+            s500, r500 = _http(base, "POST", "/solve",
+                               doc(b_seed=1, maxits=2))
+            check(s504 == 504 and r504["error"]["type"] == "deadline-expired"
+                  and r504["error"]["retryable"],
+                  "path bb: a typed 504 for an expired deadline")
+            check(s500 == 500 and r500["error"]["type"] ==
+                  "NotConvergedError", "path bb: a typed 500 for maxits 2")
+            status = _http(base, "GET", "/status")[1]
+            reqs = _http(base, "GET", "/requests")[1]
+            expo = _http_text(base, "/metrics")
+            check(status["schema"] == "acg-serve/1"
+                  and reqs["schema"] == "acg-serve-requests/1"
+                  and "acg_serve_requests_total" in expo
+                  and status["requests"]["outcomes"].get("ok") == 10,
+                  "path bb: /status, /requests and /metrics answer")
+        finally:
+            rc, text = _ended(d)
+        check(rc == 0 and "served 10 request(s), 1 failed -- bye" in text,
+              "path bb: SIGTERM: exit 0 with its served line")
+        counts = launch_lines(text)[-1]
+        chk = subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts",
+                                          "check_access_log.py"), ledger,
+             "--min-rows", "12", "--require-outcome", "ok",
+             "--require-outcome", "deadline-expired",
+             "--require-outcome", "request-failed"],
+            capture_output=True, text=True)
+        check(chk.returncode == 0, f"path bb: the access log passes the "
+              f"checker ({chk.stderr[-500:]})")
+        chk = subprocess.run([sys.executable, os.path.join(
+            HERE, "scripts", "check_timeline.py"), tl], capture_output=True,
+            text=True)
+        with open(tl) as f:
+            rows = {e.get("args", {}).get("name") for e in
+                    json.load(f)["traceEvents"] if e.get("ph") == "M"}
+        check(chk.returncode == 0 and "serve worker" in rows
+              and "request lane 0" in rows,
+              "path bb: the timeline has the worker row and request lanes")
+        with open(ledger) as f:
+            led = [json.loads(ln) for ln in f]
+        by_id = {r["id"]: r for r in led}
+
+        def stages(r):
+            return ", ".join(f"{k} {v:.4f}" for k, v in
+                             by_id[r["id"]]["stages"].items())
+
+        coal = [r for r in led if r["request_id"].startswith("bb-member")]
+        singles_s = sum(singles[s]["latency_seconds"] for s in (11, 22, 33))
+        say(f"path bb: miss {r1['latency_seconds']:.3f} s ({stages(r1)}), "
+            f"hit {r2['latency_seconds']:.3f} s ({stages(r2)}), "
+            f"{r1['iterations']} and {r2['iterations']} iterations; the "
+            f"one-shot CLI {cli_wall:.1f} s of wall (solver {cli_solve}); "
+            f"coalesced 3: batch solve "
+            f"{coal[0]['batch']['solve_seconds']:.3f} s (its warm-up "
+            f"{coal[0]['stages'].get('compile', 0.0):.3f} s) against the "
+            f"three singles' {singles_s:.3f} s; launches {counts}; "
+            f"{time.perf_counter() - t_job:.1f} s")
+        return {"bb": counts}
+
+    def queue_full() -> dict:
+        t_job = time.perf_counter()
+        d = ServeChild([MAIN_SPEC, "--serve", "--serve-port", "0",
+                        "--serve-queue-depth", "1", "--serve-faults"],
+                       "bb-429", tmp)
+        try:
+            base = f"http://127.0.0.1:{d.port()}"
+            _serving(base)
+            import threading
+            got = {}
+
+            def post(key, body):
+                got[key] = _http(base, "POST", "/solve", body)
+
+            lead = threading.Thread(target=post, args=("lead", doc(
+                b_seed=1, maxits=2, fault=f"slow:{SERVE_SLOW_S}",
+                request_id="bb429-lead")))
+            lead.start()
+            _held(base, "bb429-lead")
+            filler = threading.Thread(target=post, args=("filler", doc(
+                b_seed=2, maxits=2)))
+            filler.start()
+            _until(lambda: _http(base, "GET", "/status")[1][
+                "queue_depth"] == 1, "(bb-429)'s queue to fill")
+            s429, r429 = _http(base, "POST", "/solve", doc(b_seed=3))
+            for t in (lead, filler):
+                t.join(timeout=MP_TIMEOUT)
+        finally:
+            rc, text = _ended(d)
+        check(s429 == 429 and r429["error"]["type"] == "shed-queue-full"
+              and r429["error"]["retryable"],
+              "path bb-429: a full queue of depth 1 sheds a typed 429")
+        check(rc == 0 and got["lead"][0] == got["filler"][0] == 500,
+              "path bb-429: the queued requests answered, exit 0")
+        say(f"path bb-429: {time.perf_counter() - t_job:.1f} s")
+        return {"bb-429": launch_lines(text)[-1]}
+
+    def four_parts() -> dict:
+        t_job = time.perf_counter()
+        ledger = os.path.join(tmp, "bc-access.jsonl")
+        d = ServeChild([MAIN_SPEC, "--serve", "--serve-port", "0",
+                        "--nparts", str(NPARTS), "--comm", "dma",
+                        "--access-log", ledger] + SERVE_DEADLINE, "bc", tmp)
+        cli, cli_counts = {}, []
+        try:
+            for seed, extra in ((5, []), (6, ["--solver", "acg-pipelined"])):
+                xo = os.path.join(tmp, f"bc-cli{seed}.bin")
+                rc, text, c, wall = proc_cli([
+                    MAIN_SPEC, b_file(seed, "bc"), "--binary", "--nparts",
+                    str(NPARTS), "--comm", "dma", "--residual-rtol",
+                    str(SERVE_TOL["rtol"]), "--max-iterations",
+                    str(SERVE_TOL["maxits"]), "--warmup", "0", "-q", "-o",
+                    xo] + extra, f"bc-cli{seed}")
+                check(rc == 0, f"path bc: the one-shot CLI solve {seed} ran")
+                cli[seed] = (read_x(xo), int(stat(text, "iterations")
+                                             .replace(",", "")),
+                             stat(text, "total solver time"), wall)
+                cli_counts.append(c)
+            base = f"http://127.0.0.1:{d.port()}"
+            _serving(base)
+            answers = {5: _http(base, "POST", "/solve", doc(b_seed=5)),
+                       6: _http(base, "POST", "/solve",
+                                doc(b_seed=6, algorithm="pipelined"))}
+        finally:
+            rc, text = _ended(d)
+        check(rc == 0, "path bc: the 4-part daemon exits 0")
+        for seed, (s, r) in answers.items():
+            x, its, _, _ = cli[seed]
+            # pipelined CG's true residual trails its recurrence's: held to
+            # path (b)'s 1e-6, classic to 1e-8
+            lim = 1e-8 if seed == 5 else 1e-6
+            rel = _rel_res(csr, b_of(seed), r["x"]) if s == 200 else None
+            check(s == 200 and rel <= lim, f"path bc: request {seed} "
+                  f"verified (true residual {rel} <= {lim:g})")
+            check(np.array_equal(np.asarray(r["x"]), x)
+                  and r["iterations"] == its,
+                  f"path bc: request {seed} bitwise the one-shot CLI solve "
+                  f"on the same tier, {its} iterations")
+        counts = launch_lines(text)[-1]
+        want = {k: 2 * sum(c.get(k, 0) for c in cli_counts)
+                for k in ("dia_spmv_batched", "halo_put", "part_dot",
+                          "pipelined_update")}
+        check(all(counts.get(k) == v > 0 for k, v in want.items()),
+              f"path bc: the daemon's launches {counts} are twice the CLI "
+              f"solves' (a warm-up and the solve each) {want}")
+        with open(ledger) as f:
+            led = {json.loads(ln)["id"]: json.loads(ln) for ln in f}
+        numbers = {
+            seed: {"latency_s": r["latency_seconds"],
+                   "solve_s": led[r["id"]]["stages"]["solve"],
+                   "iterations": r["iterations"], "cli_solver": cli[seed][2]}
+            for seed, (s, r) in answers.items()}
+        say(f"path bc: " + "; ".join(
+            f"{'classic' if k == 5 else 'pipelined'} {v['iterations']} "
+            f"iterations, solve {v['solve_s']:.3f} s (latency "
+            f"{v['latency_s']:.3f} s with its warm-up), the CLI's solver "
+            f"time {v['cli_solver']}" for k, v in numbers.items())
+            + f"; launches {counts}; {time.perf_counter() - t_job:.1f} s")
+        return {"bc": counts}
+
+    small = None
+
+    def small_csr():
+        nonlocal small
+        if small is None:
+            small = synthesize_host_matrix(SERVE_SMALL).to_csr()
+        return small
+
+    def supervised() -> dict:
+        t_job = time.perf_counter()
+        A = small_csr()
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        sup = ServeChild([SERVE_SMALL, "--serve", "--serve-port", str(port),
+                          "--supervise", "--nparts", str(NPARTS),
+                          "--shrink", "any", "--grow-after", "2",
+                          "--serve-faults", "--relaunch-backoff", "0",
+                          "--ckpt", os.path.join(tmp, "bd-ck")], "bd", tmp)
+        small_doc = {"matrix": SERVE_SMALL, **SERVE_TOL}
+        res, parts = [], []
+        try:
+            parts.append(_serving(base)["nparts"])
+            s, r = _http(base, "POST", "/solve", dict(small_doc, b_seed=1))
+            res.append(_rel_res(A, b_of(1, A.shape[0]), r["x"]))
+            t_crash = time.perf_counter()
+            try:
+                _http(base, "POST", "/solve", dict(small_doc,
+                                                   fault="crash"), 60.0)
+                crashed = False
+            except OSError:
+                crashed = True
+            sup.port(nth=2)
+            st = _serving(base)
+            mttr = time.perf_counter() - t_crash
+            parts.append(st["nparts"])
+            warm = _metric(_http_text(base, "/metrics"),
+                           "acg_serve_warm_restores_total")
+            for seed in (2, 3):
+                s, r = _http(base, "POST", "/solve",
+                             dict(small_doc, b_seed=seed))
+                res.append(_rel_res(A, b_of(seed, A.shape[0]), r["x"]))
+            sup.port(nth=3)
+            parts.append(_serving(base)["nparts"])
+            s, r = _http(base, "POST", "/solve", dict(small_doc, b_seed=4))
+            res.append(_rel_res(A, b_of(4, A.shape[0]), r["x"]))
+        finally:
+            rc, text = _ended(sup)
+        check(crashed and parts == [NPARTS, NPARTS // 2, NPARTS]
+              and st["warm_restored"] >= 1 and warm >= 1,
+              f"path bd: the crash relaunched on {parts[1:2]} parts, "
+              f"warm-restored, then regrew ({parts})")
+        check(len(res) == 4 and max(res) <= 1e-8,
+              f"path bd: every answer verified ({res})")
+        check(rc == 0 and "relaunches: 1" in text and "regrows: 1" in text,
+              "path bd: the supervisor exits 0 after one relaunch and one "
+              "regrow")
+        counts = _sum_counts(launch_lines(text))
+        say(f"path bd: parts {parts}, relaunch to serving {mttr:.1f} s, "
+            f"true residuals {[f'{v:.2e}' for v in res]}, launches "
+            f"{counts}; {time.perf_counter() - t_job:.1f} s")
+        return {"bd": counts}
+
+    def chaos() -> dict:
+        t_job = time.perf_counter()
+        hist = os.path.join(tmp, "be-hist")
+        rc, text, _, wall = proc_cli([
+            SERVE_SMALL, "--serve", "--serve-faults", "--chaos",
+            f"{CHAOS_SERVE_SEED}:4", "--ckpt", os.path.join(tmp, "be-ck"),
+            "--relaunch-backoff", "0", "--max-iterations", "3000",
+            "--residual-rtol", "1e-8", "--history", hist], "be-chaos-serve")
+        from acg_tpu_torch import observatory
+        rows = [e["doc"]["chaos"] for e in observatory.history_scan(hist)
+                if e["doc"].get("schema") == "acg-tpu-chaos-serve/1"]
+        verdicts = [r["verdict"] for r in rows]
+        check(rc == 0 and len(rows) == 4 and "crash-relaunched" in verdicts
+              and set(verdicts) <= {"verified", "typed-error",
+                                    "crash-relaunched"}
+              and "final probe: verified" in text
+              and "warm-restored" in text,
+              f"path be: the live campaign exits 0, every green answer "
+              f"verified, serving at the end ({verdicts})")
+        counts = _sum_counts(launch_lines(text))
+        say(f"path be: {list(zip([r['fault'] for r in rows], verdicts))}, "
+            f"launches {counts}; {time.perf_counter() - t_job:.1f} s")
+        return {"be": counts}
+
+    return [single, four_parts, queue_full, supervised, chaos]
 
 
 def k6_peer_checks(torch, K, tmp, inputs):

@@ -1178,3 +1178,62 @@ def test_capture_classifies_the_ports_kernels(dev, tmp_path):
     ops = an["op_seconds_in_solve"]
     assert ops["gemv"] > 0 and ops["dot"] > 0 and ops["halo"] > 0
     assert an["collective_kind_seconds_in_solve"]["dma"] > 0
+
+
+def test_serve_daemon_on_card(dev):
+    """The solver service on the card: the worker runs on the daemon's
+    device, a repeat request hits both caches, the 4-part daemon's
+    request launches the hand kernels, and a batch of three coalesced
+    requests answers each bitwise its single answer (the single-RHS
+    program's dots per column on the card too)."""
+    import threading
+    import time
+
+    from acg_tpu_torch.ops import kernels as K
+    from acg_tpu_torch.serve import ServeConfig, ServeDaemon
+
+    def solve_doc(**kw):
+        return dict({"matrix": "gen:poisson2d:64", "rtol": 1e-10,
+                     "maxits": 2000}, **kw)
+
+    d = ServeDaemon(ServeConfig(port=0, allow_faults=True, coalesce=4))
+    assert d.device.type == "cuda"
+    d.start()
+    try:
+        singles = {s: d.submit(solve_doc(b_seed=s, coalesce=False))[1]
+                   for s in (1, 2, 3)}
+        assert singles[2]["cache"] == {"operator": "hit", "program": "hit"}
+        gate, held = threading.Event(), threading.Event()
+        d._serve_fault = lambda req: (held.set(), gate.wait(60.0))
+        got = {}
+        lead = threading.Thread(target=lambda: d.submit(
+            solve_doc(b_seed=9, fault="slow:0")))
+        lead.start()
+        assert held.wait(60.0)
+        members = [threading.Thread(
+            target=lambda s=s: got.__setitem__(s, d.submit(
+                solve_doc(b_seed=s))[1])) for s in (1, 2, 3)]
+        for t in members:
+            t.start()
+        t0 = time.monotonic()
+        while len(d.queue) < 3 and time.monotonic() - t0 < 60.0:
+            time.sleep(0.01)
+        gate.set()
+        for t in [lead] + members:
+            t.join(timeout=120.0)
+        for s in (1, 2, 3):
+            assert got[s]["coalesced"] == 3
+            assert got[s]["x"] == singles[s]["x"]
+            assert got[s]["iterations"] == singles[s]["iterations"]
+    finally:
+        d.stop()
+    K.reset_launches()
+    d4 = ServeDaemon(ServeConfig(port=0, nparts=4, comm="dma"))
+    d4.start()
+    try:
+        s, body = d4.submit(solve_doc(b_seed=5))
+        assert s == 200 and body["converged"]
+    finally:
+        d4.stop()
+    for name in ("dia_spmv_batched", "halo_put", "part_dot"):
+        assert K.launches[name] > body["iterations"], name

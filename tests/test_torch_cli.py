@@ -239,18 +239,26 @@ def test_cli_algorithm_matches_jax_cli(tmp_path, capsys, algorithm):
                                   ["--access-log", "a.jsonl"],
                                   ["--serve"], ["--serve-port", "9471"]])
 def test_cli_refuses_flags_of_other_tiers(flag, capsys):
-    """The flags of tiers not ported yet (the service, its request log,
-    and the daemon supervisor's --grow-after) stay unregistered;
-    --explain and --commbench, which this test named before the decision
-    layers were ported, are held against the reference in
-    test_torch_perfmodel.py and test_torch_commbench.py, as --supervise,
-    --shrink, --max-restarts, --soak and --ckpt are in
-    test_torch_elastic.py, test_torch_faults.py, test_torch_soak.py and
-    test_torch_checkpoint.py."""
-    with pytest.raises(SystemExit) as e:
-        torch_main(["gen:poisson2d:8", "--device", "cpu"] + flag)
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    """The service's flags, which this test once held unregistered, are
+    the reference's: parsed to the same value, and with ``--serve`` and a
+    one-shot flag the daemon could never honour (``--explain``) both
+    CLIs refuse the run with the same message before any device work
+    (the name is kept from the earlier pin)."""
+    from acg_tpu.cli import make_parser as jax_parser
+    from acg_tpu_torch.cli import make_parser
+
+    argv = ["gen:poisson2d:8"] + flag
+    ja, ta = jax_parser().parse_args(argv), make_parser().parse_args(argv)
+    dest = flag[0].lstrip("-").replace("-", "_")
+    assert getattr(ta, dest) == getattr(ja, dest)
+    refused = argv + [f for f in ["--serve", "--explain"] if f not in flag]
+    with pytest.raises(SystemExit) as t:
+        torch_main(refused + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as j:
+        jax_main(refused)
+    capsys.readouterr()
+    assert str(t.value).split(": ", 1)[1] == str(j.value).split(": ", 1)[1]
+    assert "--serve does not support: --explain" in str(t.value)
 
 
 @pytest.mark.parametrize("flag", [["--nparts", "4"],
@@ -294,6 +302,8 @@ import acg_tpu_torch._native
 import acg_tpu_torch.prng
 import acg_tpu_torch.parallel.erragree
 import acg_tpu_torch.supervisor
+import acg_tpu_torch.reqtrace
+import acg_tpu_torch.serve
 import acg_tpu_torch.parallel.mesh
 import acg_tpu_torch.parallel.multihost
 import acg_tpu_torch.telemetry
@@ -502,12 +512,14 @@ def test_parser_flags_match_jax_parser():
             r = ref[s]
             for attr in ("dest", "default", "choices", "nargs", "type"):
                 assert getattr(action, attr) == getattr(r, attr), (s, attr)
+    port = {o for a in make_parser()._actions for o in a.option_strings}
     for s in ("--multihost", "--coordinator", "--num-processes",
               "--process-id", "--distributed-read", "--err-timeout",
               "--heartbeat", "--no-manufactured-solution",
               "--no-output-comm-matrix"):
-        assert s in {o for a in make_parser()._actions
-                     for o in a.option_strings}, s
+        assert s in port, s
+    # and every flag of the reference's parser is the port's
+    assert set(ref) - port == set()
 
 
 @pytest.mark.parametrize("spec", ["gen:poisson2d:1", "gen:poisson2d:7",

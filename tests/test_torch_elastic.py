@@ -85,9 +85,7 @@ ARGV = ["gen:poisson2d:16", "--supervise", "--relaunch-budget", "2",
 @pytest.mark.parametrize("flag,value", [("--nparts", 4), ("--resume", "ck"),
                                         ("--supervise", None)])
 def test_supervisor_argv_surgery_matches_the_reference(flag, value):
-    flags = dict(jsup.SUPERVISOR_FLAGS)
-    flags.pop("--grow-after")      # the --serve daemon's, item 14
-    assert sup.SUPERVISOR_FLAGS == flags
+    assert sup.SUPERVISOR_FLAGS == jsup.SUPERVISOR_FLAGS
     child = sup.strip_flags(ARGV, sup.SUPERVISOR_FLAGS)
     assert child == jsup.strip_flags(ARGV, jsup.SUPERVISOR_FLAGS)
     assert "--supervise" not in child and "m.prom" not in child
@@ -362,25 +360,17 @@ def test_chaos_campaign_acceptance(tmp_path):
     "--serve-queue-depth", "--serve-coalesce", "--serve-deadline",
     "--serve-faults", "--access-log"])
 def test_flags_of_later_tiers_stay_unregistered(flag):
-    """The service's flags (and the daemon supervisor's --grow-after)
-    are the reference's, not yet the port's; the decision layer's,
-    ported since, are registered with the reference's dest, default,
-    choices, nargs and type."""
+    """The flags of the tiers ported last -- the decision layer's and
+    the service's, with the daemon supervisor's --grow-after -- are
+    registered with the reference's dest, default, choices, nargs and
+    type (the name is kept from when the service's were not yet)."""
     from acg_tpu.cli import make_parser as jax_parser
     from acg_tpu_torch.cli import make_parser
     ref = {o: a for a in jax_parser()._actions for o in a.option_strings}
     port = {o: a for a in make_parser()._actions for o in a.option_strings}
-    assert flag in ref
-    if flag not in _DECISION_FLAGS:
-        assert flag not in port
-        return
+    assert flag in ref and flag in port
     for attr in ("dest", "default", "choices", "nargs", "type"):
         assert getattr(port[flag], attr) == getattr(ref[flag], attr), attr
-
-
-# the decision layer's flags (Queue 1 item 13, ported)
-_DECISION_FLAGS = ("--commbench", "--calibration", "--explain", "--plan",
-                   "--autotune", "--no-probe-cache")
 
 
 @pytest.mark.parametrize("flag,dest,value", [

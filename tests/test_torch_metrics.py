@@ -21,6 +21,24 @@ torch.set_num_threads(min(2, torch.get_num_threads()))
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+@pytest.fixture(autouse=True)
+def _registry_state():
+    """Each test starts from the port registry disarmed and with no
+    collect callback, and leaves it as it found it: an earlier file on the
+    same worker may have armed the hooks and registered the resource
+    callback, whose RSS reading moves between two expositions."""
+    callbacks = list(metrics.REGISTRY._collect_callbacks)
+    was = metrics.armed()
+    metrics.REGISTRY._collect_callbacks.clear()
+    metrics.disarm()
+    yield
+    metrics.REGISTRY._collect_callbacks[:] = callbacks
+    if was:
+        metrics.arm()
+    else:
+        metrics.disarm()
+
 # recorder sequences applied to both packages' process-wide registries in
 # a fresh process (the registries live for a process's life); armed
 # without the resource-gauge callback, whose RSS reading is the clock's

@@ -17,6 +17,20 @@ from acg_tpu_torch.cli import main as torch_main
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
+
+@pytest.fixture(autouse=True)
+def _fresh_observatories():
+    """Both packages' status recorders start and end each test clear,
+    through their public ``shutdown()``: an earlier file on the same
+    worker (a reference soak test, say) may have left keys in the
+    reference's recorder."""
+    jax_observatory.shutdown()
+    observatory.shutdown()
+    yield
+    jax_observatory.shutdown()
+    observatory.shutdown()
+
+
 _RUN = ["gen:poisson2d:12", "--max-iterations", "300", "--residual-rtol",
         "1e-8", "--warmup", "0", "-q"]
 

@@ -6,6 +6,7 @@ solve:slow fault tripping the detector, and the CLI's --soak and
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -66,8 +67,38 @@ def solver():
     return TorchCGSolver(A, device=CPU), np.ones(csr.shape[0])
 
 
+# the wall a paced solve takes: a 16^2 solve takes ~4 ms, and on a loaded
+# host (six test workers) a few solves two to five times slower than the
+# baseline's moved the EWMA past the gate before the fault; padded to
+# 0.1 s, host jitter stays far under the gate's 50 %, while the fault's
+# 0.2 s a solve (slept inside the soak driver's timed window) trips it
+# within two solves
+PACE_S = 0.1
+
+
+class _Paced:
+    """``solver`` with every solve padded to ``pace`` seconds of wall:
+    the same solves, iterations and stats, at a steady service time."""
+
+    def __init__(self, solver, pace: float):
+        self.inner, self.pace = solver, float(pace)
+
+    @property
+    def stats(self):
+        return self.inner.stats
+
+    def solve(self, *a, **kw):
+        t0 = time.perf_counter()
+        x = self.inner.solve(*a, **kw)
+        rest = self.pace - (time.perf_counter() - t0)
+        if rest > 0:
+            time.sleep(rest)
+        return x
+
+
 def test_slow_fault_trips_the_detector(solver):
-    s, b = solver
+    inner, b = solver
+    s = _Paced(inner, PACE_S)
     crit = StoppingCriteria(maxits=200, residual_rtol=1e-8)
     with faults.injected("solve:slow@10:secs=0.2"):
         x, rep = soak.run_soak(s, b, nsolves=16, criteria=crit,
